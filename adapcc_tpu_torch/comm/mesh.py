@@ -1,0 +1,105 @@
+"""The collective world: one process per device under ``torch.distributed``.
+
+The port of :func:`adapcc_tpu.comm.mesh.build_world_mesh` and of the
+launcher's environment contract (``launch/launcher.py::apply_platform_env``).
+The JAX package runs one controller over a mesh of devices; the port runs the
+reference AdapCC's way, one process per GPU (``cudaSetDevice(localRank)``,
+csrc/run.cu:49), joined into a process group: NCCL on the card, gloo on the
+CPU.  A world of one process needs no launcher.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None, local_rank: int = 0) -> torch.device:
+    """The device an entry point runs on: the caller's, else this process's
+    CUDA card.  Never falls back to the CPU: without CUDA it raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+@dataclass(frozen=True)
+class World:
+    """This process's place in the collective world."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def build_world_mesh(
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    device: DeviceLike = None,
+    init_method: Optional[str] = None,
+) -> World:
+    """Join (or create) the process group and return this process's
+    :class:`World`.
+
+    Arguments override the launcher environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``, as ``torchrun`` sets
+    them); with neither, the world is this one process, rendezvousing on a
+    free localhost port.  Reuses an already initialized group of the same
+    size.
+    """
+    env = os.environ
+    if world_size is None:
+        world_size = int(env.get("WORLD_SIZE", "1"))
+    if rank is None:
+        rank = int(env.get("RANK", "0"))
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside world of {world_size}")
+    dev = resolve_device(device, int(env.get("LOCAL_RANK", rank)))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size or dist.get_rank() != rank:
+            raise ValueError(
+                f"process group already initialized as rank {dist.get_rank()} of "
+                f"{dist.get_world_size()}, asked for rank {rank} of {world_size}"
+            )
+        return World(rank, world_size, dev)
+    if init_method is None:
+        if "MASTER_ADDR" in env and "MASTER_PORT" in env:
+            init_method = "env://"
+        elif world_size == 1:
+            init_method = f"tcp://127.0.0.1:{_free_port()}"
+        else:
+            raise ValueError(
+                f"a world of {world_size} processes needs init_method or "
+                "MASTER_ADDR/MASTER_PORT"
+            )
+    dist.init_process_group(
+        backend="nccl" if dev.type == "cuda" else "gloo",
+        init_method=init_method,
+        world_size=world_size,
+        rank=rank,
+    )
+    return World(rank, world_size, dev)
+
+
+def destroy_world() -> None:
+    """Leave the process group, if this process joined one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -1,0 +1,174 @@
+"""DDP trainer: data-parallel train step with the adaptive gradient sync.
+
+The port of :class:`adapcc_tpu.ddp.trainer.DDPTrainer`.  Each process holds
+a replica of the model and its own batch shard; a step is forward, backward,
+:meth:`GradSyncHook.sync` of the gradients, then the optimizer step, applied
+identically on every rank (the reference's train_ddp.py:30-58 template).
+
+Where the JAX trainer compiles one ``shard_map`` program over the global
+batch and returns new state, the port runs eagerly in each process: ``step``
+takes this rank's shard, updates the model and optimizer of the
+:class:`TrainState` in place, and returns this rank's loss.
+
+``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
+matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
+the torch optimizer with optax's defaults.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Iterable, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from adapcc_tpu_torch.comm.mesh import World
+from adapcc_tpu_torch.ddp.hook import GradSyncHook, _not_ported
+from adapcc_tpu_torch.primitives import ReduceOp
+from adapcc_tpu_torch.strategy.ir import Strategy
+
+Optimizer = torch.optim.Optimizer
+OptimizerFactory = Callable[[Iterable[nn.Parameter]], Optimizer]
+
+
+def adamw(
+    learning_rate: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 1e-4,
+) -> OptimizerFactory:
+    """``optax.adamw`` with its defaults, as a factory of torch AdamW."""
+
+    def make(params: Iterable[nn.Parameter]) -> Optimizer:
+        return torch.optim.AdamW(
+            params, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay
+        )
+
+    return make
+
+
+@dataclass
+class TrainState:
+    """The model replica, its optimizer and the step count (updated in place)."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: OptimizerFactory) -> "TrainState":
+        return cls(model=model, optimizer=tx(model.parameters()), step=0)
+
+
+class DDPTrainer:
+    """``loss_fn(model, batch) -> scalar`` is evaluated per rank on that
+    rank's batch shard; gradient sync and the optimizer step are the
+    trainer's business."""
+
+    def __init__(
+        self,
+        loss_fn: Callable[[nn.Module, Any], torch.Tensor],
+        tx: OptimizerFactory,
+        mesh: World,
+        strategy: Strategy,
+        use_xla_fastpath: bool = True,
+        communicator: Optional[Any] = None,
+        sync_mode: str = "auto",
+        measure_gns: bool = False,
+        bsp: bool = True,
+        # let step() take a runtime active mask even without a coordinator
+        # (workloads injecting their own skew signal; tests)
+        dynamic_mask: Optional[bool] = None,
+        accum_steps: int = 1,
+        zero1: bool = False,
+        grad_compress: str = "off",
+        error_feedback: bool = False,
+        tune: bool = False,
+        overlap: str = "off",
+    ) -> None:
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if accum_steps > 1:
+            raise _not_ported("gradient accumulation (accum_steps > 1)", "the overlapped-sync slice")
+        if zero1:
+            raise _not_ported("ZeRO-1 optimizer sharding", "the ring collective slice")
+        if not bsp:
+            raise _not_ported("the async relay mode (bsp=False)", "the engine's relay planes")
+        if measure_gns:
+            raise _not_ported("gradient-noise-scale measurement", "the measurement slice")
+        if tune:
+            raise _not_ported("the step tuner", "the tuner slice")
+        if strategy.world_size != mesh.world_size:
+            raise ValueError(
+                f"strategy for {strategy.world_size} ranks on a world of {mesh.world_size}"
+            )
+        self.loss_fn = loss_fn
+        self.tx = tx
+        self.mesh = mesh
+        self.hook = GradSyncHook(
+            strategy,
+            op=ReduceOp.AVG,
+            use_xla_fastpath=use_xla_fastpath,
+            communicator=communicator,
+            mode=sync_mode,
+            compress=grad_compress,
+            error_feedback=error_feedback,
+            overlap=overlap,
+        )
+        self._dynamic_mask = bool(dynamic_mask)
+        self._host_step = 0
+
+    def _grads(self, model: nn.Module) -> List[torch.Tensor]:
+        """Every parameter's gradient; an unused parameter gets zeros, as
+        ``jax.grad`` gives it (the optimizer then still decays it)."""
+        grads = []
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        return grads
+
+    def _step(self, state: TrainState, batch: Any, active_mask) -> torch.Tensor:
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn(state.model, batch)
+        loss.backward()
+        self.hook.sync(self._grads(state.model), active_mask)
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    def step(
+        self,
+        state: TrainState,
+        batch: Any,
+        step_idx: Optional[int] = None,
+        active_mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[TrainState, torch.Tensor]:
+        """One training step on this rank's batch shard.  Returns
+        ``(state, loss)``: the state updated in place, this rank's loss.
+
+        ``active_mask`` (``[world]`` bools) sets the ranks whose gradients
+        count this step; it needs a ``dynamic_mask=True`` trainer.
+        """
+        idx = self._host_step if step_idx is None else step_idx
+        self._host_step = idx + 1
+        if active_mask is not None and not self._dynamic_mask:
+            raise ValueError(
+                "this trainer runs a static full-world step; pass "
+                "dynamic_mask=True to drive explicit active masks"
+            )
+        if self._dynamic_mask and active_mask is None:
+            active_mask = self.hook.negotiate(idx)
+        return state, self._step(state, batch, active_mask)
+
+    def scan_steps(self, state: TrainState, batch: Any, n_steps: int) -> Tuple[TrainState, torch.Tensor]:
+        """``n_steps`` full-world steps on one batch; returns ``(state,
+        losses [n_steps])`` for this rank.  Static full world only, as in
+        the reference."""
+        if self._dynamic_mask:
+            raise ValueError("scan_steps runs static full-world steps: incompatible with dynamic_mask")
+        losses = [self._step(state, batch, None) for _ in range(n_steps)]
+        self._host_step += n_steps
+        return state, torch.stack(losses)

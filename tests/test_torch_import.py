@@ -1,0 +1,54 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, calls
+no library attention, and its entry points run on the card or raise."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import adapcc_tpu_torch
+from adapcc_tpu_torch.comm.mesh import build_world_mesh, resolve_device
+from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = pathlib.Path(adapcc_tpu_torch.__file__).parent
+
+_CHECK = """
+import importlib, pkgutil, sys
+import adapcc_tpu_torch
+for m in pkgutil.walk_packages(adapcc_tpu_torch.__path__, "adapcc_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_port_calls_no_library_attention():
+    banned = ("scaled_dot_product_attention", "torch.compile", "cudnn", "flash_attn")
+    for path in [*PACKAGE.rglob("*.py"), *PACKAGE.rglob("*.cu")]:
+        text = path.read_text()
+        for word in banned:
+            assert word not in text, f"{path.relative_to(REPO)} mentions {word}"
+
+
+def test_entry_points_without_a_device_raise_on_a_box_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_world_mesh(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPT2(GPT2Config.tiny())
+    assert resolve_device("cpu") == torch.device("cpu")
