@@ -13,7 +13,7 @@
 //
 // Two implementations of each kernel, chosen by the dtype:
 // * bfloat16 (the training path): tensor cores, namespace `tc` below.
-// * float32: CUDA cores (flash_*_kernel<float>), the exact float32 path; the
+// * float32: CUDA cores (flash_*_kernel), the exact float32 path; the
 //   tensor cores' float32 mode (TF32) would keep only 10 mantissa bits.
 // Shared by both:
 // * One block owns 64 rows of its output (query rows for fwd/dq, key rows
@@ -57,8 +57,8 @@ constexpr int kRows = 64;          // output rows owned by one block
 // A group of TPR = DM/32 lanes of one warp shares an output row: each lane
 // owns 8 interleaved float4 chunks of it (32 of the DM <= 128 padded head
 // dims), and a dot product is reduced over the group with xor-shuffles.  The
-// streamed operand is converted to float32 once per tile; every lane of a
-// warp reads the same tile row, so the reads are broadcasts without bank
+// streamed operand goes through shared memory in tiles; every lane of a warp
+// reads the same tile row, so the reads are broadcasts without bank
 // conflicts.
 constexpr int kTile = 32;          // rows of each streamed shared-memory tile
 constexpr int kChunks = 8;         // float4 chunks of a row held by one lane
@@ -67,21 +67,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(v.x, v.y);
-  h[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
 // Column of the i-th chunk owned by lane `part` of a TPR-lane row group.
@@ -92,8 +79,8 @@ __device__ __forceinline__ int chunk_col(int i, int part) {
 
 // Loads one row of a [T, D] matrix into a lane's chunks; rows >= seq and
 // columns >= dim read as zero (zero padding leaves every dot product exact).
-template <int TPR, typename T>
-__device__ __forceinline__ void load_row(float4 (&dst)[kChunks], const T* src,
+template <int TPR>
+__device__ __forceinline__ void load_row(float4 (&dst)[kChunks], const float* src,
                                          int row, int seq, int dim, int part) {
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
@@ -103,8 +90,8 @@ __device__ __forceinline__ void load_row(float4 (&dst)[kChunks], const T* src,
   }
 }
 
-template <int TPR, typename T>
-__device__ __forceinline__ void store_row(T* dst, const float4 (&src)[kChunks],
+template <int TPR>
+__device__ __forceinline__ void store_row(float* dst, const float4 (&src)[kChunks],
                                           float mul, int row, int seq, int dim,
                                           int part) {
   if (row >= seq) return;
@@ -119,9 +106,9 @@ __device__ __forceinline__ void store_row(T* dst, const float4 (&src)[kChunks],
   }
 }
 
-// Copies rows [row0, row0 + kTile) of a [T, D] matrix into a float32 tile.
-template <int DM, typename T>
-__device__ __forceinline__ void load_tile(float (*tile)[DM], const T* src,
+// Copies rows [row0, row0 + kTile) of a [T, D] matrix into a shared tile.
+template <int DM>
+__device__ __forceinline__ void load_tile(float (*tile)[DM], const float* src,
                                           int row0, int seq, int dim) {
   constexpr int kPerRow = DM / 4;
   for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += blockDim.x) {
@@ -170,10 +157,10 @@ __device__ __forceinline__ void axpy(float4 (&acc)[kChunks], float a,
   }
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kRows * (DM / 32))
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int bh_count, int seq, int dim,
                  float scale, int causal) {
   constexpr int TPR = DM / 32;
@@ -236,12 +223,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (part == 0 && row < seq) lse[(size_t)bh * seq + row] = m + logf(l);
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kRows * (DM / 32))
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int bh_count, int seq, int dim, float scale,
+                float* __restrict__ dq, int bh_count, int seq, int dim, float scale,
                 int causal) {
   constexpr int TPR = DM / 32;
   __shared__ __align__(16) float ks[kTile][DM];
@@ -282,12 +269,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_row<TPR>(dq + base, acc, 1.f, row, seq, dim, part);
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kRows * (DM / 32))
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int bh_count, int seq,
+                 float* __restrict__ dk, float* __restrict__ dv, int bh_count, int seq,
                  int dim, float scale, int causal) {
   constexpr int TPR = DM / 32;
   __shared__ __align__(16) float qs[kTile][DM];
@@ -787,7 +774,7 @@ void launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         static_cast<const bf16*>(v), static_cast<bf16*>(o),
         static_cast<float*>(lse), bh, seq, dim, scale, causal);
   } else {
-    flash_fwd_kernel<float, DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+    flash_fwd_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
         static_cast<float*>(lse), bh, seq, dim, scale, causal);
@@ -807,7 +794,7 @@ void launch_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dq), bh, seq, dim, scale, causal);
   } else {
-    flash_dq_kernel<float, DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+    flash_dq_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -829,7 +816,7 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, seq, dim, scale,
         causal);
   } else {
-    flash_dkv_kernel<float, DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+    flash_dkv_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
