@@ -23,11 +23,8 @@ import torch
 
 from adapcc_tpu_torch.comm import engine
 from adapcc_tpu_torch.primitives import ReduceOp
+from adapcc_tpu_torch.primitives import not_ported as _not_ported
 from adapcc_tpu_torch.strategy.ir import Strategy
-
-
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with {slice_}")
 
 
 class GradSyncHook:
@@ -93,7 +90,7 @@ class GradSyncHook:
             raise _not_ported(
                 "the bucketed 'schedule' data plane (strategy trees over several "
                 "host groups, or use_xla_fastpath=False)",
-                "the engine's tree and ring planes",
+                "the engine's strategy-tree plane",
             )
         if active_mask is None:
             return [engine.allreduce(g, self.op) for g in grads]

@@ -93,7 +93,11 @@ class DDPTrainer:
         if accum_steps > 1:
             raise _not_ported("gradient accumulation (accum_steps > 1)", "the overlapped-sync slice")
         if zero1:
-            raise _not_ported("ZeRO-1 optimizer sharding", "the ring collective slice")
+            raise _not_ported(
+                "ZeRO-1 optimizer sharding in DDPTrainer (one process per card)",
+                "the per-process ring slice; the single-controller ZeRO-1 ring "
+                "step is adapcc_tpu_torch.parallel.fsdp.zero1_train_step",
+            )
         if not bsp:
             raise _not_ported("the async relay mode (bsp=False)", "the engine's relay planes")
         if measure_gns:

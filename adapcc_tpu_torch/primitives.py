@@ -1,9 +1,13 @@
-"""The reduction operator: a copy of :class:`adapcc_tpu.primitives.ReduceOp`
-(importing that module would load JAX through the reference package)."""
+"""Primitives shared by the port: copies of the pieces of
+:mod:`adapcc_tpu.primitives` it needs (importing that module would load JAX
+through the reference package), and the error every unported option raises."""
 
 from __future__ import annotations
 
 import enum
+
+#: default ring staging granularity in bytes (the reference's 4 MB chunk)
+DEFAULT_CHUNK_BYTES = 4 * 1024 * 1024
 
 
 class ReduceOp(enum.Enum):
@@ -13,3 +17,8 @@ class ReduceOp(enum.Enum):
     SUM = "sum"
     AVG = "avg"
     MAX = "max"
+
+
+def not_ported(what: str, slice_: str) -> NotImplementedError:
+    """The error an option of the JAX package raises until its slice lands."""
+    return NotImplementedError(f"{what} is not ported yet: it comes with {slice_}")

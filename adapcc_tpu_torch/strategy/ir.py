@@ -4,14 +4,17 @@ hook reads.
 A strategy is ``num_trans`` spanning trees of ranks (the reference's
 parallel transmissions, strategy/*.xml) plus the rank→ip map of each tree.
 The hook needs only the trees' ips (one host group or several), the world
-size and the wire codec; the round lowering, fingerprints and schedule
-programs come with the engine's tree and ring planes in a later slice.
+size and the wire codec; the ring engine reads ``chunk_bytes`` as its
+default staging granularity.  The round lowering, fingerprints and schedule
+programs come with the engine's strategy-tree plane in a later slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES
 
 
 class Tree:
@@ -52,6 +55,9 @@ class Strategy:
 
     trees: List[Tree]
     world_size: int
+    #: ring staging granularity in bytes (the solver's chunk size; the ring
+    #: engine's default when a call names none)
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES
     #: wire codec of the data plane; only "off" (the payload dtype) is ported
     wire_dtype: str = "off"
 
@@ -64,8 +70,9 @@ class Strategy:
                 raise ValueError(f"tree rooted at {t.root} is missing ranks {sorted(missing)}")
         if self.wire_dtype != "off":
             raise NotImplementedError(
-                f"wire_dtype={self.wire_dtype!r}: the quantized wire codecs are "
-                "ported with the ring collective in a later slice; only 'off' runs"
+                f"wire_dtype={self.wire_dtype!r}: the quantized wire codecs come "
+                "with the fused-codec ring slice (K5a, K5b) in a later slice; "
+                "only 'off' runs"
             )
 
     @staticmethod

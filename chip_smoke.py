@@ -9,27 +9,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card: ``nvidia-smi`` name and power limit, device name, compute
    capability (Hopper, 9.0, is required);
-2. build the CUDA kernels from ``adapcc_tpu_torch/csrc`` (seconds printed);
-3. hold each kernel (flash forward, dq, dk/dv) against its plain torch
+2. build the CUDA kernels from ``adapcc_tpu_torch/csrc``, one ``nvcc`` per
+   source, all at once (seconds and ptxas lines printed);
+3. hold each flash kernel (forward, dq, dk/dv) against its plain torch
    version on the card, causal and not, in bfloat16 and float32, at the main
    path's shape and a smaller one; time kernel, plain version and, as a
    yardstick only, ``torch.nn.functional.scaled_dot_product_attention``;
-4. the main path: ``bench.py``'s GPT-2 (12 layers, d_model 1024, 16 heads,
-   vocab 16384, T=512, per-rank batch 16, bf16 parameters, flash attention)
-   trained 5 steps by ``DDPTrainer`` under ``Strategy.ring(1)`` with
-   AdamW(3e-4, weight decay 1e-4), world 1 over NCCL, weights from seed 0;
-5. check the losses are finite and fall, that each kernel launched
-   ``n_layer × steps`` times in that run, and that the losses agree with the
-   same 5 steps under plain ``attention="xla"`` from the same weights;
-6. step time and tokens/s of both runs, and a profile of one more flash step
-   (device time by kernel and by layer).
+4. hold each ring kernel (K1a, K1b) against ``_ring_plain`` bit for bit at
+   world 2, 4 and 8, float32 and bfloat16, reduce-scatter, all-gather and
+   both, on a payload under ``chunk_bytes`` (K1a) and a ragged one over it
+   whose chunks stream as several tiles with a padded last one (K1b); show
+   that a wedged ring raises; time both phases of each kernel at its path's
+   payload against the bound, the plain version and a one-call yardstick;
+5. slice 1's main path: ``bench.py``'s GPT-2 (12 layers, d_model 1024, 16
+   heads, vocab 16384, T=512, per-rank batch 16, bf16 parameters, flash
+   attention) trained 5 steps by ``DDPTrainer`` under ``Strategy.ring(1)``
+   with AdamW(3e-4, weight decay 1e-4), world 1 over NCCL, weights from seed
+   0; the losses are finite and fall, each flash kernel launched ``n_layer ×
+   steps`` times, and the losses agree with the same 5 steps under plain
+   ``attention="xla"``; step time, tokens/s, a profile of one more step;
+6. the ring engine's entry points (``ring_allreduce``, ``ring_reduce_scatter``,
+   ``ring_all_gather``) at world 4 on a 4 MiB (K1a) and a 64 MiB (K1b)
+   per-rank payload, against the plain ring;
+7. slice 2's main path: the same GPT-2 and weights trained 5 steps by the
+   single-controller ZeRO-1 ring step (``zero1_train_step``) at world 4,
+   per-rank batch 16: losses finite and falling, one K1b reduce-scatter and
+   one K1b all-gather per step, and the per-rank losses within 1e-6 of the
+   same 5 steps with ``_ring_plain`` in place of the kernels; step time,
+   global tokens/s, and a profile of one more step with the ring's share.
 
-The last lines are the kernels' JSON record, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The world-4 ring on one card stands in for NVLink only in its protocol and
+its device-memory traffic.  The last lines are the kernels' JSON record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -40,11 +57,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adapcc_tpu_torch.comm import ring
+from adapcc_tpu_torch.comm.engine import CollectiveEngine
 from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world
 from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
+from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten_meta, zero1_train_step
 from adapcc_tpu_torch.strategy.ir import Strategy
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
@@ -55,6 +75,13 @@ MAIN = GPT2Config(
 BATCH = 16
 STEPS = 5
 SEED = 0
+#: the ZeRO-1 ring path's world (its ranks' rows all on this card)
+ZERO1_WORLD = 4
+#: per-rank payloads of the engine path: 4 MiB is the largest that stays
+#: one stage per chunk at the default 4 MiB chunk_bytes (K1a), 64 MiB streams
+ENGINE_ELEMS = {"ring_k1a": (4 << 20) // 4, "ring_k1b": (64 << 20) // 4}
+#: the ZeRO-1 ring path against its plain-ring run, per-rank losses
+ZERO1_LOSS_ATOL = 1e-6
 
 # kernel vs plain: float32 differs only in summation order; a bf16 output is
 # one float32 result rounded once by each side, so two bf16 ulps (2**-7
@@ -71,11 +98,14 @@ LOSS_ATOL = 0.05
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-KERNEL_SOURCE = "adapcc_tpu_torch/csrc/flash_attention.cu"
-REPLACES = {
-    "flash_fwd": "adapcc_tpu/ops/flash_attention.py:60",
-    "flash_dq": "adapcc_tpu/ops/flash_attention.py:92",
-    "flash_dkv": "adapcc_tpu/ops/flash_attention.py:124",
+SOURCES = ("flash_attention", "ring")
+#: kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "flash_fwd": ("adapcc_tpu_torch/csrc/flash_attention.cu", "adapcc_tpu/ops/flash_attention.py:60"),
+    "flash_dq": ("adapcc_tpu_torch/csrc/flash_attention.cu", "adapcc_tpu/ops/flash_attention.py:92"),
+    "flash_dkv": ("adapcc_tpu_torch/csrc/flash_attention.cu", "adapcc_tpu/ops/flash_attention.py:124"),
+    "ring_k1a": ("adapcc_tpu_torch/csrc/ring.cu", "adapcc_tpu/comm/pallas_ring.py:428"),
+    "ring_k1b": ("adapcc_tpu_torch/csrc/ring.cu", "adapcc_tpu/comm/pallas_ring.py:510"),
 }
 
 
@@ -181,6 +211,121 @@ def check_kernels(dev: torch.device) -> dict:
     return records
 
 
+def ring_bound(world: int, payload_bytes: int) -> tuple:
+    """``(bound_ms, "bytes")`` of a ring reduce-scatter or all-gather over a
+    per-rank payload of ``payload_bytes`` (P): the reduce-scatter reads every
+    rank's input once (world·P) and writes each rank's chunk (P in all); the
+    all-gather reads P and writes world·P.  No arithmetic bound comes near."""
+    return (world + 1) * payload_bytes / HBM_BYTES_S * 1e3, "bytes"
+
+
+def _ring_cases(world: int, dtype: torch.dtype):
+    """(kernel name, per-rank elements, chunk_bytes) of the ring checks:
+    ragged payloads, one under ``chunk_bytes`` (one stage per chunk, K1a) and
+    one whose 37-tile chunks stream as 5 tiles of 8 with 3 zero tiles (K1b)."""
+    tile = ring._tile_elems(dtype)
+    return (("ring_k1a", world * 3 * tile - 77, None),
+            ("ring_k1b", world * 37 * tile - 123, 8 * tile * dtype.itemsize))
+
+
+def check_ring(dev: torch.device) -> None:
+    """Each ring kernel against ``_ring_plain``, bit for bit, through the
+    dispatch (``_run_ring_chunks``: plan, stage padding, kernel); then a
+    wedged ring must raise."""
+    wrappers = {w.__name__: w for w in ring.KERNELS}
+    for world in (2, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kname, n, chunk_bytes in _ring_cases(world, dtype):
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                x = torch.randn(world, n, device=dev, generator=gen).to(dtype)
+                chunks, _ = ring._pad_chunks(x, world)
+                plan = ring.plan_ring_schedule(chunks[0].numel(), dtype, world, chunk_bytes)
+                stage_rows = plan.stage_bytes // (128 * dtype.itemsize)
+                for rs, ag in ((True, False), (False, True), (True, True)):
+                    before = wrappers[kname].launches
+                    got = ring._run_ring_chunks(chunks, rs=rs, ag=ag, chunk_bytes=chunk_bytes)
+                    want = ring._ring_plain(chunks, rs, ag)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(got, want) and wrappers[kname].launches == before + 1
+                    phase = "+".join(p for p, on in (("rs", rs), ("ag", ag)) if on)
+                    print(f"check {kname} world={world} {str(dtype)[6:]:8s} {phase:5s} n={n} "
+                          f"{plan.path} n_tiles={plan.n_tiles} stage_rows={stage_rows} "
+                          f"chunk_rows={chunks.shape[2]} bit-exact {'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise RuntimeError(f"{kname} disagrees with _ring_plain or did not launch")
+    # a wedged protocol fails instead of hanging: rank 1 stops after the
+    # entry barrier, its neighbours' spins run out
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    chunks, _ = ring._pad_chunks(torch.randn(4, 4 * 3 * 1024, device=dev, generator=gen), 4)
+    t0 = time.perf_counter()
+    try:
+        ring.ring_k1a(chunks, True, True, timeout_s=0.2, fault_rank=1)
+    except RuntimeError as e:
+        print(f"wedge check: raised after {time.perf_counter() - t0:.2f} s: {e}", flush=True)
+    else:
+        raise RuntimeError("a wedged ring returned instead of raising")
+    if not torch.equal(ring.ring_k1a(chunks, True, True), ring._ring_plain(chunks, True, True)):
+        raise RuntimeError("the ring disagrees with _ring_plain after a wedged call")
+    print("wedge check: the next call is bit-exact again", flush=True)
+
+
+def _ag_input(rows: torch.Tensor) -> torch.Tensor:
+    """The all-gather's chunk-major buffer: rank r's row in its chunk r."""
+    world, n = rows.shape
+    chunks = torch.zeros((world, world, n), dtype=rows.dtype, device=rows.device)
+    ranks = torch.arange(world, device=rows.device)
+    chunks[ranks, ranks] = rows
+    return chunks.view(world, world, n // 128, 128)
+
+
+def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
+    """Reduce-scatter and all-gather of ``kname`` at world 4, float32, on a
+    ``per_rank``-element payload per rank: kernel, plain and yardstick ms
+    and the bound; returns the reduce-scatter's record for the kernels line
+    and prints both."""
+    world = ZERO1_WORLD
+    wrapper = {w.__name__: w for w in ring.KERNELS}[kname]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(world, per_rank, device=dev, generator=gen)
+    chunks, chunk = ring._pad_chunks(x, world)
+    plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world)
+    if plan.path != {"ring_k1a": "vmem", "ring_k1b": "hbm-stream"}[kname]:
+        raise RuntimeError(f"{kname}: a {per_rank}-element payload plans {plan.path}")
+    stage_rows = plan.stage_bytes // 512
+    padded_rows = plan.n_tiles * stage_rows
+    staged = chunks if padded_rows == chunks.shape[2] else F.pad(chunks, (0, 0, 0, padded_rows - chunks.shape[2]))
+    rows = x.new_zeros(world, chunk).copy_(chunks.reshape(world, world, chunk)[:, 0])
+    ag_staged = _ag_input(rows)
+    if padded_rows != ag_staged.shape[2]:
+        ag_staged = F.pad(ag_staged, (0, 0, 0, padded_rows - ag_staged.shape[2]))
+    payload_bytes = world * chunk * 4
+    phases = {
+        # yardsticks, timed only: one torch call computing the same function
+        "rs": (staged, True, False, lambda: chunks.view(world, world, chunk).sum(0)),
+        "ag": (ag_staged, False, True, lambda: rows.repeat(world, 1, 1)),
+    }
+    out = {}
+    for phase, (buf, rs, ag, library) in phases.items():
+        def kernel():
+            return wrapper(buf, rs, ag) if kname == "ring_k1a" else wrapper(buf, rs, ag, stage_rows)
+
+        def plain():
+            return ring._ring_plain(buf, rs, ag)
+
+        err = (kernel().float() - plain().float()).abs().max().item()
+        b_ms, b_by = ring_bound(world, payload_bytes)
+        rec = {"max_abs_err": err, "ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=5),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, iters=10)}
+        print(f"time {kname} {phase} world={world} float32 payload {payload_bytes / 2**20:.1f} MiB/rank "
+              f"({plan.path}, n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B): kernel {rec['ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), plain {rec['plain_ms']:.4f} ms, yardstick {rec['library_ms']:.4f} ms, "
+              f"max_abs_err {err}", flush=True)
+        out[phase] = rec
+    del x, chunks, staged, rows, ag_staged
+    torch.cuda.empty_cache()
+    return out["rs"]
+
+
 def train(cfg: GPT2Config, world, init_state, tokens):
     """``STEPS`` DDPTrainer steps from ``init_state``; returns (losses, step
     seconds, a function that runs one more step)."""
@@ -198,16 +343,73 @@ def train(cfg: GPT2Config, world, init_state, tokens):
     return losses, seconds, lambda: trainer.step(state, tokens)
 
 
+def train_zero1(dev: torch.device, init_state, tokens):
+    """``STEPS`` ZeRO-1 ring steps at ``ZERO1_WORLD`` from ``init_state``;
+    returns (per-step ``[world]`` losses, step seconds, one more step)."""
+    model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD)
+    master, opt_state = opt.init(model)
+    step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
+    losses, seconds = [], []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, loss = step(model, master, opt_state, tokens)
+        losses.append(loss.tolist())  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, lambda: step(model, master, opt_state, tokens)
+
+
+@contextlib.contextmanager
+def plain_ring():
+    """The ring dispatch with ``_ring_plain`` in place of both kernels: the
+    reference run of the ZeRO-1 path (the port itself never does this)."""
+    saved = ring.ring_k1a, ring.ring_k1b
+    ring.ring_k1a = lambda chunks, rs, ag, **_: ring._ring_plain(chunks, rs, ag)
+    ring.ring_k1b = lambda chunks, rs, ag, stage_rows, **_: ring._ring_plain(chunks, rs, ag)
+    try:
+        yield
+    finally:
+        ring.ring_k1a, ring.ring_k1b = saved
+
+
+def engine_path(dev: torch.device) -> dict:
+    """The ring engine's entry points as a user calls them, world 4, on one
+    payload per ring kernel; each result against the plain ring.  Returns
+    the launches of each kernel in this run."""
+    world = ZERO1_WORLD
+    trace = []
+    eng = CollectiveEngine(world, Strategy.ring(world), trace=trace)
+    for w in ring.KERNELS:
+        w.launches = 0
+    for kname, n in ENGINE_ELEMS.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(world, n, device=dev, generator=gen)
+        ar, rs = eng.ring_allreduce(x), eng.ring_reduce_scatter(x)
+        ag = eng.ring_all_gather(rs)
+        with plain_ring():
+            want = (eng.ring_allreduce(x), eng.ring_reduce_scatter(x), eng.ring_all_gather(rs))
+        ok = all(torch.equal(a, b) for a, b in zip((ar, rs, ag), want))
+        print(f"engine path {kname}: {n} float32 per rank, impl "
+              f"{sorted({r['impl'] for r in trace[-6:-3]})}, bit-exact vs plain {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"the engine's ring entry points disagree with the plain ring ({kname})")
+    return {w.__name__: w.launches for w in ring.KERNELS}
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("ring kernels", ("ring_k1",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("allreduce", ("nccl",)),
     ("optimizer", ("multi_tensor", "adam")),
 )
 
 
-def profile_step(step, step_ms: float) -> None:
+def profile_step(label: str, step, step_ms: float) -> None:
     """Device time of one more training step, by kernel and by layer; the
     device's busy share is that time over ``step_ms``, the unprofiled step."""
     from torch.autograd import DeviceType
@@ -224,22 +426,34 @@ def profile_step(step, step_ms: float) -> None:
                and "#" not in e.key]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile ({label}): the profiler recorded no device time (not measured)")
         return
     by_layer = {}
     for e in kernels:
         layer = next((n for n, keys in _LAYERS if any(k in e.key.lower() for k in keys)), "other")
         by_layer[layer] = by_layer.get(layer, 0.0) + e.self_device_time_total / 1e3
-    print(f"profile: one flash step, {total_ms:.3f} ms of kernels; device busy "
+    print(f"profile ({label}): one step, {total_ms:.3f} ms of kernels; device busy "
           f"{100 * total_ms / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms step")
     for layer, ms in sorted(by_layer.items(), key=lambda kv: -kv[1]):
-        print(f"profile: layer {layer:13s} {ms:9.3f} ms  {100 * ms / total_ms:5.1f}%")
+        print(f"profile ({label}): layer {layer:13s} {ms:9.3f} ms  {100 * ms / total_ms:5.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile: kernel {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+        print(f"profile ({label}): kernel {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     # the host side, which issues the kernels (times inflated by the profiler)
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
-        print(f"profile: host op {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]}")
+        print(f"profile ({label}): host op {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]}")
+
+
+def build_all() -> None:
+    """One ``nvcc`` per source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
+    print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas ({lib.name.split('_')[0][3:]}): {line.strip()}")
 
 
 def main() -> None:
@@ -248,6 +462,7 @@ def main() -> None:
         sys.exit(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = nvidia_smi()
@@ -260,17 +475,19 @@ def main() -> None:
         raise RuntimeError(f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
 
     # 2. build
-    t0 = time.perf_counter()
-    lib = _build.build("flash_attention")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all()
 
-    # 3. kernels against their plain versions
+    # 3. flash kernels against their plain versions
     records = check_kernels(dev)
 
-    # 4. the main path
+    # 4. ring kernels against theirs, and their times at their paths' payloads
+    check_ring(dev)
+    zero1_padded = _flatten_meta(GPT2(MAIN, device="meta", seed=None), ZERO1_WORLD, 8 * 128).padded
+    print(f"zero1 payload: {zero1_padded} float32 per rank (the flat master, tile-aligned)", flush=True)
+    records["ring_k1a"] = time_ring(dev, "ring_k1a", ENGINE_ELEMS["ring_k1a"])
+    records["ring_k1b"] = time_ring(dev, "ring_k1b", zero1_padded)
+
+    # 5. slice 1's main path: DDP with flash attention
     world = build_world_mesh(1)
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(0, MAIN.vocab_size, size=(BATCH, MAIN.max_seq))).to(dev)
@@ -281,8 +498,6 @@ def main() -> None:
     launches = {w.__name__: w.launches for w in fa.KERNELS}
     print(f"main path (flash): losses {losses}", flush=True)
     print(f"main path launches: {launches}", flush=True)
-
-    # 5. check
     want = MAIN.n_layer * STEPS
     if any(n != want for n in launches.values()):
         raise RuntimeError(f"expected {want} launches of each kernel, got {launches}")
@@ -290,7 +505,7 @@ def main() -> None:
         raise RuntimeError(f"losses not finite and falling: {losses}")
     # where the time goes: one more step, after the launch counts were read
     step_s = float(np.mean(seconds[1:]))  # steps after the first, which warms the libraries up
-    profile_step(one_more_step, step_s * 1e3)
+    profile_step("ddp flash", one_more_step, step_s * 1e3)
     del one_more_step
     torch.cuda.empty_cache()
     xla_losses, xla_seconds, _ = train(dataclasses.replace(MAIN, attention="xla"), world, init_state, tokens)
@@ -300,19 +515,66 @@ def main() -> None:
     if not gap <= LOSS_ATOL:
         raise RuntimeError("flash and xla attention disagree on the main path")
     destroy_world()
-
-    # 6. speed
     print(f"main path: step {step_s * 1e3:.2f} ms, {BATCH * MAIN.max_seq / step_s:.1f} tokens/s "
           f"(mean of steps 2-{STEPS}; every step time {[round(s * 1e3, 2) for s in seconds]} ms)",
           flush=True)
     xla_step_s = float(np.mean(xla_seconds[1:]))
     print(f"reference (xla attention): step {xla_step_s * 1e3:.2f} ms, "
           f"{BATCH * MAIN.max_seq / xla_step_s:.1f} tokens/s", flush=True)
+    torch.cuda.empty_cache()
+
+    # 6. the ring engine's entry points (the busbw benchmark's door to K1)
+    engine_launches = engine_path(dev)
+    print(f"engine path launches: {engine_launches}", flush=True)
+    if not all(engine_launches.values()):
+        raise RuntimeError(f"a ring kernel did not launch on the engine path: {engine_launches}")
+    launches["ring_k1a"] = engine_launches["ring_k1a"]
+    torch.cuda.empty_cache()
+
+    # 7. slice 2's main path: ZeRO-1 on the ring, world 4 on this card
+    z_tokens = torch.from_numpy(
+        rng.integers(0, MAIN.vocab_size, size=(ZERO1_WORLD * BATCH, MAIN.max_seq))).to(dev)
+    for w in (*fa.KERNELS, *ring.KERNELS):
+        w.launches = 0
+        getattr(w, "phases", {}).clear()
+    z_losses, z_seconds, z_more = train_zero1(dev, init_state, z_tokens)
+    z_launches = {w.__name__: w.launches for w in (*fa.KERNELS, *ring.KERNELS)}
+    print(f"zero1 path: per-rank losses by step {z_losses}", flush=True)
+    print(f"zero1 path launches: {z_launches}; ring_k1b by phase {dict(ring.ring_k1b.phases)}", flush=True)
+    if dict(ring.ring_k1b.phases) != {"rs": STEPS, "ag": STEPS} or z_launches["ring_k1a"]:
+        raise RuntimeError(f"expected {STEPS} K1b reduce-scatters and all-gathers and no K1a, got "
+                           f"{dict(ring.ring_k1b.phases)}, K1a {z_launches['ring_k1a']}")
+    want = MAIN.n_layer * ZERO1_WORLD * STEPS
+    if any(z_launches[w.__name__] != want for w in fa.KERNELS):
+        raise RuntimeError(f"expected {want} launches of each flash kernel, got {z_launches}")
+    z_mean = [float(np.mean(step)) for step in z_losses]
+    if not np.isfinite(z_losses).all() or not z_mean[-1] < z_mean[0]:
+        raise RuntimeError(f"zero1 losses not finite and falling: {z_losses}")
+    launches["ring_k1b"] = z_launches["ring_k1b"]
+    z_step_s = float(np.mean(z_seconds[1:]))
+    profile_step("zero1 ring", z_more, z_step_s * 1e3)
+    del z_more
+    torch.cuda.empty_cache()
+    with plain_ring():
+        p_losses, p_seconds, _ = train_zero1(dev, init_state, z_tokens)
+    z_gap = float(np.abs(np.array(z_losses) - np.array(p_losses)).max())
+    print(f"reference (plain ring): per-rank losses by step {p_losses}; max gap {z_gap:.3e} "
+          f"(tolerance {ZERO1_LOSS_ATOL})", flush=True)
+    if not z_gap <= ZERO1_LOSS_ATOL:
+        raise RuntimeError("the ring kernels and the plain ring disagree on the ZeRO-1 path")
+    z_tokens_step = ZERO1_WORLD * BATCH * MAIN.max_seq
+    print(f"zero1 path: step {z_step_s * 1e3:.2f} ms, {z_tokens_step / z_step_s:.1f} tokens/s global "
+          f"(world {ZERO1_WORLD} on one card; mean of steps 2-{STEPS}; every step time "
+          f"{[round(s * 1e3, 2) for s in z_seconds]} ms)", flush=True)
+    p_step_s = float(np.mean(p_seconds[1:]))
+    print(f"reference (plain ring): step {p_step_s * 1e3:.2f} ms, {z_tokens_step / p_step_s:.1f} tokens/s",
+          flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [
-        {"name": n, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[n],
+        {"name": n, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[n], **records[n]}
-        for n in REPLACES
+        for n, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

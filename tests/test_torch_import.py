@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, calls
-no library attention, and its entry points run on the card or raise."""
+no library attention and no library collective on its ring, and its entry
+points run on the card or raise."""
 
 import pathlib
 import subprocess
@@ -23,7 +24,14 @@ for m in pkgutil.walk_packages(adapcc_tpu_torch.__path__, "adapcc_tpu_torch."):
 import chip_smoke
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu"))
 print("BAD", bad)
+print("MODULES", sorted(n for n in sys.modules if n.startswith("adapcc_tpu_torch.")))
 """
+
+#: modules the walk must reach (a renamed module must not drop out unseen)
+_PORT_MODULES = (
+    "adapcc_tpu_torch.comm.engine", "adapcc_tpu_torch.comm.ring", "adapcc_tpu_torch.ops.flash_attention",
+    "adapcc_tpu_torch.parallel.fsdp", "adapcc_tpu_torch.models.convert", "adapcc_tpu_torch.ddp.trainer",
+)
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -33,6 +41,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    for name in _PORT_MODULES:
+        assert f"'{name}'" in out.stdout, f"{name} was not imported"
 
 
 def test_port_calls_no_library_attention():
@@ -41,6 +51,15 @@ def test_port_calls_no_library_attention():
         text = path.read_text()
         for word in banned:
             assert word not in text, f"{path.relative_to(REPO)} mentions {word}"
+
+
+def test_ring_plane_is_the_hand_written_kernels():
+    """The ring plane and ZeRO-1 reach the card only through the ring
+    kernels: no library collective, no process group."""
+    for rel in ("comm/ring.py", "parallel/fsdp.py", "csrc/ring.cu"):
+        text = (PACKAGE / rel).read_text()
+        for word in ("torch.distributed", "dist.", "nccl", "all_gather_into_tensor", "reduce_scatter_tensor"):
+            assert word not in text, f"{rel} mentions {word}"
 
 
 def test_entry_points_without_a_device_raise_on_a_box_without_cuda(monkeypatch):
