@@ -25,7 +25,10 @@ form.  Two kernels in ``csrc/ring.cu`` replace the two Pallas kernels:
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version :func:`_ring_plain` (the same walk, hop by hop, in torch) for a CPU
-tensor, and counts its launches in ``<wrapper>.launches``.
+tensor, and counts its launches in ``<wrapper>.launches``.  A launch does not
+wait for its kernel: a spin that ran out is raised by :func:`check_errors`,
+which the next launch calls for the launches that have finished and a caller
+calls at its own synchronisation point for the rest.
 
 The planner's tile padding (``_tile_elems``: 8×128 fp32, 16×128 bf16) is a
 Mosaic rule, but it also fixes the chunk layout, and with it the ZeRO-1
@@ -40,7 +43,7 @@ import ctypes
 import functools
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Deque, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -186,6 +189,8 @@ def _ring_plain(stacked: torch.Tensor, rs: bool, ag: bool) -> torch.Tensor:
     """The ring walk over ``[world, world, S, 128]`` (rank, chunk, rows,
     lanes), step by step with the kernels' per-hop arithmetic: the work
     buffer every rank holds at the end (its input, where nothing landed).
+    An all-gather alone may take ``[world, S, 128]``, rank ``r``'s own chunk
+    ``r``: the only chunk of the input that walk reads.
 
     At each step every rank ships the chunk it sends and the chunk it
     receives from its left neighbour is added to its own copy
@@ -193,8 +198,14 @@ def _ring_plain(stacked: torch.Tensor, rs: bool, ag: bool) -> torch.Tensor:
     comm[slot]`` in the Pallas kernels) or, in the all-gather, adopted.
     """
     world = stacked.shape[0]
-    work = stacked.clone()
     ranks = torch.arange(world, device=stacked.device)
+    if stacked.dim() == 3:
+        if rs or not ag:
+            raise ValueError("only an all-gather alone takes [world, rows, 128]")
+        work = stacked.new_zeros((world, *stacked.shape))
+        work[ranks, ranks] = stacked
+    else:
+        work = stacked.clone()
     n_rs = world - 1 if rs else 0
     n_ag = world - 1 if ag else 0
     # after RS each rank owns the reduced chunk r + 1; a pure AG starts at r
@@ -214,10 +225,10 @@ def _ring_plain(stacked: torch.Tensor, rs: bool, ag: bool) -> torch.Tensor:
 
 _P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
 #: C signatures: x, out, slots, flags, err, world, chunk_elems,
-#: [stage_elems, n_tiles,] rs, ag, is_bf16, epoch, timeout_ns, fault_rank, stream
+#: [stage_elems, n_tiles,] rs, ag, x_own, is_bf16, epoch, timeout_ns, fault_rank, stream
 _SIGNATURES = {
-    "adapcc_ring_k1a": [_P] * 5 + [_I, _LL] + [_I] * 3 + [_ULL, _ULL, _I, _P],
-    "adapcc_ring_k1b": [_P] * 5 + [_I, _LL, _LL, _I] + [_I] * 3 + [_ULL, _ULL, _I, _P],
+    "adapcc_ring_k1a": [_P] * 5 + [_I, _LL] + [_I] * 4 + [_ULL, _ULL, _I, _P],
+    "adapcc_ring_k1b": [_P] * 5 + [_I, _LL, _LL, _I] + [_I] * 4 + [_ULL, _ULL, _I, _P],
 }
 #: what a rank waited for when its spin ran out (csrc/ring.cu WaitKind)
 _WAITS = {1: "the entry barrier", 2: "a credit from its right neighbour",
@@ -264,15 +275,17 @@ class _Flags:
 _FLAGS: Dict[Tuple[int, int], _Flags] = collections.defaultdict(_Flags)
 
 
-def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int) -> None:
+def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int, rs: bool, ag: bool) -> None:
     """Raise on what the ring kernels do not take."""
     if chunks.device.type != "cuda":
         raise ValueError(f"ring kernels run on CUDA or CPU tensors, got {chunks.device}")
     if chunks.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"ring kernels take float32 or bfloat16, got {chunks.dtype}")
-    if chunks.dim() != 4 or chunks.shape[0] != chunks.shape[1] or chunks.shape[3] != _LANES:
-        raise ValueError(f"ring kernels take [world, world, rows, {_LANES}], got {tuple(chunks.shape)}")
-    world, _, rows, _ = chunks.shape
+    own = chunks.dim() == 3 and ag and not rs  # an all-gather alone: own chunks only
+    if chunks.shape[-1] != _LANES or not (own or chunks.dim() == 4 and chunks.shape[0] == chunks.shape[1]):
+        raise ValueError(f"ring kernels take [world, world, rows, {_LANES}] (or [world, rows, {_LANES}] "
+                         f"for an all-gather alone), got {tuple(chunks.shape)}")
+    world, rows = chunks.shape[0], chunks.shape[-2]
     if not 2 <= world <= _MAX_WORLD:
         raise ValueError(f"ring kernels take a world of 2 to {_MAX_WORLD}, got {world}")
     if stage_rows <= 0 or rows % stage_rows:
@@ -281,16 +294,50 @@ def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int) -> None:
         raise ValueError("ring kernels need a contiguous, 16-byte aligned tensor")
 
 
+class _Pending(NamedTuple):
+    """A launch whose error word is on its way to the host."""
+
+    done: Any                 #: torch.cuda.Event recorded after the copy
+    word: torch.Tensor        #: pinned host copy of the error word
+    entry: str
+    timeout_s: float
+
+
+_PENDING: Deque[_Pending] = collections.deque()
+
+
+def check_errors(wait: bool = True) -> None:
+    """Raise ``RuntimeError`` for the first earlier launch whose spin ran
+    out, naming its rank, block, step and tile.  ``wait=False`` reads only
+    the launches that have finished and never blocks; ``wait=True`` waits
+    for every launch made so far."""
+    while _PENDING:
+        pending = _PENDING[0]
+        if not wait and not pending.done.query():
+            return
+        pending.done.synchronize()
+        _PENDING.popleft()
+        kind, rank, step, tile, block = pending.word.tolist()[:5]
+        if kind:
+            raise RuntimeError(
+                f"{pending.entry}: ring protocol wedged: rank {rank} (block {block}) waited more "
+                f"than {pending.timeout_s} s for {_WAITS.get(kind, kind)} at step {step}, tile {tile}"
+            )
+
+
 def _launch(entry: str, chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int,
             timeout_s: float, fault_rank: int) -> torch.Tensor:
-    """Launch ``<entry>`` on the current stream and wait for its error word;
-    raises if the launch is refused or a spin ran out."""
-    _check_kernel_inputs(chunks, stage_rows)
-    world, _, rows, _ = chunks.shape
+    """Launch ``<entry>`` on the current stream; raises if the launch is
+    refused, or for an earlier launch that has finished with a spin run out.
+    This launch's error word is copied to pinned host memory behind the
+    kernel, for :func:`check_errors`: nothing here waits for the card."""
+    check_errors(wait=False)
+    _check_kernel_inputs(chunks, stage_rows, rs, ag)
+    world, rows = chunks.shape[0], chunks.shape[-2]
     n_tiles = rows // stage_rows
     steps = (world - 1) * (int(rs) + int(ag))
     dev = chunks.device
-    out = torch.empty_like(chunks)
+    out = torch.empty((world, world, rows, _LANES), dtype=chunks.dtype, device=dev)
     slots = torch.empty((world, 2, stage_rows, _LANES), dtype=chunks.dtype, device=dev)
     err = torch.zeros(8, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -299,18 +346,17 @@ def _launch(entry: str, chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: in
         geometry = [rows * _LANES] + ([stage_rows * _LANES, n_tiles] if entry == "adapcc_ring_k1b" else [])
         rc = getattr(_library(), entry)(
             chunks.data_ptr(), out.data_ptr(), slots.data_ptr(), flags.data_ptr(), err.data_ptr(),
-            world, *geometry, int(rs), int(ag), int(chunks.dtype == torch.bfloat16),
+            world, *geometry, int(rs), int(ag), int(chunks.dim() == 3), int(chunks.dtype == torch.bfloat16),
             epoch, int(timeout_s * 1e9), fault_rank, stream.cuda_stream,
         )
-    if rc != 0:
-        msg = _library().adapcc_ring_error_string(rc).decode()
-        raise RuntimeError(f"{entry}: CUDA error {rc} at launch ({msg})")
-    kind, rank, step, tile, block = err.tolist()[:5]  # waits for the kernel
-    if kind:
-        raise RuntimeError(
-            f"{entry}: ring protocol wedged: rank {rank} (block {block}) waited more than "
-            f"{timeout_s} s for {_WAITS.get(kind, kind)} at step {step}, tile {tile}"
-        )
+        if rc != 0:
+            msg = _library().adapcc_ring_error_string(rc).decode()
+            raise RuntimeError(f"{entry}: CUDA error {rc} at launch ({msg})")
+        word = torch.empty(8, dtype=torch.int32, pin_memory=True)
+        word.copy_(err, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    _PENDING.append(_Pending(done, word, entry, timeout_s))
     return out
 
 
@@ -321,8 +367,10 @@ def _count(wrapper, rs: bool, ag: bool) -> None:
 
 def ring_k1a(chunks: torch.Tensor, rs: bool, ag: bool, *,
              timeout_s: float = DEFAULT_TIMEOUT_S, fault_rank: int = -1) -> torch.Tensor:
-    """K1a: the ring walk over ``[world, world, S, 128]`` with each chunk in
-    one stage (the ``vmem`` path); returns every rank's work buffer.
+    """K1a: the ring walk over ``[world, world, S, 128]`` (an all-gather
+    alone: ``[world, S, 128]``, each rank's own chunk) with each chunk in one
+    stage (the ``vmem`` path); returns every rank's ``[world, world, S, 128]``
+    work buffer.
 
     ``fault_rank`` makes that rank stop after the entry barrier, so its
     neighbours' spins run out after ``timeout_s`` (a wedged protocol must
@@ -330,7 +378,7 @@ def ring_k1a(chunks: torch.Tensor, rs: bool, ag: bool, *,
     """
     if chunks.device.type == "cpu":
         return _ring_plain(chunks, rs, ag)
-    out = _launch("adapcc_ring_k1a", chunks, rs, ag, chunks.shape[2], timeout_s, fault_rank)
+    out = _launch("adapcc_ring_k1a", chunks, rs, ag, chunks.shape[-2], timeout_s, fault_rank)
     _count(ring_k1a, rs, ag)
     return out
 
@@ -376,16 +424,20 @@ def _pad_chunks(flat: torch.Tensor, world: int) -> Tuple[torch.Tensor, int]:
 
 def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool,
                      chunk_bytes: Optional[int] = None) -> torch.Tensor:
-    """Run the ring on ``[world, world, S, 128]``, dispatching to K1a or K1b
-    per the planned schedule.  The stream path pads each chunk to whole
-    staging tiles (under one tile per chunk) and slices the padding back
-    out, so callers see the same chunk layout on both paths."""
+    """Run the ring on ``[world, world, S, 128]`` (an all-gather alone:
+    ``[world, S, 128]``, each rank's own chunk), dispatching to K1a or K1b
+    per the planned schedule; returns ``[world, world, S, 128]``.  The
+    stream path pads each chunk to whole staging tiles (under one tile per
+    chunk) and slices the padding back out, so callers see the same chunk
+    layout on both paths."""
+    chunks = chunks.contiguous()
     world = chunks.shape[0]
-    plan = plan_ring_schedule(chunks[0].numel(), chunks.dtype, world, chunk_bytes, rs=rs, ag=ag)
+    nelems = chunks[0].numel() * (world if chunks.dim() == 3 else 1)
+    plan = plan_ring_schedule(nelems, chunks.dtype, world, chunk_bytes, rs=rs, ag=ag)
     if plan.path == "vmem":
         return ring_k1a(chunks, rs, ag)
     stage_rows = plan.stage_bytes // (_LANES * chunks.dtype.itemsize)
-    chunk_rows = chunks.shape[2]
+    chunk_rows = chunks.shape[-2]
     padded_rows = plan.n_tiles * stage_rows
     if padded_rows != chunk_rows:
         chunks = F.pad(chunks, (0, 0, 0, padded_rows - chunk_rows))
@@ -431,10 +483,7 @@ def ring_all_gather_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = 
     tile = _tile_elems(stacked.dtype)
     if n % tile:
         raise ValueError(f"all-gather payload must be tile-aligned ({tile} elems), got {n}")
-    # each rank's payload in the row it owns; the walk fills the others
-    chunks = torch.zeros((world, world, n), dtype=stacked.dtype, device=stacked.device)
-    ranks = torch.arange(world, device=stacked.device)
-    chunks[ranks, ranks] = flat
-    out = _run_ring_chunks(chunks.reshape(world, world, n // _LANES, _LANES),
-                           rs=False, ag=True, chunk_bytes=chunk_bytes)
+    # rank r's payload is its own chunk r, the one chunk of the input the
+    # walk reads; the walk fills the others
+    out = _run_ring_chunks(flat.reshape(world, n // _LANES, _LANES), rs=False, ag=True, chunk_bytes=chunk_bytes)
     return out.reshape(world, world, n)

@@ -6,7 +6,9 @@
 //
 // What they compute is the Pallas kernels' function, not their block
 // structure.  The payload of rank r is x[r] = [world chunks][chunk_elems],
-// chunk-major.  Reduce-scatter takes world-1 steps: at step s rank r ships
+// chunk-major; for an all-gather alone x[r] is only its own chunk r
+// (`x_own`), the one chunk of x that walk reads.  The output is always every
+// rank's [world][chunk_elems] work buffer.  Reduce-scatter takes world-1 steps: at step s rank r ships
 // chunk r-s to its right neighbour and adds the chunk r-s-1 that lands from
 // its left one to its own copy (local + landed, rounded to the payload type
 // after every hop, as `work[recv_idx] + comm[slot]` does on the TPU).  Chunk
@@ -41,7 +43,8 @@
 // occupancy calculator; a grid that cannot fit is refused, never hung.
 // Every spin is bounded by `timeout_ns` on %globaltimer: on overrun the
 // kernel records (wait kind, rank, step, tile, block) in `err`, every other
-// block sees the error word and leaves, and the wrapper raises.
+// block sees the error word and leaves, and the host raises when it reads the
+// word back (comm/ring.py check_errors, without stalling the stream).
 //
 // Bound: device-memory traffic.  The function reads every rank's input once
 // and writes the result; the ring moves each chunk through a staging slot
@@ -84,6 +87,7 @@ struct RingArgs {
   int n_tiles;
   int rs;
   int ag;
+  int x_own;               // all-gather alone: x is [world][chunk_elems], rank r's own chunk r
   u64 epoch;
   u64 timeout_ns;
   int fault_rank;          // that rank stops after the barrier (tests); -1: none
@@ -208,6 +212,9 @@ __device__ void ring_walk(const RingPeers& peers, const RingArgs& a, int nb, int
   // copies it from the input into the work buffer as it ships it
   const bool keep_own = !(a.rs && a.ag);
   const long long rank_base = (long long)rank * W * a.chunk_elems;
+  // step 0 ships the own chunk r from x; an all-gather alone reads nothing
+  // else of x, so x may hold only that chunk of every rank: [world][chunk_elems]
+  const long long own_base = a.x_own ? (long long)rank * a.chunk_elems : rank_base + rank * a.chunk_elems;
 
   for (int step = 0; step < total_steps; ++step) {
     const bool in_rs = step < n_rs;
@@ -221,10 +228,11 @@ __device__ void ring_walk(const RingPeers& peers, const RingArgs& a, int nb, int
       if (it >= 2 && !block_wait(mine + kCredit, e + it - 1, a, rank, blk, step, tile, kWaitCredit))
         return;
 
-      // 2. ship: step 0 sends the own input chunk, later steps the chunk
-      // this rank finished at the step before
+      // 2. ship: step 0 sends the own input chunk (send_idx == rank), later
+      // steps the chunk this rank finished at the step before
       const long long send_off = rank_base + send_idx * a.chunk_elems + tile * stage_elems;
-      const uint4* src = reinterpret_cast<const uint4*>((step == 0 ? x : out) + send_off);
+      const uint4* src = reinterpret_cast<const uint4*>(
+          step == 0 ? x + own_base + tile * stage_elems : out + send_off);
       uint4* dst = reinterpret_cast<uint4*>(right_slots + slot * stage_elems);
       uint4* keep = (step == 0 && keep_own) ? reinterpret_cast<uint4*>(out + send_off) : nullptr;
       for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
@@ -282,8 +290,9 @@ __global__ void __launch_bounds__(kThreads) ring_k1b_kernel(RingPeers peers, Rin
 // are slices of one buffer) and launch cooperatively.
 int launch(const void* kernel, const void* x, void* out, void* slots, void* flags, void* err,
            int world, long long chunk_elems, long long stage_elems, int n_tiles, int rs, int ag,
-           int elem_bytes, u64 epoch, u64 timeout_ns, int fault_rank, void* stream) {
+           int x_own, int elem_bytes, u64 epoch, u64 timeout_ns, int fault_rank, void* stream) {
   if (world < 2 || world > kMaxWorld) return (int)cudaErrorInvalidValue;
+  if (x_own && (rs || !ag)) return (int)cudaErrorInvalidValue;
   if ((stage_elems * elem_bytes) % 16 || chunk_elems != stage_elems * n_tiles)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
@@ -316,6 +325,7 @@ int launch(const void* kernel, const void* x, void* out, void* slots, void* flag
   a.n_tiles = n_tiles;
   a.rs = rs;
   a.ag = ag;
+  a.x_own = x_own;
   a.epoch = epoch;
   a.timeout_ns = timeout_ns;
   a.fault_rank = fault_rank;
@@ -331,21 +341,21 @@ int launch(const void* kernel, const void* x, void* out, void* slots, void* flag
 extern "C" {
 
 int adapcc_ring_k1a(const void* x, void* out, void* slots, void* flags, void* err, int world,
-                    long long chunk_elems, int rs, int ag, int is_bf16, u64 epoch, u64 timeout_ns,
-                    int fault_rank, void* stream) {
+                    long long chunk_elems, int rs, int ag, int x_own, int is_bf16, u64 epoch,
+                    u64 timeout_ns, int fault_rank, void* stream) {
   const void* kernel = is_bf16 ? (const void*)ring_k1a_kernel<__nv_bfloat16>
                                : (const void*)ring_k1a_kernel<float>;
-  return launch(kernel, x, out, slots, flags, err, world, chunk_elems, chunk_elems, 1, rs, ag,
+  return launch(kernel, x, out, slots, flags, err, world, chunk_elems, chunk_elems, 1, rs, ag, x_own,
                 is_bf16 ? 2 : 4, epoch, timeout_ns, fault_rank, stream);
 }
 
 int adapcc_ring_k1b(const void* x, void* out, void* slots, void* flags, void* err, int world,
                     long long chunk_elems, long long stage_elems, int n_tiles, int rs, int ag,
-                    int is_bf16, u64 epoch, u64 timeout_ns, int fault_rank, void* stream) {
+                    int x_own, int is_bf16, u64 epoch, u64 timeout_ns, int fault_rank, void* stream) {
   const void* kernel = is_bf16 ? (const void*)ring_k1b_kernel<__nv_bfloat16>
                                : (const void*)ring_k1b_kernel<float>;
   return launch(kernel, x, out, slots, flags, err, world, chunk_elems, stage_elems, n_tiles, rs,
-                ag, is_bf16 ? 2 : 4, epoch, timeout_ns, fault_rank, stream);
+                ag, x_own, is_bf16 ? 2 : 4, epoch, timeout_ns, fault_rank, stream);
 }
 
 const char* adapcc_ring_error_string(int code) {

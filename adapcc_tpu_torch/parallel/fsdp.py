@@ -195,7 +195,10 @@ def zero1_train_step(
     losses)``: ``batch``'s leading dim is global and rank ``r`` takes the
     ``r``-th contiguous ``1/world`` of it; ``model``, ``master`` and
     ``opt_state`` are updated in place; ``losses`` is the ``[world]``
-    per-rank loss.  Gradients are the mean over ranks, as in DDP.
+    per-rank loss.  Gradients are the mean over ranks, as in DDP.  The flat
+    layout is the one ``opt.init`` made.  Nothing waits for the card: a
+    wedged ring raises at a later ring launch or at the caller's
+    ``comm.ring.check_errors()``.
     """
     world = opt.world
 
@@ -204,7 +207,9 @@ def zero1_train_step(
             raise ValueError(
                 f"zero1_train_step: batch leading dim {batch.shape[0]} does not divide world={world}"
             )
-        meta = _flatten_meta(model, world, opt._align())
+        meta = opt._meta
+        if meta is None:
+            raise RuntimeError("zero1_train_step: opt.init(model) has not run")
         per = batch.shape[0] // world
         stacked = torch.empty((world, meta.padded), dtype=torch.float32, device=master.device)
         losses = []

@@ -16,11 +16,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    path's shape and a smaller one; time kernel, plain version and, as a
    yardstick only, ``torch.nn.functional.scaled_dot_product_attention``;
 4. hold each ring kernel (K1a, K1b) against ``_ring_plain`` bit for bit at
-   world 2, 4 and 8, float32 and bfloat16, reduce-scatter, all-gather and
-   both, on a payload under ``chunk_bytes`` (K1a) and a ragged one over it
-   whose chunks stream as several tiles with a padded last one (K1b); show
-   that a wedged ring raises; time both phases of each kernel at its path's
-   payload against the bound, the plain version and a one-call yardstick;
+   world 2, 4 and 8, float32 and bfloat16, reduce-scatter, all-gather (from
+   the full payload and from each rank's own chunk, as the stacked
+   all-gather calls it) and both, on a payload under ``chunk_bytes`` (K1a)
+   and a ragged one over it whose chunks stream as several tiles with a
+   padded last one (K1b); show that a wedged ring raises; at each kernel's
+   path payload, hold both phases bit for bit again and time them against
+   the bound, the plain version, a one-call yardstick and the whole stacked
+   dispatch (stage padding included);
 5. slice 1's main path: ``bench.py``'s GPT-2 (12 layers, d_model 1024, 16
    heads, vocab 16384, T=512, per-rank batch 16, bf16 parameters, flash
    attention) trained 5 steps by ``DDPTrainer`` under ``Strategy.ring(1)``
@@ -239,16 +242,18 @@ def check_ring(dev: torch.device) -> None:
                 gen = torch.Generator(device=dev).manual_seed(SEED)
                 x = torch.randn(world, n, device=dev, generator=gen).to(dtype)
                 chunks, _ = ring._pad_chunks(x, world)
+                ranks = torch.arange(world, device=dev)
+                own = chunks[ranks, ranks]  # [world, S, 128]: rank r's chunk r
                 plan = ring.plan_ring_schedule(chunks[0].numel(), dtype, world, chunk_bytes)
                 stage_rows = plan.stage_bytes // (128 * dtype.itemsize)
-                for rs, ag in ((True, False), (False, True), (True, True)):
+                for phase, buf, rs, ag in (("rs", chunks, True, False), ("ag", chunks, False, True),
+                                           ("ag-own", own, False, True), ("rs+ag", chunks, True, True)):
                     before = wrappers[kname].launches
-                    got = ring._run_ring_chunks(chunks, rs=rs, ag=ag, chunk_bytes=chunk_bytes)
+                    got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=chunk_bytes)
                     want = ring._ring_plain(chunks, rs, ag)
-                    torch.cuda.synchronize()
+                    ring.check_errors()
                     ok = torch.equal(got, want) and wrappers[kname].launches == before + 1
-                    phase = "+".join(p for p, on in (("rs", rs), ("ag", ag)) if on)
-                    print(f"check {kname} world={world} {str(dtype)[6:]:8s} {phase:5s} n={n} "
+                    print(f"check {kname} world={world} {str(dtype)[6:]:8s} {phase:6s} n={n} "
                           f"{plan.path} n_tiles={plan.n_tiles} stage_rows={stage_rows} "
                           f"chunk_rows={chunks.shape[2]} bit-exact {'ok' if ok else 'FAIL'}", flush=True)
                     if not ok:
@@ -260,29 +265,25 @@ def check_ring(dev: torch.device) -> None:
     t0 = time.perf_counter()
     try:
         ring.ring_k1a(chunks, True, True, timeout_s=0.2, fault_rank=1)
+        ring.check_errors()
     except RuntimeError as e:
         print(f"wedge check: raised after {time.perf_counter() - t0:.2f} s: {e}", flush=True)
     else:
         raise RuntimeError("a wedged ring returned instead of raising")
-    if not torch.equal(ring.ring_k1a(chunks, True, True), ring._ring_plain(chunks, True, True)):
+    again = ring.ring_k1a(chunks, True, True)
+    ring.check_errors()
+    if not torch.equal(again, ring._ring_plain(chunks, True, True)):
         raise RuntimeError("the ring disagrees with _ring_plain after a wedged call")
     print("wedge check: the next call is bit-exact again", flush=True)
 
 
-def _ag_input(rows: torch.Tensor) -> torch.Tensor:
-    """The all-gather's chunk-major buffer: rank r's row in its chunk r."""
-    world, n = rows.shape
-    chunks = torch.zeros((world, world, n), dtype=rows.dtype, device=rows.device)
-    ranks = torch.arange(world, device=rows.device)
-    chunks[ranks, ranks] = rows
-    return chunks.view(world, world, n // 128, 128)
-
-
 def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     """Reduce-scatter and all-gather of ``kname`` at world 4, float32, on a
-    ``per_rank``-element payload per rank: kernel, plain and yardstick ms
-    and the bound; returns the reduce-scatter's record for the kernels line
-    and prints both."""
+    ``per_rank``-element payload per rank: each held bit for bit against
+    the plain ring, then kernel, plain, yardstick and whole-dispatch ms
+    (the stacked entry point: stage padding, kernel, slicing) against the
+    bound.  Returns the kernels-line record: the reduce-scatter's fields,
+    and the all-gather's under ``ag_``."""
     world = ZERO1_WORLD
     wrapper = {w.__name__: w for w in ring.KERNELS}[kname]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -293,37 +294,50 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
         raise RuntimeError(f"{kname}: a {per_rank}-element payload plans {plan.path}")
     stage_rows = plan.stage_bytes // 512
     padded_rows = plan.n_tiles * stage_rows
-    staged = chunks if padded_rows == chunks.shape[2] else F.pad(chunks, (0, 0, 0, padded_rows - chunks.shape[2]))
-    rows = x.new_zeros(world, chunk).copy_(chunks.reshape(world, world, chunk)[:, 0])
-    ag_staged = _ag_input(rows)
-    if padded_rows != ag_staged.shape[2]:
-        ag_staged = F.pad(ag_staged, (0, 0, 0, padded_rows - ag_staged.shape[2]))
+
+    def staged(buf):
+        pad = padded_rows - buf.shape[-2]
+        return F.pad(buf, (0, 0, 0, pad)) if pad else buf
+
+    own = chunks[:, 0].contiguous()  # [world, S, 128]: the all-gather's input, one chunk per rank
     payload_bytes = world * chunk * 4
+    b_ms, b_by = ring_bound(world, payload_bytes)
     phases = {
-        # yardsticks, timed only: one torch call computing the same function
-        "rs": (staged, True, False, lambda: chunks.view(world, world, chunk).sum(0)),
-        "ag": (ag_staged, False, True, lambda: rows.repeat(world, 1, 1)),
+        # (kernel input, rs, ag, yardstick: one torch call computing the same
+        # function, timed only; the stacked entry point the ZeRO-1 path calls)
+        "rs": (staged(chunks), True, False, lambda: chunks.view(world, world, chunk).sum(0),
+               lambda: ring.ring_reduce_scatter_stacked(x)),
+        "ag": (staged(own), False, True, lambda: own.view(world, chunk).repeat(world, 1, 1),
+               lambda: ring.ring_all_gather_stacked(own.view(world, chunk))),
     }
-    out = {}
-    for phase, (buf, rs, ag, library) in phases.items():
+    rec = {"bound_ms": b_ms, "bound_by": b_by}
+    for phase, (buf, rs, ag, library, dispatch) in phases.items():
         def kernel():
             return wrapper(buf, rs, ag) if kname == "ring_k1a" else wrapper(buf, rs, ag, stage_rows)
 
         def plain():
             return ring._ring_plain(buf, rs, ag)
 
-        err = (kernel().float() - plain().float()).abs().max().item()
-        b_ms, b_by = ring_bound(world, payload_bytes)
-        rec = {"max_abs_err": err, "ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=5),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, iters=10)}
+        got, want = kernel(), plain()
+        ring.check_errors()
+        err = (got.float() - want.float()).abs().max().item()
+        exact = torch.equal(got, want)
+        del got, want
+        times = {"ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=5),
+                 "library_ms": cuda_ms(library, iters=10), "dispatch_ms": cuda_ms(dispatch, iters=10)}
+        ring.check_errors()
         print(f"time {kname} {phase} world={world} float32 payload {payload_bytes / 2**20:.1f} MiB/rank "
-              f"({plan.path}, n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B): kernel {rec['ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), plain {rec['plain_ms']:.4f} ms, yardstick {rec['library_ms']:.4f} ms, "
-              f"max_abs_err {err}", flush=True)
-        out[phase] = rec
-    del x, chunks, staged, rows, ag_staged
+              f"({plan.path}, n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B): kernel {times['ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), plain {times['plain_ms']:.4f} ms, "
+              f"yardstick {times['library_ms']:.4f} ms, stacked dispatch {times['dispatch_ms']:.4f} ms, "
+              f"max_abs_err {err}, bit-exact {'ok' if exact else 'FAIL'}", flush=True)
+        if not exact:
+            raise RuntimeError(f"{kname} {phase} disagrees with _ring_plain at its path's payload")
+        prefix = "" if phase == "rs" else "ag_"
+        rec.update({f"{prefix}max_abs_err": err, **{prefix + k: v for k, v in times.items()}})
+    del x, chunks, own, phases
     torch.cuda.empty_cache()
-    return out["rs"]
+    return rec
 
 
 def train(cfg: GPT2Config, world, init_state, tokens):
@@ -358,6 +372,7 @@ def train_zero1(dev: torch.device, init_state, tokens):
         _, _, _, loss = step(model, master, opt_state, tokens)
         losses.append(loss.tolist())  # waits for the step
         seconds.append(time.perf_counter() - t0)
+    ring.check_errors()
     return losses, seconds, lambda: step(model, master, opt_state, tokens)
 
 
@@ -390,6 +405,7 @@ def engine_path(dev: torch.device) -> dict:
         ag = eng.ring_all_gather(rs)
         with plain_ring():
             want = (eng.ring_allreduce(x), eng.ring_reduce_scatter(x), eng.ring_all_gather(rs))
+        ring.check_errors()
         ok = all(torch.equal(a, b) for a, b in zip((ar, rs, ag), want))
         print(f"engine path {kname}: {n} float32 per rank, impl "
               f"{sorted({r['impl'] for r in trace[-6:-3]})}, bit-exact vs plain {'ok' if ok else 'FAIL'}",
@@ -569,6 +585,7 @@ def main() -> None:
     p_step_s = float(np.mean(p_seconds[1:]))
     print(f"reference (plain ring): step {p_step_s * 1e3:.2f} ms, {z_tokens_step / p_step_s:.1f} tokens/s",
           flush=True)
+    ring.check_errors()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [

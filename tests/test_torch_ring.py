@@ -159,6 +159,24 @@ def test_ring_matches_jax_kernels_bit_for_bit(world, n, dtype_name, chunk_bytes,
     assert np.array_equal(_np(plain), ar_j)
 
 
+@pytest.mark.parametrize("chunk_bytes", [None, 4096])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_all_gather_from_own_chunks_equals_the_full_walk(dtype_name, chunk_bytes):
+    """The stacked all-gather hands the walk only each rank's own chunk, the
+    one chunk of the input an all-gather reads: the result is the walk's
+    over the full chunk-major buffer, on the vmem and the stream path."""
+    world = 4
+    _, x = _payload(world, world * 3 * BF16_TILE, dtype_name)
+    chunks, _ = ring._pad_chunks(x, world)
+    ranks = torch.arange(world)
+    own = chunks[ranks, ranks]
+    got = ring._run_ring_chunks(own, rs=False, ag=True, chunk_bytes=chunk_bytes)
+    assert torch.equal(got, ring._ring_plain(chunks, False, True))
+    with pytest.raises(ValueError, match="all-gather alone"):
+        ring._ring_plain(own, True, True)
+    ring.check_errors()  # nothing was launched on a CPU tensor: nothing to raise
+
+
 def test_all_gather_rejects_unaligned_payloads():
     import jax.numpy as jnp
 

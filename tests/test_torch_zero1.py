@@ -161,3 +161,6 @@ def test_zero1_rejects_what_waits():
     step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
     with pytest.raises(ValueError, match="does not divide"):
         step(_model(), None, None, torch.zeros(3, TINY["max_seq"], dtype=torch.long))
+    # the step runs in the flat layout init made, and only after it
+    with pytest.raises(RuntimeError, match="init"):
+        step(_model(), None, None, torch.zeros(WORLD, TINY["max_seq"], dtype=torch.long))
