@@ -12,7 +12,11 @@ The port of two parts of :mod:`adapcc_tpu.comm.engine`:
   single-controller form: a stacked ``[world, ...]`` tensor in, the stacked
   result out, through the hand-written ring kernels of
   :mod:`adapcc_tpu_torch.comm.ring` on the card (their plain version on a
-  CPU tensor).
+  CPU tensor).  A wire codec (the argument, ``Strategy.wire_dtype`` or
+  ``ADAPCC_WIRE_DTYPE``) runs the fused codec kernels; where they cannot
+  run, the allreduce takes the unfused quant ring
+  (:mod:`adapcc_tpu_torch.quant.ring`) and says so once on stderr, and the
+  reduce-scatter and all-gather, which have no unfused codec plane, raise.
 
 The strategy-tree and latency planes come in later slices.
 """
@@ -20,13 +24,15 @@ The strategy-tree and latency planes come in later slices.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.primitives import ReduceOp, not_ported
+from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, get_codec, resolve_wire_dtype
+from adapcc_tpu_torch.quant.ring import wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import Strategy
 
 MaskLike = Union[torch.Tensor, Sequence[bool]]
@@ -91,9 +97,8 @@ def masked_psum_shard(
 
 
 
-#: env overrides of the JAX engine that pick a plane this slice has not
+#: env override of the JAX engine that picks a plane this slice has not
 #: ported (a pin the port cannot honour raises instead of running the ring)
-WIRE_DTYPE_ENV = "ADAPCC_WIRE_DTYPE"
 COLL_ALGO_ENV = "ADAPCC_COLL_ALGO"
 
 
@@ -104,8 +109,10 @@ class CollectiveEngine:
 
     ``trace``, when given, is a list that receives one dispatch record per
     call: the primitive, the implementation that ran (``cuda_ring[<path>]``
-    on the card, ``plain_ring[<path>]`` on a CPU tensor), the stacked bytes
-    and the executed schedule (``RingSchedule.to_row()``).
+    on the card, ``plain_ring[<path>]`` on a CPU tensor, ``+<codec>`` with a
+    fused codec; ``quant_ring[<codec>]`` for the unfused quant ring, with its
+    ``reroute_reason``), the stacked bytes, the executed schedule
+    (``RingSchedule.to_row()``) and the wire bytes a rank's payload costs.
     """
 
     def __init__(
@@ -133,18 +140,20 @@ class CollectiveEngine:
                 f"{self.world_size}, got shape {tuple(stacked.shape)}"
             )
 
-    def _check_ring_plane(self, wire_dtype: Optional[str], algo: Optional[str]) -> None:
-        """Raise for a codec or an algorithm pin: their planes are not ported."""
+    def _check_algo(self, algo: Optional[str]) -> None:
+        """Raise for an algorithm pin: its planes are not ported."""
         env_algo = os.environ.get(COLL_ALGO_ENV, "").strip()
         for pin in (algo, env_algo or None):
             if pin is not None and pin != "ring":
                 raise not_ported(f"algo={pin!r}", "the latency plane slice (rd, tree) and the IR slice")
-        env_wire = os.environ.get(WIRE_DTYPE_ENV, "").strip()
-        wire = env_wire or (wire_dtype if wire_dtype is not None else self.strategy.wire_dtype)
-        if wire != "off":
-            raise not_ported(f"wire_dtype={wire!r} on the ring", "the fused-codec ring slice (K5a, K5b)")
 
-    def _ring_plan(self, stacked: torch.Tensor, chunk_bytes: Optional[int], rs: bool, ag: bool):
+    def _resolved_wire_dtype(self, wire_dtype: Optional[str]) -> str:
+        """The codec a ring dispatch runs: ``ADAPCC_WIRE_DTYPE`` > the
+        argument > the strategy's ``wire_dtype``."""
+        return resolve_wire_dtype(wire_dtype if wire_dtype is not None else self.strategy.wire_dtype)
+
+    def _ring_plan(self, stacked: torch.Tensor, chunk_bytes: Optional[int], rs: bool, ag: bool,
+                   wire_dtype: str = "off", block_size: Optional[int] = None) -> ring.RingSchedule:
         """The executed schedule of a stacked call: ``strategy.chunk_bytes``
         is the default granularity, an explicit argument overrides it, and
         the ``ADAPCC_RING_CHUNK_BYTES`` env (resolved in the planner)
@@ -156,51 +165,122 @@ class CollectiveEngine:
         return ring.plan_ring_schedule(
             nelems, stacked.dtype, self.world_size,
             chunk_bytes if chunk_bytes is not None else self.strategy.chunk_bytes,
-            rs=rs, ag=ag,
+            rs=rs, ag=ag, wire_dtype=wire_dtype, block_size=block_size,
         )
 
-    def _record_ring(self, primitive: str, plan: ring.RingSchedule, stacked: torch.Tensor) -> None:
+    @staticmethod
+    def _ring_extras(plan: ring.RingSchedule) -> Dict[str, Any]:
+        """The trace fields of a ring-kernel dispatch, one definition for the
+        three primitives: the executed schedule (the JAX record, and the
+        CUDA kernels' own staging slot), and the bytes a rank's payload
+        costs on the wire under the executed codec."""
+        extras: Dict[str, Any] = {**plan.to_row(), "slot_bytes": plan.slot_bytes}
+        if plan.wire_dtype == "off":
+            extras["wire_bytes"] = plan.payload_bytes
+        else:
+            per_elem = get_codec(plan.wire_dtype).wire_bytes_per_element(plan.block_size or 1)
+            extras.update(wire_bytes=int(plan.payload_bytes / 4.0 * per_elem), block_size=plan.block_size,
+                          fused=True)
+        return extras
+
+    def _record(self, primitive: str, impl: str, stacked: torch.Tensor, extras: Dict[str, Any]) -> None:
         if self.trace is not None:
-            impl = "cuda_ring" if stacked.device.type == "cuda" else "plain_ring"
-            self.trace.append({
-                "primitive": primitive,
-                "impl": f"{impl}[{plan.path}]",
-                "nbytes": stacked.numel() * stacked.element_size(),
-                **plan.to_row(),
-            })
+            self.trace.append({"primitive": primitive, "impl": impl,
+                               "nbytes": stacked.numel() * stacked.element_size(), **extras})
+
+    def _record_ring(self, primitive: str, plan: ring.RingSchedule, stacked: torch.Tensor) -> None:
+        impl = "cuda_ring" if stacked.device.type == "cuda" else "plain_ring"
+        suffix = "" if plan.wire_dtype == "off" else f"+{plan.wire_dtype}"
+        self._record(primitive, f"{impl}[{plan.path}{suffix}]", stacked, self._ring_extras(plan))
+
+    def _wire_ring_allreduce(self, stacked: torch.Tensor, wire_dtype: str,
+                             block_size: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The unfused quant ring (the engine's reroute arm): the result and
+        its trace fields."""
+        codec = get_codec(wire_dtype)
+        out = wire_ring_allreduce_stacked(stacked, codec.name, block_size)
+        per_rank = stacked[0].numel()
+        extras = {"wire_dtype": codec.name, "block_size": block_size,
+                  "wire_bytes": int(per_rank * codec.wire_bytes_per_element(block_size))}
+        return out, extras
 
     def ring_allreduce(
         self,
         stacked: torch.Tensor,
         chunk_bytes: Optional[int] = None,
         wire_dtype: Optional[str] = None,
+        quant_block_size: Optional[int] = None,
         algo: Optional[str] = None,
     ) -> torch.Tensor:
         """Ring sum-allreduce of every row of ``[world, ...]`` (reduce-scatter
         then all-gather in one kernel launch).  ``chunk_bytes=None`` uses the
         strategy's granularity: payloads above it stream through staging
-        tiles (K1b), below it each chunk is one stage (K1a)."""
+        tiles (K1b, K5b), below it each chunk is one stage (K1a, K5a).
+
+        ``wire_dtype=None`` adopts the strategy's codec (``ADAPCC_WIRE_DTYPE``
+        overrides both).  A codec runs the fused kernels where
+        :func:`~adapcc_tpu_torch.comm.ring.fused_ring_dispatch_reason` allows
+        it; otherwise (``ADAPCC_FUSED_WIRE=off``, or a payload dtype or block
+        size the codec kernels cannot take) the unfused quant ring runs, the
+        trace records ``reroute_reason``, and stderr says so once.  A CUDA
+        tensor on a card the kernels were not built for raises."""
         self._check_world_dim(stacked, "ring_allreduce")
-        self._check_ring_plane(wire_dtype, algo)
-        plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=True)
-        out = ring.ring_allreduce_stacked(stacked, chunk_bytes=plan.chunk_bytes)
-        self._record_ring("allreduce", plan, stacked)
+        self._check_algo(algo)
+        wd = self._resolved_wire_dtype(wire_dtype)
+        if wd == "off":
+            plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=True)
+            out = ring.ring_allreduce_stacked(stacked, chunk_bytes=plan.chunk_bytes)
+            self._record_ring("allreduce", plan, stacked)
+            return out
+        block = quant_block_size or DEFAULT_BLOCK_SIZE
+        reroute = ring.fused_ring_dispatch_reason(stacked.dtype, wd, block)
+        if reroute is None:
+            plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=True, wire_dtype=wd, block_size=block)
+            out = ring.ring_allreduce_stacked(stacked, chunk_bytes=plan.chunk_bytes, wire_dtype=wd,
+                                              block_size=block)
+            self._record_ring("allreduce", plan, stacked)
+            return out
+        ring.note_quant_reroute(wd, reroute)
+        out, extras = self._wire_ring_allreduce(stacked, wd, block)
+        self._record("allreduce", f"quant_ring[{wd}]", stacked, {**extras, "reroute_reason": reroute})
         return out
+
+    def _ring_wire_args(self, stacked: torch.Tensor, wire_dtype: Optional[str],
+                        quant_block_size: Optional[int], primitive: str) -> Tuple[str, Optional[int]]:
+        """The codec of a ring reduce-scatter or all-gather, checked against
+        the fused kernels: their only codec plane, so a combination they
+        cannot run raises instead of running float32 under a codec's name."""
+        wd = self._resolved_wire_dtype(wire_dtype)
+        if wd == "off":
+            return wd, None
+        block = quant_block_size or DEFAULT_BLOCK_SIZE
+        reason = ring.fused_ring_dispatch_reason(stacked.dtype, wd, block)
+        if reason is not None:
+            raise ValueError(
+                f"{primitive} has no unfused wire data plane (quant/ring.py is allreduce-only): "
+                f"wire_dtype={wd!r} cannot run here: {reason}.  Pin wire_dtype='off' (or "
+                "ADAPCC_WIRE_DTYPE=off) to run the float32 kernels."
+            )
+        return wd, block
 
     def ring_reduce_scatter(
         self,
         stacked: torch.Tensor,
         chunk_bytes: Optional[int] = None,
         wire_dtype: Optional[str] = None,
+        quant_block_size: Optional[int] = None,
     ) -> torch.Tensor:
         """Ring reduce-scatter: ``[world, n]`` → ``[world, chunk]`` with row
         ``r`` the fully reduced chunk ``r`` of the flattened, tile-padded
         input (``chunk = tile_round(ceil(n / world))``).  The kernel leaves
-        chunk ``(r + 1) % world`` on rank ``r``; one roll restores chunk order."""
+        chunk ``(r + 1) % world`` on rank ``r``; one roll restores chunk order.
+        A codec (precedence as in :meth:`ring_allreduce`) runs the fused
+        kernels, or raises where they cannot run."""
         self._check_world_dim(stacked, "ring_reduce_scatter")
-        self._check_ring_plane(wire_dtype, None)
-        plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=False)
-        out = ring.ring_reduce_scatter_stacked(stacked, chunk_bytes=plan.chunk_bytes)
+        wd, block = self._ring_wire_args(stacked, wire_dtype, quant_block_size, "ring_reduce_scatter")
+        plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=False, wire_dtype=wd, block_size=block)
+        out = ring.ring_reduce_scatter_stacked(stacked, chunk_bytes=plan.chunk_bytes, wire_dtype=wd,
+                                               block_size=block)
         self._record_ring("reduce_scatter", plan, stacked)
         return torch.roll(out, 1, dims=0)
 
@@ -209,13 +289,16 @@ class CollectiveEngine:
         stacked: torch.Tensor,
         chunk_bytes: Optional[int] = None,
         wire_dtype: Optional[str] = None,
+        quant_block_size: Optional[int] = None,
     ) -> torch.Tensor:
         """Ring all-gather: ``[world, chunk]`` (row ``r`` = rank ``r``'s
         tile-aligned payload) → ``[world, world, chunk]``, row ``r`` the
-        gathered stack as rank ``r`` holds it."""
+        gathered stack as rank ``r`` holds it.  Under a codec each rank's
+        chunk is encoded once and every rank holds the same decoded bits."""
         self._check_world_dim(stacked, "ring_all_gather")
-        self._check_ring_plane(wire_dtype, None)
-        plan = self._ring_plan(stacked, chunk_bytes, rs=False, ag=True)
-        out = ring.ring_all_gather_stacked(stacked, chunk_bytes=plan.chunk_bytes)
+        wd, block = self._ring_wire_args(stacked, wire_dtype, quant_block_size, "ring_all_gather")
+        plan = self._ring_plan(stacked, chunk_bytes, rs=False, ag=True, wire_dtype=wd, block_size=block)
+        out = ring.ring_all_gather_stacked(stacked, chunk_bytes=plan.chunk_bytes, wire_dtype=wd,
+                                           block_size=block)
         self._record_ring("all_gather", plan, stacked)
         return out

@@ -16,16 +16,25 @@ keeps that form.  Every rank's rows live on one card and one kernel launch
 walks the ring for all of them; each rank sees its right neighbour only
 through a table of device pointers to that neighbour's two staging slots
 and flag words, which is what a CUDA IPC handle gives in the per-process
-form.  Two kernels in ``csrc/ring.cu`` replace the two Pallas kernels:
+form.  Four kernels in ``csrc/ring.cu`` replace the four Pallas kernels:
 
 - :func:`ring_k1a` (``_ring_kernel``): the whole chunk in one stage, the
   planner's ``vmem`` path (payloads up to ``chunk_bytes``);
 - :func:`ring_k1b` (``_stream_ring_kernel``): each chunk streamed through
-  ``[stage_rows, 128]`` staging tiles, the ``hbm-stream`` path.
+  ``[stage_rows, 128]`` staging tiles, the ``hbm-stream`` path;
+- :func:`ring_k5a` (``_fused_ring_kernel``) and :func:`ring_k5b`
+  (``_fused_stream_ring_kernel``): the same two walks on a float32 payload
+  with a wire codec (``int8``: codes and a float32 scale per block of
+  ``block_size`` elements; ``bf16``) in the staging tiles.  Reduce-scatter
+  hops encode the moving partial and the receiver decodes and adds in
+  float32; the all-gather encodes each reduced chunk once at its owner, which
+  adopts the decoded values, and forwards the bits verbatim, so every rank
+  ends with the same bits.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
-version :func:`_ring_plain` (the same walk, hop by hop, in torch) for a CPU
-tensor, and counts its launches in ``<wrapper>.launches``.  A launch does not
+version (:func:`_ring_plain`, :func:`_fused_ring_plain`: the same walk, hop
+by hop, in torch) for a CPU tensor, and counts its launches in
+``<wrapper>.launches``.  A launch does not
 wait for its kernel: a spin that ran out is raised by :func:`check_errors`,
 which the next launch calls for the launches that have finished and a caller
 calls at its own synchronisation point for the rest.
@@ -42,19 +51,34 @@ import collections
 import ctypes
 import functools
 import os
+import sys
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES, not_ported
+from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES
+from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, dequantize_int8, quantize_int8
 
 _LANES = 128
 
 #: env override for the ring staging granularity (chunk-size sweeps); wins
 #: over both the caller's value and the strategy's chunk_bytes
 RING_CHUNK_ENV = "ADAPCC_RING_CHUNK_BYTES"
+
+#: env gate of the fused wire-codec kernels: ``auto`` fuses wherever the
+#: plan allows, ``off`` pins the unfused quant ring, ``on`` demands the fused
+#: kernels and raises where they cannot run (a typo raises too)
+FUSED_WIRE_ENV = "ADAPCC_FUSED_WIRE"
+FUSED_WIRE_MODES = ("auto", "on", "off")
+
+#: wire dtypes the fused kernels speak, with their wire itemsize
+_FUSED_WIRE_ITEMSIZE = {"bf16": 2, "int8": 1}
+#: their ids in csrc/ring.cu (kWireInt8, kWireBf16)
+_WIRE_CODES = {"int8": 1, "bf16": 2}
+#: the fused kernels' unit of work on a bf16 wire (csrc/ring.cu kBf16Unit)
+_BF16_UNIT = 1024
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the kernels' limits (csrc/ring.cu kMaxWorld, kMaxBlocks, kFlagWords)
@@ -95,6 +119,100 @@ def resolve_chunk_bytes(chunk_bytes: Optional[int] = None) -> int:
     return DEFAULT_CHUNK_BYTES
 
 
+def resolve_fused_wire() -> str:
+    """The fused-wire gate in force (``auto`` | ``on`` | ``off``)."""
+    env = os.environ.get(FUSED_WIRE_ENV)
+    if env is None or not env.strip():
+        return "auto"
+    mode = env.strip().lower()
+    if mode not in FUSED_WIRE_MODES:
+        raise ValueError(f"{FUSED_WIRE_ENV}={env!r}: expected one of {'|'.join(FUSED_WIRE_MODES)}")
+    return mode
+
+
+def fused_wire_unsupported_reason(dtype: torch.dtype, wire_dtype: str,
+                                  block_size: Optional[int] = None) -> Optional[str]:
+    """Why the fused codec kernels cannot run this configuration, or None.
+    The codec is defined on float32 payloads, and the kernels' codec blocks
+    nest in every staging tile as whole 128-element rows whose count divides
+    the float32 tile's 8: ``block_size`` is one of 128, 256, 512, 1024."""
+    if wire_dtype == "off":
+        return "wire_dtype=off has no codec to fuse (the plain kernels ship the payload)"
+    if wire_dtype not in _FUSED_WIRE_ITEMSIZE:
+        return (f"wire_dtype={wire_dtype!r} has no fused kernel "
+                f"(fused codecs: {'|'.join(sorted(_FUSED_WIRE_ITEMSIZE))})")
+    if dtype != torch.float32:
+        return (f"fused wire codecs are defined on float32 payloads, got {_dtype_name(dtype)} "
+                "(quant/codec.py block semantics)")
+    if wire_dtype == "int8":
+        block_size = DEFAULT_BLOCK_SIZE if block_size is None else block_size
+        rows = block_size // _LANES
+        if block_size % _LANES or rows < 1 or 8 % rows:
+            return (f"int8 block_size={block_size} cannot tile the staging: need a multiple of "
+                    f"{_LANES} whose {_LANES}-element row count divides the float32 tile's 8 rows "
+                    "(one of 128|256|512|1024)")
+    return None
+
+
+def fused_ring_dispatch_reason(dtype: torch.dtype, wire_dtype: str,
+                               block_size: Optional[int] = None) -> Optional[str]:
+    """Why a dispatch cannot take the fused wire path (the env gate, or a
+    payload dtype or block size the codec kernels cannot take), or None when
+    it can.  Under ``ADAPCC_FUSED_WIRE=on`` any reason raises instead of
+    rerouting.  The card is no reason: a CUDA tensor on a card the kernels
+    were not built for raises at launch, as K1's does."""
+    mode = resolve_fused_wire()
+    if mode == "off":
+        reason: Optional[str] = f"{FUSED_WIRE_ENV}=off pins the unfused path"
+    else:
+        reason = fused_wire_unsupported_reason(dtype, wire_dtype, block_size)
+    if reason is not None and mode == "on":
+        raise ValueError(f"{FUSED_WIRE_ENV}=on but the fused wire path cannot run: {reason}")
+    return reason
+
+
+_REROUTE_NOTED: set = set()
+
+
+def note_quant_reroute(wire_dtype: str, reason: str) -> None:
+    """Say once per process and reason, on stderr, that a codec dispatch left
+    the fused ring kernels for the unfused quant ring: whoever reads the
+    throughput must know which data plane produced it."""
+    key = (wire_dtype, reason)
+    if key in _REROUTE_NOTED:
+        return
+    _REROUTE_NOTED.add(key)
+    print(f"adapcc: wire_dtype={wire_dtype} ring collective rerouted off the fused ring kernels "
+          f"onto the unfused quant ring (impl=quant_ring): {reason}", file=sys.stderr)
+
+
+def _scale_rows(n_blocks: int) -> int:
+    """Rows of the JAX kernels' float32 scale tile for ``n_blocks`` scales:
+    whole 128-lane rows, padded to the float32 tile's 8 (the plan's record)."""
+    rows = -(-n_blocks // _LANES)
+    return -(-rows // 8) * 8
+
+
+def _wire_geometry(stage_rows: int, wire_dtype: str, block_size: int) -> Tuple[int, int]:
+    """``(wire_stage_bytes, scale_slot_bytes)`` of one ``[stage_rows, 128]``
+    float32 staging tile under a fused codec, as the JAX planner records
+    them."""
+    wire_stage = stage_rows * _LANES * _FUSED_WIRE_ITEMSIZE[wire_dtype]
+    if wire_dtype != "int8":
+        return wire_stage, 0
+    n_blocks = stage_rows * _LANES // block_size
+    return wire_stage, _scale_rows(n_blocks) * _LANES * 4
+
+
+def _fused_slot_bytes(stage_elems: int, wire_dtype: str, block_size: int) -> int:
+    """Bytes of one fused staging slot in ``csrc/ring.cu``: the codes, then
+    (int8) one float32 scale per block, rounded up to 16 bytes."""
+    size = stage_elems * _FUSED_WIRE_ITEMSIZE[wire_dtype]
+    if wire_dtype == "int8":
+        size += stage_elems // block_size * 4
+    return -(-size // 16) * 16
+
+
 @dataclass(frozen=True)
 class RingSchedule:
     """The executed ring schedule: which path ran, at what staging
@@ -109,10 +227,29 @@ class RingSchedule:
     payload_bytes: int     #: caller bytes before padding
     padded_bytes: int      #: world × tile-padded chunk bytes
     dtype: str = "float32"
+    #: wire codec fused into the kernels ("off": the plain kernels)
+    wire_dtype: str = "off"
+    #: int8 quantization block (elements per float32 scale); 0 without blocks
+    block_size: int = 0
+    #: bytes of one staged wire tile (0 on the plain kernels)
+    wire_stage_bytes: int = 0
+    #: bytes of the JAX kernels' float32 scale tile (int8 plans only)
+    scale_slot_bytes: int = 0
+
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes of one staging slot of the CUDA kernels: the payload tile,
+        or under a codec its wire tile and (int8) one float32 scale per
+        block, rounded up to 16 bytes (:func:`_fused_slot_bytes`)."""
+        if self.wire_dtype == "off":
+            return self.stage_bytes
+        return _fused_slot_bytes(self.stage_bytes // 4, self.wire_dtype, self.block_size)
 
     def to_row(self) -> dict:
-        """The JAX record's row; the wire fields are those of the payload
-        dtype on the wire (``"off"``), the only codec ported."""
+        """The JAX record's row, field for field.  ``wire_stage_bytes`` and
+        ``scale_slot_bytes`` are the TPU planner's staging geometry (a scale
+        tile padded to 8 rows of 128), kept for parity; the CUDA kernels'
+        slot is :attr:`slot_bytes`."""
         return {
             "ring_path": self.path,
             "chunk_bytes": self.chunk_bytes,
@@ -122,9 +259,9 @@ class RingSchedule:
             "world": self.world,
             "payload_bytes": self.payload_bytes,
             "padded_bytes": self.padded_bytes,
-            "wire_dtype": "off",
-            "wire_stage_bytes": 0,
-            "scale_slot_bytes": 0,
+            "wire_dtype": self.wire_dtype,
+            "wire_stage_bytes": self.wire_stage_bytes,
+            "scale_slot_bytes": self.scale_slot_bytes,
         }
 
 
@@ -147,16 +284,24 @@ def plan_ring_schedule(
     rs: bool = True,
     ag: bool = True,
     wire_dtype: str = "off",
+    block_size: Optional[int] = None,
 ) -> RingSchedule:
     """Path selection and executed tile size for a ring collective over
     ``nelems`` elements of ``dtype`` (one rank's payload across the ``world``
     chunks): ``vmem`` when the whole padded payload fits one ``chunk_bytes``
-    budget, ``hbm-stream`` above it."""
+    budget, ``hbm-stream`` above it.
+
+    ``wire_dtype`` other than ``"off"`` plans the fused codec kernels: on
+    int8 the staging budget also covers each row's share of the float32
+    scales, and the plan records the wire geometry.  The chunk layout is the
+    payload dtype's on every codec, so ZeRO-1 shards do not depend on it."""
     if wire_dtype != "off":
-        raise not_ported(
-            f"wire_dtype={wire_dtype!r} on the ring",
-            "the fused-codec ring slice (K5a, K5b, with quant/codec.py)",
-        )
+        block_size = DEFAULT_BLOCK_SIZE if block_size is None else block_size
+        reason = fused_wire_unsupported_reason(dtype, wire_dtype, block_size)
+        if reason is not None:
+            raise ValueError(f"cannot plan a fused wire ring: {reason}")
+    fused = wire_dtype != "off"
+    blk = int(block_size) if fused and wire_dtype == "int8" else 0
     itemsize = dtype.itemsize
     tile = _tile_elems(dtype)
     sublanes = tile // _LANES
@@ -166,17 +311,25 @@ def plan_ring_schedule(
     budget = resolve_chunk_bytes(chunk_bytes)
     steps = (world - 1 if rs else 0) + (world - 1 if ag else 0)
     common = dict(world=world, steps=steps, chunk_bytes=budget,
-                  payload_bytes=int(nelems) * itemsize, dtype=_dtype_name(dtype))
-    if world == 1 or padded_bytes <= budget:
-        return RingSchedule(path="vmem", stage_bytes=chunk * itemsize, n_tiles=1,
-                            padded_bytes=padded_bytes, **common)
+                  payload_bytes=int(nelems) * itemsize, dtype=_dtype_name(dtype),
+                  wire_dtype=wire_dtype, block_size=blk)
     chunk_rows = chunk // _LANES
-    stage_rows = _stage_rows_for(chunk_rows, sublanes, budget, _LANES * itemsize)
+    if world == 1 or padded_bytes <= budget:
+        wire_stage, scale_slot = _wire_geometry(chunk_rows, wire_dtype, blk) if fused else (0, 0)
+        return RingSchedule(path="vmem", stage_bytes=chunk * itemsize, n_tiles=1,
+                            padded_bytes=padded_bytes, wire_stage_bytes=wire_stage,
+                            scale_slot_bytes=scale_slot, **common)
+    # on int8 a staged row also carries its share of the block scales
+    # (rounded up, so block 1024's half byte a row still counts)
+    row_bytes = _LANES * itemsize + (-(-(_LANES * 4) // blk) if blk else 0)
+    stage_rows = _stage_rows_for(chunk_rows, sublanes, budget, row_bytes)
     n_tiles = -(-chunk_rows // stage_rows)
+    wire_stage, scale_slot = _wire_geometry(stage_rows, wire_dtype, blk) if fused else (0, 0)
     return RingSchedule(
         path="hbm-stream", stage_bytes=stage_rows * _LANES * itemsize, n_tiles=n_tiles,
         # each chunk zero-padded to whole staging tiles (sliced back out)
-        padded_bytes=world * n_tiles * stage_rows * _LANES * itemsize, **common,
+        padded_bytes=world * n_tiles * stage_rows * _LANES * itemsize,
+        wire_stage_bytes=wire_stage, scale_slot_bytes=scale_slot, **common,
     )
 
 
@@ -219,16 +372,89 @@ def _ring_plain(stacked: torch.Tensor, rs: bool, ag: bool) -> torch.Tensor:
     return work
 
 
+def _encode(vals: torch.Tensor, wire_dtype: str, block_size: int) -> Tuple[torch.Tensor, ...]:
+    """Wire arrays of ``[world, S, 128]`` float32 chunks: bf16 values, or
+    int8 codes and ``[world, blocks]`` scales (blocks nest in each chunk)."""
+    if wire_dtype == "bf16":
+        return (vals.to(torch.bfloat16),)
+    q, scales = quantize_int8(vals.reshape(-1), block_size)
+    return q.reshape(vals.shape), scales.reshape(vals.shape[0], -1)
+
+
+def _decode(wire: Tuple[torch.Tensor, ...], wire_dtype: str, block_size: int) -> torch.Tensor:
+    """Inverse of :func:`_encode`: ``[world, S, 128]`` float32."""
+    if wire_dtype == "bf16":
+        return wire[0].to(torch.float32)
+    q, scales = wire
+    return dequantize_int8(q.reshape(-1, block_size), scales.reshape(-1)).reshape(q.shape)
+
+
+def _fused_ring_plain(stacked: torch.Tensor, rs: bool, ag: bool, wire_dtype: str,
+                      block_size: int = DEFAULT_BLOCK_SIZE) -> torch.Tensor:
+    """The fused ring walk over ``[world, world, S, 128]`` float32 (an
+    all-gather alone may take ``[world, S, 128]``, each rank's own chunk),
+    step by step with the fused kernels' per-hop arithmetic; returns every
+    rank's work buffer.
+
+    - Reduce-scatter hops encode the chunk in flight; the receiver adds the
+      decoded values to its float32 copy (``local + q·s``: a multiply, then
+      an add, each rounded).
+    - The first all-gather hop encodes each reduced chunk once, and its
+      owner adopts the decoded values; later hops forward the bits that
+      landed at the hop before.
+    - A reduce-scatter alone keeps the owned chunk as the float32 sum, and
+      an all-gather alone encodes each rank's own chunk once.
+    """
+    world = stacked.shape[0]
+    ranks = torch.arange(world, device=stacked.device)
+    if stacked.dim() == 3:
+        if rs or not ag:
+            raise ValueError("only an all-gather alone takes [world, rows, 128]")
+        work = stacked.new_zeros((world, *stacked.shape))
+        work[ranks, ranks] = stacked
+    else:
+        work = stacked.clone()
+    n_rs = world - 1 if rs else 0
+    n_ag = world - 1 if ag else 0
+    own = 1 if rs else 0
+    store: Optional[Tuple[torch.Tensor, ...]] = None  # landed AG wire, [rank, chunk, ...]
+    for step in range(n_rs + n_ag):
+        in_rs = step < n_rs
+        send_idx = (ranks - step) % world if in_rs else (ranks + own - (step - n_rs)) % world
+        recv_idx = (send_idx - 1) % world
+        if in_rs or step == n_rs:
+            wire = _encode(work[ranks, send_idx], wire_dtype, block_size)
+            if not in_rs:  # the owner adopts its decoded chunk
+                work[ranks, send_idx] = _decode(wire, wire_dtype, block_size)
+        else:
+            wire = tuple(w[ranks, send_idx] for w in store)
+        landed = tuple(w.roll(1, dims=0) for w in wire)  # rank r receives from r − 1
+        decoded = _decode(landed, wire_dtype, block_size)
+        if in_rs:
+            work[ranks, recv_idx] = work[ranks, recv_idx] + decoded
+            continue
+        work[ranks, recv_idx] = decoded
+        if store is None:
+            store = tuple(w.new_empty((world, *w.shape)) for w in landed)
+        for kept, w in zip(store, landed):
+            kept[ranks, recv_idx] = w
+    return work
+
+
 # --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
 
 _P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-#: C signatures: x, out, slots, flags, err, world, chunk_elems,
-#: [stage_elems, n_tiles,] rs, ag, x_own, is_bf16, epoch, timeout_ns, fault_rank, stream
+#: C signatures.  K1: x, out, slots, flags, err, world, chunk_elems,
+#: [stage_elems, n_tiles,] rs, ag, x_own, is_bf16, epoch, timeout_ns, fault_rank, stream.
+#: K5: x, out, slots, store, flags, err, world, chunk_elems, [stage_elems, n_tiles,]
+#: rs, ag, x_own, wire, block_size, slot_bytes, epoch, timeout_ns, fault_rank, stream.
 _SIGNATURES = {
     "adapcc_ring_k1a": [_P] * 5 + [_I, _LL] + [_I] * 4 + [_ULL, _ULL, _I, _P],
     "adapcc_ring_k1b": [_P] * 5 + [_I, _LL, _LL, _I] + [_I] * 4 + [_ULL, _ULL, _I, _P],
+    "adapcc_ring_k5a": [_P] * 6 + [_I, _LL] + [_I] * 5 + [_LL, _ULL, _ULL, _I, _P],
+    "adapcc_ring_k5b": [_P] * 6 + [_I, _LL, _LL, _I] + [_I] * 5 + [_LL, _ULL, _ULL, _I, _P],
 }
 #: what a rank waited for when its spin ran out (csrc/ring.cu WaitKind)
 _WAITS = {1: "the entry barrier", 2: "a credit from its right neighbour",
@@ -275,11 +501,21 @@ class _Flags:
 _FLAGS: Dict[Tuple[int, int], _Flags] = collections.defaultdict(_Flags)
 
 
-def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int, rs: bool, ag: bool) -> None:
-    """Raise on what the ring kernels do not take."""
-    if chunks.device.type != "cuda":
-        raise ValueError(f"ring kernels run on CUDA or CPU tensors, got {chunks.device}")
-    if chunks.dtype not in _KERNEL_DTYPES:
+def _check_card(device: torch.device) -> None:
+    """Raise unless ``device`` is a card the ring kernels are built for
+    (sm_90a): a tensor that is not on the CPU runs its kernel or nothing."""
+    if device.type != "cuda":
+        raise ValueError(f"ring kernels run on CUDA or CPU tensors, got {device}")
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(f"the ring kernels are built for sm_90a; {device} is sm_{cap[0]}{cap[1]}")
+
+
+def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int, rs: bool, ag: bool, fused: bool) -> None:
+    """Raise on what the ring kernels do not take (a fused kernel's codec and
+    dtype were checked by :func:`_codec`)."""
+    _check_card(chunks.device)
+    if not fused and chunks.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"ring kernels take float32 or bfloat16, got {chunks.dtype}")
     own = chunks.dim() == 3 and ag and not rs  # an all-gather alone: own chunks only
     if chunks.shape[-1] != _LANES or not (own or chunks.dim() == 4 and chunks.shape[0] == chunks.shape[1]):
@@ -326,27 +562,41 @@ def check_errors(wait: bool = True) -> None:
 
 
 def _launch(entry: str, chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int,
-            timeout_s: float, fault_rank: int) -> torch.Tensor:
+            timeout_s: float, fault_rank: int, codec: Optional[Tuple[str, int]] = None) -> torch.Tensor:
     """Launch ``<entry>`` on the current stream; raises if the launch is
     refused, or for an earlier launch that has finished with a spin run out.
     This launch's error word is copied to pinned host memory behind the
-    kernel, for :func:`check_errors`: nothing here waits for the card."""
+    kernel, for :func:`check_errors`: nothing here waits for the card.
+    ``codec`` (``(wire_dtype, block_size)``) launches a fused kernel: its
+    slots hold wire tiles, and an all-gather that forwards bits (world > 2)
+    gets a store of the landed wire tiles."""
     check_errors(wait=False)
-    _check_kernel_inputs(chunks, stage_rows, rs, ag)
+    _check_kernel_inputs(chunks, stage_rows, rs, ag, codec is not None)
     world, rows = chunks.shape[0], chunks.shape[-2]
     n_tiles = rows // stage_rows
     steps = (world - 1) * (int(rs) + int(ag))
     dev = chunks.device
     out = torch.empty((world, world, rows, _LANES), dtype=chunks.dtype, device=dev)
-    slots = torch.empty((world, 2, stage_rows, _LANES), dtype=chunks.dtype, device=dev)
     err = torch.zeros(8, dtype=torch.int32, device=dev)
+    geometry = [rows * _LANES] + ([stage_rows * _LANES, n_tiles] if entry.endswith("b") else [])
+    if codec is None:
+        slots = torch.empty((world, 2, stage_rows, _LANES), dtype=chunks.dtype, device=dev)
+        buffers = [slots.data_ptr()]
+        tail = [int(chunks.dtype == torch.bfloat16)]
+    else:
+        wire_dtype, block_size = codec
+        slot_bytes = _fused_slot_bytes(stage_rows * _LANES, wire_dtype, block_size)
+        slots = torch.empty(world * 2 * slot_bytes, dtype=torch.uint8, device=dev)
+        store = (torch.empty(world * world * n_tiles * slot_bytes, dtype=torch.uint8, device=dev)
+                 if ag and world > 2 else None)
+        buffers = [slots.data_ptr(), store.data_ptr() if store is not None else None]
+        tail = [_WIRE_CODES[wire_dtype], block_size, slot_bytes]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
         flags, epoch = _FLAGS[(dev.index, stream.cuda_stream)].take(dev, world, steps * n_tiles)
-        geometry = [rows * _LANES] + ([stage_rows * _LANES, n_tiles] if entry == "adapcc_ring_k1b" else [])
         rc = getattr(_library(), entry)(
-            chunks.data_ptr(), out.data_ptr(), slots.data_ptr(), flags.data_ptr(), err.data_ptr(),
-            world, *geometry, int(rs), int(ag), int(chunks.dim() == 3), int(chunks.dtype == torch.bfloat16),
+            chunks.data_ptr(), out.data_ptr(), *buffers, flags.data_ptr(), err.data_ptr(),
+            world, *geometry, int(rs), int(ag), int(chunks.dim() == 3), *tail,
             epoch, int(timeout_s * 1e9), fault_rank, stream.cuda_stream,
         )
         if rc != 0:
@@ -395,13 +645,50 @@ def ring_k1b(chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int, *,
     return out
 
 
-for _w in (ring_k1a, ring_k1b):
+def _codec(dtype: torch.dtype, wire_dtype: str, block_size: Optional[int]) -> Tuple[str, int]:
+    """The fused kernels' ``(wire_dtype, block_size)`` for a ``dtype``
+    payload (a bf16 wire has no blocks: 0); raises where they cannot run,
+    so nothing runs float32 under a codec's name."""
+    block_size = (DEFAULT_BLOCK_SIZE if block_size is None else int(block_size)) if wire_dtype == "int8" else 0
+    reason = fused_wire_unsupported_reason(dtype, wire_dtype, block_size)
+    if reason is not None:
+        raise ValueError(f"wire_dtype={wire_dtype!r} cannot run on the fused ring: {reason}")
+    return wire_dtype, block_size
+
+
+def ring_k5a(chunks: torch.Tensor, rs: bool, ag: bool, wire_dtype: str, block_size: Optional[int] = None, *,
+             timeout_s: float = DEFAULT_TIMEOUT_S, fault_rank: int = -1) -> torch.Tensor:
+    """K5a: K1a's walk (each chunk one stage) on a float32 payload with the
+    ``wire_dtype`` codec (``int8`` at ``block_size``, or ``bf16``) on the
+    wire; the same shapes and ``fault_rank`` as :func:`ring_k1a`."""
+    codec = _codec(chunks.dtype, wire_dtype, block_size)
+    if chunks.device.type == "cpu":
+        return _fused_ring_plain(chunks, rs, ag, *codec)
+    out = _launch("adapcc_ring_k5a", chunks, rs, ag, chunks.shape[-2], timeout_s, fault_rank, codec)
+    _count(ring_k5a, rs, ag)
+    return out
+
+
+def ring_k5b(chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int, wire_dtype: str,
+             block_size: Optional[int] = None, *, timeout_s: float = DEFAULT_TIMEOUT_S,
+             fault_rank: int = -1) -> torch.Tensor:
+    """K5b: the fused walk with each chunk streamed through ``[stage_rows,
+    128]`` staging tiles; the chunk rows must be whole tiles."""
+    codec = _codec(chunks.dtype, wire_dtype, block_size)
+    if chunks.device.type == "cpu":
+        return _fused_ring_plain(chunks, rs, ag, *codec)
+    out = _launch("adapcc_ring_k5b", chunks, rs, ag, stage_rows, timeout_s, fault_rank, codec)
+    _count(ring_k5b, rs, ag)
+    return out
+
+
+for _w in (ring_k1a, ring_k1b, ring_k5a, ring_k5b):
     _w.launches = 0
     #: launches by phase: "rs", "ag" or "rs+ag"
     _w.phases = collections.Counter()
 
 #: the kernel wrappers, in the order of the TPU kernels they replace
-KERNELS = (ring_k1a, ring_k1b)
+KERNELS = (ring_k1a, ring_k1b, ring_k5a, ring_k5b)
 
 
 # --------------------------------------------------------------------------- #
@@ -422,59 +709,72 @@ def _pad_chunks(flat: torch.Tensor, world: int) -> Tuple[torch.Tensor, int]:
     return flat.reshape(ranks, world, chunk // _LANES, _LANES), chunk
 
 
-def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool,
-                     chunk_bytes: Optional[int] = None) -> torch.Tensor:
+def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool, chunk_bytes: Optional[int] = None,
+                     wire_dtype: str = "off", block_size: Optional[int] = None) -> torch.Tensor:
     """Run the ring on ``[world, world, S, 128]`` (an all-gather alone:
     ``[world, S, 128]``, each rank's own chunk), dispatching to K1a or K1b
-    per the planned schedule; returns ``[world, world, S, 128]``.  The
-    stream path pads each chunk to whole staging tiles (under one tile per
-    chunk) and slices the padding back out, so callers see the same chunk
-    layout on both paths."""
+    per the planned schedule (K5a or K5b when ``wire_dtype`` names a codec);
+    returns ``[world, world, S, 128]``.  The stream path pads each chunk to
+    whole staging tiles (under one tile per chunk; under int8 whole zero
+    blocks, scale 1) and slices the padding back out, so callers see the
+    same chunk layout on both paths.  A codec the fused kernels cannot run
+    raises: nothing runs float32 under a codec's name."""
     chunks = chunks.contiguous()
     world = chunks.shape[0]
     nelems = chunks[0].numel() * (world if chunks.dim() == 3 else 1)
-    plan = plan_ring_schedule(nelems, chunks.dtype, world, chunk_bytes, rs=rs, ag=ag)
+    codec = _codec(chunks.dtype, wire_dtype, block_size) if wire_dtype != "off" else ()
+    plan = plan_ring_schedule(nelems, chunks.dtype, world, chunk_bytes, rs=rs, ag=ag, wire_dtype=wire_dtype,
+                              block_size=(codec[1] or None) if codec else None)
     if plan.path == "vmem":
-        return ring_k1a(chunks, rs, ag)
+        return ring_k5a(chunks, rs, ag, *codec) if codec else ring_k1a(chunks, rs, ag)
     stage_rows = plan.stage_bytes // (_LANES * chunks.dtype.itemsize)
     chunk_rows = chunks.shape[-2]
     padded_rows = plan.n_tiles * stage_rows
     if padded_rows != chunk_rows:
         chunks = F.pad(chunks, (0, 0, 0, padded_rows - chunk_rows))
-    out = ring_k1b(chunks, rs, ag, stage_rows)
+    out = ring_k5b(chunks, rs, ag, stage_rows, *codec) if codec else ring_k1b(chunks, rs, ag, stage_rows)
     return out[:, :, :chunk_rows] if padded_rows != chunk_rows else out
 
 
-def ring_allreduce_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None) -> torch.Tensor:
+def ring_allreduce_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None,
+                           wire_dtype: str = "off", block_size: Optional[int] = None) -> torch.Tensor:
     """Sum-allreduce of every rank's row of ``[world, ...]``: ring
     reduce-scatter then ring all-gather, one kernel launch
-    (``ring_allreduce_shard`` for all ranks)."""
+    (``ring_allreduce_shard`` for all ranks); ``wire_dtype`` runs the fused
+    codec kernels."""
     world = stacked.shape[0]
     if world == 1:
         return stacked
     flat = stacked.reshape(world, -1)
     chunks, _ = _pad_chunks(flat, world)
-    out = _run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=chunk_bytes)
+    out = _run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=chunk_bytes,
+                           wire_dtype=wire_dtype, block_size=block_size)
     return out.reshape(world, -1)[:, : flat.shape[1]].reshape(stacked.shape)
 
 
-def ring_reduce_scatter_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None) -> torch.Tensor:
+def ring_reduce_scatter_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None,
+                                wire_dtype: str = "off", block_size: Optional[int] = None) -> torch.Tensor:
     """Ring reduce-scatter of ``[world, ...]``: row ``r`` of the ``[world,
     chunk]`` result is what rank ``r`` holds, the reduced chunk ``(r + 1) %
-    world`` of its flattened, tile-padded payload (``ring_reduce_scatter_shard``)."""
+    world`` of its flattened, tile-padded payload (``ring_reduce_scatter_shard``).
+    Under a codec the owned chunk is the float32 sum of decoded hops."""
     world = stacked.shape[0]
     if world == 1:
         return stacked.reshape(1, -1)
     chunks, chunk = _pad_chunks(stacked.reshape(world, -1), world)
-    out = _run_ring_chunks(chunks, rs=True, ag=False, chunk_bytes=chunk_bytes)
+    out = _run_ring_chunks(chunks, rs=True, ag=False, chunk_bytes=chunk_bytes,
+                           wire_dtype=wire_dtype, block_size=block_size)
     ranks = torch.arange(world, device=stacked.device)
     return out.reshape(world, world, chunk)[ranks, (ranks + 1) % world]
 
 
-def ring_all_gather_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None) -> torch.Tensor:
+def ring_all_gather_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None,
+                            wire_dtype: str = "off", block_size: Optional[int] = None) -> torch.Tensor:
     """Ring all-gather of ``[world, chunk]`` (row ``r`` = rank ``r``'s
     tile-aligned payload): row ``r`` of the ``[world, world, chunk]`` result
-    is the gathered stack as rank ``r`` holds it (``ring_all_gather_shard``)."""
+    is the gathered stack as rank ``r`` holds it (``ring_all_gather_shard``).
+    Under a codec each rank's chunk is encoded once and every rank, its
+    owner too, holds the decoded bits."""
     world = stacked.shape[0]
     flat = stacked.reshape(world, -1)
     n = flat.shape[1]
@@ -485,5 +785,6 @@ def ring_all_gather_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = 
         raise ValueError(f"all-gather payload must be tile-aligned ({tile} elems), got {n}")
     # rank r's payload is its own chunk r, the one chunk of the input the
     # walk reads; the walk fills the others
-    out = _run_ring_chunks(flat.reshape(world, n // _LANES, _LANES), rs=False, ag=True, chunk_bytes=chunk_bytes)
+    out = _run_ring_chunks(flat.reshape(world, n // _LANES, _LANES), rs=False, ag=True,
+                           chunk_bytes=chunk_bytes, wire_dtype=wire_dtype, block_size=block_size)
     return out.reshape(world, world, n)

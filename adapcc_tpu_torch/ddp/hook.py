@@ -8,22 +8,27 @@ two halves of the JAX hook:
 - **host half** (:meth:`GradSyncHook.negotiate`): the step's ``[world]``
   active mask; without a coordinator everyone is active.
 - **device half** (:meth:`GradSyncHook.sync`): allreduce the gradients with
-  the mask.  This slice ports the ``"psum"`` data plane (one collective per
+  the mask.  This port has the ``"psum"`` data plane (one collective per
   gradient tensor, subset semantics by masking), which is what a strategy on
-  one host group resolves to.  The bucketed ``"schedule"`` plane, the wire
-  codecs, overlapped sync and error feedback come in later slices and raise
+  one host group resolves to, with the wire codecs on it: ``bf16`` casts
+  each gradient for the collective and back, ``int8`` replaces each
+  contribution with its block-wise ``decode(encode(·))`` value before the
+  float32 collective, and :meth:`GradSyncHook.sync_error_feedback` banks
+  each rank's quantization error for the next step.  The bucketed
+  ``"schedule"`` plane and overlapped sync come in later slices and raise
   here.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from adapcc_tpu_torch.comm import engine
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.primitives import not_ported as _not_ported
+from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, error_feedback_step, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.strategy.ir import Strategy
 
 
@@ -37,6 +42,7 @@ class GradSyncHook:
         mode: str = "auto",
         compress: str = "off",
         error_feedback: bool = False,
+        quant_block_size: int = DEFAULT_BLOCK_SIZE,
         overlap: str = "off",
     ) -> None:
         """``mode``: ``"psum"`` = one masked allreduce per gradient tensor;
@@ -44,21 +50,30 @@ class GradSyncHook:
         ``"auto"`` = psum when the fast path is allowed and the strategy
         spans one host group, schedule otherwise.  ``use_xla_fastpath``
         keeps the reference's name for "the flat collective is allowed".
+
+        ``compress`` names a codec of the registry (``off|bf16|int8``) or
+        ``"strategy"`` for ``Strategy.wire_dtype``; ``ADAPCC_WIRE_DTYPE``
+        overrides either (:meth:`effective_compress`).  ``error_feedback``
+        carries each rank's quantization error into the next step through
+        :meth:`sync_error_feedback`; the trainer threads the residual.
         """
         if mode not in ("auto", "psum", "schedule"):
             raise ValueError(f"mode {mode!r} not in auto|psum|schedule")
         if communicator is not None:
             raise _not_ported("a coordinator-attached hook (communicator=)", "the Communicator facade slice")
-        if compress != "off":
-            raise _not_ported(f"compress={compress!r}", "the quantized-wire slice")
-        if error_feedback:
-            raise _not_ported("error_feedback", "the quantized-wire slice")
         if overlap != "off":
             raise _not_ported(f"overlap={overlap!r}", "the overlapped-sync slice")
+        if compress != "strategy":
+            get_codec(compress)  # an unknown name raises, listing the codecs
+        if quant_block_size < 1:
+            raise ValueError(f"quant_block_size must be >= 1, got {quant_block_size}")
         self.strategy = strategy
         self.op = op
         self.use_xla_fastpath = use_xla_fastpath
         self.mode = mode
+        self.compress = compress
+        self.error_feedback = error_feedback
+        self.quant_block_size = quant_block_size
 
     def _resolved_mode(self) -> str:
         if self.mode != "auto":
@@ -79,13 +94,20 @@ class GradSyncHook:
 
     # -- device half -----------------------------------------------------------
 
-    def sync(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor]) -> List[torch.Tensor]:
-        """Allreduce each gradient tensor in place and return them.
+    def effective_compress(self) -> str:
+        """The codec this hook runs: ``ADAPCC_WIRE_DTYPE`` > (``"strategy"``:
+        the strategy's ``wire_dtype``) > ``compress``, the engine's ladder,
+        so hook and engine never disagree about a strategy's codec."""
+        return resolve_wire_dtype(self.strategy.wire_dtype if self.compress == "strategy" else self.compress)
 
-        ``active_mask=None`` means statically full-world: a plain allreduce
-        (AVG over the world).  With a mask, inactive ranks contribute zero
-        and AVG divides by the active count.
-        """
+    def _codec_apply(self, g: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+        """The codec's wire value of ``g``; ``transposed``: ``g`` is the
+        transpose of the JAX package's leaf (a ``Linear.weight`` against a
+        ``Dense`` kernel), and the int8 blocks follow the leaf's layout."""
+        apply = get_codec(self.effective_compress()).apply
+        return apply(g.t(), self.quant_block_size).t() if transposed else apply(g, self.quant_block_size)
+
+    def _sync_impl(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor]) -> List[torch.Tensor]:
         if self._resolved_mode() != "psum":
             raise _not_ported(
                 "the bucketed 'schedule' data plane (strategy trees over several "
@@ -95,3 +117,45 @@ class GradSyncHook:
         if active_mask is None:
             return [engine.allreduce(g, self.op) for g in grads]
         return [engine.masked_psum_shard(g, active_mask, self.op) for g in grads]
+
+    def sync(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
+             transposed: Optional[Sequence[bool]] = None) -> List[torch.Tensor]:
+        """Allreduce each gradient tensor in place and return them.
+
+        ``active_mask=None`` means statically full-world: a plain allreduce
+        (AVG over the world).  With a mask, inactive ranks contribute zero
+        and AVG divides by the active count.  Under ``bf16`` the collective
+        runs on bfloat16 copies, cast back into the gradients; under ``int8``
+        each contribution is replaced by its wire value first, quantized in
+        the JAX leaf's layout where ``transposed[i]`` says gradient ``i`` is
+        that leaf's transpose.
+        """
+        transposed = transposed or [False] * len(grads)
+        codec = self.effective_compress()
+        if codec == "bf16":
+            wire = [g.to(torch.bfloat16) for g in grads]
+            self._sync_impl(wire, active_mask)
+            for g, w in zip(grads, wire):
+                g.copy_(w)
+            return grads
+        if codec != "off":
+            for g, t in zip(grads, transposed):
+                g.copy_(self._codec_apply(g, t))
+        return self._sync_impl(grads, active_mask)
+
+    def sync_error_feedback(
+        self, grads: List[torch.Tensor], residual: List[torch.Tensor], active_mask: Optional[torch.Tensor],
+        transposed: Optional[Sequence[bool]] = None,
+    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Error-feedback sync: ``(synced, new_residual)``.  The wire carries
+        ``codec(grads + residual)`` and each rank banks the difference, in
+        float32, for the next step; the wire and the synced gradients keep
+        each gradient's dtype (the residual absorbs the cast's error too).
+        ``transposed`` as in :meth:`sync`."""
+        new_residual = []
+        for g, r, t in zip(grads, residual, transposed or [False] * len(grads)):
+            # g + r promotes to the float32 of the residual
+            wire, kept = error_feedback_step(g, r, lambda c: self._codec_apply(c, t).to(g.dtype))
+            new_residual.append(kept)
+            g.copy_(wire)
+        return self._sync_impl(grads, active_mask), new_residual

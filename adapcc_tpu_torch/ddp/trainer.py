@@ -10,6 +10,11 @@ batch and returns new state, the port runs eagerly in each process: ``step``
 takes this rank's shard, updates the model and optimizer of the
 :class:`TrainState` in place, and returns this rank's loss.
 
+``grad_compress`` puts a wire codec on the gradient sync (the hook's
+``compress``), and ``error_feedback=True`` threads this rank's float32
+quantization residual from step to step (one tensor per parameter, in
+``model.parameters()`` order).
+
 ``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
 the torch optimizer with optax's defaults.
@@ -90,6 +95,11 @@ class DDPTrainer:
     ) -> None:
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if error_feedback and not bsp:
+            raise ValueError(
+                "error_feedback=True requires BSP mode: the async relay bank already defers "
+                "gradient mass, and the quantization residual on top would carry it twice"
+            )
         if accum_steps > 1:
             raise _not_ported("gradient accumulation (accum_steps > 1)", "the overlapped-sync slice")
         if zero1:
@@ -121,8 +131,28 @@ class DDPTrainer:
             error_feedback=error_feedback,
             overlap=overlap,
         )
+        if error_feedback and self.hook.effective_compress() == "off":
+            # the residual of a no-op codec is zero, but the bank would still
+            # hold a float32 copy of every parameter
+            raise ValueError(
+                "error_feedback=True with an 'off' wire codec banks an identically-zero "
+                "residual; pass grad_compress='int8' (or 'strategy' / set ADAPCC_WIRE_DTYPE) "
+                "or drop error_feedback"
+            )
+        self.error_feedback = error_feedback
+        #: this rank's error-feedback bank: one float32 tensor per parameter
+        #: (created at the first step), replaced every step
+        self._residual: Optional[List[torch.Tensor]] = None
         self._dynamic_mask = bool(dynamic_mask)
         self._host_step = 0
+
+    @staticmethod
+    def _transposed(model: nn.Module) -> List[bool]:
+        """Per parameter: a ``Linear.weight``, the transpose of the JAX
+        package's ``Dense`` kernel, whose layout the codec's blocks follow."""
+        modules = dict(model.named_modules())
+        return [name.endswith(".weight") and isinstance(modules[name.rpartition(".")[0]], nn.Linear)
+                for name, _ in model.named_parameters()]
 
     def _grads(self, model: nn.Module) -> List[torch.Tensor]:
         """Every parameter's gradient; an unused parameter gets zeros, as
@@ -138,7 +168,16 @@ class DDPTrainer:
         state.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(state.model, batch)
         loss.backward()
-        self.hook.sync(self._grads(state.model), active_mask)
+        grads = self._grads(state.model)
+        transposed = None if self.hook.effective_compress() == "off" else self._transposed(state.model)
+        if self.error_feedback:
+            if self._residual is None:
+                # float32 whatever the parameter dtype: a narrow bank would
+                # lose the very mass it defers
+                self._residual = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
+            _, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed)
+        else:
+            self.hook.sync(grads, active_mask, transposed)
         state.optimizer.step()
         state.step += 1
         return loss.detach()
@@ -173,6 +212,11 @@ class DDPTrainer:
         the reference."""
         if self._dynamic_mask:
             raise ValueError("scan_steps runs static full-world steps: incompatible with dynamic_mask")
+        if self.error_feedback:
+            raise ValueError(
+                "scan_steps does not thread the error-feedback residual across scanned steps; "
+                "use step() with error_feedback=True"
+            )
         losses = [self._step(state, batch, None) for _ in range(n_steps)]
         self._host_step += n_steps
         return state, torch.stack(losses)

@@ -11,12 +11,13 @@ into a ``state_dict`` for :class:`adapcc_tpu_torch.models.gpt2.GPT2`:
 
 :func:`flax_paths` is the inverse map, parameter by parameter; the ZeRO-1
 flat layout orders the leaves by it.  :func:`zero1_state_from_jax` carries a
-JAX ZeRO-1 ``(master, opt_state)`` pair across.
+JAX ZeRO-1 ``(master, opt_state)`` pair across, and :func:`residual_from_jax`
+one rank's error-feedback residual of the JAX ``DDPTrainer``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -110,3 +111,20 @@ def zero1_state_from_jax(master: Any, opt_state: Any) -> Tuple[torch.Tensor, Dic
 
     state = {"step": torch.tensor(float(counts[0])), "exp_avg": f32(adam.mu), "exp_avg_sq": f32(adam.nu)}
     return f32(master), state
+
+
+def residual_from_jax(residual: Mapping[str, Any], model: nn.Module, rank: int) -> List[torch.Tensor]:
+    """Rank ``rank``'s error-feedback residual of the JAX ``DDPTrainer``
+    (its ``_residual``: the flax tree with a leading ``[world]`` dim, float32,
+    as numpy) → the port's residual for that rank: one float32 tensor per
+    parameter of ``model``, in ``model.parameters()`` order."""
+
+    def row(tree: Mapping[str, Any]) -> Dict[str, Any]:
+        return {k: row(v) if isinstance(v, Mapping) else np.asarray(v, dtype=np.float32)[rank]
+                for k, v in tree.items()}
+
+    by_name = flax_to_state_dict(row(residual))
+    names = [name for name, _ in model.named_parameters()]
+    if set(names) != set(by_name):
+        raise ValueError(f"residual leaves {sorted(by_name)} do not match the model's {sorted(names)}")
+    return [by_name[name] for name in names]

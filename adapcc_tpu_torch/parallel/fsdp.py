@@ -7,7 +7,9 @@ is a flat float32 master of ``[world, N/world]``, row ``r`` belonging to rank
 
 1. each rank's forward and backward on its batch shard, one rank after
    another on the one model replica this process holds, stacked into
-   ``[world, N]`` as ``flat_grad / world``;
+   ``[world, N]`` as ``flat_grad / world``; under a wire codec each row is
+   replaced by its wire value ``codec.apply(·)`` (the JAX package's value
+   semantics: the scattered sum is the sum of quantized contributions);
 2. the ring reduce-scatter (K1): rank ``r`` is left with the reduced chunk
    ``(r + 1) % world``, which is exactly the row layout of the master;
 3. AdamW on the ``[world, N/world]`` master (``ddp/trainer.py::adamw``:
@@ -35,6 +37,7 @@ from adapcc_tpu_torch.comm.ring import _tile_elems, ring_all_gather_stacked, rin
 from adapcc_tpu_torch.ddp.trainer import OptimizerFactory
 from adapcc_tpu_torch.models.convert import flax_paths
 from adapcc_tpu_torch.primitives import not_ported
+from adapcc_tpu_torch.quant.codec import get_codec, resolve_wire_dtype
 
 _XLA_SLICE = "the per-process ring slice (one process per card)"
 
@@ -129,6 +132,10 @@ class Zero1Optimizer:
     ownership) and ``tx([master])``, the optimizer holding every rank's row of
     Adam state.  Checkpoints of ring and non-ring masters are not
     interchangeable (:meth:`layout_metadata`).
+
+    ``wire_dtype`` (``ADAPCC_WIRE_DTYPE`` overrides it) gives each rank's
+    gradient contribution its codec's wire value before the reduce-scatter,
+    as the JAX package does; the ring itself still runs K1 on float32.
     """
 
     LAYOUT_KEY = "zero1_layout"
@@ -146,8 +153,6 @@ class Zero1Optimizer:
     ) -> None:
         if not ring:
             raise not_ported("ZeRO-1's XLA (psum_scatter / all_gather) path", _XLA_SLICE)
-        if wire_dtype not in (None, "off"):
-            raise not_ported(f"ZeRO-1 with wire_dtype={wire_dtype!r}", "the fused-codec ring slice (K5a, K5b)")
         if tuner is not None:
             raise not_ported("a tuner-chosen ZeRO-1 ring chunk", "the tuner slice")
         if overlap != "off":
@@ -160,6 +165,9 @@ class Zero1Optimizer:
         #: staging granularity of the ring collectives (None: the default,
         #: env-overridable); it never changes the chunk layout
         self.ring_chunk_bytes = ring_chunk_bytes
+        #: codec of each rank's gradient contribution: ADAPCC_WIRE_DTYPE >
+        #: the argument > "off", resolved now so a typo raises here
+        self.wire_dtype = resolve_wire_dtype(wire_dtype)
         self._meta: Optional[_FlatMeta] = None
 
     def _align(self) -> int:
@@ -224,6 +232,12 @@ def zero1_train_step(
             losses.append(loss.detach())
         model.zero_grad(set_to_none=True)
         stacked.div_(world)
+        if opt.wire_dtype != "off":
+            # the codec on each contribution; blocks never cross rows, and a
+            # row at a time keeps one row's temporaries
+            apply = get_codec(opt.wire_dtype).apply
+            for r in range(world):
+                stacked[r] = apply(stacked[r])
         # the ring leaves rank r with reduced chunk (r + 1) % world: the
         # master's row layout
         g_shard = ring_reduce_scatter_stacked(stacked, chunk_bytes=opt.ring_chunk_bytes)

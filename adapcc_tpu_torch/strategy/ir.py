@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES
+from adapcc_tpu_torch.quant.codec import get_codec
 
 
 class Tree:
@@ -58,7 +59,8 @@ class Strategy:
     #: ring staging granularity in bytes (the solver's chunk size; the ring
     #: engine's default when a call names none)
     chunk_bytes: int = DEFAULT_CHUNK_BYTES
-    #: wire codec of the data plane; only "off" (the payload dtype) is ported
+    #: wire codec of the data plane: a name in the codec registry
+    #: (quant/codec.py; "off" ships the payload dtype)
     wire_dtype: str = "off"
 
     def __post_init__(self) -> None:
@@ -68,12 +70,8 @@ class Strategy:
             missing = set(range(self.world_size)) - t.ranks
             if missing:
                 raise ValueError(f"tree rooted at {t.root} is missing ranks {sorted(missing)}")
-        if self.wire_dtype != "off":
-            raise NotImplementedError(
-                f"wire_dtype={self.wire_dtype!r}: the quantized wire codecs come "
-                "with the fused-codec ring slice (K5a, K5b) in a later slice; "
-                "only 'off' runs"
-            )
+        # a codec no engine can decode dies here, not at the first collective
+        get_codec(self.wire_dtype)
 
     @staticmethod
     def ring(world_size: int, num_trans: int = 1, ips: Optional[Dict[int, str]] = None) -> "Strategy":

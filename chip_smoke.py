@@ -39,7 +39,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    per-rank batch 16: losses finite and falling, one K1b reduce-scatter and
    one K1b all-gather per step, and the per-rank losses within 1e-6 of the
    same 5 steps with ``_ring_plain`` in place of the kernels; step time,
-   global tokens/s, and a profile of one more step with the ring's share.
+   global tokens/s, and a profile of one more step with the ring's share;
+8. the fused-codec ring kernels (K5a, K5b) against ``_fused_ring_plain`` bit
+   for bit: world 2, 4 and 8, int8 at blocks 128, 256 and 1024 and bf16,
+   reduce-scatter, all-gather (from the full payload and from each rank's
+   own chunk) and both, on a payload under ``chunk_bytes`` (K5a) and a
+   ragged streamed one with a padded last tile (K5b); K5a and K5b give the
+   same bits on one input; a wedged fused ring raises and the next call is
+   exact; a bf16 payload and ``block_size=384`` are refused;
+9. slice 3's main path: the four per-rank float32 gradients of the same
+   GPT-2 (world 4, per-rank batch 16) in ZeRO-1's flat layout, 642.6 MiB a
+   rank, through ``CollectiveEngine(4, Strategy.ring(4), wire_dtype
+   "int8")``: ``ring_allreduce`` (K5b), the same under
+   ``ADAPCC_FUSED_WIRE=off`` (the unfused quant ring, with its reroute
+   reason), bf16, ``ring_reduce_scatter`` and ``ring_all_gather`` (K5b), and
+   a 4 MiB-a-rank allreduce (K5a); every rank's result identical, the int8
+   allreduce within ``ring_error_bound`` of the float32 sum and within 4
+   ulps of the unfused ring, the bf16 one bit for bit equal to
+   ``_fused_ring_plain`` on the same input; each K5 kernel timed against its bound, its
+   plain version, K1b on the same payload, the unfused quant ring and the
+   stacked dispatch;
+10. training with the codec: the ZeRO-1 ring step with ``wire_dtype="int8"``
+   at world 4, 5 steps (one K1b reduce-scatter and all-gather a step; loss
+   gap to phase 7), and ``DDPTrainer(grad_compress="int8",
+   error_feedback=True)`` at world 1, 5 steps: losses finite and falling,
+   step time and tokens/s.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -52,6 +76,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -67,7 +92,8 @@ from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
-from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten_meta, zero1_train_step
+from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
+from adapcc_tpu_torch.quant import get_codec, ring_error_bound, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import Strategy
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
@@ -109,7 +135,14 @@ KERNELS = {
     "flash_dkv": ("adapcc_tpu_torch/csrc/flash_attention.cu", "adapcc_tpu/ops/flash_attention.py:124"),
     "ring_k1a": ("adapcc_tpu_torch/csrc/ring.cu", "adapcc_tpu/comm/pallas_ring.py:428"),
     "ring_k1b": ("adapcc_tpu_torch/csrc/ring.cu", "adapcc_tpu/comm/pallas_ring.py:510"),
+    "ring_k5a": ("adapcc_tpu_torch/csrc/ring.cu", "adapcc_tpu/comm/pallas_ring.py:735"),
+    "ring_k5b": ("adapcc_tpu_torch/csrc/ring.cu", "adapcc_tpu/comm/pallas_ring.py:865"),
 }
+#: the fused ring checks' codecs: (wire_dtype, block_size)
+FUSED_CODECS = (("int8", 128), ("int8", 256), ("int8", 1024), ("bf16", None))
+#: the int8 allreduce against the unfused quant ring: the reference's
+#: documented contraction headroom between its two data planes
+FUSED_ULPS = 4
 
 
 def nvidia_smi() -> str:
@@ -277,6 +310,75 @@ def check_ring(dev: torch.device) -> None:
     print("wedge check: the next call is bit-exact again", flush=True)
 
 
+def check_fused_ring(dev: torch.device) -> None:
+    """Each fused ring kernel against ``_fused_ring_plain``, bit for bit,
+    through the dispatch; K5a and K5b agree on one input; a wedged fused
+    ring raises; what the kernels do not take is refused."""
+    wrappers = {w.__name__: w for w in ring.KERNELS}
+    for world in (2, 4, 8):
+        for wire, block in FUSED_CODECS:
+            for kname, n, chunk_bytes in (("ring_k5a", world * 3 * 1024 - 77, None),
+                                          ("ring_k5b", world * 37 * 1024 - 123, 8 * 1024 * 4)):
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                x = torch.randn(world, n, device=dev, generator=gen)
+                x[:, :1024] = 0.0  # whole zero blocks: scale 1, codes 0
+                chunks, _ = ring._pad_chunks(x, world)
+                ranks = torch.arange(world, device=dev)
+                own = chunks[ranks, ranks]
+                plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, chunk_bytes,
+                                               wire_dtype=wire, block_size=block)
+                for phase, buf, rs, ag in (("rs", chunks, True, False), ("ag", chunks, False, True),
+                                           ("ag-own", own, False, True), ("rs+ag", chunks, True, True)):
+                    before = wrappers[kname].launches
+                    got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=chunk_bytes,
+                                                wire_dtype=wire, block_size=block)
+                    want = ring._fused_ring_plain(chunks, rs, ag, wire, block or 0)
+                    ring.check_errors()
+                    ok = torch.equal(got, want) and wrappers[kname].launches == before + 1
+                    print(f"check {kname} world={world} {wire}/{block or '-'} {phase:6s} n={n} {plan.path} "
+                          f"n_tiles={plan.n_tiles} stage_rows={plan.stage_bytes // 512} "
+                          f"chunk_rows={chunks.shape[2]} bit-exact {'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise RuntimeError(f"{kname} disagrees with _fused_ring_plain or did not launch")
+    # one input, every staging size: a 13-tile chunk on the vmem path (K5a)
+    # and streamed in tiles of 1, 5 and 13 (K5b; 5 pads the last tile)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    chunks, _ = ring._pad_chunks(torch.randn(4, 4 * 13 * 1024, device=dev, generator=gen), 4)
+    one_stage = ring._run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=1 << 30, wire_dtype="int8")
+    for tiles in (1, 5, 13):
+        streamed = ring._run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=tiles * 4096, wire_dtype="int8")
+        ring.check_errors()
+        if not torch.equal(streamed, one_stage):
+            raise RuntimeError(f"K5b at {tiles}-tile staging disagrees with K5a")
+    print("check K5a and K5b: the same bits at staging of 1, 5 and 13 tiles and one stage", flush=True)
+    # a wedged fused ring fails instead of hanging, and the next call is exact
+    t0 = time.perf_counter()
+    try:
+        ring.ring_k5a(chunks, True, True, "int8", timeout_s=0.2, fault_rank=1)
+        ring.check_errors()
+    except RuntimeError as e:
+        print(f"fused wedge check: raised after {time.perf_counter() - t0:.2f} s: {e}", flush=True)
+    else:
+        raise RuntimeError("a wedged fused ring returned instead of raising")
+    again = ring.ring_k5a(chunks, True, True, "int8")
+    ring.check_errors()
+    if not torch.equal(again, one_stage):
+        raise RuntimeError("the fused ring disagrees with itself after a wedged call")
+    print("fused wedge check: the next call is bit-exact again", flush=True)
+    # what the kernels do not take is refused before any launch
+    launches = [w.launches for w in ring.KERNELS]
+    for what, call in (("a bfloat16 payload", lambda: ring.ring_k5a(chunks.bfloat16(), True, True, "int8")),
+                       ("block_size=384", lambda: ring.ring_k5a(chunks, True, True, "int8", 384))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"fused refusal: {what}: {e}", flush=True)
+        else:
+            raise RuntimeError(f"the fused ring took {what}")
+    if [w.launches for w in ring.KERNELS] != launches:
+        raise RuntimeError("a refused fused call launched a kernel")
+
+
 def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     """Reduce-scatter and all-gather of ``kname`` at world 4, float32, on a
     ``per_rank``-element payload per rank: each held bit for bit against
@@ -340,12 +442,13 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     return rec
 
 
-def train(cfg: GPT2Config, world, init_state, tokens):
+def train(cfg: GPT2Config, world, init_state, tokens, **trainer_kw):
     """``STEPS`` DDPTrainer steps from ``init_state``; returns (losses, step
     seconds, a function that runs one more step)."""
     model = GPT2(cfg, device=world.device, seed=None).to(torch.bfloat16)
     model.load_state_dict(init_state)
-    trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4), world, Strategy.ring(world.world_size))
+    trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4), world, Strategy.ring(world.world_size),
+                         **trainer_kw)
     state = TrainState.create(model, trainer.tx)
     losses, seconds = [], []
     for _ in range(STEPS):
@@ -357,12 +460,12 @@ def train(cfg: GPT2Config, world, init_state, tokens):
     return losses, seconds, lambda: trainer.step(state, tokens)
 
 
-def train_zero1(dev: torch.device, init_state, tokens):
+def train_zero1(dev: torch.device, init_state, tokens, wire_dtype=None):
     """``STEPS`` ZeRO-1 ring steps at ``ZERO1_WORLD`` from ``init_state``;
     returns (per-step ``[world]`` losses, step seconds, one more step)."""
     model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
     model.load_state_dict(init_state)
-    opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD)
+    opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD, wire_dtype=wire_dtype)
     master, opt_state = opt.init(model)
     step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
     losses, seconds = [], []
@@ -412,13 +515,176 @@ def engine_path(dev: torch.device) -> dict:
               flush=True)
         if not ok:
             raise RuntimeError(f"the engine's ring entry points disagree with the plain ring ({kname})")
-    return {w.__name__: w.launches for w in ring.KERNELS}
+    return {w.__name__: w.launches for w in (ring.ring_k1a, ring.ring_k1b)}
+
+
+def gpt2_gradients(dev: torch.device, init_state, tokens) -> torch.Tensor:
+    """``[ZERO1_WORLD, N]`` float32: each rank's gradient of the main GPT-2
+    on its ``BATCH``-row shard of ``tokens``, in ZeRO-1's flat layout (real
+    gradients: int8 error depends on each block's absmax)."""
+    model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    meta = _flatten_meta(model, ZERO1_WORLD, 8 * 128)
+    stacked = torch.empty((ZERO1_WORLD, meta.padded), dtype=torch.float32, device=dev)
+    for r in range(ZERO1_WORLD):
+        model.zero_grad(set_to_none=True)
+        shard = tokens[r * BATCH:(r + 1) * BATCH]
+        lm_loss(model(shard), shard).backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in model.named_parameters()}
+        _flatten(grads, meta, out=stacked[r])
+    return stacked
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest ``|a - b|`` in units of the float32 spacing at
+    ``max(|a|, |b|)``, elementwise."""
+    m = torch.maximum(a.abs(), b.abs())
+    spacing = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
+    return float(((a - b).abs() / spacing).max())
+
+
+def fused_engine_path(dev: torch.device, grads: torch.Tensor) -> dict:
+    """Slice 3's main path: the engine's compressed ring collectives on the
+    full GPT-2 gradient, as a user calls them; returns the launches of each
+    ring kernel in this run."""
+    world = ZERO1_WORLD
+    strategy = Strategy.ring(world)
+    strategy.wire_dtype = "int8"
+    trace = []
+    eng = CollectiveEngine(world, strategy, trace=trace)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    small = torch.randn(world, ENGINE_ELEMS["ring_k1a"], device=dev, generator=gen)
+    for w in ring.KERNELS:
+        w.launches = 0
+        w.phases.clear()
+    fused = eng.ring_allreduce(grads)
+    bf16 = eng.ring_allreduce(grads, wire_dtype="bf16")
+    rs = eng.ring_reduce_scatter(grads)
+    ag = eng.ring_all_gather(rs)
+    small_out = eng.ring_allreduce(small)
+    os.environ[ring.FUSED_WIRE_ENV] = "off"
+    try:
+        unfused = eng.ring_allreduce(grads)
+    finally:
+        del os.environ[ring.FUSED_WIRE_ENV]
+    ring.check_errors()
+    launches = {w.__name__: w.launches for w in ring.KERNELS}
+    impls = [r["impl"] for r in trace]
+    print(f"fused path: impls {impls}; reroute_reason {trace[-1].get('reroute_reason')!r}; "
+          f"wire bytes per rank {[r['wire_bytes'] for r in trace]}", flush=True)
+    want_impls = [f"cuda_ring[{p}]" for p in ("hbm-stream+int8", "hbm-stream+bf16", "hbm-stream+int8",
+                                               "hbm-stream+int8", "vmem+int8")] + ["quant_ring[int8]"]
+    if impls != want_impls or "ADAPCC_FUSED_WIRE=off" not in trace[-1].get("reroute_reason", ""):
+        raise RuntimeError(f"the fused path dispatched {impls}, expected {want_impls}")
+    for label, out in (("int8", fused), ("bf16", bf16), ("4 MiB int8", small_out), ("unfused int8", unfused)):
+        if not all(torch.equal(out[r], out[0]) for r in range(1, world)):
+            raise RuntimeError(f"the {label} allreduce differs between ranks")
+    total = grads.sum(0)
+    bound = torch.from_numpy(ring_error_bound(grads.cpu().numpy())).to(dev)
+    err = (fused[0] - total).abs()
+    gap = ulp_gap(fused, unfused)
+    small_err_ok = bool(((small_out[0] - small.sum(0)).abs()
+                         <= torch.from_numpy(ring_error_bound(small.cpu().numpy())).to(dev)).all())
+    # bf16 has no rounding headroom to grant: the walk is held bit for bit
+    # against its plain version on the same input
+    bf16_chunks, _ = ring._pad_chunks(grads, world)
+    bf16_want = ring._fused_ring_plain(bf16_chunks, True, True, "bf16").reshape(world, -1)[:, : grads.shape[1]]
+    bf16_ok = torch.equal(bf16, bf16_want)
+    del bf16_chunks, bf16_want
+    print(f"fused path: int8 allreduce of {grads.shape[1]} float32 a rank: max |err| vs the float32 sum "
+          f"{err.max().item():.3e} (bound max {bound.max().item():.3e}, largest err/bound "
+          f"{(err / bound).max().item():.3f}); largest gap to the unfused quant ring {gap} ulps "
+          f"(tolerance {FUSED_ULPS}); bf16 max |err| {(bf16[0] - total).abs().max().item():.3e}, "
+          f"bit-exact against _fused_ring_plain {bf16_ok}; "
+          f"4 MiB int8 within bound {small_err_ok}", flush=True)
+    if not (bool((err <= bound).all()) and gap <= FUSED_ULPS and small_err_ok and bf16_ok):
+        raise RuntimeError("the fused allreduce is outside its bounds")
+    del fused, bf16, unfused, small_out
+    # reduce-scatter: row r is the reduced chunk r; all-gather: every rank
+    # holds the codec's value of every rank's chunk, bit for bit
+    chunk = rs.shape[1]
+    rs_ok = bool(((rs - total.view(world, chunk)).abs() <= bound.view(world, chunk)).all())
+    apply = get_codec("int8").apply
+    ag_ok = all(torch.equal(ag[r, src], apply(rs[src])) for src in range(world) for r in range(world))
+    print(f"fused path: reduce-scatter within bound {rs_ok}; all-gather equal to the codec's value of every "
+          f"chunk on every rank {ag_ok}", flush=True)
+    if not (rs_ok and ag_ok):
+        raise RuntimeError("the fused reduce-scatter or all-gather is wrong")
+    return launches
+
+
+def time_fused(dev: torch.device, kname: str, stacked: torch.Tensor) -> dict:
+    """The int8 allreduce walk (RS+AG, one launch) of ``kname`` at world 4 on
+    ``stacked`` ``[world, P]``: held bit for bit against the plain version,
+    then kernel, plain, K1 on the same payload (its own plan), the unfused
+    quant ring and the stacked dispatch against the bound.  K5b also times
+    its reduce-scatter and all-gather alone."""
+    world = stacked.shape[0]
+    wrapper = {w.__name__: w for w in ring.KERNELS}[kname]
+    chunks, chunk = ring._pad_chunks(stacked, world)
+
+    def staged(wire_dtype):
+        plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, wire_dtype=wire_dtype)
+        stage_rows = plan.stage_bytes // 512
+        pad = plan.n_tiles * stage_rows - chunks.shape[2]
+        return plan, stage_rows, (F.pad(chunks, (0, 0, 0, pad)) if pad else chunks)
+
+    plan, stage_rows, buf = staged("int8")
+    plan1, stage_rows1, buf1 = staged("off")
+    if plan.path != {"ring_k5a": "vmem", "ring_k5b": "hbm-stream"}[kname]:
+        raise RuntimeError(f"{kname}: a {stacked.shape[1]}-element payload plans {plan.path}")
+    streamed = kname == "ring_k5b"
+
+    def kernel(rs=True, ag=True):
+        return wrapper(buf, rs, ag, stage_rows, "int8") if streamed else wrapper(buf, rs, ag, "int8")
+
+    def plain():
+        return ring._fused_ring_plain(buf, True, True, "int8")
+
+    def k1():
+        return ring.ring_k1b(buf1, True, True, stage_rows1) if streamed else ring.ring_k1a(buf1, True, True)
+
+    strategy = Strategy.ring(world)
+    strategy.wire_dtype = "int8"
+    eng = CollectiveEngine(world, strategy)
+    got, want = kernel(), plain()
+    ring.check_errors()
+    err = (got - want).abs().max().item()
+    exact = torch.equal(got, want)
+    del got, want
+    payload_bytes = world * chunk * 4
+    rec = {"max_abs_err": err, "bound_ms": 2 * world * payload_bytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    rec.update({"ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=3),
+                "k1_ms": cuda_ms(k1, iters=10),
+                "quant_ring_ms": cuda_ms(lambda: wire_ring_allreduce_stacked(stacked, "int8"), iters=3),
+                "dispatch_ms": cuda_ms(lambda: eng.ring_allreduce(stacked), iters=10)})
+    if streamed:
+        own = buf[:, 0].contiguous()  # the all-gather's input, one chunk a rank
+        rec.update({"rs_ms": cuda_ms(lambda: kernel(True, False), iters=10),
+                    "ag_ms": cuda_ms(lambda: wrapper(own, False, True, stage_rows, "int8"), iters=10),
+                    "rs_bound_ms": ring_bound(world, payload_bytes)[0]})
+        del own
+    ring.check_errors()
+    print(f"time {kname} int8 rs+ag world={world} payload {payload_bytes / 2**20:.1f} MiB/rank ({plan.path}, "
+          f"n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B): kernel {rec['ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms (bytes), plain {rec['plain_ms']:.4f} ms, "
+          f"{'K1b' if streamed else 'K1a'} {rec['k1_ms']:.4f} ms, unfused quant ring {rec['quant_ring_ms']:.4f} ms, "
+          f"stacked dispatch {rec['dispatch_ms']:.4f} ms"
+          + (f"; rs alone {rec['rs_ms']:.4f} ms, ag alone {rec['ag_ms']:.4f} ms (bound each "
+             f"{rec['rs_bound_ms']:.4f} ms)" if streamed else "")
+          + f"; max_abs_err {err}, bit-exact {'ok' if exact else 'FAIL'}", flush=True)
+    if not exact:
+        raise RuntimeError(f"{kname} disagrees with _fused_ring_plain at its path's payload")
+    del buf, buf1, chunks
+    torch.cuda.empty_cache()
+    return rec
 
 
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
-    ("ring kernels", ("ring_k1",)),
+    ("ring kernels", ("ring_k1", "ring_k5")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("allreduce", ("nccl",)),
     ("optimizer", ("multi_tensor", "adam")),
@@ -585,6 +851,56 @@ def main() -> None:
     p_step_s = float(np.mean(p_seconds[1:]))
     print(f"reference (plain ring): step {p_step_s * 1e3:.2f} ms, {z_tokens_step / p_step_s:.1f} tokens/s",
           flush=True)
+    ring.check_errors()
+    torch.cuda.empty_cache()
+
+    # 8. the fused-codec ring kernels against their plain version
+    check_fused_ring(dev)
+
+    # 9. slice 3's main path: the engine's compressed ring collectives on the
+    # full GPT-2 gradient
+    grads = gpt2_gradients(dev, init_state, z_tokens)
+    print(f"fused path payload: {grads.shape[1]} float32 a rank ({grads.shape[1] * 4 / 2**20:.1f} MiB), "
+          f"the GPT-2's per-rank gradients in ZeRO-1's flat layout", flush=True)
+    f_launches = fused_engine_path(dev, grads)
+    print(f"fused path launches: {f_launches}", flush=True)
+    if not (f_launches["ring_k5a"] and f_launches["ring_k5b"]):
+        raise RuntimeError(f"a fused ring kernel did not launch on the fused path: {f_launches}")
+    launches.update(ring_k5a=f_launches["ring_k5a"], ring_k5b=f_launches["ring_k5b"])
+    records["ring_k5b"] = time_fused(dev, "ring_k5b", grads)
+    del grads
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records["ring_k5a"] = time_fused(
+        dev, "ring_k5a", torch.randn(ZERO1_WORLD, ENGINE_ELEMS["ring_k1a"], device=dev, generator=gen))
+    torch.cuda.empty_cache()
+
+    # 10. training with the codec: ZeRO-1 int8 contributions (on K1b), and
+    # DDP with int8 gradients and error feedback
+    for w in ring.KERNELS:
+        w.launches = 0
+        w.phases.clear()
+    q_losses, q_seconds, _ = train_zero1(dev, init_state, z_tokens, wire_dtype="int8")
+    q_launches = {w.__name__: w.launches for w in ring.KERNELS}
+    q_gap = float(np.abs(np.array(q_losses) - np.array(z_losses)).max())
+    q_mean = [float(np.mean(step)) for step in q_losses]
+    q_step_s = float(np.mean(q_seconds[1:]))
+    print(f"zero1 int8: per-rank losses by step {q_losses}; max gap to the uncompressed run {q_gap:.3e}; "
+          f"launches {q_launches}, ring_k1b by phase {dict(ring.ring_k1b.phases)}; step {q_step_s * 1e3:.2f} ms, "
+          f"{z_tokens_step / q_step_s:.1f} tokens/s global", flush=True)
+    if dict(ring.ring_k1b.phases) != {"rs": STEPS, "ag": STEPS} or q_launches["ring_k1a"]:
+        raise RuntimeError(f"expected {STEPS} K1b reduce-scatters and all-gathers, got {q_launches}")
+    if not np.isfinite(q_losses).all() or not q_mean[-1] < q_mean[0]:
+        raise RuntimeError(f"zero1 int8 losses not finite and falling: {q_losses}")
+    torch.cuda.empty_cache()
+    world = build_world_mesh(1)
+    e_losses, e_seconds, _ = train(MAIN, world, init_state, tokens, grad_compress="int8", error_feedback=True)
+    destroy_world()
+    e_step_s = float(np.mean(e_seconds[1:]))
+    print(f"ddp int8 + error feedback: losses {e_losses}; max gap to the uncompressed run "
+          f"{max(abs(a - b) for a, b in zip(e_losses, losses)):.3e}; step {e_step_s * 1e3:.2f} ms, "
+          f"{BATCH * MAIN.max_seq / e_step_s:.1f} tokens/s", flush=True)
+    if not all(np.isfinite(e_losses)) or not e_losses[-1] < e_losses[0]:
+        raise RuntimeError(f"ddp int8 losses not finite and falling: {e_losses}")
     ring.check_errors()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 

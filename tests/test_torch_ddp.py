@@ -220,10 +220,15 @@ def test_hook_resolves_psum_and_rejects_what_waits():
     assert torch.equal(GradSyncHook(one_host).negotiate(0), torch.ones(2, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="schedule"):
         GradSyncHook(two_hosts).sync([torch.zeros(1)], None)
-    with pytest.raises(NotImplementedError, match="quantized-wire"):
-        GradSyncHook(one_host, compress="bf16")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Strategy(Strategy.ring(2).trees, 2, wire_dtype="int8")
+    # the wire codecs run now: a registered name is taken, a typo raises
+    assert GradSyncHook(one_host, compress="bf16").effective_compress() == "bf16"
+    assert Strategy(Strategy.ring(2).trees, 2, wire_dtype="int8").wire_dtype == "int8"
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        GradSyncHook(one_host, compress="int4")
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        Strategy(Strategy.ring(2).trees, 2, wire_dtype="fp8")
+    with pytest.raises(NotImplementedError, match="overlapped-sync"):
+        GradSyncHook(one_host, overlap="bucket")
 
 
 def test_strategy_copy_matches_jax():
@@ -251,6 +256,14 @@ def test_trainer_rejects_what_waits(world1):
     trainer = DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s)
     with pytest.raises(ValueError, match="dynamic_mask"):
         trainer.step(None, None, active_mask=torch.ones(1, dtype=torch.bool))
+    # error feedback runs now, with a codec, in BSP mode, step by step
+    with pytest.raises(ValueError, match="'off' wire codec"):
+        DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, error_feedback=True)
+    with pytest.raises(ValueError, match="BSP"):
+        DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, grad_compress="int8", error_feedback=True, bsp=False)
+    ef = DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, grad_compress="int8", error_feedback=True)
+    with pytest.raises(ValueError, match="residual"):
+        ef.scan_steps(None, None, 2)
 
 
 def test_adamw_has_optax_defaults():
@@ -276,3 +289,152 @@ def test_scan_steps_matches_sequential_steps(world1):
     (la, sa), (lb, sb) = run(True), run(False)
     assert torch.equal(la, lb)
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+# --------------------------------------------------------------------------- #
+# the wire codecs on the gradient sync
+# --------------------------------------------------------------------------- #
+
+
+def _residual_tree(params, seed=3):
+    """A seeded float32 error-feedback bank in the JAX trainer's layout: the
+    flax tree with a leading world dim of 1."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else (rng.normal(size=(1, *np.shape(v))) * 1e-4).astype(np.float32)
+                for k, v in tree.items()}
+
+    return walk(params)
+
+
+#: a gradient element on a rounding tie may take adjacent int8 codes in the
+#: two frameworks, whose gradients differ in the last bits; Adam can turn
+#: that one-code difference into a difference of up to about lr in the
+#: element.  Each step therefore starts both trainers from the JAX trainer's
+#: state (params, Adam moments, residual), so such a difference cannot
+#: cascade, and a few elements a step may differ by up to 2·lr (0 seen in
+#: the params, 2 in the residual)
+FLIP_BUDGET = 8
+FLIP_ATOL = 2 * LR
+
+
+def _assert_close_but_flips(got, want, atol, what):
+    """Every element within ``atol`` (``KEY_BIAS_ATOL`` for the key bias), but
+    at most ``FLIP_BUDGET`` within ``FLIP_ATOL``; returns how many."""
+    d = TINY["d_model"]
+    flips = 0
+    for name in want:
+        diff = np.abs(np.asarray(got[name], np.float32) - np.asarray(want[name], np.float32))
+        allowed = np.full(diff.shape, atol, np.float32)
+        if name.endswith("attn.qkv.bias"):
+            allowed[d:2 * d] = KEY_BIAS_ATOL
+        assert (diff <= np.maximum(allowed, FLIP_ATOL)).all(), f"{what} {name}: max diff {diff.max()}"
+        flips += int((diff > allowed).sum())
+    assert flips <= FLIP_BUDGET, f"{what}: {flips} elements beyond tolerance"
+    return flips
+
+
+def _jax_ddp_steps(params, tokens, residual=None, **trainer_kw):
+    """World-1 JAX DDPTrainer with ``trainer_kw``: per step, the loss and the
+    state after it (params, optax state, residual tree or None), as numpy."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from adapcc_tpu.ddp import DDPTrainer as JaxDDPTrainer
+    from adapcc_tpu.ddp import TrainState as JaxTrainState
+    from adapcc_tpu.models.gpt2 import GPT2 as JaxGPT2
+    from adapcc_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
+    from adapcc_tpu.models.gpt2 import lm_loss as jax_lm_loss
+    from adapcc_tpu.strategy.ir import Strategy as JaxStrategy
+
+    model = JaxGPT2(JaxGPT2Config(**TINY, dtype=jnp.float32, attention="xla"))
+    mesh = Mesh(jax.devices()[:1], ("ranks",))
+    trainer = JaxDDPTrainer(lambda p, b: jax_lm_loss(model.apply(p, b), b), optax.adamw(LR), mesh,
+                            JaxStrategy.ring(1), **trainer_kw)
+    if residual is not None:
+        trainer._residual = jax.device_put(jax.tree_util.tree_map(jnp.asarray, residual),
+                                           NamedSharding(mesh, P("ranks")))
+    batch = jax.device_put(jnp.asarray(tokens, jnp.int32), NamedSharding(mesh, P("ranks")))
+    state = jax.device_put(JaxTrainState.create(params, trainer.tx), NamedSharding(mesh, P()))
+    steps = []
+    for _ in range(STEPS):
+        state, loss = trainer.step(state, batch)
+        res = None if trainer._residual is None else jax.device_get(trainer._residual)
+        steps.append((float(np.asarray(loss)[0]), jax.device_get(state.params), jax.device_get(state.opt_state), res))
+    return steps
+
+
+def _torch_ddp_step(params, opt_state, residual, tokens, world, **trainer_kw):
+    """One port DDPTrainer step from a JAX trainer's state (flax params, the
+    optax adamw state or None for a fresh one, the residual tree or None):
+    the loss, the params after it and the residual list."""
+    model = GPT2(GPT2Config(**TINY, dtype=torch.float32, attention="xla"), device="cpu", seed=None)
+    model.load_state_dict(flax_to_state_dict(params))
+    trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(LR), world, Strategy.ring(1), **trainer_kw)
+    if residual is not None:
+        from adapcc_tpu_torch.models.convert import residual_from_jax
+
+        trainer._residual = residual_from_jax(residual, model, rank=0)
+    state = TrainState.create(model, trainer.tx)
+    if opt_state is not None:
+        adam = opt_state[0]
+        mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
+        for name, p in model.named_parameters():
+            state.optimizer.state[p] = {"step": torch.tensor(float(adam.count)), "exp_avg": mu[name],
+                                        "exp_avg_sq": nu[name]}
+    _, loss = trainer.step(state, torch.from_numpy(tokens))
+    params_after = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    return loss.item(), params_after, getattr(trainer, "_residual", None)
+
+
+def _compressed_steps_match_jax(params, tokens, world, residual=None, **trainer_kw):
+    """Each step of the port, from the JAX trainer's state before it, against
+    the JAX step: losses, params and the residual bank.  The int8 blocks
+    follow the JAX leaves' layout (``Dense`` kernels ``[in, out]``): in the
+    port's ``[out, in]`` layout every block would hold other elements."""
+    steps = _jax_ddp_steps(params, tokens, residual, **trainer_kw)
+    before = (params, None, residual)
+    model = GPT2(GPT2Config(**TINY, dtype=torch.float32), device="cpu", seed=None)
+    for loss_j, params_j, opt_j, res_j in steps:
+        loss_t, params_t, res_t = _torch_ddp_step(*before, tokens, world, **trainer_kw)
+        assert abs(loss_t - loss_j) <= LOSS_ATOL
+        want = {k: v.numpy() for k, v in flax_to_state_dict(params_j).items()}
+        _assert_close_but_flips(params_t, want, PARAM_ATOL, "params")
+        if res_j is not None:
+            from adapcc_tpu_torch.models.convert import residual_from_jax
+
+            names = [n for n, _ in model.named_parameters()]
+            res_want = dict(zip(names, (r.numpy() for r in residual_from_jax(res_j, model, rank=0))))
+            # a residual is at most half a code step, so 254 times a leaf's
+            # largest residual stands for its largest gradient: the banks
+            # agree to 1e-6 of that (1.1e-6 seen), but where a code differs,
+            # by one step (two of the leaf's largest half steps)
+            flips = 0
+            for name, r in zip(names, res_t):
+                half_step = np.abs(res_want[name]).max()
+                diff = np.abs(r.numpy() - res_want[name])
+                assert (diff <= 2 * half_step * (1 + 1e-6)).all(), name
+                flips += int((diff > 2e-6 * 254 * half_step).sum())
+            assert flips <= FLIP_BUDGET, f"residual: {flips} elements a code step off"
+        before = (params_j, opt_j, res_j)
+    return steps
+
+
+def test_ddp_int8_error_feedback_matches_jax(flax_params, world1):
+    """``grad_compress="int8"`` with error feedback, from a seeded residual
+    bank carried across by ``residual_from_jax``."""
+    _compressed_steps_match_jax(flax_params, _tokens(1), world1, _residual_tree(flax_params),
+                                grad_compress="int8", error_feedback=True)
+
+
+def test_wire_dtype_env_compresses_the_hook_like_jax(flax_params, world1, monkeypatch):
+    """``ADAPCC_WIRE_DTYPE=int8`` wins over the hook's ``compress="off"`` in
+    both packages: the port's DDP steps equal the JAX package's int8 steps
+    (the port once trained in float32 under it)."""
+    monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")
+    _compressed_steps_match_jax(flax_params, _tokens(1), world1)
+    assert GradSyncHook(Strategy.ring(1)).effective_compress() == "int8"

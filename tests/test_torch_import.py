@@ -31,6 +31,7 @@ print("MODULES", sorted(n for n in sys.modules if n.startswith("adapcc_tpu_torch
 _PORT_MODULES = (
     "adapcc_tpu_torch.comm.engine", "adapcc_tpu_torch.comm.ring", "adapcc_tpu_torch.ops.flash_attention",
     "adapcc_tpu_torch.parallel.fsdp", "adapcc_tpu_torch.models.convert", "adapcc_tpu_torch.ddp.trainer",
+    "adapcc_tpu_torch.quant.codec", "adapcc_tpu_torch.quant.ring",
 )
 
 
@@ -54,12 +55,21 @@ def test_port_calls_no_library_attention():
 
 
 def test_ring_plane_is_the_hand_written_kernels():
-    """The ring plane and ZeRO-1 reach the card only through the ring
-    kernels: no library collective, no process group."""
-    for rel in ("comm/ring.py", "parallel/fsdp.py", "csrc/ring.cu"):
+    """The ring plane (the fused codec kernels K5a/K5b included), the quant
+    ring and ZeRO-1 reach the card only through the ring kernels or plain
+    tensor code: no library collective, no process group; and every K5
+    wrapper launches its own kernel of ``csrc/ring.cu``."""
+    for rel in ("comm/ring.py", "parallel/fsdp.py", "csrc/ring.cu", "quant/codec.py", "quant/ring.py"):
         text = (PACKAGE / rel).read_text()
         for word in ("torch.distributed", "dist.", "nccl", "all_gather_into_tensor", "reduce_scatter_tensor"):
             assert word not in text, f"{rel} mentions {word}"
+    cu = (PACKAGE / "csrc/ring.cu").read_text()
+    ring_py = (PACKAGE / "comm/ring.py").read_text()
+    for kernel in ("ring_k5a", "ring_k5b"):
+        assert f"{kernel}_kernel" in cu and f"adapcc_{kernel}(" in cu, kernel
+        assert f'"adapcc_{kernel}"' in ring_py, kernel
+    # the decode-add rounds twice, as the plain version does: no FMA
+    assert "__fadd_rn" in cu and "__fmul_rn" in cu and "__fdiv_rn" in cu
 
 
 def test_entry_points_without_a_device_raise_on_a_box_without_cuda(monkeypatch):

@@ -107,8 +107,10 @@ def test_chunk_bytes_env_override_and_rejection(monkeypatch):
     assert ring.resolve_chunk_bytes() == jax_resolve() == 4 * 1024 * 1024
     with pytest.raises(ValueError, match="positive"):
         ring.resolve_chunk_bytes(0)
-    with pytest.raises(NotImplementedError, match="fused-codec"):
-        ring.plan_ring_schedule(1024, torch.float32, 4, wire_dtype="int8")
+    # a codec plans the fused kernels, and what they cannot run raises
+    assert ring.plan_ring_schedule(1024, torch.float32, 4, wire_dtype="int8").wire_dtype == "int8"
+    with pytest.raises(ValueError, match="float32"):
+        ring.plan_ring_schedule(1024, torch.bfloat16, 4, wire_dtype="int8")
 
 
 # --------------------------------------------------------------------------- #
@@ -227,15 +229,19 @@ def test_engine_world_one_and_stacked_shapes():
 
 def test_engine_rejects_what_waits(monkeypatch):
     x = torch.ones(4, F32_TILE)
-    eng = CollectiveEngine(4, Strategy.ring(4))
-    for kwargs, match in [({"algo": "rd"}, "latency plane"), ({"wire_dtype": "int8"}, "fused-codec")]:
-        with pytest.raises(NotImplementedError, match=match):
-            eng.ring_allreduce(x, **kwargs)
-    with pytest.raises(NotImplementedError, match="fused-codec"):
-        eng.ring_reduce_scatter(x, wire_dtype="bf16")
+    trace = []
+    eng = CollectiveEngine(4, Strategy.ring(4), trace=trace)
+    with pytest.raises(NotImplementedError, match="latency plane"):
+        eng.ring_allreduce(x, algo="rd")
+    # the wire codecs run now, through the fused walk (its plain version on
+    # a CPU tensor): the argument, and the env over the strategy's "off"
+    assert torch.equal(eng.ring_allreduce(x, wire_dtype="int8"),
+                       ring.ring_allreduce_stacked(x, wire_dtype="int8"))
+    assert torch.equal(eng.ring_reduce_scatter(x, wire_dtype="bf16"), eng.ring_reduce_scatter(x))
     monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="fused-codec"):
-        eng.ring_all_gather(x)
+    assert torch.equal(eng.ring_all_gather(x), ring.ring_all_gather_stacked(x, wire_dtype="int8"))
+    assert [r["impl"] for r in trace] == ["plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
+                                          "plain_ring[vmem]", "plain_ring[vmem+int8]"]
     monkeypatch.delenv("ADAPCC_WIRE_DTYPE")
     monkeypatch.setenv("ADAPCC_COLL_ALGO", "auto")
     with pytest.raises(NotImplementedError, match="algo='auto'"):

@@ -148,11 +148,14 @@ def test_flat_layout_is_the_jax_tree_order():
 
 
 def test_zero1_rejects_what_waits():
-    for kwargs, match in [({"ring": False}, "per-process ring slice"),
-                          ({"wire_dtype": "int8"}, "fused-codec"), ({"tuner": object()}, "tuner"),
+    for kwargs, match in [({"ring": False}, "per-process ring slice"), ({"tuner": object()}, "tuner"),
                           ({"overlap": "bucket"}, "overlapped-sync"), ({"shard_replicas": 1}, "elasticity")]:
         with pytest.raises(NotImplementedError, match=match):
             Zero1Optimizer(adamw(LR), WORLD, **kwargs)
+    # the wire codec runs now; a name the registry lacks raises
+    assert Zero1Optimizer(adamw(LR), WORLD, wire_dtype="int8").wire_dtype == "int8"
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        Zero1Optimizer(adamw(LR), WORLD, wire_dtype="int4")
     opt = Zero1Optimizer(adamw(LR), WORLD)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         opt.restore(None)
@@ -164,3 +167,31 @@ def test_zero1_rejects_what_waits():
     # the step runs in the flat layout init made, and only after it
     with pytest.raises(RuntimeError, match="init"):
         step(_model(), None, None, torch.zeros(WORLD, TINY["max_seq"], dtype=torch.long))
+
+
+def test_wire_dtype_env_compresses_zero1_like_jax(monkeypatch):
+    """``ADAPCC_WIRE_DTYPE=int8`` wins over ``Zero1Optimizer``'s default in
+    both packages: every rank's contribution takes its int8 wire value
+    before the reduce-scatter, and the port's two steps equal the JAX
+    package's (the port once trained in float32 under it)."""
+    monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")
+    params = _flax_params()
+    tokens = _tokens(WORLD)
+    _, _, j_losses, (j_master, j_opt_state, j_params) = _jax_zero1(params, tokens)
+
+    model = _model(flax_to_state_dict(params))
+    opt = Zero1Optimizer(adamw(LR), WORLD)
+    master, opt_state = opt.init(model)
+    step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
+    losses = []
+    for _ in range(STEPS):
+        model, master, opt_state, loss = step(model, master, opt_state, torch.from_numpy(tokens))
+        losses.append(loss.numpy())
+    np.testing.assert_allclose(np.stack(losses, axis=1), j_losses, atol=LOSS_ATOL)
+    params_j = {k: v.numpy() for k, v in flax_to_state_dict(j_params).items()}
+    _assert_params_close({k: v.detach().numpy() for k, v in model.state_dict().items()},
+                         {k: torch.from_numpy(v) for k, v in params_j.items()})
+    master_j, _ = zero1_state_from_jax(j_master, j_opt_state)
+    _assert_params_close(_master_params(master, model),
+                         {k: torch.from_numpy(v) for k, v in _master_params(master_j, model).items()})
+    assert opt.wire_dtype == "int8"
