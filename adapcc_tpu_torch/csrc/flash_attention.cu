@@ -9,37 +9,52 @@
 // (delta is computed by the caller in plain torch, as _flash_bwd_core does).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, T, D] contiguous, in float32 or
-// bfloat16; lse and delta are [BH, T] float32.  All sums are float32.
+// bfloat16, D a multiple of 8 up to 128, any T; lse and delta are [BH, T]
+// float32.  All sums are float32.
 //
-// Two implementations of each kernel, chosen by the dtype:
-// * bfloat16 (the training path): tensor cores, namespace `tc` below.
-// * float32: CUDA cores (flash_*_kernel), the exact float32 path; the
-//   tensor cores' float32 mode (TF32) would keep only 10 mantissa bits.
-// Shared by both:
-// * One block owns 64 rows of its output (query rows for fwd/dq, key rows
-//   for dk/dv) and keeps them in registers while the other operand streams
-//   through shared memory in tiles.  No atomics: every block writes only its
-//   own rows, like the TPU grid programs.
+// Kernels, by the TPU kernel each replaces and the dtype:
+//   _fwd_kernel  bf16: wg::flash_fwd_wgmma   float32: flash_fwd_kernel
+//   _dq_kernel   bf16: tc::flash_dq_tc       float32: flash_dq_kernel
+//   _dkv_kernel  bf16: wg::flash_dkv_wgmma   float32: flash_dkv_kernel
+// bfloat16 (the training path) runs on the tensor cores; float32 on the CUDA
+// cores, the exact float32 path (the tensor cores' float32 mode, TF32, keeps
+// only 10 mantissa bits).
+// Shared by all:
+// * A block owns 64 rows of its output per (warp)group (query rows for
+//   fwd/dq, key rows for dk/dv) and keeps them in registers while the other
+//   operand streams through shared memory in tiles.  No atomics: every block
+//   writes only its own rows, like the TPU grid programs.
 // * The TPU kernels loop over every key block and mask; under `causal` these
 //   kernels skip the tiles that lie wholly above the diagonal.  That is exact:
 //   a masked score is -1e30, so its p is exp(-1e30 - m) = 0 in float32, and
 //   key 0 is never masked, so m is finite from the first tile on.
-// * Blocks are ordered so that the longest causal rows start first.
+// * Blocks are ordered so that the longest causal rows start first (fwd, dq)
+//   and the first key tiles, which see the most queries, first (dk/dv).
 //
 // Bound at the main path's shape (BH = 256, T = 512, D = 64, bf16, causal),
 // on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
 //   fwd: reads q, k, v and writes o (4 x 16.8 MB) plus lse (0.5 MB) = 67.6 MB
-//        -> 20 us; 4*D flops per unmasked (q, k) pair = 8.6 GFLOP -> 8.7 us:
-//        memory-bound at about 20 us.
+//        -> 20 us; 4*D flops per unmasked (q, k) pair = 8.6 GFLOP -> 8.7 us
+//        (13 us with p's bf16 remainder): bytes bound it.
 //   dq:  q, k, v, do, dq (5 x 16.8 MB) + lse, delta = 85 MB -> 25 us;
-//        6*D flops per pair = 12.9 GFLOP -> 13 us: memory-bound.
+//        6*D flops per pair = 12.9 GFLOP -> 13 us: bytes.
 //   dkv: q, k, v, do, dk, dv (6 x 16.8 MB) + lse, delta = 102 MB -> 30 us;
-//        8*D flops per pair = 17.2 GFLOP -> 17 us: memory-bound.
-// Neither path reaches these bounds: each re-reads the streamed operand once
-// per 64-row block (8x at T = 512) from L2, and mma.sync issues from
-// registers without overlapping the tile loads; wgmma fed by TMA, with
-// double-buffered tiles, is the next step.
+//        8*D flops per pair = 17.2 GFLOP -> 17 us (26 us with the
+//        remainders): bytes.
+// What the bf16 fwd and dk/dv kernels do about it (namespace wg): a producer
+// warp keeps TMA loads of the next tiles in flight (2-stage ring, mbarriers)
+// while consumer warpgroups run wgmma on the tiles that have landed, so no
+// tile load sits exposed; the forward's blocks of 128 query rows (two
+// warpgroups) re-read k and v from L2 half as often as 64-row blocks; the
+// 128-byte-swizzled TMA tiles feed wgmma in both majors, so nothing is
+// transposed in shared memory and dk/dv loads two tiles a step (q, do) plus
+// lse and delta; p comes from ex2 with the scale folded in.  Neither reaches
+// its bound: each warpgroup waits on its own products (scores, then
+// softmax, then p.v) with only two to four warpgroups an SM to hide that.
+// dq (namespace tc) still stages its tiles through registers with mma.sync,
+// transposing k.
 
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -326,29 +341,30 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16 path: tensor cores (mma.sync m16n8k16, float32 accumulate)
+// bfloat16 dq: tensor cores (mma.sync m16n8k16, float32 accumulate)
 // --------------------------------------------------------------------------
 //
-// One block of 4 warps owns 64 output rows, 16 per warp.  A warp keeps its
-// rows' operand fragments (q and do, or k and v) in registers and runs every
-// product of its 16 rows with mma.sync against tiles streamed through shared
-// memory: row-major tiles feed the products over the head dim, transposed
-// tiles the products over keys (or queries).  Scores, p and ds stay in the
-// accumulator registers; the accumulator layout of one product is the
-// operand layout of the next, so p and ds never touch shared memory.
+// One block of 4 warps owns 64 query rows, 16 per warp.  A warp keeps its
+// rows' q and do fragments in registers and runs every product of its 16
+// rows with mma.sync against k and v tiles streamed through shared memory:
+// row-major tiles feed the products over the head dim, a transposed k tile
+// the product over keys.  Scores and ds stay in the accumulator registers;
+// the accumulator layout of one product is the operand layout of the next,
+// so ds never touches shared memory.
 //
-// Exactness: q, k, v and do are bf16 already, so their products are exact.
-// p and ds are float32 and the TPU kernels multiply them in float32; here
-// each is split into a bf16 head and a bf16 remainder (x = hi + lo to about
-// 2^-16 relative) and both halves go through the tensor cores, so the
-// result keeps float32-level accuracy against the plain version.
+// Exactness (shared with the wgmma kernels below): q, k, v and do are bf16
+// already, so their products are exact.  p and ds are float32 and the TPU
+// kernels multiply them in float32; here each is split into a bf16 head and
+// a bf16 remainder (x = hi + lo to about 2^-16 relative) and both halves go
+// through the tensor cores, so the result keeps float32-level accuracy
+// against the plain version.
 namespace tc {
 
 constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;  // output rows owned by one block
 using bf16 = __nv_bfloat16;
 
-// Keys (or queries) per streamed tile: 64, or 32 at head dim 128 to stay
+// Keys per streamed tile: 64, or 32 at head dim 128 to stay
 // within 48 KB of static shared memory.
 template <int DP>
 struct Tile {
@@ -483,100 +499,6 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[DN][4],
 
 template <int DP>
 __global__ void __launch_bounds__(kRows * 2)
-flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int bh_count, int seq, int dim,
-           float scale, int causal) {
-  constexpr int BK = Tile<DP>::kLen, NT = BK / 8, KS = DP / 16, DN = DP / 8;
-  __shared__ __align__(16) bf16 ks[BK][DP + 8];
-  __shared__ __align__(16) bf16 vt[DP][BK + 8];
-
-  const int n_tiles = (seq + kRows - 1) / kRows;
-  const int tile = n_tiles - 1 - blockIdx.x / bh_count;  // longest rows first
-  const int bh = blockIdx.x % bh_count;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const size_t base = (size_t)bh * seq * dim;
-  const int rb = tile * kRows + warp * 16;
-  const int row[2] = {rb + (lane >> 2), rb + (lane >> 2) + 8};
-
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) load_a(qf[s], q + base, rb, s * 16, seq, dim, lane);
-  float acc[DN][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's part
-
-  const int last_row = min(tile * kRows + kRows, seq) - 1;
-  const int k_end = causal ? last_row + 1 : seq;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    load_rows<BK, DP>(ks, k + base, k0, seq, dim);
-    load_rows_t<BK, DP>(vt, v + base, k0, seq, dim);
-    __syncthreads();
-
-    float sc[NT][4] = {};
-#pragma unroll
-    for (int s = 0; s < KS; ++s)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        load_b<DP + 8>(b0, b1, &ks[0][0], nt * 8, s * 16, lane);
-        mma(sc[nt], qf[s], b0, b1);
-      }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        float x = sc[nt][e] * scale;
-        if (key >= seq || (causal && key > row[e >> 1])) x = kNegInf;
-        sc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
-        l[e >> 1] += sc[nt][e];
-      }
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_a(sc[2 * kk], sc[2 * kk + 1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        uint32_t b0, b1;
-        load_b<BK + 8>(b0, b1, &vt[0][0], dn * 8, kk * 16, lane);
-        mma(acc[dn], hi, b0, b1);
-        mma(acc[dn], lo, b0, b1);
-      }
-    }
-  }
-
-  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
-  store_acc<DN>(o + base, acc, 1.f / l0, 1.f / l1, row[0], seq, dim, lane);
-  if (t == 0) {
-    if (row[0] < seq) lse[(size_t)bh * seq + row[0]] = m[0] + logf(l0);
-    if (row[1] < seq) lse[(size_t)bh * seq + row[1]] = m[1] + logf(l1);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kRows * 2)
 flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
@@ -655,101 +577,596 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc<DN>(dq + base, acc, 1.f, 1.f, row[0], seq, dim, lane);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kRows * 2)
-flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int bh_count, int seq,
-           int dim, float scale, int causal) {
-  constexpr int BQ = Tile<DP>::kLen, NT = BQ / 8, KS = DP / 16, DN = DP / 8;
-  __shared__ __align__(16) bf16 qs[BQ][DP + 8];
-  __shared__ __align__(16) bf16 dos[BQ][DP + 8];
-  __shared__ __align__(16) bf16 qt[DP][BQ + 8];
-  __shared__ __align__(16) bf16 dot[DP][BQ + 8];
-  __shared__ float lse_s[BQ], delta_s[BQ];
+}  // namespace tc
+
+// --------------------------------------------------------------------------
+// bfloat16 forward and dk/dv on Hopper: TMA-fed stages, wgmma
+// --------------------------------------------------------------------------
+//
+// A block is one producer warp and NWG consumer warpgroups of 64 output rows
+// each.  The producer loads the block's own rows once and then streams the
+// other operand's tiles with TMA (cp.async.bulk.tensor) into a ring of ST
+// shared-memory stages; each stage has a `full` mbarrier (the copy's bytes,
+// and in dk/dv the lse/delta stores of the producer's 32 lanes) and an
+// `empty` one (one arrival from each consumer warp).  The consumers run
+// every product with wgmma straight from those tiles while the next tiles
+// land.
+//
+// Tiles are [rows][64 columns] boxes, 128 bytes a row with TMA's 128-byte
+// swizzle (a head dim over 64 is two boxes), which is the layout wgmma reads
+// both ways: K-major when the product's depth is the head dim (q.k^T,
+// k.q^T, v.do^T) and MN-major, through the descriptor's transpose bit, when
+// the depth runs down the rows (p.v, p^T.do, ds^T.q).  So no tile is ever
+// transposed in shared memory.  p and ds come from the score accumulators
+// as register A operands, split into a bf16 head and remainder as above.
+// The tensor maps cover [BH, T, D] with T and D as their bounds: TMA fills
+// rows past T and columns past D with zeros, which the masks then ignore.
+namespace wg {
+
+using tc::bf16;
+
+constexpr int kBoxCols = 64;       // head-dim columns of one box: 128 bytes a row
+constexpr int kTileRows = 64;      // rows of a streamed tile: keys (fwd), queries (dk/dv)
+constexpr int kRowBytes = 128;
+constexpr int kGroupBytes = 8 * kRowBytes;  // one 8-row swizzle group
+constexpr uint64_t kWaitLimitNs = 4000000000ull;  // a stuck pipeline traps
+// p = exp2(s log2e - m log2e): ex2 with one multiply folded in, where expf
+// would cost a range reduction per score
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the barrier's phase of this parity to complete; traps (the launch
+// fails) after kWaitLimitNs, so a broken pipeline raises instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+}
+
+// One box of a [BH, T, D] tensor map: columns [col, col + 64) of rows
+// [row, row + box rows) of head `bh`, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile: 8-row groups of 128-byte
+// rows, kGroupBytes apart (the stride offset).  K-major (the depth along the
+// rows) leaves the leading offset unused; MN-major (the depth down the rows)
+// reads one 64-column swizzle atom across N, so its leading offset is unused
+// too and is set to the group stride as well.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lead_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lead_bytes >> 4) << 16 |
+         static_cast<uint64_t>(kGroupBytes >> 4) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ uint64_t desc_k(const void* p) { return make_desc(p, 16); }
+__device__ __forceinline__ uint64_t desc_mn(const void* p) { return make_desc(p, kGroupBytes); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pins registers that an in-flight wgmma reads or writes in place: the
+// compiler may not move their uses across this point.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d[32] (+)= A . B^T over k = 16: A [64 x 16] and B [64 x 16] both K-major in
+// shared memory (descriptors); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] += A . B over k = 16: A [64 x 16] from registers (the mma.sync A
+// fragment of each warp's 16 rows), B [16 x 64] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The A fragment (16 x 16, head and remainder) of accumulator columns
+// [16 kk, 16 kk + 16): c points at element 8 kk of the accumulator.
+__device__ __forceinline__ void split_frag(const float* c, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  tc::split(c[0], c[1], hi[0], lo[0]);
+  tc::split(c[2], c[3], hi[1], lo[1]);
+  tc::split(c[4], c[5], hi[2], lo[2]);
+  tc::split(c[6], c[7], hi[3], lo[3]);
+}
+
+// Stores a warp's rows (row0, row0 + 8) of a [64 x 64 KB] accumulator (one
+// 32-float wgmma accumulator per 64-column box) times (mul0, mul1).
+template <int KB>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[KB][32], float mul0,
+                                           float mul1, int row0, int seq, int dim, int t) {
+#pragma unroll
+  for (int h = 0; h < KB; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = h * kBoxCols + 8 * j + 2 * t;
+      if (col >= dim) continue;
+      if (row0 < seq)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row0 * dim + col) =
+            __floats2bfloat162_rn(acc[h][4 * j] * mul0, acc[h][4 * j + 1] * mul0);
+      if (row0 + 8 < seq)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(row0 + 8) * dim + col) =
+            __floats2bfloat162_rn(acc[h][4 * j + 2] * mul1, acc[h][4 * j + 3] * mul1);
+    }
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Shared memory of the forward kernel: the block's q rows, then ST stages of
+// (k tile, v tile), then the barriers.
+template <int DP, int NWG, int ST>
+struct FwdLayout {
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kRows = 64 * NWG;  // query rows of a block
+  static constexpr int kQBytes = kRows * kRowBytes * kBoxes;
+  static constexpr int kTileBytes = kTileRows * kRowBytes * kBoxes;  // one k or v tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBarOffset = kQBytes + ST * kStageBytes;
+  static constexpr int kBytes = kBarOffset + (2 * ST + 1) * 8 + 1024;  // + alignment
+};
+
+// K2: o and lse of 64 NWG query rows, streaming 64-key tiles of k and v.
+template <int DP, int NWG, int ST, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + 32, MINB)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                float* __restrict__ lse, int bh_count, int seq, int dim, float scale,
+                int causal) {
+  using L = FwdLayout<DP, NWG, ST>;
+  constexpr int KB = L::kBoxes, BQ = L::kRows, BK = kTileRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* qs = smem;
+  uint8_t* stages = smem + L::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + ST;
+  uint64_t* q_ready = empty + ST;
+
+  const int n_qt = (seq + BQ - 1) / BQ;
+  const int tile = n_qt - 1 - blockIdx.x / bh_count;  // longest rows first
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = tile * BQ;
+  const int n_kt = ((causal ? min(q0 + BQ, seq) : seq) + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);
+    }
+    mbar_init(q_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(q_ready, L::kQBytes);
+      for (int b = 0; b < KB; ++b)
+        tma_load(qs + b * BQ * kRowBytes, &map_q, q_ready, b * kBoxCols, q0, bh);
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        uint8_t* kt = stages + s * L::kStageBytes;
+        uint8_t* vt = kt + L::kTileBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int b = 0; b < KB; ++b) {
+          tma_load(kt + b * BK * kRowBytes, &map_k, &full[s], b * kBoxCols, i * BK, bh);
+          tma_load(vt + b * BK * kRowBytes, &map_v, &full[s], b * kBoxCols, i * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows, 16 per warp
+  const int w = warp / 4, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + w * 64;
+  const int rb = r0 + (warp % 4) * 16;
+  const int row[2] = {rb + g, rb + g + 8};
+  // keys this warpgroup reads: under causal none past its last row
+  const int k_need = r0 >= seq ? 0 : causal ? min(r0 + 64, seq) : seq;
+  const uint8_t* qw = qs + w * 64 * kRowBytes;
+
+  float acc[KB][32];
+#pragma unroll
+  for (int h = 0; h < KB; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // m in log2 units; l: this lane's part
+  const float scale_log2 = scale * kLog2e;
+  // the last key each of the lane's rows reads; later ones are masked
+  const int last_key[2] = {causal ? min(row[0], seq - 1) : seq - 1,
+                           causal ? min(row[1], seq - 1) : seq - 1};
+
+  mbar_wait(q_ready, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % ST, k0 = i * BK;
+    mbar_wait(&full[s], (i / ST) & 1);
+    if (k0 < k_need) {
+      const uint8_t* kt = stages + s * L::kStageBytes;
+      const uint8_t* vt = kt + L::kTileBytes;
+
+      // s = q k^T over the head dim, 16 columns a step
+      float sc[BK / 2];
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int b = kk / 4, c = 32 * (kk % 4);
+        wgmma_ss64(sc, desc_k(qw + b * BQ * kRowBytes + c),
+                     desc_k(kt + b * BK * kRowBytes + c), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(sc);
+
+      // scores in log2 units (exp2 of them is p)
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * scale_log2;
+          if (k0 + 8 * j + 2 * t + (e & 1) > last_key[e >> 1]) x = kNegInf;
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        sc[j] = exp2f(sc[j] - m[(j >> 1) & 1]);
+        l[(j >> 1) & 1] += sc[j];
+      }
+#pragma unroll
+      for (int h = 0; h < KB; ++h)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[h][j] *= alpha[(j >> 1) & 1];
+
+      // o += p v over the tile's keys, 16 a step; v is read MN-major
+      uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) split_frag(&sc[8 * kk], hi[kk], lo[kk]);
+#pragma unroll
+      for (int h = 0; h < KB; ++h) keep(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < KB; ++h) {
+          const uint64_t db = desc_mn(vt + h * BK * kRowBytes + kk * 2 * kGroupBytes);
+          wgmma_rs64(acc[h], hi[kk], db);
+          wgmma_rs64(acc[h], lo[kk], db);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int h = 0; h < KB; ++h) keep(acc[h]);
+      keep(hi);
+      keep(lo);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const float l0 = tc::quad_sum(l[0]), l1 = tc::quad_sum(l[1]);
+  if (r0 >= seq) return;
+  store_rows<KB>(o + (size_t)bh * seq * dim, acc, 1.f / l0, 1.f / l1, row[0], seq, dim, t);
+  if (t == 0) {
+    if (row[0] < seq) lse[(size_t)bh * seq + row[0]] = m[0] * kLn2 + logf(l0);
+    if (row[1] < seq) lse[(size_t)bh * seq + row[1]] = m[1] * kLn2 + logf(l1);
+  }
+}
+
+// Shared memory of the dk/dv kernel: the block's k and v rows, ST stages of
+// (q tile, do tile), ST stages of (lse log2e, delta), then the barriers.
+template <int DP, int NWG, int ST>
+struct DkvLayout {
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kRows = 64 * NWG;  // key rows of a block
+  static constexpr int kKVBytes = kRows * kRowBytes * kBoxes;  // k or v
+  static constexpr int kTileBytes = kTileRows * kRowBytes * kBoxes;  // one q or do tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStatOffset = 2 * kKVBytes + ST * kStageBytes;
+  static constexpr int kBarOffset = kStatOffset + ST * 2 * kTileRows * 4;
+  static constexpr int kBytes = kBarOffset + (2 * ST + 1) * 8 + 1024;  // + alignment
+};
+
+// K4: dk and dv of 64 NWG key rows, streaming 64-query tiles of q and do
+// with their lse and delta.
+template <int DP, int NWG, int ST, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + 32, MINB)
+flash_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int bh_count, int seq, int dim, float scale,
+                int causal) {
+  using L = DkvLayout<DP, NWG, ST>;
+  constexpr int KB = L::kBoxes, BKEY = L::kRows, BQ = kTileRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* ks = smem;
+  uint8_t* vs = smem + L::kKVBytes;
+  uint8_t* stages = smem + 2 * L::kKVBytes;
+  float* stats = reinterpret_cast<float*>(smem + L::kStatOffset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + ST;
+  uint64_t* kv_ready = empty + ST;
 
   const int tile = blockIdx.x / bh_count;  // first key tiles see most queries
   const int bh = blockIdx.x % bh_count;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const size_t base = (size_t)bh * seq * dim;
-  const size_t row_base = (size_t)bh * seq;
-  const int kb = tile * kRows + warp * 16;
-  const int key[2] = {kb + (lane >> 2), kb + (lane >> 2) + 8};
-
-  uint32_t kf[KS][4], vf[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    load_a(kf[s], k + base, kb, s * 16, seq, dim, lane);
-    load_a(vf[s], v + base, kb, s * 16, seq, dim, lane);
-  }
-  float dk_acc[DN][4] = {}, dv_acc[DN][4] = {};
-
+  const int key0 = tile * BKEY;
   // under `causal` no query before this block's first key reaches it
-  const int q_begin = causal ? tile * kRows : 0;
-  for (int q0 = q_begin; q0 < seq; q0 += BQ) {
-    __syncthreads();
-    load_rows<BQ, DP>(qs, q + base, q0, seq, dim);
-    load_rows<BQ, DP>(dos, dout + base, q0, seq, dim);
-    load_rows_t<BQ, DP>(qt, q + base, q0, seq, dim);
-    load_rows_t<BQ, DP>(dot, dout + base, q0, seq, dim);
-    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-      const int g = q0 + i;
-      lse_s[i] = g < seq ? lse[row_base + g] : 0.f;
-      delta_s[i] = g < seq ? delta[row_base + g] : 0.f;
-    }
-    __syncthreads();
+  const int q_begin = causal ? key0 : 0;
+  const int n_qt = (seq - q_begin + BQ - 1) / BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-    // transposed scores: rows are this warp's keys, columns the tile's queries
-    float st[NT][4] = {}, dpt[NT][4] = {};
-#pragma unroll
-    for (int s = 0; s < KS; ++s)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        load_b<DP + 8>(b0, b1, &qs[0][0], nt * 8, s * 16, lane);
-        mma(st[nt], kf[s], b0, b1);
-        load_b<DP + 8>(b0, b1, &dos[0][0], nt * 8, s * 16, lane);
-        mma(dpt[nt], vf[s], b0, b1);
-      }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = nt * 8 + 2 * t + (e & 1);
-        const int qi = q0 + i;
-        const bool live = qi < seq && !(causal && key[e >> 1] > qi);
-        const float p = live ? expf(st[nt][e] * scale - lse_s[i]) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - delta_s[i]) * scale;  // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_a(st[2 * kk], st[2 * kk + 1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        uint32_t b0, b1;
-        load_b<BQ + 8>(b0, b1, &dot[0][0], dn * 8, kk * 16, lane);
-        mma(dv_acc[dn], hi, b0, b1);
-        mma(dv_acc[dn], lo, b0, b1);
-      }
-      split_a(dpt[2 * kk], dpt[2 * kk + 1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        uint32_t b0, b1;
-        load_b<BQ + 8>(b0, b1, &qt[0][0], dn * 8, kk * 16, lane);
-        mma(dk_acc[dn], hi, b0, b1);
-        mma(dk_acc[dn], lo, b0, b1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);  // the producer's lanes; lane 0 brings the bytes
+      mbar_init(&empty[s], NWG * 4);
+    }
+    mbar_init(kv_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(kv_ready, 2 * L::kKVBytes);
+      for (int b = 0; b < KB; ++b) {
+        tma_load(ks + b * BKEY * kRowBytes, &map_k, kv_ready, b * kBoxCols, key0, bh);
+        tma_load(vs + b * BKEY * kRowBytes, &map_v, kv_ready, b * kBoxCols, key0, bh);
       }
     }
+    const size_t row_base = (size_t)bh * seq;
+    for (int i = 0; i < n_qt; ++i) {
+      const int s = i % ST, q0 = q_begin + i * BQ;
+      mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+      float* st = stats + s * 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const int g = q0 + r;
+        st[r] = g < seq ? lse[row_base + g] * kLog2e : 0.f;
+        st[BQ + r] = g < seq ? delta[row_base + g] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* qt = stages + s * L::kStageBytes;
+        uint8_t* dt = qt + L::kTileBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int b = 0; b < KB; ++b) {
+          tma_load(qt + b * BQ * kRowBytes, &map_q, &full[s], b * kBoxCols, q0, bh);
+          tma_load(dt + b * BQ * kRowBytes, &map_do, &full[s], b * kBoxCols, q0, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
-  store_acc<DN>(dk + base, dk_acc, 1.f, 1.f, key[0], seq, dim, lane);
-  store_acc<DN>(dv + base, dv_acc, 1.f, 1.f, key[0], seq, dim, lane);
+
+  // a consumer warpgroup: 64 key rows, 16 per warp
+  const int w = warp / 4, g = lane >> 2, t = lane & 3;
+  const int kw0 = key0 + w * 64;
+  const int kb = kw0 + (warp % 4) * 16;
+  const int key[2] = {kb + g, kb + g + 8};
+  const uint8_t* kw = ks + w * 64 * kRowBytes;
+  const uint8_t* vw = vs + w * 64 * kRowBytes;
+
+  float dka[KB][32], dva[KB][32];
+#pragma unroll
+  for (int h = 0; h < KB; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[h][i] = dva[h][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  // the queries each of the lane's keys meets: [first_q, first_q + q_span]
+  // (for a key past seq the span wraps and nothing is masked: its row is
+  // never stored)
+  const int first_q[2] = {causal ? key[0] : 0, causal ? key[1] : 0};
+  const unsigned q_span[2] = {static_cast<unsigned>(seq - 1 - first_q[0]),
+                              static_cast<unsigned>(seq - 1 - first_q[1])};
+
+  mbar_wait(kv_ready, 0);
+  for (int i = 0; i < n_qt; ++i) {
+    const int s = i % ST, q0 = q_begin + i * BQ;
+    mbar_wait(&full[s], (i / ST) & 1);
+    // skipped: a warpgroup past seq, and a tile wholly above its keys
+    if (kw0 < seq && !(causal && q0 + BQ <= kw0)) {
+      const uint8_t* qt = stages + s * L::kStageBytes;
+      const uint8_t* dt = qt + L::kTileBytes;
+      const float* lse_s = stats + s * 2 * BQ;  // lse in log2 units
+      const float* delta_s = lse_s + BQ;
+
+      // transposed scores and dp: rows are this warpgroup's keys, columns the
+      // tile's queries; both products run over the head dim
+      float st[BQ / 2], dp[BQ / 2];
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) st[j] = dp[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {  // the two chains interleaved
+        const int b = kk / 4, c = 32 * (kk % 4);
+        wgmma_ss64(st, desc_k(kw + b * BKEY * kRowBytes + c),
+                     desc_k(qt + b * BQ * kRowBytes + c), kk > 0);
+        wgmma_ss64(dp, desc_k(vw + b * BKEY * kRowBytes + c),
+                     desc_k(dt + b * BQ * kRowBytes + c), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(st);
+      keep(dp);
+
+      // p = exp2(s scale log2e - lse log2e)
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * t + (e & 1);
+          float p = exp2f(fmaf(st[4 * j + e], scale_log2, -lse_s[qi]));
+          if (static_cast<unsigned>(q0 + qi - first_q[e >> 1]) > q_span[e >> 1]) p = 0.f;
+          st[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - delta_s[qi]) * scale;  // ds
+        }
+
+      // dv += p^T do and dk += ds^T q over the tile's queries, the two chains
+      // interleaved; do and q are read MN-major
+      uint32_t phi[BQ / 16][4], plo[BQ / 16][4], dhi[BQ / 16][4], dlo[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        split_frag(&st[8 * kk], phi[kk], plo[kk]);
+        split_frag(&dp[8 * kk], dhi[kk], dlo[kk]);
+      }
+#pragma unroll
+      for (int h = 0; h < KB; ++h) {
+        keep(dva[h]);
+        keep(dka[h]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < KB; ++h) {
+          const int off = h * BQ * kRowBytes + kk * 2 * kGroupBytes;
+          wgmma_rs64(dva[h], phi[kk], desc_mn(dt + off));
+          wgmma_rs64(dka[h], dhi[kk], desc_mn(qt + off));
+          wgmma_rs64(dva[h], plo[kk], desc_mn(dt + off));
+          wgmma_rs64(dka[h], dlo[kk], desc_mn(qt + off));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int h = 0; h < KB; ++h) {
+        keep(dva[h]);
+        keep(dka[h]);
+      }
+      keep(phi);
+      keep(plo);
+      keep(dhi);
+      keep(dlo);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  if (kw0 >= seq) return;
+  const size_t base = (size_t)bh * seq * dim;
+  store_rows<KB>(dk + base, dka, 1.f, 1.f, key[0], seq, dim, t);
+  store_rows<KB>(dv + base, dva, 1.f, 1.f, key[0], seq, dim, t);
 }
 
-}  // namespace tc
+}  // namespace wg
 
 // Padded head width: the smallest supported DM >= dim, or 0.
 int padded_dim(int dim) {
@@ -761,31 +1178,128 @@ int padded_dim(int dim) {
 
 int row_blocks(int bh, int seq) { return bh * ((seq + kRows - 1) / kRows); }
 
-// bfloat16 runs on the tensor cores; float32 on the CUDA cores, the only
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query so the library links no libcuda; null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a [bh, seq, dim] bfloat16 tensor read in boxes of `rows` x
+// 64 columns with the 128-byte swizzle.  Rows past seq and columns past dim
+// read as zeros.  Needs a 16-byte aligned base and a row pitch (dim x 2
+// bytes) that is a multiple of 16, which the Python wrapper checks.
+cudaError_t make_map(CUtensorMap* map, const void* base, int bh, int seq, int dim, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t extent[3] = {(cuuint64_t)dim, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t pitch[2] = {(cuuint64_t)dim * 2, (cuuint64_t)seq * dim * 2};
+  const cuuint32_t box[3] = {wg::kBoxCols, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            extent, pitch, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launch shapes of the wgmma kernels at a padded head dim DP (64 or 128):
+// consumer warpgroups of 64 rows, pipeline stages, and the blocks an SM
+// holds (the register budget ptxas gets).  dk/dv keeps dk and dv
+// accumulators per row: at DP = 64 two one-warpgroup blocks an SM measured
+// faster than one block of two; at DP = 128 two warpgroups share a block.
+template <int DP>
+struct FwdConfig {
+  static constexpr int kWG = 2, kST = 2, kMinBlocks = DP == 64 ? 2 : 1;
+};
+template <int DP>
+struct DkvConfig {
+  static constexpr int kWG = DP == 64 ? 1 : 2, kST = 2, kMinBlocks = DP == 64 ? 2 : 1;
+};
+
+template <int DP>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                             void* lse, int bh, int seq, int dim, float scale, int causal,
+                             cudaStream_t stream) {
+  using C = FwdConfig<DP>;
+  using L = wg::FwdLayout<DP, C::kWG, C::kST>;
+  const auto kernel = wg::flash_fwd_wgmma<DP, C::kWG, C::kST, C::kMinBlocks>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map(&mq, q, bh, seq, dim, L::kRows);
+  if (err == cudaSuccess) err = make_map(&mk, k, bh, seq, dim, wg::kTileRows);
+  if (err == cudaSuccess) err = make_map(&mv, v, bh, seq, dim, wg::kTileRows);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = bh * ((seq + L::kRows - 1) / L::kRows);
+  kernel<<<blocks, C::kWG * 128 + 32, L::kBytes, stream>>>(
+      mq, mk, mv, static_cast<tc::bf16*>(o), static_cast<float*>(lse), bh, seq, dim, scale,
+      causal);
+  return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk, void* dv, int bh,
+                             int seq, int dim, float scale, int causal, cudaStream_t stream) {
+  using C = DkvConfig<DP>;
+  using L = wg::DkvLayout<DP, C::kWG, C::kST>;
+  const auto kernel = wg::flash_dkv_wgmma<DP, C::kWG, C::kST, C::kMinBlocks>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = make_map(&mq, q, bh, seq, dim, wg::kTileRows);
+  if (err == cudaSuccess) err = make_map(&mdo, dout, bh, seq, dim, wg::kTileRows);
+  if (err == cudaSuccess) err = make_map(&mk, k, bh, seq, dim, L::kRows);
+  if (err == cudaSuccess) err = make_map(&mv, v, bh, seq, dim, L::kRows);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = bh * ((seq + L::kRows - 1) / L::kRows);
+  kernel<<<blocks, C::kWG * 128 + 32, L::kBytes, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), bh, seq, dim, scale, causal);
+  return cudaSuccess;
+}
+
+// bfloat16 runs on the tensor cores (a head dim of 32 or less as 64: its
+// boxes' extra columns are TMA's zeros); float32 on the CUDA cores, the only
 // exact float32 path (the tensor cores' float32 mode, TF32, keeps 10 bits).
 template <int DM>
-void launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                int bh, int seq, int dim, float scale, int causal, int is_bf16,
-                cudaStream_t stream) {
-  using tc::bf16;
-  if (is_bf16) {
-    tc::flash_fwd_tc<DM><<<row_blocks(bh, seq), tc::kRows * 2, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), bh, seq, dim, scale, causal);
-  } else {
-    flash_fwd_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), bh, seq, dim, scale, causal);
-  }
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int bh, int seq, int dim, float scale, int causal, int is_bf16,
+                       cudaStream_t stream) {
+  if (is_bf16)
+    return launch_fwd_wgmma<DM == 32 ? 64 : DM>(q, k, v, o, lse, bh, seq, dim, scale, causal,
+                                                stream);
+  flash_fwd_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), bh, seq, dim, scale, causal);
+  return cudaSuccess;
 }
 
 template <int DM>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, int bh, int seq,
-               int dim, float scale, int causal, int is_bf16,
-               cudaStream_t stream) {
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int bh, int seq,
+                      int dim, float scale, int causal, int is_bf16,
+                      cudaStream_t stream) {
   using tc::bf16;
   if (is_bf16) {
     tc::flash_dq_tc<DM><<<row_blocks(bh, seq), tc::kRows * 2, 0, stream>>>(
@@ -800,43 +1314,44 @@ void launch_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dq), bh, seq, dim, scale, causal);
   }
+  return cudaSuccess;
 }
 
 template <int DM>
-void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv, int bh,
-                int seq, int dim, float scale, int causal, int is_bf16,
-                cudaStream_t stream) {
-  using tc::bf16;
-  if (is_bf16) {
-    tc::flash_dkv_tc<DM><<<row_blocks(bh, seq), tc::kRows * 2, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, seq, dim, scale,
-        causal);
-  } else {
-    flash_dkv_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), bh, seq, dim, scale,
-        causal);
-  }
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int bh,
+                       int seq, int dim, float scale, int causal, int is_bf16,
+                       cudaStream_t stream) {
+  if (is_bf16)
+    return launch_dkv_wgmma<DM == 32 ? 64 : DM>(q, k, v, dout, lse, delta, dk, dv, bh, seq,
+                                                dim, scale, causal, stream);
+  flash_dkv_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), bh, seq, dim, scale,
+      causal);
+  return cudaSuccess;
 }
 
-// Calls `launch<DM>(args...)` for the padded head width.
-#define ADAPCC_DISPATCH(launch, dm, ...)                  \
-  do {                                                    \
-    if (dm == 32) launch<32>(__VA_ARGS__);                \
-    else if (dm == 64) launch<64>(__VA_ARGS__);           \
-    else launch<128>(__VA_ARGS__);                        \
-  } while (0)
+// `launch<DM>(args...)` for the padded head width.
+#define ADAPCC_DISPATCH(launch, dm, ...)                       \
+  (dm == 32   ? launch<32>(__VA_ARGS__)                       \
+   : dm == 64 ? launch<64>(__VA_ARGS__)                       \
+              : launch<128>(__VA_ARGS__))
+
+// A launch's own error (a tensor map or an attribute it could not set),
+// else cudaGetLastError(): a refused launch never runs, and only this
+// reports it.  Both clear the runtime's last error.
+int launch_result(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
 
 }  // namespace
 
 // C entry points, bound with ctypes.  Each launches on `stream` and returns
-// cudaGetLastError(): a refused launch never runs, and only this reports it.
+// 0 or the CUDA error of the launch.
 extern "C" int adapcc_flash_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int seq, int dim,
                                 float scale, int causal, int is_bf16,
@@ -844,9 +1359,8 @@ extern "C" int adapcc_flash_fwd(const void* q, const void* k, const void* v,
   const int dm = padded_dim(dim);
   if (dm == 0 || dim % 8 != 0 || bh <= 0 || seq <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ADAPCC_DISPATCH(launch_fwd, dm, q, k, v, o, lse, bh, seq, dim, scale, causal,
-                  is_bf16, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_result(ADAPCC_DISPATCH(launch_fwd, dm, q, k, v, o, lse, bh, seq, dim, scale,
+                                       causal, is_bf16, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int adapcc_flash_dq(const void* q, const void* k, const void* v,
@@ -857,9 +1371,21 @@ extern "C" int adapcc_flash_dq(const void* q, const void* k, const void* v,
   const int dm = padded_dim(dim);
   if (dm == 0 || dim % 8 != 0 || bh <= 0 || seq <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ADAPCC_DISPATCH(launch_dq, dm, q, k, v, dout, lse, delta, dq, bh, seq, dim,
-                  scale, causal, is_bf16, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_result(ADAPCC_DISPATCH(launch_dq, dm, q, k, v, dout, lse, delta, dq, bh, seq,
+                                       dim, scale, causal, is_bf16,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// Dynamic shared memory (bytes) of the bf16 forward (kernel 0) or dk/dv
+// (kernel 1) launch at head dim `dim`: all of theirs is dynamic, so ptxas's
+// report does not show it.
+extern "C" int adapcc_flash_smem_bytes(int kernel, int dim) {
+  const int dp = padded_dim(dim) == 128 ? 128 : 64;
+  if (kernel == 0)
+    return dp == 64 ? wg::FwdLayout<64, FwdConfig<64>::kWG, FwdConfig<64>::kST>::kBytes
+                    : wg::FwdLayout<128, FwdConfig<128>::kWG, FwdConfig<128>::kST>::kBytes;
+  return dp == 64 ? wg::DkvLayout<64, DkvConfig<64>::kWG, DkvConfig<64>::kST>::kBytes
+                  : wg::DkvLayout<128, DkvConfig<128>::kWG, DkvConfig<128>::kST>::kBytes;
 }
 
 extern "C" int adapcc_flash_dkv(const void* q, const void* k, const void* v,
@@ -870,8 +1396,7 @@ extern "C" int adapcc_flash_dkv(const void* q, const void* k, const void* v,
   const int dm = padded_dim(dim);
   if (dm == 0 || dim % 8 != 0 || bh <= 0 || seq <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ADAPCC_DISPATCH(launch_dkv, dm, q, k, v, dout, lse, delta, dk, dv, bh, seq,
-                  dim, scale, causal, is_bf16,
-                  static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_result(ADAPCC_DISPATCH(launch_dkv, dm, q, k, v, dout, lse, delta, dk, dv, bh,
+                                       seq, dim, scale, causal, is_bf16,
+                                       static_cast<cudaStream_t>(stream)));
 }

@@ -93,6 +93,23 @@ def _dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
 # --------------------------------------------------------------------------- #
 
 
+def tma_layout_error(shape, strides, dtype: torch.dtype, address: int) -> Optional[str]:
+    """Why a ``[BH, T, D]`` operand cannot be read through a TMA tensor map
+    (the bf16 forward and dk/dv kernels build one per operand from its base
+    pointer and shape), or ``None``: the kernels take a contiguous layout, a
+    16-byte aligned base, and a row pitch (``D`` elements) that is a multiple
+    of 16 bytes."""
+    _, T, D = shape
+    if any(n > 1 and s != want for n, s, want in zip(shape, strides, (T * D, D, 1))):
+        return f"flash kernels need a contiguous [BH, T, D] layout, got strides {tuple(strides)}"
+    if address % 16:
+        return f"flash kernels need a 16-byte aligned base, got address {address:#x}"
+    pitch = D * dtype.itemsize
+    if pitch % 16:
+        return f"flash kernels need a row pitch that is a multiple of 16 bytes, got {pitch}"
+    return None
+
+
 def _check_kernel_inputs(*tensors: torch.Tensor) -> None:
     """Raise on what the CUDA kernels do not take."""
     ref = tensors[0]
@@ -112,8 +129,9 @@ def _check_kernel_inputs(*tensors: torch.Tensor) -> None:
                 f"flash kernel operands differ: {t.device} {t.dtype} "
                 f"{tuple(t.shape)} vs {ref.device} {ref.dtype} {tuple(ref.shape)}"
             )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash kernels need contiguous, 16-byte aligned tensors")
+        error = tma_layout_error(t.shape, t.stride(), t.dtype, t.data_ptr())
+        if error is not None:
+            raise ValueError(error)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -122,6 +140,7 @@ _SIGNATURES = {
     "adapcc_flash_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     "adapcc_flash_dq": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     "adapcc_flash_dkv": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    "adapcc_flash_smem_bytes": [_I, _I],  # (0 forward | 1 dk/dv, head dim)
 }
 
 

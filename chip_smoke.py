@@ -13,8 +13,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    source, all at once (seconds and ptxas lines printed);
 3. hold each flash kernel (forward, dq, dk/dv) against its plain torch
    version on the card, causal and not, in bfloat16 and float32, at the main
-   path's shape and a smaller one; time kernel, plain version and, as a
-   yardstick only, ``torch.nn.functional.scaled_dot_product_attention``;
+   path's shape and a smaller one, then the forward and dk/dv (the wgmma
+   kernels) over ``WGMMA_GRID`` (head dims 8 to 128, T = 200, one head),
+   each check one counted launch; time kernel, plain version and, as a
+   yardstick only, ``torch.nn.functional.scaled_dot_product_attention``
+   (its backward, one call for dq, dk and dv, is the library time of both
+   backward kernels);
 4. hold each ring kernel (K1a, K1b) against ``_ring_plain`` bit for bit at
    world 2, 4 and 8, float32 and bfloat16, reduce-scatter, all-gather (from
    the full payload and from each rank's own chunk, as the stacked
@@ -112,6 +116,13 @@ ENGINE_ELEMS = {"ring_k1a": (4 << 20) // 4, "ring_k1b": (64 << 20) // 4}
 #: the ZeRO-1 ring path against its plain-ring run, per-rank losses
 ZERO1_LOSS_ATOL = 1e-6
 
+#: phase 3's wider grid for K2 and K4, (B, T, H, D): head dims on one
+#: 64-column TMA box and on two, with and without columns past D (8 to
+#: 128); T = 200, which no tile divides; one head (B·H = 1) and several; one
+#: row; one row past a tile
+WGMMA_GRID = [(1, 200, 1, d) for d in (8, 32, 40, 64, 96, 128)] + [
+    (3, 200, 2, 64), (2, 512, 4, 128), (1, 1, 1, 64), (1, 65, 1, 64)]
+
 # kernel vs plain: float32 differs only in summation order; a bf16 output is
 # one float32 result rounded once by each side, so two bf16 ulps (2**-7
 # relative) bound the gap, plus an absolute floor for values near zero
@@ -182,48 +193,68 @@ def bound(name: str, bh: int, t: int, d: int, dtype: torch.dtype, causal: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_runs(dev: torch.device, B: int, T: int, H: int, D: int, dtype: torch.dtype, causal: bool):
+    """``{kernel: (kernel call, plain call, wrapper)}`` on ``[B·H, T, D]``
+    inputs from ``SEED``, and the inputs ``(q, k, v, do, scale)``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = ((torch.randn(B * H, T, D, device=dev, generator=gen) * 0.5).to(dtype) for _ in range(4))
+    scale = D ** -0.5
+    o_ref, lse_ref = fa._fwd_plain(q, k, v, scale, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    res = (q, k, v, do, lse_ref, delta, scale, causal)
+    runs = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, causal),
+                      lambda: fa._fwd_plain(q, k, v, scale, causal), fa.flash_fwd),
+        "flash_dq": (lambda: fa.flash_dq(*res), lambda: fa._dq_plain(*res), fa.flash_dq),
+        "flash_dkv": (lambda: fa.flash_dkv(*res), lambda: fa._dkv_plain(*res), fa.flash_dkv),
+    }
+    return runs, (q, k, v, do, scale)
+
+
+def check_flash(name: str, run, shape: tuple, dtype: torch.dtype, causal: bool) -> float:
+    """One launch of ``name`` against its plain version under ``TOLERANCE``;
+    fails unless it agrees and its wrapper counted exactly that launch.
+    Returns the largest absolute error."""
+    kernel, plain, wrapper = run
+    before = wrapper.launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    launched = wrapper.launches - before
+    rtol, atol = TOLERANCE[dtype]
+    err, excess = 0.0, 0.0
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
+        diff = (g.float() - w.float()).abs()
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"{name}: non-finite output")
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - atol - rtol * w.float().abs()).max().item())
+    ok = excess <= 0 and launched == 1
+    B, T, H, D = shape
+    print(f"check {name:9s} B={B} T={T} H={H} D={D} {str(dtype)[6:]:8s} "
+          f"causal={causal!s:5s} max_abs_err={err:.3e} (rtol {rtol:.1e}, atol {atol:.0e}) "
+          f"launches {launched} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version or did not launch once")
+    return err
+
+
 def check_kernels(dev: torch.device) -> dict:
-    """Each kernel against its plain version; returns the main-shape (bf16,
-    causal) record of each kernel: error, times, bound."""
+    """Each kernel against its plain version, then K2 and K4 (the wgmma
+    kernels) over ``WGMMA_GRID``; returns the main-shape (bf16, causal)
+    record of each kernel: error, times, bound, and the library call's
+    time (sdpa's backward stands for K3 and K4 together)."""
     shapes = [(BATCH, MAIN.max_seq, MAIN.n_head, MAIN.d_model // MAIN.n_head), (2, 128, 4, 32)]
     records = {}
     for B, T, H, D in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
-                gen = torch.Generator(device=dev).manual_seed(SEED)
-                q, k, v, do = ((torch.randn(B * H, T, D, device=dev, generator=gen) * 0.5).to(dtype)
-                               for _ in range(4))
-                scale = D ** -0.5
-                o_ref, lse_ref = fa._fwd_plain(q, k, v, scale, causal)
-                delta = (do.float() * o_ref.float()).sum(-1)
-                res = (q, k, v, do, lse_ref, delta, scale, causal)
-                runs = {
-                    "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, causal),
-                                  lambda: fa._fwd_plain(q, k, v, scale, causal)),
-                    "flash_dq": (lambda: fa.flash_dq(*res), lambda: fa._dq_plain(*res)),
-                    "flash_dkv": (lambda: fa.flash_dkv(*res), lambda: fa._dkv_plain(*res)),
-                }
-                rtol, atol = TOLERANCE[dtype]
-                for name, (kernel, plain) in runs.items():
-                    got, want = kernel(), plain()
-                    torch.cuda.synchronize()
-                    err, excess = 0.0, 0.0
-                    for g, w in zip(got if isinstance(got, tuple) else (got,),
-                                    want if isinstance(want, tuple) else (want,)):
-                        if g.shape != w.shape or g.dtype != w.dtype:
-                            raise RuntimeError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
-                        diff = (g.float() - w.float()).abs()
-                        if not torch.isfinite(g).all():
-                            raise RuntimeError(f"{name}: non-finite output")
-                        err = max(err, diff.max().item())
-                        excess = max(excess, (diff - atol - rtol * w.float().abs()).max().item())
-                    ok = excess <= 0
-                    print(f"check {name:9s} B={B} T={T} H={H} D={D} {str(dtype)[6:]:8s} "
-                          f"causal={causal!s:5s} max_abs_err={err:.3e} (rtol {rtol:.1e}, atol {atol:.0e}) "
-                          f"{'ok' if ok else 'FAIL'}", flush=True)
-                    if not ok:
-                        raise RuntimeError(f"{name} disagrees with its plain version")
+                runs, (q, k, v, do, scale) = flash_runs(dev, B, T, H, D, dtype, causal)
+                for name, run in runs.items():
+                    err = check_flash(name, run, (B, T, H, D), dtype, causal)
                     if (B, T, H, D) == shapes[0] and dtype == MAIN.dtype and causal:
+                        kernel, plain, _ = run
                         b_ms, b_by = bound(name, B * H, T, D, dtype, causal)
                         records[name] = {
                             "max_abs_err": err,
@@ -234,16 +265,30 @@ def check_kernels(dev: torch.device) -> dict:
                             "library_ms": None,
                         }
                 if (B, T, H, D) == shapes[0] and dtype == MAIN.dtype and causal:
-                    # yardstick only: the port never calls library attention
+                    # yardsticks only: the port never calls library attention
                     ql, kl, vl = (x.view(B, H, T, D) for x in (q, k, v))
-                    records["flash_fwd"]["library_ms"] = cuda_ms(
-                        lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale))
+                    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale))
                     ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
                     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
                     dol = do.view(B, H, T, D)
                     bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
-                    print(f"yardstick: scaled_dot_product_attention backward (dq, dk, dv in one call) "
-                          f"{bwd_ms:.4f} ms", flush=True)
+                    records["flash_fwd"]["library_ms"] = fwd_ms
+                    for name in ("flash_dq", "flash_dkv"):
+                        records[name]["library_ms"] = bwd_ms
+                        records[name]["library_covers"] = "dq, dk and dv: one sdpa backward"
+                    kern_bwd = records["flash_dq"]["ms"] + records["flash_dkv"]["ms"]
+                    print(f"yardstick: scaled_dot_product_attention forward {fwd_ms:.4f} ms, K2 "
+                          f"{records['flash_fwd']['ms']:.4f} ms ({records['flash_fwd']['ms'] / fwd_ms:.2f}x); "
+                          f"backward (dq, dk, dv in one call) {bwd_ms:.4f} ms, K3 + K4 {kern_bwd:.4f} ms "
+                          f"({kern_bwd / bwd_ms:.2f}x)", flush=True)
+    # K2 and K4 over the wider grid: head dims on one and two TMA boxes and
+    # past them, a T no tile divides, one head, one row
+    for B, T, H, D in WGMMA_GRID:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                runs, _ = flash_runs(dev, B, T, H, D, dtype, causal)
+                for name in ("flash_fwd", "flash_dkv"):
+                    check_flash(name, runs[name], (B, T, H, D), dtype, causal)
     return records
 
 
@@ -734,8 +779,12 @@ def build_all() -> None:
     print(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
                 print(f"  ptxas ({lib.name.split('_')[0][3:]}): {line.strip()}")
+    # the wgmma kernels' shared memory is all dynamic, which ptxas does not show
+    smem = fa._library().adapcc_flash_smem_bytes
+    print("  dynamic shared memory (flash, bf16): " + ", ".join(
+        f"{kernel} D<={d} {smem(i, d)} B" for i, kernel in enumerate(("forward", "dk/dv")) for d in (64, 128)))
 
 
 def main() -> None:

@@ -110,3 +110,29 @@ def test_kernel_wrappers_count_only_kernel_launches():
     fa.flash_dkv(q, q, q, q, lse, lse, 0.25, True)
     assert [w.launches for w in fa.KERNELS] == before
 
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make, reason", [
+    (lambda: _bf16(4, 200, 64), None),
+    (lambda: _bf16(4, 200, 40), None),  # an 80-byte row pitch
+    (lambda: _bf16(4, 1, 64), None),  # a length-1 axis's stride is free
+    (lambda: torch.zeros(4, 200, 8), None),  # float32: a 32-byte pitch
+    (lambda: _bf16(4 * 200 * 64 + 1)[1:].view(4, 200, 64), "16-byte aligned base"),
+    (lambda: _bf16(4, 200, 12), "row pitch"),  # 24 bytes
+    (lambda: _bf16(4, 16, 200, 64)[:, 0], "contiguous"),  # a row of a [B, H, T, D] batch
+    (lambda: _bf16(4, 64, 200).transpose(1, 2), "contiguous"),
+], ids=["bf16", "bf16-d40", "t1", "float32-d8", "misaligned", "pitch-24", "strided-rows", "transposed"])
+def test_tma_layout_error(make, reason):
+    """The layout the bf16 forward and dk/dv kernels read through TMA maps,
+    as a pure function of shape, strides, dtype and address: on a CUDA
+    tensor the wrappers raise its message before any launch."""
+    t = make()
+    error = fa.tma_layout_error(t.shape, t.stride(), t.dtype, t.data_ptr())
+    if reason is None:
+        assert error is None
+    else:
+        assert reason in error
