@@ -14,7 +14,7 @@
 //
 // Kernels, by the TPU kernel each replaces and the dtype:
 //   _fwd_kernel  bf16: wg::flash_fwd_wgmma   float32: flash_fwd_kernel
-//   _dq_kernel   bf16: tc::flash_dq_tc       float32: flash_dq_kernel
+//   _dq_kernel   bf16: wg::flash_dq_wgmma    float32: flash_dq_kernel
 //   _dkv_kernel  bf16: wg::flash_dkv_wgmma   float32: flash_dkv_kernel
 // bfloat16 (the training path) runs on the tensor cores; float32 on the CUDA
 // cores, the exact float32 path (the tensor cores' float32 mode, TF32, keeps
@@ -41,18 +41,18 @@
 //   dkv: q, k, v, do, dk, dv (6 x 16.8 MB) + lse, delta = 102 MB -> 30 us;
 //        8*D flops per pair = 17.2 GFLOP -> 17 us (26 us with the
 //        remainders): bytes.
-// What the bf16 fwd and dk/dv kernels do about it (namespace wg): a producer
-// warp keeps TMA loads of the next tiles in flight (2-stage ring, mbarriers)
-// while consumer warpgroups run wgmma on the tiles that have landed, so no
-// tile load sits exposed; the forward's blocks of 128 query rows (two
+// What the bf16 kernels do about it (namespace wg): a producer warp keeps
+// TMA loads of the next tiles in flight (2-stage ring, mbarriers) while
+// consumer warpgroups run wgmma on the tiles that have landed, so no tile
+// load sits exposed; the forward's blocks of 128 query rows (two
 // warpgroups) re-read k and v from L2 half as often as 64-row blocks; the
 // 128-byte-swizzled TMA tiles feed wgmma in both majors, so nothing is
-// transposed in shared memory and dk/dv loads two tiles a step (q, do) plus
-// lse and delta; p comes from ex2 with the scale folded in.  Neither reaches
-// its bound: each warpgroup waits on its own products (scores, then
-// softmax, then p.v) with only two to four warpgroups an SM to hide that.
-// dq (namespace tc) still stages its tiles through registers with mma.sync,
-// transposing k.
+// transposed in shared memory: dq reads one k tile K-major for q.k^T and
+// MN-major for ds.k, and dk/dv loads two tiles a step (q, do) plus lse and
+// delta; p comes from ex2 with the scale folded in.  None reaches its
+// bound: each warpgroup waits on its own products (scores, then softmax or
+// ds, then the row products) with only two to four warpgroups an SM to
+// hide that.
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda is linked
 #include <cuda_bf16.h>
@@ -341,246 +341,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// bfloat16 dq: tensor cores (mma.sync m16n8k16, float32 accumulate)
-// --------------------------------------------------------------------------
-//
-// One block of 4 warps owns 64 query rows, 16 per warp.  A warp keeps its
-// rows' q and do fragments in registers and runs every product of its 16
-// rows with mma.sync against k and v tiles streamed through shared memory:
-// row-major tiles feed the products over the head dim, a transposed k tile
-// the product over keys.  Scores and ds stay in the accumulator registers;
-// the accumulator layout of one product is the operand layout of the next,
-// so ds never touches shared memory.
-//
-// Exactness (shared with the wgmma kernels below): q, k, v and do are bf16
-// already, so their products are exact.  p and ds are float32 and the TPU
-// kernels multiply them in float32; here each is split into a bf16 head and
-// a bf16 remainder (x = hi + lo to about 2^-16 relative) and both halves go
-// through the tensor cores, so the result keeps float32-level accuracy
-// against the plain version.
-namespace tc {
-
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;  // output rows owned by one block
-using bf16 = __nv_bfloat16;
-
-// Keys per streamed tile: 64, or 32 at head dim 128 to stay
-// within 48 KB of static shared memory.
-template <int DP>
-struct Tile {
-  static constexpr int kLen = DP == 128 ? 32 : 64;
-};
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (a, b) as bf16 pairs: the rounded head and the remainder.
-__device__ __forceinline__ void split(float a, float b, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(a - f.x, b - f.y));
-}
-
-// The A fragments (16 x 16) of the accumulator tiles c[2kk], c[2kk + 1]
-// (16 x 8 each), split into head and remainder.
-__device__ __forceinline__ void split_a(const float (&c0)[4],
-                                        const float (&c1)[4], uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  split(c0[0], c0[1], hi[0], lo[0]);
-  split(c0[2], c0[3], hi[1], lo[1]);
-  split(c1[0], c1[1], hi[2], lo[2]);
-  split(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// Two bf16 at (row, col), (row, col + 1) of a [seq, dim] matrix; zero
-// outside it (col is even and dim a multiple of 8, so both or neither).
-__device__ __forceinline__ uint32_t ldg_pair(const bf16* src, int row, int col,
-                                             int seq, int dim) {
-  return (row < seq && col < dim)
-             ? *reinterpret_cast<const uint32_t*>(src + (size_t)row * dim + col)
-             : 0u;
-}
-
-// A fragment: rows [rb, rb + 16) and columns [kb, kb + 16) of a global
-// [seq, dim] matrix.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* src,
-                                       int rb, int kb, int seq, int dim,
-                                       int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  a[0] = ldg_pair(src, rb + g, kb + 2 * t, seq, dim);
-  a[1] = ldg_pair(src, rb + g + 8, kb + 2 * t, seq, dim);
-  a[2] = ldg_pair(src, rb + g, kb + 2 * t + 8, seq, dim);
-  a[3] = ldg_pair(src, rb + g + 8, kb + 2 * t + 8, seq, dim);
-}
-
-// B fragment (16 x 8) with B[k][n] = tile[nb + n][kb + k] of a shared tile
-// with row length LD.
-template <int LD>
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* tile, int nb, int kb,
-                                       int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  b0 = *reinterpret_cast<const uint32_t*>(tile + (nb + g) * LD + kb + 2 * t);
-  b1 = *reinterpret_cast<const uint32_t*>(tile + (nb + g) * LD + kb + 2 * t + 8);
-}
-
-// Rows [row0, row0 + R) of a global [seq, dim] matrix into a shared tile,
-// row-major [R][DP + 8] (8 columns of padding keep fragment reads free of
-// bank conflicts), zero-filled outside the matrix.
-template <int R, int DP>
-__device__ __forceinline__ void load_rows(bf16 (*dst)[DP + 8], const bf16* src,
-                                          int row0, int seq, int dim) {
-  constexpr int kVecs = DP / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < R * kVecs; idx += blockDim.x) {
-    const int r = idx / kVecs, c = 8 * (idx % kVecs), g = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (g < seq && c < dim)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)g * dim + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = v;
-  }
-}
-
-// The same rows, transposed: [DP][R + 8].
-template <int R, int DP>
-__device__ __forceinline__ void load_rows_t(bf16 (*dst)[R + 8], const bf16* src,
-                                            int row0, int seq, int dim) {
-  constexpr int kVecs = DP / 8;
-  for (int idx = threadIdx.x; idx < R * kVecs; idx += blockDim.x) {
-    const int r = idx / kVecs, c = 8 * (idx % kVecs), g = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (g < seq && c < dim)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)g * dim + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[c + i][r] = e[i];
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Stores rows (row0, row0 + 8) of a warp's accumulators times (mul0, mul1).
-template <int DN>
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[DN][4],
-                                          float mul0, float mul1, int row0,
-                                          int seq, int dim, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (col >= dim) continue;
-    if (row0 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row0 * dim + col) =
-          __floats2bfloat162_rn(acc[dn][0] * mul0, acc[dn][1] * mul0);
-    if (row0 + 8 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(row0 + 8) * dim + col) =
-          __floats2bfloat162_rn(acc[dn][2] * mul1, acc[dn][3] * mul1);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kRows * 2)
-flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int bh_count, int seq, int dim, float scale,
-          int causal) {
-  constexpr int BK = Tile<DP>::kLen, NT = BK / 8, KS = DP / 16, DN = DP / 8;
-  __shared__ __align__(16) bf16 ks[BK][DP + 8];
-  __shared__ __align__(16) bf16 vs[BK][DP + 8];
-  __shared__ __align__(16) bf16 kt[DP][BK + 8];
-
-  const int n_tiles = (seq + kRows - 1) / kRows;
-  const int tile = n_tiles - 1 - blockIdx.x / bh_count;  // longest rows first
-  const int bh = blockIdx.x % bh_count;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const size_t base = (size_t)bh * seq * dim;
-  const int rb = tile * kRows + warp * 16;
-  const int row[2] = {rb + (lane >> 2), rb + (lane >> 2) + 8};
-
-  uint32_t qf[KS][4], df[KS][4];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    load_a(qf[s], q + base, rb, s * 16, seq, dim, lane);
-    load_a(df[s], dout + base, rb, s * 16, seq, dim, lane);
-  }
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = row[r] < seq ? lse[(size_t)bh * seq + row[r]] : 0.f;
-    delta_r[r] = row[r] < seq ? delta[(size_t)bh * seq + row[r]] : 0.f;
-  }
-  float acc[DN][4] = {};
-
-  const int last_row = min(tile * kRows + kRows, seq) - 1;
-  const int k_end = causal ? last_row + 1 : seq;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows<BK, DP>(ks, k + base, k0, seq, dim);
-    load_rows<BK, DP>(vs, v + base, k0, seq, dim);
-    load_rows_t<BK, DP>(kt, k + base, k0, seq, dim);
-    __syncthreads();
-
-    float sc[NT][4] = {}, dp[NT][4] = {};
-#pragma unroll
-    for (int s = 0; s < KS; ++s)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        load_b<DP + 8>(b0, b1, &ks[0][0], nt * 8, s * 16, lane);
-        mma(sc[nt], qf[s], b0, b1);
-        load_b<DP + 8>(b0, b1, &vs[0][0], nt * 8, s * 16, lane);
-        mma(dp[nt], df[s], b0, b1);
-      }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool live = key < seq && !(causal && key > row[e >> 1]);
-        const float p = live ? expf(sc[nt][e] * scale - lse_r[e >> 1]) : 0.f;
-        sc[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;  // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_a(sc[2 * kk], sc[2 * kk + 1], hi, lo);
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        uint32_t b0, b1;
-        load_b<BK + 8>(b0, b1, &kt[0][0], dn * 8, kk * 16, lane);
-        mma(acc[dn], hi, b0, b1);
-        mma(acc[dn], lo, b0, b1);
-      }
-    }
-  }
-  store_acc<DN>(dq + base, acc, 1.f, 1.f, row[0], seq, dim, lane);
-}
-
-}  // namespace tc
-
-// --------------------------------------------------------------------------
-// bfloat16 forward and dk/dv on Hopper: TMA-fed stages, wgmma
+// bfloat16 on Hopper: TMA-fed stages, wgmma (float32 accumulate)
 // --------------------------------------------------------------------------
 //
 // A block is one producer warp and NWG consumer warpgroups of 64 output rows
@@ -595,15 +356,21 @@ flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Tiles are [rows][64 columns] boxes, 128 bytes a row with TMA's 128-byte
 // swizzle (a head dim over 64 is two boxes), which is the layout wgmma reads
 // both ways: K-major when the product's depth is the head dim (q.k^T,
-// k.q^T, v.do^T) and MN-major, through the descriptor's transpose bit, when
-// the depth runs down the rows (p.v, p^T.do, ds^T.q).  So no tile is ever
-// transposed in shared memory.  p and ds come from the score accumulators
-// as register A operands, split into a bf16 head and remainder as above.
-// The tensor maps cover [BH, T, D] with T and D as their bounds: TMA fills
-// rows past T and columns past D with zeros, which the masks then ignore.
+// do.v^T, k.q^T, v.do^T) and MN-major, through the descriptor's transpose
+// bit, when the depth runs down the rows (p.v, ds.k, p^T.do, ds^T.q).  So no
+// tile is ever transposed in shared memory.  p and ds come from the score
+// accumulators as register A operands.  The tensor maps cover [BH, T, D]
+// with T and D as their bounds: TMA fills rows past T and columns past D
+// with zeros, which the masks then ignore.
+//
+// Exactness: q, k, v and do are bf16 already, so their products are exact.
+// p and ds are float32 and the TPU kernels multiply them in float32; here
+// each is split into a bf16 head and a bf16 remainder (x = hi + lo to about
+// 2^-16 relative) and both halves go through the tensor cores, so the
+// result keeps float32-level accuracy against the plain version.
 namespace wg {
 
-using tc::bf16;
+using bf16 = __nv_bfloat16;
 
 constexpr int kBoxCols = 64;       // head-dim columns of one box: 128 bytes a row
 constexpr int kTileRows = 64;      // rows of a streamed tile: keys (fwd), queries (dk/dv)
@@ -613,6 +380,30 @@ constexpr uint64_t kWaitLimitNs = 4000000000ull;  // a stuck pipeline traps
 // p = exp2(s log2e - m log2e): ex2 with one multiply folded in, where expf
 // would cost a range reduction per score
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (a, b) as bf16 pairs: the rounded head and the remainder.
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(a - f.x, b - f.y));
+}
+
+// The max and the sum over the four lanes (one quad) that share a row of a
+// wgmma accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -764,10 +555,10 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4
 // [16 kk, 16 kk + 16): c points at element 8 kk of the accumulator.
 __device__ __forceinline__ void split_frag(const float* c, uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
-  tc::split(c[0], c[1], hi[0], lo[0]);
-  tc::split(c[2], c[3], hi[1], lo[1]);
-  tc::split(c[4], c[5], hi[2], lo[2]);
-  tc::split(c[6], c[7], hi[3], lo[3]);
+  split(c[0], c[1], hi[0], lo[0]);
+  split(c[2], c[3], hi[1], lo[1]);
+  split(c[4], c[5], hi[2], lo[2]);
+  split(c[6], c[7], hi[3], lo[3]);
 }
 
 // Stores a warp's rows (row0, row0 + 8) of a [64 x 64 KB] accumulator (one
@@ -919,7 +710,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
       float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
         alpha[r] = exp2f(m[r] - m_new);
         m[r] = m_new;
         l[r] *= alpha[r];
@@ -960,7 +751,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  const float l0 = tc::quad_sum(l[0]), l1 = tc::quad_sum(l[1]);
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
   if (r0 >= seq) return;
   store_rows<KB>(o + (size_t)bh * seq * dim, acc, 1.f / l0, 1.f / l1, row[0], seq, dim, t);
   if (t == 0) {
@@ -1166,6 +957,176 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
   store_rows<KB>(dv + base, dva, 1.f, 1.f, key[0], seq, dim, t);
 }
 
+// Shared memory of the dq kernel: the block's q rows and do rows, then ST
+// stages of (k tile, v tile), then the barriers.
+template <int DP, int NWG, int ST>
+struct DqLayout {
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kRows = 64 * NWG;  // query rows of a block
+  static constexpr int kQBytes = kRows * kRowBytes * kBoxes;  // q or do
+  static constexpr int kTileBytes = kTileRows * kRowBytes * kBoxes;  // one k or v tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBarOffset = 2 * kQBytes + ST * kStageBytes;
+  static constexpr int kBytes = kBarOffset + (2 * ST + 1) * 8 + 1024;  // + alignment
+};
+
+// K3: dq of 64 NWG query rows, streaming 64-key tiles of k and v.  The
+// forward's pipeline with dk/dv's products: s = q k^T and dp = do v^T over
+// the head dim, ds from them, and dq += ds k with the same k tile read
+// MN-major.
+template <int DP, int NWG, int ST, int MINB>
+__global__ void __launch_bounds__(NWG * 128 + 32, MINB)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dq, int bh_count, int seq,
+               int dim, float scale, int causal) {
+  using L = DqLayout<DP, NWG, ST>;
+  constexpr int KB = L::kBoxes, BQ = L::kRows, BK = kTileRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* qs = smem;
+  uint8_t* dos = smem + L::kQBytes;
+  uint8_t* stages = smem + 2 * L::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + ST;
+  uint64_t* rows_ready = empty + ST;
+
+  const int n_qt = (seq + BQ - 1) / BQ;
+  const int tile = n_qt - 1 - blockIdx.x / bh_count;  // longest rows first
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = tile * BQ;
+  const int n_kt = ((causal ? min(q0 + BQ, seq) : seq) + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);
+    }
+    mbar_init(rows_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(rows_ready, 2 * L::kQBytes);
+      for (int b = 0; b < KB; ++b) {
+        tma_load(qs + b * BQ * kRowBytes, &map_q, rows_ready, b * kBoxCols, q0, bh);
+        tma_load(dos + b * BQ * kRowBytes, &map_do, rows_ready, b * kBoxCols, q0, bh);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        uint8_t* kt = stages + s * L::kStageBytes;
+        uint8_t* vt = kt + L::kTileBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int b = 0; b < KB; ++b) {
+          tma_load(kt + b * BK * kRowBytes, &map_k, &full[s], b * kBoxCols, i * BK, bh);
+          tma_load(vt + b * BK * kRowBytes, &map_v, &full[s], b * kBoxCols, i * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows, 16 per warp
+  const int w = warp / 4, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + w * 64;
+  const int rb = r0 + (warp % 4) * 16;
+  const int row[2] = {rb + g, rb + g + 8};
+  // keys this warpgroup reads: under causal none past its last row
+  const int k_need = r0 >= seq ? 0 : causal ? min(r0 + 64, seq) : seq;
+  const uint8_t* qw = qs + w * 64 * kRowBytes;
+  const uint8_t* dw = dos + w * 64 * kRowBytes;
+
+  float acc[KB][32];
+#pragma unroll
+  for (int h = 0; h < KB; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  // the constants of the lane's two rows: lse in log2 units, delta, and the
+  // last key each reads (later ones are masked)
+  float lse_r[2], delta_r[2];
+  int last_key[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < seq;
+    lse_r[r] = in ? lse[(size_t)bh * seq + row[r]] * kLog2e : 0.f;
+    delta_r[r] = in ? delta[(size_t)bh * seq + row[r]] : 0.f;
+    last_key[r] = causal ? min(row[r], seq - 1) : seq - 1;
+  }
+
+  mbar_wait(rows_ready, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % ST, k0 = i * BK;
+    mbar_wait(&full[s], (i / ST) & 1);
+    if (k0 < k_need) {
+      const uint8_t* kt = stages + s * L::kStageBytes;
+      const uint8_t* vt = kt + L::kTileBytes;
+
+      // s = q k^T and dp = do v^T over the head dim, the two chains
+      // interleaved
+      float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = dp[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int b = kk / 4, c = 32 * (kk % 4);
+        wgmma_ss64(sc, desc_k(qw + b * BQ * kRowBytes + c),
+                     desc_k(kt + b * BK * kRowBytes + c), kk > 0);
+        wgmma_ss64(dp, desc_k(dw + b * BQ * kRowBytes + c),
+                     desc_k(vt + b * BK * kRowBytes + c), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(sc);
+      keep(dp);
+
+      // p = exp2(s scale log2e - lse log2e), ds = p (dp - delta) scale
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -lse_r[e >> 1]));
+          if (k0 + 8 * j + 2 * t + (e & 1) > last_key[e >> 1]) p = 0.f;
+          sc[4 * j + e] = p * (dp[4 * j + e] - delta_r[e >> 1]) * scale;
+        }
+
+      // dq += ds k over the tile's keys, 16 a step; k is read MN-major
+      uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) split_frag(&sc[8 * kk], hi[kk], lo[kk]);
+#pragma unroll
+      for (int h = 0; h < KB; ++h) keep(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < KB; ++h) {
+          const uint64_t db = desc_mn(kt + h * BK * kRowBytes + kk * 2 * kGroupBytes);
+          wgmma_rs64(acc[h], hi[kk], db);
+          wgmma_rs64(acc[h], lo[kk], db);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int h = 0; h < KB; ++h) keep(acc[h]);
+      keep(hi);
+      keep(lo);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  if (r0 >= seq) return;
+  store_rows<KB>(dq + (size_t)bh * seq * dim, acc, 1.f, 1.f, row[0], seq, dim, t);
+}
+
 }  // namespace wg
 
 // Padded head width: the smallest supported DM >= dim, or 0.
@@ -1226,6 +1187,11 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int bh, int seq, int di
 // holds (the register budget ptxas gets).  dk/dv keeps dk and dv
 // accumulators per row: at DP = 64 two one-warpgroup blocks an SM measured
 // faster than one block of two; at DP = 128 two warpgroups share a block.
+// dq keeps one accumulator but holds scores and dp at once: at DP = 64 three
+// one-warpgroup blocks an SM (128 registers) measured faster than one block
+// of two warpgroups, or two of one (more warpgroups hide the product
+// chains better than 128-row blocks save k and v reads from L2); two blocks
+// of two must fit 96 registers and spill.
 template <int DP>
 struct FwdConfig {
   static constexpr int kWG = 2, kST = 2, kMinBlocks = DP == 64 ? 2 : 1;
@@ -1233,6 +1199,10 @@ struct FwdConfig {
 template <int DP>
 struct DkvConfig {
   static constexpr int kWG = DP == 64 ? 1 : 2, kST = 2, kMinBlocks = DP == 64 ? 2 : 1;
+};
+template <int DP>
+struct DqConfig {
+  static constexpr int kWG = DP == 64 ? 1 : 2, kST = 2, kMinBlocks = DP == 64 ? 3 : 1;
 };
 
 template <int DP>
@@ -1251,8 +1221,30 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   if (err != cudaSuccess) return err;
   const int blocks = bh * ((seq + L::kRows - 1) / L::kRows);
   kernel<<<blocks, C::kWG * 128 + 32, L::kBytes, stream>>>(
-      mq, mk, mv, static_cast<tc::bf16*>(o), static_cast<float*>(lse), bh, seq, dim, scale,
+      mq, mk, mv, static_cast<wg::bf16*>(o), static_cast<float*>(lse), bh, seq, dim, scale,
       causal);
+  return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, int bh, int seq,
+                            int dim, float scale, int causal, cudaStream_t stream) {
+  using C = DqConfig<DP>;
+  using L = wg::DqLayout<DP, C::kWG, C::kST>;
+  const auto kernel = wg::flash_dq_wgmma<DP, C::kWG, C::kST, C::kMinBlocks>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = make_map(&mq, q, bh, seq, dim, L::kRows);
+  if (err == cudaSuccess) err = make_map(&mdo, dout, bh, seq, dim, L::kRows);
+  if (err == cudaSuccess) err = make_map(&mk, k, bh, seq, dim, wg::kTileRows);
+  if (err == cudaSuccess) err = make_map(&mv, v, bh, seq, dim, wg::kTileRows);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = bh * ((seq + L::kRows - 1) / L::kRows);
+  kernel<<<blocks, C::kWG * 128 + 32, L::kBytes, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<wg::bf16*>(dq), bh, seq, dim, scale, causal);
   return cudaSuccess;
 }
 
@@ -1274,7 +1266,7 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
   const int blocks = bh * ((seq + L::kRows - 1) / L::kRows);
   kernel<<<blocks, C::kWG * 128 + 32, L::kBytes, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), bh, seq, dim, scale, causal);
+      static_cast<wg::bf16*>(dk), static_cast<wg::bf16*>(dv), bh, seq, dim, scale, causal);
   return cudaSuccess;
 }
 
@@ -1300,20 +1292,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, int bh, int seq,
                       int dim, float scale, int causal, int is_bf16,
                       cudaStream_t stream) {
-  using tc::bf16;
-  if (is_bf16) {
-    tc::flash_dq_tc<DM><<<row_blocks(bh, seq), tc::kRows * 2, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), bh, seq, dim, scale, causal);
-  } else {
-    flash_dq_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq), bh, seq, dim, scale, causal);
-  }
+  if (is_bf16)
+    return launch_dq_wgmma<DM == 32 ? 64 : DM>(q, k, v, dout, lse, delta, dq, bh, seq, dim,
+                                               scale, causal, stream);
+  flash_dq_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), bh, seq, dim, scale, causal);
   return cudaSuccess;
 }
 
@@ -1376,14 +1362,17 @@ extern "C" int adapcc_flash_dq(const void* q, const void* k, const void* v,
                                        static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory (bytes) of the bf16 forward (kernel 0) or dk/dv
-// (kernel 1) launch at head dim `dim`: all of theirs is dynamic, so ptxas's
-// report does not show it.
+// Dynamic shared memory (bytes) of the bf16 forward (kernel 0), dk/dv
+// (kernel 1) or dq (kernel 2) launch at head dim `dim`: all of theirs is
+// dynamic, so ptxas's report does not show it.
 extern "C" int adapcc_flash_smem_bytes(int kernel, int dim) {
   const int dp = padded_dim(dim) == 128 ? 128 : 64;
   if (kernel == 0)
     return dp == 64 ? wg::FwdLayout<64, FwdConfig<64>::kWG, FwdConfig<64>::kST>::kBytes
                     : wg::FwdLayout<128, FwdConfig<128>::kWG, FwdConfig<128>::kST>::kBytes;
+  if (kernel == 2)
+    return dp == 64 ? wg::DqLayout<64, DqConfig<64>::kWG, DqConfig<64>::kST>::kBytes
+                    : wg::DqLayout<128, DqConfig<128>::kWG, DqConfig<128>::kST>::kBytes;
   return dp == 64 ? wg::DkvLayout<64, DkvConfig<64>::kWG, DkvConfig<64>::kST>::kBytes
                   : wg::DkvLayout<128, DkvConfig<128>::kWG, DkvConfig<128>::kST>::kBytes;
 }

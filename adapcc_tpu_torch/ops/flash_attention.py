@@ -95,10 +95,10 @@ def _dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 def tma_layout_error(shape, strides, dtype: torch.dtype, address: int) -> Optional[str]:
     """Why a ``[BH, T, D]`` operand cannot be read through a TMA tensor map
-    (the bf16 forward and dk/dv kernels build one per operand from its base
-    pointer and shape), or ``None``: the kernels take a contiguous layout, a
-    16-byte aligned base, and a row pitch (``D`` elements) that is a multiple
-    of 16 bytes."""
+    (the bf16 forward, dq and dk/dv kernels build one per operand from its
+    base pointer and shape), or ``None``: the kernels take a contiguous
+    layout, a 16-byte aligned base, and a row pitch (``D`` elements) that is
+    a multiple of 16 bytes."""
     _, T, D = shape
     if any(n > 1 and s != want for n, s, want in zip(shape, strides, (T * D, D, 1))):
         return f"flash kernels need a contiguous [BH, T, D] layout, got strides {tuple(strides)}"
@@ -140,7 +140,7 @@ _SIGNATURES = {
     "adapcc_flash_fwd": [_P] * 5 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     "adapcc_flash_dq": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     "adapcc_flash_dkv": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
-    "adapcc_flash_smem_bytes": [_I, _I],  # (0 forward | 1 dk/dv, head dim)
+    "adapcc_flash_smem_bytes": [_I, _I],  # (0 forward | 1 dk/dv | 2 dq, head dim)
 }
 
 

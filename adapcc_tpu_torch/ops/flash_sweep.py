@@ -1,12 +1,12 @@
-"""Measure the design choices of the bf16 wgmma flash kernels (K2, K4) on the card.
+"""Measure the design choices of the bf16 wgmma flash kernels (K2, K3, K4) on the card.
 
 Each variant is ``csrc/flash_attention.cu`` with a few literal substitutions
 (``VARIANTS``: the committed source, and each choice undone in turn).  All
 variants build at once, one ``nvcc`` each with the package's flags, into
 ``build/sweep/`` (git-ignored); then each runs in a process of its own (a
-kernel that traps cannot spoil the next): the forward and dk/dv against
+kernel that traps cannot spoil the next): the forward, dq and dk/dv against
 their plain versions on a few shapes under chip_smoke's bf16 tolerance, then
-both timed with CUDA events at the main path's shape (B·H = 256, T = 512,
+each timed with CUDA events at the main path's shape (B·H = 256, T = 512,
 D = 64, bf16), causal and not.  Run from the repository root on an H100::
 
     python3 -m adapcc_tpu_torch.ops.flash_sweep [variant ...]
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -27,6 +28,7 @@ from adapcc_tpu_torch.ops import flash_attention as fa
 
 _FWD = "static constexpr int kWG = 2, kST = 2, kMinBlocks = DP == 64 ? 2 : 1;"
 _DKV = "static constexpr int kWG = DP == 64 ? 1 : 2, kST = 2, kMinBlocks = DP == 64 ? 2 : 1;"
+_DQ = "static constexpr int kWG = DP == 64 ? 1 : 2, kST = 2, kMinBlocks = DP == 64 ? 3 : 1;"
 #: name -> substitutions (old, new) on the committed source
 VARIANTS = {
     "committed": [],
@@ -37,8 +39,13 @@ VARIANTS = {
     "dkv_2wg": [(_DKV, "static constexpr int kWG = 2, kST = 2, kMinBlocks = 1;")],
     # K2 as three one-warpgroup blocks (64 queries) an SM at D = 64
     "fwd_1wg": [(_FWD, "static constexpr int kWG = DP == 64 ? 1 : 2, kST = 2, kMinBlocks = DP == 64 ? 3 : 1;")],
-    # three pipeline stages in both
-    "stages3": [(_FWD, _FWD.replace("kST = 2", "kST = 3")), (_DKV, _DKV.replace("kST = 2", "kST = 3"))],
+    # K3 at D = 64 as one block of two warpgroups (128 queries) an SM
+    "dq_2wg": [(_DQ, "static constexpr int kWG = 2, kST = 2, kMinBlocks = 1;")],
+    # K3 at D = 64 as two one-warpgroup blocks an SM, or four (a 96-register budget)
+    "dq_1wg2": [(_DQ, _DQ.replace("DP == 64 ? 3 : 1", "DP == 64 ? 2 : 1"))],
+    "dq_1wg4": [(_DQ, _DQ.replace("DP == 64 ? 3 : 1", "DP == 64 ? 4 : 1"))],
+    # three pipeline stages in all three
+    "stages3": [(c, c.replace("kST = 2", "kST = 3")) for c in (_FWD, _DKV, _DQ)],
 }
 #: (B·H, T, D) checked before timing: the main shape, a ragged T, two boxes
 SHAPES = ((256, 512, 64), (1, 200, 40), (6, 200, 128))
@@ -81,6 +88,7 @@ def run_variant(library: str) -> int:
         for causal in (True, False):
             fwd_args, bwd_args, fwd_want = _inputs(bh, t, d, causal)
             for name, got, want in (("fwd", fa.flash_fwd(*fwd_args), fwd_want),
+                                    ("dq", (fa.flash_dq(*bwd_args),), (fa._dq_plain(*bwd_args),)),
                                     ("dkv", fa.flash_dkv(*bwd_args), fa._dkv_plain(*bwd_args))):
                 excess = max((g.float() - w.float()).abs().sub(ATOL + RTOL * w.float().abs()).max().item()
                              for g, w in zip(got, want))
@@ -91,6 +99,7 @@ def run_variant(library: str) -> int:
         fwd_args, bwd_args, _ = _inputs(*MAIN, causal)
         suffix = "" if causal else "_noncausal"
         times["fwd" + suffix] = _events_ms(lambda: fa.flash_fwd(*fwd_args))
+        times["dq" + suffix] = _events_ms(lambda: fa.flash_dq(*bwd_args))
         times["dkv" + suffix] = _events_ms(lambda: fa.flash_dkv(*bwd_args))
     print("  ms " + json.dumps(times), flush=True)
     return failed
@@ -118,7 +127,8 @@ def main(names) -> int:
         lines = log.splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and "wgmma" in line:
-                kernel = line.split("wg15")[1].split("EEEv")[0] if "wg15" in line else line
+                found = re.search(r"wg\d+(flash_\w+?)EEEv", line)
+                kernel = found.group(1) if found else line
                 print(f"  ptxas {kernel}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
     failed = 0
     for name, proc in builds.items():

@@ -13,12 +13,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    source, all at once (seconds and ptxas lines printed);
 3. hold each flash kernel (forward, dq, dk/dv) against its plain torch
    version on the card, causal and not, in bfloat16 and float32, at the main
-   path's shape and a smaller one, then the forward and dk/dv (the wgmma
-   kernels) over ``WGMMA_GRID`` (head dims 8 to 128, T = 200, one head),
-   each check one counted launch; time kernel, plain version and, as a
-   yardstick only, ``torch.nn.functional.scaled_dot_product_attention``
-   (its backward, one call for dq, dk and dv, is the library time of both
-   backward kernels);
+   path's shape and a smaller one, then all three (bf16: the wgmma kernels)
+   over ``WGMMA_GRID`` (head dims 8 to 128, T = 200, one head), each check
+   one counted launch; time kernel, plain version and, as a yardstick only,
+   ``torch.nn.functional.scaled_dot_product_attention`` (its backward, one
+   call for dq, dk and dv, is the library time of both backward kernels),
+   each kernel and sdpa both by CUDA events around back-to-back calls
+   (``cuda_ms``) and by device time (``device_ms``: the profiler's kernel
+   records, without the gaps in which the device waits for the host);
 4. hold each ring kernel (K1a, K1b) against ``_ring_plain`` bit for bit at
    world 2, 4 and 8, float32 and bfloat16, reduce-scatter, all-gather (from
    the full payload and from each rank's own chunk, as the stacked
@@ -116,7 +118,7 @@ ENGINE_ELEMS = {"ring_k1a": (4 << 20) // 4, "ring_k1b": (64 << 20) // 4}
 #: the ZeRO-1 ring path against its plain-ring run, per-rank losses
 ZERO1_LOSS_ATOL = 1e-6
 
-#: phase 3's wider grid for K2 and K4, (B, T, H, D): head dims on one
+#: phase 3's wider grid for K2, K3 and K4, (B, T, H, D): head dims on one
 #: 64-column TMA box and on two, with and without columns past D (8 to
 #: 128); T = 200, which no tile divides; one head (B·H = 1) and several; one
 #: row; one row past a tile
@@ -165,7 +167,9 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, between two CUDA
+    events: where the host takes longer to issue a call than the device to
+    run it, this measures the host."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -175,6 +179,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_events(prof) -> list:
+    """The device's kernel (and memset) records of a profile; a
+    record_function range on the device (the optimizer's
+    "Optimizer.step#AdamW.step") spans kernels already counted."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one ``fn`` call: the durations of the kernels it
+    launches, summed from the profiler's records over ``iters`` calls, so
+    the device's idle gaps between calls do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in _device_events(prof))
+    if not total_us:
+        raise RuntimeError("the profiler recorded no device time")
+    return total_us / 1e3 / iters
 
 
 def bound(name: str, bh: int, t: int, d: int, dtype: torch.dtype, causal: bool):
@@ -241,10 +275,10 @@ def check_flash(name: str, run, shape: tuple, dtype: torch.dtype, causal: bool) 
 
 
 def check_kernels(dev: torch.device) -> dict:
-    """Each kernel against its plain version, then K2 and K4 (the wgmma
-    kernels) over ``WGMMA_GRID``; returns the main-shape (bf16, causal)
-    record of each kernel: error, times, bound, and the library call's
-    time (sdpa's backward stands for K3 and K4 together)."""
+    """Each kernel against its plain version, then all three over
+    ``WGMMA_GRID``; returns the main-shape (bf16, causal) record of each
+    kernel: error, times (events and device), bound, and the library call's
+    times (sdpa's backward stands for K3 and K4 together)."""
     shapes = [(BATCH, MAIN.max_seq, MAIN.n_head, MAIN.d_model // MAIN.n_head), (2, 128, 4, 32)]
     records = {}
     for B, T, H, D in shapes:
@@ -259,37 +293,55 @@ def check_kernels(dev: torch.device) -> dict:
                         records[name] = {
                             "max_abs_err": err,
                             "ms": cuda_ms(kernel),
+                            "device_ms": device_ms(kernel),
                             "plain_ms": cuda_ms(plain, iters=5),
                             "bound_ms": b_ms,
                             "bound_by": b_by,
                             "library_ms": None,
                         }
                 if (B, T, H, D) == shapes[0] and dtype == MAIN.dtype and causal:
-                    # yardsticks only: the port never calls library attention
-                    ql, kl, vl = (x.view(B, H, T, D) for x in (q, k, v))
-                    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale))
-                    ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
-                    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
-                    dol = do.view(B, H, T, D)
-                    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
-                    records["flash_fwd"]["library_ms"] = fwd_ms
-                    for name in ("flash_dq", "flash_dkv"):
-                        records[name]["library_ms"] = bwd_ms
-                        records[name]["library_covers"] = "dq, dk and dv: one sdpa backward"
-                    kern_bwd = records["flash_dq"]["ms"] + records["flash_dkv"]["ms"]
-                    print(f"yardstick: scaled_dot_product_attention forward {fwd_ms:.4f} ms, K2 "
-                          f"{records['flash_fwd']['ms']:.4f} ms ({records['flash_fwd']['ms'] / fwd_ms:.2f}x); "
-                          f"backward (dq, dk, dv in one call) {bwd_ms:.4f} ms, K3 + K4 {kern_bwd:.4f} ms "
-                          f"({kern_bwd / bwd_ms:.2f}x)", flush=True)
-    # K2 and K4 over the wider grid: head dims on one and two TMA boxes and
+                    yardsticks(records, q, k, v, do, scale, (B, T, H, D))
+    # all three over the wider grid: head dims on one and two TMA boxes and
     # past them, a T no tile divides, one head, one row
     for B, T, H, D in WGMMA_GRID:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
                 runs, _ = flash_runs(dev, B, T, H, D, dtype, causal)
-                for name in ("flash_fwd", "flash_dkv"):
-                    check_flash(name, runs[name], (B, T, H, D), dtype, causal)
+                for name, run in runs.items():
+                    check_flash(name, run, (B, T, H, D), dtype, causal)
     return records
+
+
+def yardsticks(records: dict, q, k, v, do, scale: float, shape: tuple) -> None:
+    """sdpa's causal forward and backward on the kernels' inputs, timed by
+    events and by device time into the flash records; prints K2 against the
+    forward and K3 + K4 against the backward (one call for dq, dk and dv).
+    Yardsticks only: the port never calls library attention."""
+    B, T, H, D = shape
+    ql, kl, vl = (x.view(B, H, T, D) for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+
+    fwd_ms, fwd_dev = cuda_ms(fwd), device_ms(fwd)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+    dol = do.view(B, H, T, D)
+
+    def bwd():
+        return torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
+
+    bwd_ms, bwd_dev = cuda_ms(bwd), device_ms(bwd)
+    records["flash_fwd"].update(library_ms=fwd_ms, library_device_ms=fwd_dev)
+    for name in ("flash_dq", "flash_dkv"):
+        records[name].update(library_ms=bwd_ms, library_device_ms=bwd_dev,
+                             library_covers="dq, dk and dv: one sdpa backward")
+    for label, key, lib_fwd, lib_bwd in (("events", "ms", fwd_ms, bwd_ms),
+                                         ("device", "device_ms", fwd_dev, bwd_dev)):
+        k2, k3, k4 = (records[n][key] for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+        print(f"yardstick ({label}): sdpa forward {lib_fwd:.4f} ms, K2 {k2:.4f} ms ({k2 / lib_fwd:.2f}x); "
+              f"sdpa backward (dq, dk, dv in one call) {lib_bwd:.4f} ms, K3 {k3:.4f} + K4 {k4:.4f} = "
+              f"{k3 + k4:.4f} ms ({(k3 + k4) / lib_bwd:.2f}x)", flush=True)
 
 
 def ring_bound(world: int, payload_bytes: int) -> tuple:
@@ -746,11 +798,7 @@ def profile_step(label: str, step, step_ms: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    # kernels only: a record_function range on the device (the optimizer's
-    # "Optimizer.step#AdamW.step") spans kernels already counted
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
+    kernels = _device_events(prof)
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0:
         print(f"profile ({label}): the profiler recorded no device time (not measured)")
@@ -784,7 +832,7 @@ def build_all() -> None:
     # the wgmma kernels' shared memory is all dynamic, which ptxas does not show
     smem = fa._library().adapcc_flash_smem_bytes
     print("  dynamic shared memory (flash, bf16): " + ", ".join(
-        f"{kernel} D<={d} {smem(i, d)} B" for i, kernel in enumerate(("forward", "dk/dv")) for d in (64, 128)))
+        f"{kernel} D<={d} {smem(i, d)} B" for i, kernel in enumerate(("forward", "dk/dv", "dq")) for d in (64, 128)))
 
 
 def main() -> None:

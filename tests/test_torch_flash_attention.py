@@ -101,6 +101,30 @@ def test_argument_checks_match_jax():
     assert out.shape == q.shape
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [40, 128])
+def test_dq_at_head_dims_split_into_boxes_matches_jax(d, causal):
+    """dq at head dims the bf16 dq kernel reads as 64-column TMA boxes with
+    columns past D (40: one ragged box) and as two boxes (128): ``flash_dq``
+    (its plain version, on CPU tensors) against the JAX package's VJP."""
+    b, t, h = 1, 32, 2
+    rng = np.random.default_rng(3)
+    q, k, v, do = (rng.normal(size=(b, t, h, d)).astype(np.float32) * 0.5 for _ in range(4))
+    _, vjp = jax.vjp(lambda q: jax_flash(q, k, v, causal=causal, block_q=16, block_k=16), q)
+    (dq_j,) = vjp(do)
+
+    def bhtd(x):
+        return torch.from_numpy(x).transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    tq, tk, tv, tdo = map(bhtd, (q, k, v, do))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(tq, tk, tv, scale, causal)
+    delta = (tdo * o).sum(-1)
+    dq_t = fa.flash_dq(tq, tk, tv, tdo, lse, delta, scale, causal)
+    np.testing.assert_allclose(dq_t.reshape(b, h, t, d).transpose(1, 2).numpy(), np.asarray(dq_j),
+                               atol=GRAD_ATOL)
+
+
 def test_kernel_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run the plain versions and count nothing."""
     before = [w.launches for w in fa.KERNELS]
@@ -127,7 +151,7 @@ def _bf16(*shape):
     (lambda: _bf16(4, 64, 200).transpose(1, 2), "contiguous"),
 ], ids=["bf16", "bf16-d40", "t1", "float32-d8", "misaligned", "pitch-24", "strided-rows", "transposed"])
 def test_tma_layout_error(make, reason):
-    """The layout the bf16 forward and dk/dv kernels read through TMA maps,
+    """The layout the bf16 forward, dq and dk/dv kernels read through TMA maps,
     as a pure function of shape, strides, dtype and address: on a CUDA
     tensor the wrappers raise its message before any launch."""
     t = make()
