@@ -6,7 +6,8 @@ The port of two parts of :mod:`adapcc_tpu.comm.engine`:
   masked (subset) allreduce ``psum(where(active, x, identity))``
   (``masked_psum_shard``).  Each runs as one ``torch.distributed.all_reduce``
   over the process group.  Where the JAX functions return a new array, these
-  reduce in place on the tensor they are given and return it.
+  reduce in place on the tensor they are given and return it, except an
+  integer AVG, which returns a new float32 tensor (JAX's ``s / denom``).
 - the ring entry points of :class:`CollectiveEngine` (``ring_allreduce``,
   ``ring_reduce_scatter``, ``ring_all_gather``), in the JAX engine's
   single-controller form: a stacked ``[world, ...]`` tensor in, the stacked
@@ -52,16 +53,23 @@ def _identity_for(op: ReduceOp, dtype: torch.dtype) -> float:
 
 def _fused_reduce(x: torch.Tensor, op: ReduceOp, denom: int, group=None) -> torch.Tensor:
     """One collective for the op; AVG divides by ``denom`` (the full world on
-    the fast path, the active count on the masked path)."""
+    the fast path, the active count on the masked path).  A floating ``x``
+    is reduced and divided in place; an integer AVG sums ``x`` in place and
+    returns the quotient as a new float32 tensor, as JAX's ``s / denom``
+    promotes an integer sum."""
     dist.all_reduce(x, op=_DIST_OPS[op], group=group)
-    if op is ReduceOp.AVG:
-        x.div_(denom)
-    return x
+    if op is not ReduceOp.AVG:
+        return x
+    if x.is_floating_point():
+        return x.div_(denom)
+    return x.to(torch.float32) / denom
 
 
 def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM, group=None) -> torch.Tensor:
-    """Full-world allreduce of ``x`` in place (``lax.psum``; AVG divides by
-    the world size, as ``GradSyncHook``'s static full-world path does)."""
+    """Full-world allreduce of ``x`` (``lax.psum``; AVG divides by the world
+    size, as ``GradSyncHook``'s static full-world path does).  Reduces in
+    place and returns ``x``, except an integer AVG, which returns a new
+    float32 tensor: callers use the return value."""
     return _fused_reduce(x, op, dist.get_world_size(group), group)
 
 
@@ -85,9 +93,11 @@ def masked_psum_shard(
     op: ReduceOp = ReduceOp.SUM,
     group=None,
 ) -> torch.Tensor:
-    """Subset allreduce as one collective, in place: inactive ranks
-    contribute the identity, and AVG divides by the active count.  Every
-    rank, active or not, receives the result."""
+    """Subset allreduce as one collective: inactive ranks contribute the
+    identity, and AVG divides by the active count.  Every rank, active or
+    not, receives the result.  Reduces in place and returns ``x``, except an
+    integer AVG, which returns a new float32 tensor: callers use the return
+    value."""
     mask = torch.as_tensor(active_mask, dtype=torch.bool).cpu()
     world = dist.get_world_size(group)
     if mask.shape != (world,):

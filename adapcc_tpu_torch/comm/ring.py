@@ -13,31 +13,36 @@ collective walks ``world`` chunks around a unidirectional ring of ranks:
 The JAX engine's ring entry points are single-controller: they take a
 stacked ``[world, ...]`` array and return the stacked result.  The port
 keeps that form.  Every rank's rows live on one card and one kernel launch
-walks the ring for all of them; each rank sees its right neighbour only
-through a table of device pointers to that neighbour's two staging slots
-and flag words, which is what a CUDA IPC handle gives in the per-process
-form.  Four kernels in ``csrc/ring.cu`` replace the four Pallas kernels:
+walks the ring for all of them; each rank sees its neighbours only through
+a table of device pointers (to their input, work buffer and flag words for
+K1, to their staging slots and flags for K5), which is what a CUDA IPC
+registration gives in the per-process form.  Four kernels in
+``csrc/ring.cu`` replace the four Pallas kernels:
 
-- :func:`ring_k1a` (``_ring_kernel``): the whole chunk in one stage, the
+- :func:`ring_k1a` (``_ring_kernel``): the whole chunk in one tile, the
   planner's ``vmem`` path (payloads up to ``chunk_bytes``);
-- :func:`ring_k1b` (``_stream_ring_kernel``): each chunk streamed through
-  ``[stage_rows, 128]`` staging tiles, the ``hbm-stream`` path;
+- :func:`ring_k1b` (``_stream_ring_kernel``): each chunk streamed in
+  ``[stage_rows, 128]`` tiles, the ``hbm-stream`` path.  The K1 kernels
+  stage nothing: each hop's partial is written once, into the work buffer
+  of the rank that computed it, where its right neighbour reads it, and a
+  chunk's last tile may be ragged;
 - :func:`ring_k5a` (``_fused_ring_kernel``) and :func:`ring_k5b`
   (``_fused_stream_ring_kernel``): the same two walks on a float32 payload
   with a wire codec (``int8``: codes and a float32 scale per block of
-  ``block_size`` elements; ``bf16``) in the staging tiles.  Reduce-scatter
-  hops encode the moving partial and the receiver decodes and adds in
-  float32; the all-gather encodes each reduced chunk once at its owner, which
-  adopts the decoded values, and forwards the bits verbatim, so every rank
-  ends with the same bits.
+  ``block_size`` elements; ``bf16``) in staging tiles, shipped into the
+  neighbour's slot.  Reduce-scatter hops encode the moving partial and the
+  receiver decodes and adds in float32; the all-gather encodes each reduced
+  chunk once at its owner, which adopts the decoded values, and forwards the
+  bits verbatim, so every rank ends with the same bits.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version (:func:`_ring_plain`, :func:`_fused_ring_plain`: the same walk, hop
 by hop, in torch) for a CPU tensor, and counts its launches in
-``<wrapper>.launches``.  A launch does not
-wait for its kernel: a spin that ran out is raised by :func:`check_errors`,
-which the next launch calls for the launches that have finished and a caller
-calls at its own synchronisation point for the rest.
+``<wrapper>.launches``.  A launch does not wait for its kernel and
+allocates nothing but its output (K5: and its slots): a spin that ran out is
+reported into a per-stream ring of pinned host records and raised by
+:func:`check_errors`, which the next launch calls for the launches that have
+finished and a caller calls at its own synchronisation point for the rest.
 
 The planner's tile padding (``_tile_elems``: 8×128 fp32, 16×128 bf16) is a
 Mosaic rule, but it also fixes the chunk layout, and with it the ZeRO-1
@@ -83,8 +88,13 @@ _BF16_UNIT = 1024
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the kernels' limits (csrc/ring.cu kMaxWorld, kMaxBlocks, kFlagWords)
 _MAX_WORLD = 32
-_MAX_BLOCKS = 64
+_MAX_BLOCKS = 1024
 _FLAG_WORDS = 8
+#: int32 words of one report (csrc/ring.cu kRep*): a 64-bit tag (the epoch
+#: of the call whose spin ran out), kind, rank, step, tile, block
+_REPORT_WORDS = 8
+#: reports per stream, reused in turn
+_REPORT_SLOTS = 64
 #: a spin that waits longer than this fails the call instead of hanging it
 DEFAULT_TIMEOUT_S = 10.0
 
@@ -238,11 +248,12 @@ class RingSchedule:
 
     @property
     def slot_bytes(self) -> int:
-        """Bytes of one staging slot of the CUDA kernels: the payload tile,
-        or under a codec its wire tile and (int8) one float32 scale per
-        block, rounded up to 16 bytes (:func:`_fused_slot_bytes`)."""
+        """Bytes of one staging slot of the CUDA kernels: none for the plain
+        kernels (K1 writes each hop's partial once, where the next rank
+        reads it); under a codec the wire tile and (int8) one float32 scale
+        per block, rounded up to 16 bytes (:func:`_fused_slot_bytes`)."""
         if self.wire_dtype == "off":
-            return self.stage_bytes
+            return 0
         return _fused_slot_bytes(self.stage_bytes // 4, self.wire_dtype, self.block_size)
 
     def to_row(self) -> dict:
@@ -446,15 +457,17 @@ def _fused_ring_plain(stacked: torch.Tensor, rs: bool, ag: bool, wire_dtype: str
 # --------------------------------------------------------------------------- #
 
 _P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-#: C signatures.  K1: x, out, slots, flags, err, world, chunk_elems,
-#: [stage_elems, n_tiles,] rs, ag, x_own, is_bf16, epoch, timeout_ns, fault_rank, stream.
-#: K5: x, out, slots, store, flags, err, world, chunk_elems, [stage_elems, n_tiles,]
-#: rs, ag, x_own, wire, block_size, slot_bytes, epoch, timeout_ns, fault_rank, stream.
+#: C signatures.  K1: x, out, flags, fail, report, world, chunk_elems,
+#: [stage_elems,] rs, ag, x_own, is_bf16, epoch, timeout_ns, fault_rank,
+#: device, done event, stream.  K5: x, out, slots, store, flags, fail, report,
+#: world, chunk_elems, [stage_elems, n_tiles,] rs, ag, x_own, wire, block_size,
+#: slot_bytes, epoch, timeout_ns, fault_rank, device, done event, stream.
+_TAIL = [_ULL, _ULL, _I, _I, _P, _P]
 _SIGNATURES = {
-    "adapcc_ring_k1a": [_P] * 5 + [_I, _LL] + [_I] * 4 + [_ULL, _ULL, _I, _P],
-    "adapcc_ring_k1b": [_P] * 5 + [_I, _LL, _LL, _I] + [_I] * 4 + [_ULL, _ULL, _I, _P],
-    "adapcc_ring_k5a": [_P] * 6 + [_I, _LL] + [_I] * 5 + [_LL, _ULL, _ULL, _I, _P],
-    "adapcc_ring_k5b": [_P] * 6 + [_I, _LL, _LL, _I] + [_I] * 5 + [_LL, _ULL, _ULL, _I, _P],
+    "adapcc_ring_k1a": [_P] * 5 + [_I, _LL] + [_I] * 4 + _TAIL,
+    "adapcc_ring_k1b": [_P] * 5 + [_I, _LL, _LL] + [_I] * 4 + _TAIL,
+    "adapcc_ring_k5a": [_P] * 7 + [_I, _LL] + [_I] * 5 + [_LL] + _TAIL,
+    "adapcc_ring_k5b": [_P] * 7 + [_I, _LL, _LL, _I] + [_I] * 5 + [_LL] + _TAIL,
 }
 #: what a rank waited for when its spin ran out (csrc/ring.cu WaitKind)
 _WAITS = {1: "the entry barrier", 2: "a credit from its right neighbour",
@@ -475,30 +488,54 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-class _Flags:
-    """The flag words of one (device, stream): persistent across calls.
+class _StreamState:
+    """What the ring launches on one (device, stream) keep across calls.
 
-    Every call takes a fresh epoch base above every value an earlier call
-    wrote, and compares flags against ``base + k``, so no reset pass runs
-    between calls.  Calls on one stream are ordered; a second stream gets
-    flags of its own.
+    - The flag words.  Every call takes a fresh epoch above every value an
+      earlier call wrote and compares flags against ``epoch + k``, so no
+      reset pass runs between calls.
+    - The failure word on the card: a kernel whose spin runs out raises it
+      to its call's epoch, which the call's other blocks watch.
+    - A ring of ``_REPORT_SLOTS`` reports in pinned host memory, each with an
+      event that the launch records behind its kernel.  The failing kernel writes where it
+      waited, tagged with its epoch, straight into its call's report, so a
+      report is reused without being cleared and no copy or fill runs a call.
+
+    Calls on one stream are ordered; a second stream gets state of its own.
     """
 
-    def __init__(self) -> None:
-        self.words: Optional[torch.Tensor] = None
-        self.next_epoch = 0
+    def __init__(self, device: torch.device) -> None:
+        self.flags: Optional[torch.Tensor] = None
+        self.next_epoch = 1
+        self.fail = torch.zeros(1, dtype=torch.int64, device=device)
+        self.reports = torch.zeros((_REPORT_SLOTS, _REPORT_WORDS), dtype=torch.int32, pin_memory=True)
+        self.reports_np = self.reports.numpy()  # the same memory, read without a tensor per report
+        self.done = [torch.cuda.Event() for _ in range(_REPORT_SLOTS)]
+        for event in self.done:  # created on the device; the launches record them from C
+            event.record(torch.cuda.current_stream(device))
+        #: reports whose launch check_errors has not read yet
+        self.unread = [False] * _REPORT_SLOTS
+        self.calls = 0
 
-    def take(self, device: torch.device, world: int, total_iters: int) -> Tuple[torch.Tensor, int]:
+    def take(self, device: torch.device, world: int, total_iters: int) -> Tuple[torch.Tensor, int, int]:
+        """``(flags, epoch, report slot)`` of the next call on this stream."""
         need = world * _MAX_BLOCKS * _FLAG_WORDS
-        if self.words is None or self.words.numel() < need:
-            self.words = torch.zeros(need, dtype=torch.int64, device=device)
-            self.next_epoch = 0
-        base = self.next_epoch
-        self.next_epoch = base + total_iters + 2
-        return self.words, base
+        if self.flags is None or self.flags.numel() < need:
+            self.flags = torch.zeros(need, dtype=torch.int64, device=device)
+        epoch = self.next_epoch
+        self.next_epoch = epoch + total_iters + 2
+        slot = self.calls % _REPORT_SLOTS
+        self.calls += 1
+        while self.unread[slot]:  # the slot's last launch is still unread
+            _read_oldest(wait=True)
+        return self.flags, epoch, slot
 
 
-_FLAGS: Dict[Tuple[int, int], _Flags] = collections.defaultdict(_Flags)
+_STREAMS: Dict[Tuple[int, int], _StreamState] = {}
+
+
+#: card indices a launch has already checked with _check_card
+_CHECKED_CARDS: set = set()
 
 
 def _check_card(device: torch.device) -> None:
@@ -514,7 +551,10 @@ def _check_card(device: torch.device) -> None:
 def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int, rs: bool, ag: bool, fused: bool) -> None:
     """Raise on what the ring kernels do not take (a fused kernel's codec and
     dtype were checked by :func:`_codec`)."""
-    _check_card(chunks.device)
+    dev = chunks.device
+    if dev.type != "cuda" or dev.index not in _CHECKED_CARDS:
+        _check_card(dev)
+        _CHECKED_CARDS.add(dev.index)
     if not fused and chunks.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"ring kernels take float32 or bfloat16, got {chunks.dtype}")
     own = chunks.dim() == 3 and ag and not rs  # an all-gather alone: own chunks only
@@ -524,17 +564,22 @@ def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int, rs: bool, ag: bo
     world, rows = chunks.shape[0], chunks.shape[-2]
     if not 2 <= world <= _MAX_WORLD:
         raise ValueError(f"ring kernels take a world of 2 to {_MAX_WORLD}, got {world}")
-    if stage_rows <= 0 or rows % stage_rows:
-        raise ValueError(f"chunk rows {rows} are not whole stage tiles of {stage_rows} rows")
+    # K1 bounds each stripe by the chunk's real length, so its last tile
+    # may be ragged; K5's codec blocks need whole tiles
+    if not 0 < stage_rows <= rows or (fused and rows % stage_rows):
+        raise ValueError(f"chunk rows {rows} do not stream in stage tiles of {stage_rows} rows"
+                         + (" (the fused kernels take whole tiles only)" if fused else ""))
     if not chunks.is_contiguous() or chunks.data_ptr() % 16:
         raise ValueError("ring kernels need a contiguous, 16-byte aligned tensor")
 
 
 class _Pending(NamedTuple):
-    """A launch whose error word is on its way to the host."""
+    """A launch whose report check_errors has not read yet."""
 
-    done: Any                 #: torch.cuda.Event recorded after the copy
-    word: torch.Tensor        #: pinned host copy of the error word
+    done: Any                 #: torch.cuda.Event recorded behind the launch
+    state: _StreamState
+    slot: int
+    epoch: int
     entry: str
     timeout_s: float
 
@@ -542,46 +587,55 @@ class _Pending(NamedTuple):
 _PENDING: Deque[_Pending] = collections.deque()
 
 
+def _read_oldest(wait: bool) -> bool:
+    """Read the oldest unread launch's report and raise if its spin ran
+    out; ``False`` (nothing read) if ``wait`` is false and it has not
+    finished."""
+    pending = _PENDING[0]
+    if wait:
+        pending.done.synchronize()
+    elif not pending.done.query():
+        return False
+    _PENDING.popleft()
+    lo, hi, kind, rank, step, tile, block = pending.state.reports_np[pending.slot, :7].tolist()
+    pending.state.unread[pending.slot] = False
+    if kind and (lo & 0xFFFFFFFF) | (hi & 0xFFFFFFFF) << 32 == pending.epoch:
+        raise RuntimeError(
+            f"{pending.entry}: ring protocol wedged: rank {rank} (block {block}) waited more "
+            f"than {pending.timeout_s} s for {_WAITS.get(kind, kind)} at step {step}, tile {tile}"
+        )
+    return True
+
+
 def check_errors(wait: bool = True) -> None:
     """Raise ``RuntimeError`` for the first earlier launch whose spin ran
     out, naming its rank, block, step and tile.  ``wait=False`` reads only
     the launches that have finished and never blocks; ``wait=True`` waits
     for every launch made so far."""
-    while _PENDING:
-        pending = _PENDING[0]
-        if not wait and not pending.done.query():
-            return
-        pending.done.synchronize()
-        _PENDING.popleft()
-        kind, rank, step, tile, block = pending.word.tolist()[:5]
-        if kind:
-            raise RuntimeError(
-                f"{pending.entry}: ring protocol wedged: rank {rank} (block {block}) waited more "
-                f"than {pending.timeout_s} s for {_WAITS.get(kind, kind)} at step {step}, tile {tile}"
-            )
+    while _PENDING and _read_oldest(wait):
+        pass
 
 
 def _launch(entry: str, chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int,
             timeout_s: float, fault_rank: int, codec: Optional[Tuple[str, int]] = None) -> torch.Tensor:
     """Launch ``<entry>`` on the current stream; raises if the launch is
     refused, or for an earlier launch that has finished with a spin run out.
-    This launch's error word is copied to pinned host memory behind the
-    kernel, for :func:`check_errors`: nothing here waits for the card.
+    A spin that runs out is reported in pinned host memory, for
+    :func:`check_errors`: nothing here waits for the card.
     ``codec`` (``(wire_dtype, block_size)``) launches a fused kernel: its
     slots hold wire tiles, and an all-gather that forwards bits (world > 2)
     gets a store of the landed wire tiles."""
     check_errors(wait=False)
     _check_kernel_inputs(chunks, stage_rows, rs, ag, codec is not None)
     world, rows = chunks.shape[0], chunks.shape[-2]
-    n_tiles = rows // stage_rows
+    n_tiles = -(-rows // stage_rows)
     steps = (world - 1) * (int(rs) + int(ag))
+    streamed = entry.endswith("b")
     dev = chunks.device
     out = torch.empty((world, world, rows, _LANES), dtype=chunks.dtype, device=dev)
-    err = torch.zeros(8, dtype=torch.int32, device=dev)
-    geometry = [rows * _LANES] + ([stage_rows * _LANES, n_tiles] if entry.endswith("b") else [])
     if codec is None:
-        slots = torch.empty((world, 2, stage_rows, _LANES), dtype=chunks.dtype, device=dev)
-        buffers = [slots.data_ptr()]
+        buffers: list = []
+        geometry = [rows * _LANES] + ([stage_rows * _LANES] if streamed else [])
         tail = [int(chunks.dtype == torch.bfloat16)]
     else:
         wire_dtype, block_size = codec
@@ -590,36 +644,42 @@ def _launch(entry: str, chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: in
         store = (torch.empty(world * world * n_tiles * slot_bytes, dtype=torch.uint8, device=dev)
                  if ag and world > 2 else None)
         buffers = [slots.data_ptr(), store.data_ptr() if store is not None else None]
+        geometry = [rows * _LANES] + ([stage_rows * _LANES, n_tiles] if streamed else [])
         tail = [_WIRE_CODES[wire_dtype], block_size, slot_bytes]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream()
-        flags, epoch = _FLAGS[(dev.index, stream.cuda_stream)].take(dev, world, steps * n_tiles)
-        rc = getattr(_library(), entry)(
-            chunks.data_ptr(), out.data_ptr(), *buffers, flags.data_ptr(), err.data_ptr(),
-            world, *geometry, int(rs), int(ag), int(chunks.dim() == 3), *tail,
-            epoch, int(timeout_s * 1e9), fault_rank, stream.cuda_stream,
-        )
-        if rc != 0:
-            msg = _library().adapcc_ring_error_string(rc).decode()
-            raise RuntimeError(f"{entry}: CUDA error {rc} at launch ({msg})")
-        word = torch.empty(8, dtype=torch.int32, pin_memory=True)
-        word.copy_(err, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    _PENDING.append(_Pending(done, word, entry, timeout_s))
+    # the handle of the device's current stream, without a Stream object (the
+    # launch runs on it, on that device, and records the done event there)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (dev.index, stream)
+    state = _STREAMS.get(key) or _STREAMS.setdefault(key, _StreamState(dev))
+    flags, epoch, slot = state.take(dev, world, steps * n_tiles)
+    done = state.done[slot]
+    rc = getattr(_library(), entry)(
+        chunks.data_ptr(), out.data_ptr(), *buffers, flags.data_ptr(), state.fail.data_ptr(),
+        state.reports.data_ptr() + slot * _REPORT_WORDS * 4,
+        world, *geometry, int(rs), int(ag), int(chunks.dim() == 3), *tail,
+        epoch, int(timeout_s * 1e9), fault_rank, dev.index, done.cuda_event, stream,
+    )
+    if rc != 0:
+        msg = _library().adapcc_ring_error_string(rc).decode()
+        raise RuntimeError(f"{entry}: CUDA error {rc} at launch ({msg})")
+    state.unread[slot] = True
+    _PENDING.append(_Pending(done, state, slot, epoch, entry, timeout_s))
     return out
+
+
+_PHASES = {(True, False): "rs", (False, True): "ag", (True, True): "rs+ag"}
 
 
 def _count(wrapper, rs: bool, ag: bool) -> None:
     wrapper.launches += 1
-    wrapper.phases["+".join(p for p, on in (("rs", rs), ("ag", ag)) if on)] += 1
+    wrapper.phases[_PHASES[bool(rs), bool(ag)]] += 1
 
 
 def ring_k1a(chunks: torch.Tensor, rs: bool, ag: bool, *,
              timeout_s: float = DEFAULT_TIMEOUT_S, fault_rank: int = -1) -> torch.Tensor:
     """K1a: the ring walk over ``[world, world, S, 128]`` (an all-gather
     alone: ``[world, S, 128]``, each rank's own chunk) with each chunk in one
-    stage (the ``vmem`` path); returns every rank's ``[world, world, S, 128]``
+    tile (the ``vmem`` path); returns every rank's ``[world, world, S, 128]``
     work buffer.
 
     ``fault_rank`` makes that rank stop after the entry barrier, so its
@@ -635,9 +695,9 @@ def ring_k1a(chunks: torch.Tensor, rs: bool, ag: bool, *,
 
 def ring_k1b(chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int, *,
              timeout_s: float = DEFAULT_TIMEOUT_S, fault_rank: int = -1) -> torch.Tensor:
-    """K1b: the same walk with each chunk streamed through
-    ``[stage_rows, 128]`` staging tiles (the ``hbm-stream`` path); the chunk
-    rows must be whole tiles."""
+    """K1b: the same walk with each chunk streamed in ``[stage_rows, 128]``
+    tiles (the ``hbm-stream`` path); the last tile of a chunk may be
+    ragged."""
     if chunks.device.type == "cpu":
         return _ring_plain(chunks, rs, ag)
     out = _launch("adapcc_ring_k1b", chunks, rs, ag, stage_rows, timeout_s, fault_rank)
@@ -714,10 +774,11 @@ def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool, chunk_bytes: O
     """Run the ring on ``[world, world, S, 128]`` (an all-gather alone:
     ``[world, S, 128]``, each rank's own chunk), dispatching to K1a or K1b
     per the planned schedule (K5a or K5b when ``wire_dtype`` names a codec);
-    returns ``[world, world, S, 128]``.  The stream path pads each chunk to
+    returns ``[world, world, S, 128]``.  K1b takes the chunks as they are
+    (its last tile may be ragged); K5b's stream path pads each chunk to
     whole staging tiles (under one tile per chunk; under int8 whole zero
     blocks, scale 1) and slices the padding back out, so callers see the
-    same chunk layout on both paths.  A codec the fused kernels cannot run
+    same chunk layout on every path.  A codec the fused kernels cannot run
     raises: nothing runs float32 under a codec's name."""
     chunks = chunks.contiguous()
     world = chunks.shape[0]
@@ -728,11 +789,13 @@ def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool, chunk_bytes: O
     if plan.path == "vmem":
         return ring_k5a(chunks, rs, ag, *codec) if codec else ring_k1a(chunks, rs, ag)
     stage_rows = plan.stage_bytes // (_LANES * chunks.dtype.itemsize)
+    if not codec:
+        return ring_k1b(chunks, rs, ag, stage_rows)
     chunk_rows = chunks.shape[-2]
     padded_rows = plan.n_tiles * stage_rows
     if padded_rows != chunk_rows:
         chunks = F.pad(chunks, (0, 0, 0, padded_rows - chunk_rows))
-    out = ring_k5b(chunks, rs, ag, stage_rows, *codec) if codec else ring_k1b(chunks, rs, ag, stage_rows)
+    out = ring_k5b(chunks, rs, ag, stage_rows, *codec)
     return out[:, :, :chunk_rows] if padded_rows != chunk_rows else out
 
 
@@ -763,9 +826,8 @@ def ring_reduce_scatter_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int
         return stacked.reshape(1, -1)
     chunks, chunk = _pad_chunks(stacked.reshape(world, -1), world)
     out = _run_ring_chunks(chunks, rs=True, ag=False, chunk_bytes=chunk_bytes,
-                           wire_dtype=wire_dtype, block_size=block_size)
-    ranks = torch.arange(world, device=stacked.device)
-    return out.reshape(world, world, chunk)[ranks, (ranks + 1) % world]
+                           wire_dtype=wire_dtype, block_size=block_size).reshape(world, world, chunk)
+    return torch.stack([out[r, (r + 1) % world] for r in range(world)])
 
 
 def ring_all_gather_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None,

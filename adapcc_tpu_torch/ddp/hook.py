@@ -134,8 +134,7 @@ class GradSyncHook:
         codec = self.effective_compress()
         if codec == "bf16":
             wire = [g.to(torch.bfloat16) for g in grads]
-            self._sync_impl(wire, active_mask)
-            for g, w in zip(grads, wire):
+            for g, w in zip(grads, self._sync_impl(wire, active_mask)):
                 g.copy_(w)
             return grads
         if codec != "off":

@@ -25,11 +25,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    world 2, 4 and 8, float32 and bfloat16, reduce-scatter, all-gather (from
    the full payload and from each rank's own chunk, as the stacked
    all-gather calls it) and both, on a payload under ``chunk_bytes`` (K1a)
-   and a ragged one over it whose chunks stream as several tiles with a
-   padded last one (K1b); show that a wedged ring raises; at each kernel's
-   path payload, hold both phases bit for bit again and time them against
-   the bound, the plain version, a one-call yardstick and the whole stacked
-   dispatch (stage padding included);
+   and a ragged one over it whose chunks stream, unpadded, as several tiles
+   and a ragged last one (K1b); show that a wedged ring raises and the next
+   call is exact; at each kernel's path payload, hold both phases bit for
+   bit again and time them against the bound, the plain version, a one-call
+   yardstick and the whole stacked dispatch, each by CUDA events and by
+   device time;
 5. slice 1's main path: ``bench.py``'s GPT-2 (12 layers, d_model 1024, 16
    heads, vocab 16384, T=512, per-rank batch 16, bf16 parameters, flash
    attention) trained 5 steps by ``DDPTrainer`` under ``Strategy.ring(1)``
@@ -45,7 +46,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    per-rank batch 16: losses finite and falling, one K1b reduce-scatter and
    one K1b all-gather per step, and the per-rank losses within 1e-6 of the
    same 5 steps with ``_ring_plain`` in place of the kernels; step time,
-   global tokens/s, and a profile of one more step with the ring's share;
+   global tokens/s, and a profile of one more step with the ring's share,
+   which must hold no padding copy (``aten::constant_pad_nd``);
 8. the fused-codec ring kernels (K5a, K5b) against ``_fused_ring_plain`` bit
    for bit: world 2, 4 and 8, int8 at blocks 128, 256 and 1024 and bf16,
    reduce-scatter, all-gather (from the full payload and from each rank's
@@ -182,14 +184,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def _device_events(prof) -> list:
-    """The device's kernel (and memset) records of a profile; a
-    record_function range on the device (the optimizer's
-    "Optimizer.step#AdamW.step") spans kernels already counted."""
+    """The device's kernel, memcpy and memset records of a profile.  A
+    record_function range (the optimizer's "Optimizer.step#AdamW.step")
+    shows on the device too, under its host range's name, spanning kernels
+    already counted: a device record that shares a host record's name is
+    left out.  (Kernels named after a lambda hold a '#' too, as
+    "{lambda(float)#1}": a filter on '#' dropped them.)"""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages()
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type != DeviceType.CUDA}
+    return [e for e in events
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
+            and e.key not in host]
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -354,8 +361,9 @@ def ring_bound(world: int, payload_bytes: int) -> tuple:
 
 def _ring_cases(world: int, dtype: torch.dtype):
     """(kernel name, per-rank elements, chunk_bytes) of the ring checks:
-    ragged payloads, one under ``chunk_bytes`` (one stage per chunk, K1a) and
-    one whose 37-tile chunks stream as 5 tiles of 8 with 3 zero tiles (K1b)."""
+    ragged payloads, one under ``chunk_bytes`` (one tile per chunk, K1a) and
+    one whose 37-tile chunks stream, unpadded, as 4 tiles of 8 and a ragged
+    last tile of 5 (K1b)."""
     tile = ring._tile_elems(dtype)
     return (("ring_k1a", world * 3 * tile - 77, None),
             ("ring_k1b", world * 37 * tile - 123, 8 * tile * dtype.itemsize))
@@ -363,8 +371,8 @@ def _ring_cases(world: int, dtype: torch.dtype):
 
 def check_ring(dev: torch.device) -> None:
     """Each ring kernel against ``_ring_plain``, bit for bit, through the
-    dispatch (``_run_ring_chunks``: plan, stage padding, kernel); then a
-    wedged ring must raise."""
+    dispatch (``_run_ring_chunks``: plan, kernel); then a wedged ring must
+    raise."""
     wrappers = {w.__name__: w for w in ring.KERNELS}
     for world in (2, 4, 8):
         for dtype in (torch.float32, torch.bfloat16):
@@ -479,10 +487,11 @@ def check_fused_ring(dev: torch.device) -> None:
 def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     """Reduce-scatter and all-gather of ``kname`` at world 4, float32, on a
     ``per_rank``-element payload per rank: each held bit for bit against
-    the plain ring, then kernel, plain, yardstick and whole-dispatch ms
-    (the stacked entry point: stage padding, kernel, slicing) against the
-    bound.  Returns the kernels-line record: the reduce-scatter's fields,
-    and the all-gather's under ``ag_``."""
+    the plain ring, then kernel, plain, yardstick and whole-dispatch (the
+    stacked entry point the ZeRO-1 path calls) times against the bound, by
+    CUDA events and, for all but the plain version, by device time.  Returns
+    the kernels-line record: the reduce-scatter's fields, and the
+    all-gather's under ``ag_``."""
     world = ZERO1_WORLD
     wrapper = {w.__name__: w for w in ring.KERNELS}[kname]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -492,21 +501,16 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     if plan.path != {"ring_k1a": "vmem", "ring_k1b": "hbm-stream"}[kname]:
         raise RuntimeError(f"{kname}: a {per_rank}-element payload plans {plan.path}")
     stage_rows = plan.stage_bytes // 512
-    padded_rows = plan.n_tiles * stage_rows
-
-    def staged(buf):
-        pad = padded_rows - buf.shape[-2]
-        return F.pad(buf, (0, 0, 0, pad)) if pad else buf
-
+    last_rows = chunks.shape[2] - (plan.n_tiles - 1) * stage_rows
     own = chunks[:, 0].contiguous()  # [world, S, 128]: the all-gather's input, one chunk per rank
     payload_bytes = world * chunk * 4
     b_ms, b_by = ring_bound(world, payload_bytes)
     phases = {
         # (kernel input, rs, ag, yardstick: one torch call computing the same
         # function, timed only; the stacked entry point the ZeRO-1 path calls)
-        "rs": (staged(chunks), True, False, lambda: chunks.view(world, world, chunk).sum(0),
+        "rs": (chunks, True, False, lambda: chunks.view(world, world, chunk).sum(0),
                lambda: ring.ring_reduce_scatter_stacked(x)),
-        "ag": (staged(own), False, True, lambda: own.view(world, chunk).repeat(world, 1, 1),
+        "ag": (own, False, True, lambda: own.view(world, chunk).repeat(world, 1, 1),
                lambda: ring.ring_all_gather_stacked(own.view(world, chunk))),
     }
     rec = {"bound_ms": b_ms, "bound_by": b_by}
@@ -522,14 +526,18 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         exact = torch.equal(got, want)
         del got, want
-        times = {"ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=5),
-                 "library_ms": cuda_ms(library, iters=10), "dispatch_ms": cuda_ms(dispatch, iters=10)}
+        times = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+                 "plain_ms": cuda_ms(plain, iters=5),
+                 "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+                 "dispatch_ms": cuda_ms(dispatch), "dispatch_device_ms": device_ms(dispatch)}
         ring.check_errors()
         print(f"time {kname} {phase} world={world} float32 payload {payload_bytes / 2**20:.1f} MiB/rank "
-              f"({plan.path}, n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B): kernel {times['ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), plain {times['plain_ms']:.4f} ms, "
-              f"yardstick {times['library_ms']:.4f} ms, stacked dispatch {times['dispatch_ms']:.4f} ms, "
-              f"max_abs_err {err}, bit-exact {'ok' if exact else 'FAIL'}", flush=True)
+              f"({plan.path}, n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B, last tile {last_rows} rows): "
+              f"kernel {times['ms']:.4f} ms (device {times['device_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}), "
+              f"plain {times['plain_ms']:.4f} ms, yardstick {times['library_ms']:.4f} ms "
+              f"(device {times['library_device_ms']:.4f}), stacked dispatch {times['dispatch_ms']:.4f} ms "
+              f"(device {times['dispatch_device_ms']:.4f}), max_abs_err {err}, "
+              f"bit-exact {'ok' if exact else 'FAIL'}", flush=True)
         if not exact:
             raise RuntimeError(f"{kname} {phase} disagrees with _ring_plain at its path's payload")
         prefix = "" if phase == "rs" else "ag_"
@@ -788,9 +796,10 @@ _LAYERS = (
 )
 
 
-def profile_step(label: str, step, step_ms: float) -> None:
+def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
     """Device time of one more training step, by kernel and by layer; the
-    device's busy share is that time over ``step_ms``, the unprofiled step."""
+    device's busy share is that time over ``step_ms``, the unprofiled step.
+    Fails if the step ran any of the host ops ``forbid`` names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -807,14 +816,23 @@ def profile_step(label: str, step, step_ms: float) -> None:
     for e in kernels:
         layer = next((n for n, keys in _LAYERS if any(k in e.key.lower() for k in keys)), "other")
         by_layer[layer] = by_layer.get(layer, 0.0) + e.self_device_time_total / 1e3
+    named_lambda = sum(e.self_device_time_total for e in kernels if "#" in e.key) / 1e3
     print(f"profile ({label}): one step, {total_ms:.3f} ms of kernels; device busy "
-          f"{100 * total_ms / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms step")
+          f"{100 * total_ms / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms step; kernels named after "
+          f"a lambda {named_lambda:.3f} ms of it (a filter on '#' left them out before)")
     for layer, ms in sorted(by_layer.items(), key=lambda kv: -kv[1]):
         print(f"profile ({label}): layer {layer:13s} {ms:9.3f} ms  {100 * ms / total_ms:5.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile ({label}): kernel {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     # the host side, which issues the kernels (times inflated by the profiler)
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    for op in forbid:
+        found = [e for e in host if e.key == op]
+        calls = sum(e.count for e in found)
+        print(f"profile ({label}): {op} x{calls}, device "
+              f"{sum(e.device_time_total for e in found) / 1e3:.3f} ms", flush=True)
+        if calls:
+            raise RuntimeError(f"the {label} step ran {op} {calls} times")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"profile ({label}): host op {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]}")
 
@@ -931,7 +949,8 @@ def main() -> None:
         raise RuntimeError(f"zero1 losses not finite and falling: {z_losses}")
     launches["ring_k1b"] = z_launches["ring_k1b"]
     z_step_s = float(np.mean(z_seconds[1:]))
-    profile_step("zero1 ring", z_more, z_step_s * 1e3)
+    # the ring's payload goes to K1b unpadded: no stage padding copy is left
+    profile_step("zero1 ring", z_more, z_step_s * 1e3, forbid=("aten::constant_pad_nd",))
     del z_more
     torch.cuda.empty_cache()
     with plain_ring():

@@ -161,6 +161,82 @@ def test_ring_matches_jax_kernels_bit_for_bit(world, n, dtype_name, chunk_bytes,
     assert np.array_equal(_np(plain), ar_j)
 
 
+def _recording(monkeypatch, name, plain):
+    """Replace the kernel wrapper ``name`` by one that records the shape and
+    stage rows it is handed and runs ``plain`` on them."""
+    seen = []
+
+    def wrapper(chunks, rs, ag, stage_rows, *args, **kw):
+        seen.append((tuple(chunks.shape), stage_rows))
+        return plain(chunks, rs, ag, *args)
+
+    monkeypatch.setattr(ring, name, wrapper)
+    return seen
+
+
+@pytest.mark.parametrize("own", [False, True])
+def test_k1b_dispatch_hands_the_kernel_unpadded_chunks(monkeypatch, own):
+    """K1b bounds each block's stripe by the chunk's real length, so the
+    stream path hands it the caller's chunks as they are: a 37-tile chunk at
+    8-tile staging streams as 4 tiles of 8 and a ragged last tile of 5, with
+    no stage padding to slice back out."""
+    seen = _recording(monkeypatch, "ring_k1b", ring._ring_plain)
+    world = 4
+    _, x = _payload(world, world * 37 * F32_TILE - 123, "float32")
+    chunks, _ = ring._pad_chunks(x, world)
+    ranks = torch.arange(world)
+    buf = chunks[ranks, ranks] if own else chunks
+    rs, ag = (False, True) if own else (True, True)
+    plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, 8 * F32_TILE * 4)
+    got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=8 * F32_TILE * 4)
+    assert (plan.path, plan.n_tiles, plan.stage_bytes) == ("hbm-stream", 5, 8 * F32_TILE * 4)
+    assert seen == [(tuple(buf.shape), 64)] and buf.shape[-2] == 37 * 8 != plan.n_tiles * 64
+    assert torch.equal(got, ring._ring_plain(chunks, rs, ag))
+
+
+def test_k5b_dispatch_still_pads_to_whole_tiles(monkeypatch):
+    """K5b's int8 blocks need whole zero blocks: its stream path pads each
+    chunk to whole staging tiles and slices the padding back out."""
+    seen = _recording(monkeypatch, "ring_k5b", ring._fused_ring_plain)
+    world = 4
+    _, x = _payload(world, world * 37 * F32_TILE - 123, "float32")
+    chunks, _ = ring._pad_chunks(x, world)
+    plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, 8 * F32_TILE * 4,
+                                   wire_dtype="int8")
+    stage_rows = plan.stage_bytes // 512  # the int8 scales take their share of the budget
+    padded_rows = plan.n_tiles * stage_rows
+    got = ring._run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=8 * F32_TILE * 4, wire_dtype="int8")
+    assert padded_rows > 37 * 8
+    assert seen == [((world, world, padded_rows, 128), stage_rows)]
+    assert got.shape == chunks.shape
+    padded = torch.nn.functional.pad(chunks, (0, 0, 0, padded_rows - 37 * 8))
+    assert torch.equal(got, ring._fused_ring_plain(padded, True, True, "int8", 256)[:, :, :37 * 8])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_stacked_collectives_at_a_ragged_multi_tile_payload_match_jax(monkeypatch, dtype_name):
+    """The stacked reduce-scatter, all-gather and allreduce at a payload
+    whose 5-tile chunks stream in tiles of 2 (a ragged last tile of 1), bit
+    for bit the JAX ring's, with K1b (its plain version here) handed the
+    unpadded chunks."""
+    world, tile = 4, {"float32": F32_TILE, "bfloat16": BF16_TILE}[dtype_name]
+    dtype = DTYPES[dtype_name]
+    chunk_bytes = 2 * tile * dtype.itemsize
+    x32, x = _payload(world, world * 5 * tile - 300, dtype_name)
+    rs_j, ag_j, ar_j = _jax_ring(x32, dtype_name, chunk_bytes)
+    seen = _recording(monkeypatch, "ring_k1b", ring._ring_plain)
+    rs = ring.ring_reduce_scatter_stacked(x, chunk_bytes)
+    ag = ring.ring_all_gather_stacked(torch.from_numpy(rs_j).to(dtype), chunk_bytes)
+    ar = ring.ring_allreduce_stacked(x, chunk_bytes)
+    rows = 5 * tile // 128
+    stage = 2 * tile // 128
+    assert seen == [((world, world, rows, 128), stage), ((world, rows, 128), stage),
+                    ((world, world, rows, 128), stage)]
+    assert np.array_equal(_np(rs), rs_j)
+    assert np.array_equal(_np(ag), ag_j)
+    assert np.array_equal(_np(ar), ar_j)
+
+
 @pytest.mark.parametrize("chunk_bytes", [None, 4096])
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_all_gather_from_own_chunks_equals_the_full_walk(dtype_name, chunk_bytes):
