@@ -14,35 +14,36 @@ The JAX engine's ring entry points are single-controller: they take a
 stacked ``[world, ...]`` array and return the stacked result.  The port
 keeps that form.  Every rank's rows live on one card and one kernel launch
 walks the ring for all of them; each rank sees its neighbours only through
-a table of device pointers (to their input, work buffer and flag words for
-K1, to their staging slots and flags for K5), which is what a CUDA IPC
-registration gives in the per-process form.  Four kernels in
-``csrc/ring.cu`` replace the four Pallas kernels:
+a table of device pointers (to their input, output, wire buffer and flag
+words), which is what a CUDA IPC registration gives in the per-process
+form.  Four kernels in ``csrc/ring.cu`` replace the four Pallas kernels,
+all on one walk that stages nothing: each hop's result is written once,
+into a buffer of the rank that computed it, where its right neighbour
+reads it, and a chunk's last tile may be ragged:
 
 - :func:`ring_k1a` (``_ring_kernel``): the whole chunk in one tile, the
   planner's ``vmem`` path (payloads up to ``chunk_bytes``);
 - :func:`ring_k1b` (``_stream_ring_kernel``): each chunk streamed in
-  ``[stage_rows, 128]`` tiles, the ``hbm-stream`` path.  The K1 kernels
-  stage nothing: each hop's partial is written once, into the work buffer
-  of the rank that computed it, where its right neighbour reads it, and a
-  chunk's last tile may be ragged;
+  ``[stage_rows, 128]`` tiles, the ``hbm-stream`` path;
 - :func:`ring_k5a` (``_fused_ring_kernel``) and :func:`ring_k5b`
   (``_fused_stream_ring_kernel``): the same two walks on a float32 payload
   with a wire codec (``int8``: codes and a float32 scale per block of
-  ``block_size`` elements; ``bf16``) in staging tiles, shipped into the
-  neighbour's slot.  Reduce-scatter hops encode the moving partial and the
-  receiver decodes and adds in float32; the all-gather encodes each reduced
-  chunk once at its owner, which adopts the decoded values, and forwards the
-  bits verbatim, so every rank ends with the same bits.
+  ``block_size`` elements; ``bf16``).  Only wire bytes cross from rank to
+  rank: reduce-scatter hops encode the moving partial into the sender's
+  wire buffer and the receiver decodes and adds in float32; the all-gather
+  encodes each reduced chunk once at its owner, which adopts the decoded
+  values, and forwards the bits verbatim, so every rank ends with the same
+  bits.  A reduce-scatter alone returns each rank's owned chunk only.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version (:func:`_ring_plain`, :func:`_fused_ring_plain`: the same walk, hop
 by hop, in torch) for a CPU tensor, and counts its launches in
 ``<wrapper>.launches``.  A launch does not wait for its kernel and
-allocates nothing but its output (K5: and its slots): a spin that ran out is
-reported into a per-stream ring of pinned host records and raised by
-:func:`check_errors`, which the next launch calls for the launches that have
-finished and a caller calls at its own synchronisation point for the rest.
+allocates nothing but its output (K5: and its wire buffers): a spin that
+ran out is reported into a per-stream ring of pinned host records and
+raised by :func:`check_errors`, which the next launch calls for the
+launches that have finished and a caller calls at its own synchronisation
+point for the rest.
 
 The planner's tile padding (``_tile_elems``: 8×128 fp32, 16×128 bf16) is a
 Mosaic rule, but it also fixes the chunk layout, and with it the ZeRO-1
@@ -82,8 +83,9 @@ FUSED_WIRE_MODES = ("auto", "on", "off")
 _FUSED_WIRE_ITEMSIZE = {"bf16": 2, "int8": 1}
 #: their ids in csrc/ring.cu (kWireInt8, kWireBf16)
 _WIRE_CODES = {"int8": 1, "bf16": 2}
-#: the fused kernels' unit of work on a bf16 wire (csrc/ring.cu kBf16Unit)
-_BF16_UNIT = 1024
+#: rows of a fused kernel's warp batch (csrc/ring.cu kBatchElems / 128):
+#: its chunks and stage tiles are whole batches
+_FUSED_ROWS = 8
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the kernels' limits (csrc/ring.cu kMaxWorld, kMaxBlocks, kFlagWords)
@@ -214,12 +216,15 @@ def _wire_geometry(stage_rows: int, wire_dtype: str, block_size: int) -> Tuple[i
     return wire_stage, _scale_rows(n_blocks) * _LANES * 4
 
 
-def _fused_slot_bytes(stage_elems: int, wire_dtype: str, block_size: int) -> int:
-    """Bytes of one fused staging slot in ``csrc/ring.cu``: the codes, then
-    (int8) one float32 scale per block, rounded up to 16 bytes."""
-    size = stage_elems * _FUSED_WIRE_ITEMSIZE[wire_dtype]
+def _fused_slot_bytes(elems: int, wire_dtype: str, block_size: int) -> int:
+    """Wire bytes of ``elems`` float32 elements under a fused codec, as
+    ``csrc/ring.cu`` lays them out (``fused_chunk_bytes``): the codes, then
+    (int8) one float32 scale per block, rounded up to 16 bytes.  A chunk's
+    is one chunk of a K5 wire buffer; a staging tile's is the plan's
+    ``slot_bytes``."""
+    size = elems * _FUSED_WIRE_ITEMSIZE[wire_dtype]
     if wire_dtype == "int8":
-        size += stage_elems // block_size * 4
+        size += elems // block_size * 4
     return -(-size // 16) * 16
 
 
@@ -248,10 +253,11 @@ class RingSchedule:
 
     @property
     def slot_bytes(self) -> int:
-        """Bytes of one staging slot of the CUDA kernels: none for the plain
-        kernels (K1 writes each hop's partial once, where the next rank
-        reads it); under a codec the wire tile and (int8) one float32 scale
-        per block, rounded up to 16 bytes (:func:`_fused_slot_bytes`)."""
+        """Wire bytes of one staging tile of the CUDA kernels: none for the
+        plain kernels; under a codec the tile's codes and (int8) one float32
+        scale per block, rounded up to 16 bytes (:func:`_fused_slot_bytes`).
+        Neither family stages anything: each hop's result is written once,
+        where the next rank reads it."""
         if self.wire_dtype == "off":
             return 0
         return _fused_slot_bytes(self.stage_bytes // 4, self.wire_dtype, self.block_size)
@@ -260,7 +266,7 @@ class RingSchedule:
         """The JAX record's row, field for field.  ``wire_stage_bytes`` and
         ``scale_slot_bytes`` are the TPU planner's staging geometry (a scale
         tile padded to 8 rows of 128), kept for parity; the CUDA kernels'
-        slot is :attr:`slot_bytes`."""
+        wire tile is :attr:`slot_bytes`."""
         return {
             "ring_path": self.path,
             "chunk_bytes": self.chunk_bytes,
@@ -459,19 +465,18 @@ def _fused_ring_plain(stacked: torch.Tensor, rs: bool, ag: bool, wire_dtype: str
 _P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
 #: C signatures.  K1: x, out, flags, fail, report, world, chunk_elems,
 #: [stage_elems,] rs, ag, x_own, is_bf16, epoch, timeout_ns, fault_rank,
-#: device, done event, stream.  K5: x, out, slots, store, flags, fail, report,
-#: world, chunk_elems, [stage_elems, n_tiles,] rs, ag, x_own, wire, block_size,
-#: slot_bytes, epoch, timeout_ns, fault_rank, device, done event, stream.
+#: device, done event, stream.  K5: x, out, wire, flags, fail, report, world,
+#: chunk_elems, [stage_elems,] rs, ag, x_own, wire code, block_size,
+#: chunk_wire_bytes, epoch, timeout_ns, fault_rank, device, done event, stream.
 _TAIL = [_ULL, _ULL, _I, _I, _P, _P]
 _SIGNATURES = {
     "adapcc_ring_k1a": [_P] * 5 + [_I, _LL] + [_I] * 4 + _TAIL,
     "adapcc_ring_k1b": [_P] * 5 + [_I, _LL, _LL] + [_I] * 4 + _TAIL,
-    "adapcc_ring_k5a": [_P] * 7 + [_I, _LL] + [_I] * 5 + [_LL] + _TAIL,
-    "adapcc_ring_k5b": [_P] * 7 + [_I, _LL, _LL, _I] + [_I] * 5 + [_LL] + _TAIL,
+    "adapcc_ring_k5a": [_P] * 6 + [_I, _LL] + [_I] * 5 + [_LL] + _TAIL,
+    "adapcc_ring_k5b": [_P] * 6 + [_I, _LL, _LL] + [_I] * 5 + [_LL] + _TAIL,
 }
-#: what a rank waited for when its spin ran out (csrc/ring.cu WaitKind)
-_WAITS = {1: "the entry barrier", 2: "a credit from its right neighbour",
-          3: "data from its left neighbour", 4: "the drain credits"}
+#: what a rank waited for when its spin ran out (csrc/ring.cu kWait*)
+_WAITS = {1: "the entry barrier", 2: "data from its left neighbour"}
 
 
 @functools.cache
@@ -564,11 +569,14 @@ def _check_kernel_inputs(chunks: torch.Tensor, stage_rows: int, rs: bool, ag: bo
     world, rows = chunks.shape[0], chunks.shape[-2]
     if not 2 <= world <= _MAX_WORLD:
         raise ValueError(f"ring kernels take a world of 2 to {_MAX_WORLD}, got {world}")
-    # K1 bounds each stripe by the chunk's real length, so its last tile
-    # may be ragged; K5's codec blocks need whole tiles
-    if not 0 < stage_rows <= rows or (fused and rows % stage_rows):
-        raise ValueError(f"chunk rows {rows} do not stream in stage tiles of {stage_rows} rows"
-                         + (" (the fused kernels take whole tiles only)" if fused else ""))
+    # every kernel bounds each stripe by the chunk's real length, so a last
+    # tile may be ragged; K5's warps code whole 8-row tiles (1024 elements:
+    # whole codec units of every block size)
+    if not 0 < stage_rows <= rows:
+        raise ValueError(f"chunk rows {rows} do not stream in stage tiles of {stage_rows} rows")
+    if fused and (rows % _FUSED_ROWS or stage_rows % _FUSED_ROWS):
+        raise ValueError(f"the fused kernels take chunks and stage tiles of whole {_FUSED_ROWS}-row tiles "
+                         f"(whole codec units), got {rows} and {stage_rows} rows")
     if not chunks.is_contiguous() or chunks.data_ptr() % 16:
         raise ValueError("ring kernels need a contiguous, 16-byte aligned tensor")
 
@@ -622,36 +630,38 @@ def _launch(entry: str, chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: in
     refused, or for an earlier launch that has finished with a spin run out.
     A spin that runs out is reported in pinned host memory, for
     :func:`check_errors`: nothing here waits for the card.
-    ``codec`` (``(wire_dtype, block_size)``) launches a fused kernel: its
-    slots hold wire tiles, and an all-gather that forwards bits (world > 2)
-    gets a store of the landed wire tiles."""
+    ``codec`` (``(wire_dtype, block_size)``) launches a fused kernel, with a
+    wire buffer of ``world`` chunks a rank (codes, then int8 scales) from
+    the caching allocator; its walk has a prologue phase before the ring's
+    steps, and a reduce-scatter alone returns each rank's owned chunk only
+    (``[world, rows, 128]``, row ``r`` chunk ``(r + 1) % world``)."""
     check_errors(wait=False)
     _check_kernel_inputs(chunks, stage_rows, rs, ag, codec is not None)
     world, rows = chunks.shape[0], chunks.shape[-2]
     n_tiles = -(-rows // stage_rows)
     steps = (world - 1) * (int(rs) + int(ag))
-    streamed = entry.endswith("b")
+    geometry = [rows * _LANES] + ([stage_rows * _LANES] if entry.endswith("b") else [])
     dev = chunks.device
-    out = torch.empty((world, world, rows, _LANES), dtype=chunks.dtype, device=dev)
     if codec is None:
+        out = torch.empty((world, world, rows, _LANES), dtype=chunks.dtype, device=dev)
         buffers: list = []
-        geometry = [rows * _LANES] + ([stage_rows * _LANES] if streamed else [])
         tail = [int(chunks.dtype == torch.bfloat16)]
+        phases = steps
     else:
+        out = torch.empty((world, rows, _LANES) if rs and not ag else (world, world, rows, _LANES),
+                          dtype=chunks.dtype, device=dev)
         wire_dtype, block_size = codec
-        slot_bytes = _fused_slot_bytes(stage_rows * _LANES, wire_dtype, block_size)
-        slots = torch.empty(world * 2 * slot_bytes, dtype=torch.uint8, device=dev)
-        store = (torch.empty(world * world * n_tiles * slot_bytes, dtype=torch.uint8, device=dev)
-                 if ag and world > 2 else None)
-        buffers = [slots.data_ptr(), store.data_ptr() if store is not None else None]
-        geometry = [rows * _LANES] + ([stage_rows * _LANES, n_tiles] if streamed else [])
-        tail = [_WIRE_CODES[wire_dtype], block_size, slot_bytes]
+        chunk_wire_bytes = _fused_slot_bytes(rows * _LANES, wire_dtype, block_size)
+        wire = torch.empty(world * world * chunk_wire_bytes, dtype=torch.uint8, device=dev)
+        buffers = [wire.data_ptr()]
+        tail = [_WIRE_CODES[wire_dtype], block_size, chunk_wire_bytes]
+        phases = 1 + steps
     # the handle of the device's current stream, without a Stream object (the
     # launch runs on it, on that device, and records the done event there)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     key = (dev.index, stream)
     state = _STREAMS.get(key) or _STREAMS.setdefault(key, _StreamState(dev))
-    flags, epoch, slot = state.take(dev, world, steps * n_tiles)
+    flags, epoch, slot = state.take(dev, world, phases * n_tiles)
     done = state.done[slot]
     rc = getattr(_library(), entry)(
         chunks.data_ptr(), out.data_ptr(), *buffers, flags.data_ptr(), state.fail.data_ptr(),
@@ -716,14 +726,27 @@ def _codec(dtype: torch.dtype, wire_dtype: str, block_size: Optional[int]) -> Tu
     return wire_dtype, block_size
 
 
+def _fused_plain_result(chunks: torch.Tensor, rs: bool, ag: bool, codec: Tuple[str, int]) -> torch.Tensor:
+    """What a fused kernel returns, from its plain version: every rank's
+    work buffer, or for a reduce-scatter alone each rank's owned chunk."""
+    work = _fused_ring_plain(chunks, rs, ag, *codec)
+    if ag:
+        return work
+    ranks = torch.arange(chunks.shape[0])
+    return work[ranks, (ranks + 1) % chunks.shape[0]]
+
+
 def ring_k5a(chunks: torch.Tensor, rs: bool, ag: bool, wire_dtype: str, block_size: Optional[int] = None, *,
              timeout_s: float = DEFAULT_TIMEOUT_S, fault_rank: int = -1) -> torch.Tensor:
     """K5a: K1a's walk (each chunk one stage) on a float32 payload with the
     ``wire_dtype`` codec (``int8`` at ``block_size``, or ``bf16``) on the
-    wire; the same shapes and ``fault_rank`` as :func:`ring_k1a`."""
+    wire; the same shapes and ``fault_rank`` as :func:`ring_k1a`, except
+    that a reduce-scatter alone returns ``[world, S, 128]``: row ``r`` is
+    the chunk ``(r + 1) % world`` that rank ``r`` owns, the walk's only
+    float32 result (it never writes a partial)."""
     codec = _codec(chunks.dtype, wire_dtype, block_size)
     if chunks.device.type == "cpu":
-        return _fused_ring_plain(chunks, rs, ag, *codec)
+        return _fused_plain_result(chunks, rs, ag, codec)
     out = _launch("adapcc_ring_k5a", chunks, rs, ag, chunks.shape[-2], timeout_s, fault_rank, codec)
     _count(ring_k5a, rs, ag)
     return out
@@ -732,11 +755,12 @@ def ring_k5a(chunks: torch.Tensor, rs: bool, ag: bool, wire_dtype: str, block_si
 def ring_k5b(chunks: torch.Tensor, rs: bool, ag: bool, stage_rows: int, wire_dtype: str,
              block_size: Optional[int] = None, *, timeout_s: float = DEFAULT_TIMEOUT_S,
              fault_rank: int = -1) -> torch.Tensor:
-    """K5b: the fused walk with each chunk streamed through ``[stage_rows,
-    128]`` staging tiles; the chunk rows must be whole tiles."""
+    """K5b: the fused walk with each chunk streamed in ``[stage_rows, 128]``
+    tiles; the last tile of a chunk may be ragged (chunk and tile rows are
+    whole 8-row tiles).  Shapes as :func:`ring_k5a`."""
     codec = _codec(chunks.dtype, wire_dtype, block_size)
     if chunks.device.type == "cpu":
-        return _fused_ring_plain(chunks, rs, ag, *codec)
+        return _fused_plain_result(chunks, rs, ag, codec)
     out = _launch("adapcc_ring_k5b", chunks, rs, ag, stage_rows, timeout_s, fault_rank, codec)
     _count(ring_k5b, rs, ag)
     return out
@@ -774,12 +798,11 @@ def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool, chunk_bytes: O
     """Run the ring on ``[world, world, S, 128]`` (an all-gather alone:
     ``[world, S, 128]``, each rank's own chunk), dispatching to K1a or K1b
     per the planned schedule (K5a or K5b when ``wire_dtype`` names a codec);
-    returns ``[world, world, S, 128]``.  K1b takes the chunks as they are
-    (its last tile may be ragged); K5b's stream path pads each chunk to
-    whole staging tiles (under one tile per chunk; under int8 whole zero
-    blocks, scale 1) and slices the padding back out, so callers see the
-    same chunk layout on every path.  A codec the fused kernels cannot run
-    raises: nothing runs float32 under a codec's name."""
+    returns ``[world, world, S, 128]`` (a fused reduce-scatter alone: each
+    rank's owned chunk, ``[world, S, 128]``).  The stream kernels take the
+    chunks as they are: a chunk's last tile may be ragged.  A codec the
+    fused kernels cannot run raises: nothing runs float32 under a codec's
+    name."""
     chunks = chunks.contiguous()
     world = chunks.shape[0]
     nelems = chunks[0].numel() * (world if chunks.dim() == 3 else 1)
@@ -789,14 +812,7 @@ def _run_ring_chunks(chunks: torch.Tensor, *, rs: bool, ag: bool, chunk_bytes: O
     if plan.path == "vmem":
         return ring_k5a(chunks, rs, ag, *codec) if codec else ring_k1a(chunks, rs, ag)
     stage_rows = plan.stage_bytes // (_LANES * chunks.dtype.itemsize)
-    if not codec:
-        return ring_k1b(chunks, rs, ag, stage_rows)
-    chunk_rows = chunks.shape[-2]
-    padded_rows = plan.n_tiles * stage_rows
-    if padded_rows != chunk_rows:
-        chunks = F.pad(chunks, (0, 0, 0, padded_rows - chunk_rows))
-    out = ring_k5b(chunks, rs, ag, stage_rows, *codec)
-    return out[:, :, :chunk_rows] if padded_rows != chunk_rows else out
+    return ring_k5b(chunks, rs, ag, stage_rows, *codec) if codec else ring_k1b(chunks, rs, ag, stage_rows)
 
 
 def ring_allreduce_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int] = None,
@@ -820,13 +836,17 @@ def ring_reduce_scatter_stacked(stacked: torch.Tensor, chunk_bytes: Optional[int
     """Ring reduce-scatter of ``[world, ...]``: row ``r`` of the ``[world,
     chunk]`` result is what rank ``r`` holds, the reduced chunk ``(r + 1) %
     world`` of its flattened, tile-padded payload (``ring_reduce_scatter_shard``).
-    Under a codec the owned chunk is the float32 sum of decoded hops."""
+    Under a codec the owned chunk is the float32 sum of decoded hops, and the
+    fused kernels return only the owned chunks: no copy gathers them."""
     world = stacked.shape[0]
     if world == 1:
         return stacked.reshape(1, -1)
     chunks, chunk = _pad_chunks(stacked.reshape(world, -1), world)
     out = _run_ring_chunks(chunks, rs=True, ag=False, chunk_bytes=chunk_bytes,
-                           wire_dtype=wire_dtype, block_size=block_size).reshape(world, world, chunk)
+                           wire_dtype=wire_dtype, block_size=block_size)
+    if wire_dtype != "off":
+        return out.reshape(world, chunk)
+    out = out.reshape(world, world, chunk)
     return torch.stack([out[r, (r + 1) % world] for r in range(world)])
 
 

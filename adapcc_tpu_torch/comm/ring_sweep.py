@@ -1,15 +1,20 @@
-"""Measure the design choices of the plain ring kernels (K1a, K1b) on the card.
+"""Measure the design choices of the ring kernels (K1a, K1b, K5a, K5b) on the card.
 
 Each variant is ``csrc/ring.cu`` with a few literal substitutions
 (``VARIANTS``: the committed source, and each choice undone or swapped in
 turn).  All variants build at once, one ``nvcc`` each with the package's
 flags, into ``build/ring_sweep/`` (git-ignored); then each runs in a process
-of its own (a kernel that traps cannot spoil the next): K1a and K1b against
-``_ring_plain`` bit for bit at world 2, 4 and 8 in float32 and bfloat16,
-then each timed with CUDA events and by device time (the profiler's kernel
-records) at the ZeRO-1 payload (world 4, 168,460,288 float32 a rank:
-K1b's reduce-scatter and all-gather) and at 4 MiB a rank (K1a).  Run from
-the repository root on an H100::
+of its own (a kernel that traps cannot spoil the next).  A variant of the
+plain walk (``K1_VARIANTS``) holds K1a and K1b against ``_ring_plain`` bit
+for bit at world 2, 4 and 8 in float32 and bfloat16, then times each with
+CUDA events and by device time (the profiler's kernel records) at the
+ZeRO-1 payload (world 4, 168,460,288 float32 a rank: K1b's reduce-scatter
+and all-gather) and at 4 MiB a rank (K1a).  A variant of the fused walk
+(``K5_VARIANTS``) holds K5a and K5b against ``_fused_ring_plain`` bit for
+bit at world 2, 4 and 8, int8 at block 256 and bf16, then times K5b's int8
+reduce-scatter + all-gather, reduce-scatter alone and all-gather alone at
+the ZeRO-1 payload and K5a's at 4 MiB a rank the same way.  Run from the
+repository root on an H100::
 
     python3 -m adapcc_tpu_torch.comm.ring_sweep [variant ...]
 """
@@ -29,6 +34,7 @@ from adapcc_tpu_torch.ops import _build
 
 _HOP_HEAD = "template <typename T, bool kAdd>\n__device__ __forceinline__ void hop("
 _HOP_END = "\ntemplate <typename T>\n__device__ void direct_walk("
+_K5_WANT = "  long long want = (stage_elems / kBatchElems + kWarps - 1) / kWarps;"
 
 #: the hop with its operands brought into shared memory by cp.async.bulk
 #: (TMA's 1-D copy, completing on an mbarrier), two stages of 8 KB pieces
@@ -110,7 +116,15 @@ VARIANTS = {
     "bulk": [(None, _BULK_HOP)],
     # every store through L2 as usual, also those no rank reads again
     "keep_last": [("constexpr bool kStreamLast = true;", "constexpr bool kStreamLast = false;")],
+    # K5: each warp codes one codec unit at a time (at block 256, 2 float4
+    # a lane in flight) instead of a batch of 1024 elements (8 float4)
+    "one_unit": [("constexpr bool kOneUnit = false;", "constexpr bool kOneUnit = true;")],
+    # K5: at most 64 blocks a rank, as the slot walk launched
+    "cap64": [(_K5_WANT, _K5_WANT + " if (want > 64) want = 64;")],
 }
+#: the variants that change each walk (step-major changes both)
+K1_VARIANTS = ("committed", "step_major", "unroll2", "unroll4", "bulk", "keep_last")
+K5_VARIANTS = ("committed", "step_major", "one_unit", "cap64")
 #: the ZeRO-1 ring path's per-rank payload at world 4 (the bench GPT-2's
 #: flat master, tile-aligned) and the engine path's 4 MiB a rank
 ZERO1_ELEMS = 168_460_288
@@ -161,8 +175,8 @@ def _variant_source(name: str) -> str:
     return text
 
 
-def run_variant(library: str) -> int:
-    """Checks and times one built variant; returns the number of failed checks."""
+def _load(library: str) -> None:
+    """Make ``ring`` launch from ``library``, a built variant."""
     lib = ctypes.CDLL(library)
     for name, argtypes in ring._SIGNATURES.items():
         fn = getattr(lib, name)
@@ -170,7 +184,15 @@ def run_variant(library: str) -> int:
     lib.adapcc_ring_error_string.argtypes = [ctypes.c_int]
     lib.adapcc_ring_error_string.restype = ctypes.c_char_p
     ring._library = lambda: lib
-    dev = torch.device("cuda", 0)
+
+
+def _time(times: dict, key: str, call) -> None:
+    times[key] = _events_ms(call)
+    times[f"{key}_device"] = _device_ms(call)
+
+
+def run_k1(dev: torch.device) -> int:
+    """K1's checks and times; returns the number of failed checks."""
     failed = 0
     for world in (2, 4, 8):
         for dtype in (torch.float32, torch.bfloat16):
@@ -183,7 +205,7 @@ def run_variant(library: str) -> int:
                     got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=chunk_bytes)
                     ring.check_errors()
                     failed += not torch.equal(got, ring._ring_plain(chunks, rs, ag))
-    print(f"  checks: {failed} of 36 failed", flush=True)
+    print(f"  K1 checks: {failed} of 36 failed", flush=True)
     times = {}
     for label, per_rank in (("k1b", ZERO1_ELEMS), ("k1a", ENGINE_ELEMS)):
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -200,13 +222,65 @@ def run_variant(library: str) -> int:
             exact = torch.equal(call(), ring._ring_plain(buf, rs, ag))
             ring.check_errors()
             failed += not exact
-            times[f"{label}_{phase}"] = _events_ms(call)
-            times[f"{label}_{phase}_device"] = _device_ms(call)
+            _time(times, f"{label}_{phase}", call)
         del chunks, own
         torch.cuda.empty_cache()
     ring.check_errors()
-    print("  ms " + json.dumps(times), flush=True)
+    print("  K1 ms " + json.dumps(times), flush=True)
     return failed
+
+
+def run_k5(dev: torch.device) -> int:
+    """K5's checks and times; returns the number of failed checks."""
+    failed = checks = 0
+    for world in (2, 4, 8):
+        for wire, block in (("int8", 256), ("bf16", None)):
+            for n, chunk_bytes in ((world * 3 * 1024 - 77, None), (world * 37 * 1024 - 123, 8 * 1024 * 4)):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                chunks, _ = ring._pad_chunks(torch.randn(world, n, device=dev, generator=gen), world)
+                ranks = torch.arange(world, device=dev)
+                for buf, rs, ag in ((chunks, True, False), (chunks[ranks, ranks], False, True), (chunks, True, True)):
+                    got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=chunk_bytes, wire_dtype=wire,
+                                                block_size=block)
+                    ring.check_errors()
+                    want = ring._fused_ring_plain(chunks, rs, ag, wire, block or 0)
+                    failed += not torch.equal(got, want if ag else want[ranks, (ranks + 1) % world])
+                    checks += 1
+    print(f"  K5 checks: {failed} of {checks} failed", flush=True)
+    times = {}
+    for label, per_rank in (("k5b", ZERO1_ELEMS), ("k5a", ENGINE_ELEMS)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        chunks, chunk = ring._pad_chunks(torch.randn(WORLD, per_rank, device=dev, generator=gen), WORLD)
+        own = chunks[:, 0].contiguous()
+        plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, WORLD, wire_dtype="int8")
+        stage_rows = plan.stage_bytes // 512
+        ranks = torch.arange(WORLD, device=dev)
+        phases = (("rs+ag", chunks, True, True), ("rs", chunks, True, False), ("ag", own, False, True))
+        for phase, buf, rs, ag in phases if plan.path == "hbm-stream" else phases[:1]:
+            def call():
+                if plan.path == "vmem":
+                    return ring.ring_k5a(buf, rs, ag, "int8")
+                return ring.ring_k5b(buf, rs, ag, stage_rows, "int8")
+
+            want = ring._fused_ring_plain(buf, rs, ag, "int8")
+            exact = torch.equal(call(), want if ag else want[ranks, (ranks + 1) % WORLD])
+            ring.check_errors()
+            failed += not exact
+            del want
+            _time(times, f"{label}_{phase}", call)
+        del chunks, own
+        torch.cuda.empty_cache()
+    ring.check_errors()
+    print("  K5 ms " + json.dumps(times), flush=True)
+    return failed
+
+
+def run_variant(library: str, walks: str) -> int:
+    """Checks and times one built variant's ``walks`` ("k1", "k5" or
+    both, comma-separated); returns the number of failed checks."""
+    _load(library)
+    dev = torch.device("cuda", 0)
+    return sum({"k1": run_k1, "k5": run_k5}[w](dev) for w in walks.split(","))
 
 
 def main(names) -> int:
@@ -224,7 +298,7 @@ def main(names) -> int:
         print(f"== {name}: nvcc exit {proc.returncode}, {time.perf_counter() - t0:.1f} s", flush=True)
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and "ring_k1" in line:
+            if "Compiling entry" in line and "ring_k" in line:
                 print(f"  ptxas {line.split('ring_')[1][:24]}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
         if proc.returncode != 0:
             print(log[-3000:])
@@ -235,8 +309,9 @@ def main(names) -> int:
             failed += 1
             continue
         print(f"== {name}", flush=True)
+        walks = ",".join(w for w, members in (("k1", K1_VARIANTS), ("k5", K5_VARIANTS)) if name in members)
         out = subprocess.run([sys.executable, "-m", "adapcc_tpu_torch.comm.ring_sweep", "--run",
-                              str(SWEEP_DIR / f"{name}.so")], timeout=300)
+                              str(SWEEP_DIR / f"{name}.so"), walks], timeout=300)
         print(f"== {name}: {'ok' if out.returncode == 0 else 'FAILED'}", flush=True)
         failed += out.returncode != 0
     return failed
@@ -244,5 +319,5 @@ def main(names) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--run"]:
-        sys.exit(1 if run_variant(sys.argv[2]) else 0)
+        sys.exit(1 if run_variant(sys.argv[2], sys.argv[3]) else 0)
     sys.exit(1 if main(sys.argv[1:] or list(VARIANTS)) else 0)

@@ -6,13 +6,12 @@
 // chunk streamed in [stage_rows, 128] tiles: "hbm-stream"),
 // ::_fused_ring_kernel (K5a) and ::_fused_stream_ring_kernel (K5b): the same
 // two walks with a wire codec (int8 codes + a float32 scale per block, or
-// bfloat16) in staging tiles.
+// bfloat16) on every hop.
 //
 // What they compute is the Pallas kernels' function, not their block
 // structure.  The payload of rank r is x[r] = [world chunks][chunk_elems],
-// chunk-major; for an all-gather alone x[r] is only its own chunk r
-// (`x_own`), the one chunk of x that walk reads.  The output is always every
-// rank's [world][chunk_elems] work buffer.  Reduce-scatter takes world-1
+// chunk-major; for an all-gather alone x[r] may be only its own chunk r
+// (`x_own`), the one chunk of x that walk reads.  Reduce-scatter takes world-1
 // steps: at step s rank r adds the partial of chunk r-s-1 that its left
 // neighbour finished at step s-1 (at step 0: the left's own input chunk) to
 // its own input term (local + landed, rounded to the payload type after every
@@ -23,22 +22,22 @@
 // all-gather takes world-1 steps of the same walk, adopting what lands (bits
 // unchanged).
 //
-// K1: the direct walk.  A hop's partial is written once, into the work
-// buffer of the rank that computed it, where the right neighbour reads it
-// ("pull"): rank r reads the landed partial from out[r-1] (step 0: the left's
-// input chunk, straight from x) and its own input term, and writes out[r]
-// once.  A walk with one phase never lands on a rank's own chunk, so the
-// right neighbour writes out[r][r] as it reads x[r][r] at step 0: no own-chunk
-// copy re-reads the input.  The only signal is one ready counter per (rank,
-// block), released after the block's stores of each (step, tile).  A rank
-// walks its (step, tile) iterations tile-major, every step of tile t before
-// tile t+1, so hop s+1 of tile t runs one iteration after hop s wrote it and
-// reads it from L2; each block's stripe is bounded by the chunk's real
-// length, so the last tile of a chunk may be ragged.
-//   - No staging slot: the slot walk before it shipped each hop into the
-//     neighbour's slot and read it back, 5 chunk-sized transfers a
-//     reduce-scatter hop where the function needs 3 (read the landed
-//     partial, read the local term, write the sum).
+// Both families run one walk (`walk` below).  A hop's result is written once,
+// into a buffer of the rank that computed it, where the right neighbour reads
+// it ("pull").  The only signal is one ready counter per (rank, block),
+// released after the block's stores of each (phase, tile).  A rank walks its
+// (phase, tile) iterations tile-major, every phase of tile t before tile t+1,
+// so the right neighbour reads what was written one iteration before, from
+// L2; each block's stripe of a tile is recomputed from the tile's real length
+// on every rank alike, so block b of two neighbours covers the same elements
+// and the last tile of a chunk may be ragged.  No staging slot, no credit, no
+// drain: the right neighbour reads in place.
+//
+// K1 (the payload as it is).  Rank r reads the landed partial from out[r-1]
+// (step 0: the left's input chunk, straight from x) and its own input term,
+// and writes out[r] once.  A walk with one phase never lands on a rank's own
+// chunk, so the right neighbour writes out[r][r] as it reads x[r][r] at step
+// 0: no own-chunk copy re-reads the input.
 //   - No credit: nothing is written twice except, in a reduce-scatter +
 //     all-gather walk, chunk c of out[r], whose reduce-scatter partial the
 //     right neighbour reads (hop k, k = r-c) before the all-gather's copy
@@ -50,58 +49,85 @@
 //     before it overwrites.  Release and acquire at .gpu scope are
 //     transitive, and a counter covers every earlier iteration of its rank,
 //     so that chain suffices in either iteration order.
-// Bytes (world W, chunk C, RS = reduce-scatter alone): the function reads
-// each input once and writes each result once (the bound's (W+1) C per rank
-// for RS or AG alone).  The walk moves 3 C a reduce-scatter hop and 2 C an
-// all-gather hop, plus the folded own chunk (1 C): RS (3 (W-1) + 1) C and AG
-// (2 (W-1) + 1) C per rank, 40 C and 28 C at world 4 (the slot walk: about 64
-// C and 52 C), of which the partials read back (W-2 C a rank) mostly hit L2.
-// Each thread keeps kUnroll 16-byte loads of each operand in flight
-// (L2-cached, past L1: the landed data was written by another SM); stores no
-// rank reads again in the walk are marked evict-first.  comm/ring_sweep.py
-// times each choice undone (step-major order, 2 or 4 loads in flight, plain
-// stores) and TMA bulk copies into shared memory in place of the vector
-// loads.
+//   - Bytes (world W, chunk C, RS = reduce-scatter alone): the function reads
+//     each input once and writes each result once (the bound's (W+1) C per
+//     rank for RS or AG alone).  The walk moves 3 C a reduce-scatter hop and
+//     2 C an all-gather hop, plus the folded own chunk (1 C): RS (3 (W-1) + 1)
+//     C and AG (2 (W-1) + 1) C per rank, 40 C and 28 C at world 4, of which
+//     the partials read back (W-2 C a rank) mostly hit L2.  Each thread keeps
+//     kUnroll 16-byte loads of each operand in flight (L2-cached, past L1: the
+//     landed data was written by another SM); stores no rank reads again in
+//     the walk are marked evict-first.
 //
-// The fused walks (K5, float32 payloads only) keep the slot protocol
-// (ring_protocol below): their wire tiles need a home, in the neighbour's
-// staging slot.  They ship wire tiles instead of the payload:
-//   - reduce-scatter: each hop encodes the moving float32 partial; the
-//     receiver decodes and adds in float32 (local + q*s, two roundings:
-//     __fadd_rn(local, __fmul_rn(q, s)), so nvcc cannot contract it into an
-//     FMA and the plain torch version's multiply-then-add gives the same bits);
-//   - all-gather: the owner encodes its reduced chunk once and adopts the
-//     decoded values itself; every later hop forwards the bits it received.
-//     Forwarding keeps the landed wire tiles (codes and scales, exactly as
-//     they arrived) in a per-rank store [world chunks][n_tiles][slot] and
-//     copies them on, so the bits are the owner's by construction, with no
-//     re-encode;
-//   - a reduce-scatter alone leaves the owned chunk as the float32 sum; an
-//     all-gather alone encodes each rank's own chunk once.
-// The int8 codec is quant/codec.py's: per block of `block_size` elements
-// (128, 256, 512 or 1024), scale = absmax / 127 (1 for an all-zero block),
-// q = clip(rint(x / scale), -127, 127), both divisions IEEE (__fdiv_rn),
-// rint rounding half to even as torch.round and jnp.round do.  One warp
-// encodes one codec block: its absmax is a __shfl_xor_sync max.  A block's
-// stripe of a tile is whole codec blocks, so no reduction crosses thread
-// blocks.  bfloat16 is __float2bfloat16_rn out and an exact widening back.
-// K5's protocol, per iteration `it` (= step * n_tiles + tile, slot = it % 2):
-// wait for the right neighbour's credit for the slot it wrote at it - 2, ship
-// into the right neighbour's slot, release ready[slot]; acquire its own
-// ready[slot]; decode the landed tile; release the left neighbour's credit.
-// A drain waits for the last credits.
+// K5 (float32 payloads, a codec on the wire).  Only wire bytes (codes and
+// scales) cross from one rank to another: a rank reads no float32 data of
+// another rank.  Each rank r has a wire buffer wire[r] = [world chunks], each
+// chunk its codes (chunk_elems int8 or bfloat16 values) then, for int8, one
+// float32 scale per block.  The walk has one phase more than K1's, a
+// prologue, and then per tile:
+//   phase 0, the prologue: encode the chunk r sends first (its own input
+//     chunk r) into wire[r][r]; an all-gather alone also writes the decoded
+//     values to out[r][r] (the owner adopts its own encode);
+//   reduce-scatter step s (phase 1+s), chunk c = r-s-1: read wire[r-1][c]
+//     and x[r][c], sum = local + q*s in registers (two roundings:
+//     __fadd_rn(local, __fmul_rn(q, s)), so nvcc cannot contract an FMA and
+//     the plain torch version's multiply-then-add gives the same bits); then
+//     encode sum into wire[r][c] for the right neighbour, except at the last
+//     step, where a reduce-scatter alone writes the float32 sum (its owned
+//     chunk r+1, the launch's only output) and a reduce-scatter + all-gather
+//     encodes sum once, into wire[r][c], and adopts the decoded values in
+//     out[r][c];
+//   all-gather step k (phase 1+n_rs+k), chunk c = r+own-k-1 (own: 1 after a
+//     reduce-scatter, else 0): read wire[r-1][c], write the decoded values to
+//     out[r][c] and, unless k is the last step, the same bits unchanged into
+//     wire[r][c]: every rank ends with the owner's bits by construction.
+//   - Counters: phase p of tile t reads what the left neighbour wrote at
+//     phase p-1 of tile t (its prologue for p = 1), so the wait target is
+//     K1's, epoch + it - stride + 1, with the prologue counted as a phase.
+//   - No credit: only wire[r][c] in a reduce-scatter + all-gather walk is
+//     written twice, for every chunk c that r forwards (c = r, r-1, ...,
+//     r-W+3: r's prologue or reduce-scatter encode, then its all-gather
+//     forward).  The right neighbour reads the first value at its next
+//     phase, before it releases its counter; chunk c's reduce-scatter goes
+//     on from there through r+2, ..., the owner c-1 (each acquires the
+//     counter of the rank before it), and its all-gather back through c,
+//     ..., r-1, whose counter rank r acquires before its forward overwrites
+//     wire[r][c].  The owner's chunk is never forwarded by the owner, and at
+//     world 2 nothing is forwarded.  Every other wire and out location is
+//     written once a call.
+//   - The codec is quant/codec.py's: per block of `block_size` elements
+//     (128, 256, 512 or 1024), scale = absmax / 127 (1 for an all-zero
+//     block), q = clip(rint(x / scale), -127, 127), both divisions IEEE
+//     (__fdiv_rn), rint rounding half to even as torch.round and jnp.round
+//     do; bfloat16 is __float2bfloat16_rn out and an exact widening back.
+//     A warp codes a batch of 1024 elements (kUnroll float4 a lane: whole
+//     codec units), so each thread keeps 8 16-byte loads of the float32
+//     operand in flight; a unit's absmax is a max over its slots, then a
+//     __shfl_xor_sync max over the warp.  A block's stripe of a tile is
+//     whole batches (a chunk is whole 1024-element tiles), so no reduction
+//     crosses thread blocks.
+//   - Bytes per rank (C one float32 chunk, w its wire: (1/4 + 1/block) C on
+//     int8, C/2 on bfloat16): prologue C + w; a reduce-scatter step C + 2w
+//     (the last, with an all-gather after it, 2C + 2w; alone 2C + w); an
+//     all-gather step C + 2w (the last C + w).  Int8 at block 256, world 4:
+//     RS + AG 8 C + 12 w = 11.05 C a rank, RS or AG alone 3 C + 2 w + 2 (C +
+//     2 w) = 6.5 C, against the bound's 8 C and 5 C.
+//
+// comm/ring_sweep.py times each choice undone (K1: step-major order, 2 or 4
+// loads in flight, plain stores, TMA bulk copies into shared memory; K5:
+// step-major order, one codec unit a warp in flight, at most 64 blocks a
+// rank).
 //
 // Single-controller form: one launch walks the ring for every rank.  Rank r
 // is a group of `nb` thread blocks; block b of rank r talks only to block b
 // of ranks r-1 and r+1, over its stripe of every tile.  A rank's only view
-// of its neighbours is a table of device pointers (RingBuffers for K1: each
-// rank's input, work buffer and flag words; RingPeers for K5: staging slots
-// and flags), what one CUDA IPC registration of persistent buffers gives one
-// process per card.  Every flag value is `epoch + k` for a per-call epoch
-// above anything an earlier call wrote, so no reset pass runs between calls.
-// An entry barrier with both neighbours opens every walk.  The flags use .gpu
-// scope: every rank is on this card.  The per-process IPC form needs .sys
-// scope on every flag access.
+// of its neighbours is a table of device pointers (RingBuffers: each rank's
+// input, output, wire buffer and flag words), what one CUDA IPC registration
+// of persistent buffers gives one process per card.  Every flag value is
+// `epoch + k` for a per-call epoch above anything an earlier call wrote, so
+// no reset pass runs between calls.  An entry barrier with both neighbours
+// opens every walk.  The flags use .gpu scope: every rank is on this card.
+// The per-process IPC form needs .sys scope on every flag access.
 //
 // Co-residency: blocks spin on other blocks' flags, so the whole grid must
 // be resident at once.  The launch is cooperative and sized from the
@@ -130,61 +156,59 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWorld = 32;    // comm/ring.py _MAX_WORLD
 constexpr int kMaxBlocks = 1024; // comm/ring.py _MAX_BLOCKS: flag records per rank
 constexpr int kFlagWords = 8;    // comm/ring.py _FLAG_WORDS (one 64-byte record)
-// K1: 16-byte loads of each operand a thread keeps in flight
+// 16-byte loads of each operand a thread keeps in flight (K5: of the float32
+// operand; a warp's batch is kUnroll float4 a lane, 1024 elements)
 constexpr int kUnroll = 8;
-// K1: the order of a rank's (step, tile) iterations.  Tile-major walks every
-// step of tile t before tile t + 1, so the right neighbour reads a partial
-// one iteration after it was written, while it is still in L2; step-major
-// walks every tile of a step first.
+// the order of a rank's (phase, tile) iterations.  Tile-major walks every
+// phase of tile t before tile t + 1, so the right neighbour reads what was
+// written one iteration before, while it is still in L2; step-major walks
+// every tile of a phase first.
 constexpr bool kTileMajor = true;
 // K1: a store no rank reads again in the walk (the last step's, the folded
 // own chunk) is marked evict-first in L2, leaving L2 to the partials
 constexpr bool kStreamLast = true;
-// K5: at most this many blocks per rank, each stripe of a tile at least
-// kMinVecsPerBlock 16-byte vectors of the float32 payload
-constexpr int kFusedMaxBlocks = 64;
-constexpr long long kMinVecsPerBlock = 1024;
-// the fused walks' unit of work: one int8 codec block, or 1024 elements of
-// a bfloat16 tile; a lane holds at most kMaxVecs float4 of it
-constexpr int kMaxVecs = 8;
+// K5: a warp codes one unit at a time instead of a batch of 1024 elements
+// (ring_sweep's "one_unit")
+constexpr bool kOneUnit = false;
+// K5: elements of a warp's batch, and of a unit of a bfloat16 wire
+constexpr int kBatchElems = kUnroll * 32 * 4;
 constexpr int kBf16Unit = 1024;
 // wire codecs (comm/ring.py _WIRE_CODES)
 enum { kWireInt8 = 1, kWireBf16 = 2 };
 
-// flag words of one (rank, block) record; K1 counts its (step, tile)
-// iterations in kReady0
-enum { kReady0 = 0, kReady1 = 1, kCredit = 2, kBarFromLeft = 3, kBarFromRight = 4 };
+// flag words of one (rank, block) record: the ready counter (its completed
+// iterations), and the entry barrier's word from each neighbour
+enum { kReady = 0, kBarFromLeft = 1, kBarFromRight = 2 };
 // what a spin waited for (comm/ring.py _WAITS)
-enum { kWaitBarrier = 1, kWaitCredit = 2, kWaitData = 3, kWaitDrain = 4 };
+enum { kWaitBarrier = 1, kWaitData = 2 };
 // a report (comm/ring.py _REPORT_WORDS int32): a u64 tag (the epoch of the
 // call that failed), then kind, rank, step, tile, block
 enum { kRepKind = 2, kRepRank = 3, kRepStep = 4, kRepTile = 5, kRepBlock = 6 };
 
 typedef unsigned long long u64;
 
-struct RingPeers {
-  char* slots[kMaxWorld];  // rank r: [2][slot_bytes] staging slots
-  u64* flags[kMaxWorld];   // rank r: [kMaxBlocks][kFlagWords]
+struct RingBuffers {
+  const char* x[kMaxWorld];  // rank r's input: [world][chunk_elems] (x_own: [chunk_elems])
+  char* out[kMaxWorld];      // rank r's output: [world][chunk_elems] (K5, RS alone: its owned chunk)
+  char* wire[kMaxWorld];     // K5: rank r's wire buffer, [world][chunk_wire_bytes]
+  u64* flags[kMaxWorld];     // rank r: [kMaxBlocks][kFlagWords]
 };
 
 struct RingArgs {
-  const void* x;           // [world][world][chunk_elems]
-  void* out;               // the same layout: every rank's work buffer
-  u64* fail;               // the stream's failure word (the epoch of its last failed call)
-  int* report;             // this call's report, in pinned host memory
+  u64* fail;                 // the stream's failure word
+  int* report;               // this call's report, in pinned host memory
   long long chunk_elems;
-  long long stage_elems;
-  long long slot_bytes;    // one staging slot
+  long long stage_elems;     // elements of a whole tile (the last may be shorter)
+  long long chunk_wire_bytes;  // K5: one chunk's codes, then (int8) its scales
   int world;
   int n_tiles;
   int rs;
   int ag;
-  int x_own;               // all-gather alone: x is [world][chunk_elems], rank r's own chunk r
+  int x_own;
+  int block_size;            // K5, int8: elements per scale
   u64 epoch;
   u64 timeout_ns;
-  int fault_rank;          // that rank stops after the barrier (tests); -1: none
-  char* store;             // [world][world][n_tiles][slot_bytes]: landed AG wire tiles
-  int block_size;          // elements per int8 scale
+  int fault_rank;            // that rank stops after the barrier (tests); -1: none
 };
 
 __device__ __forceinline__ u64 ld_acquire(const u64* p) {
@@ -204,11 +228,9 @@ __device__ __forceinline__ u64 global_ns() {
 }
 
 // Thread 0 spins until *flag >= target; false on overrun (reported) or when
-// another block of this call has already failed.  `A` is a walk's
-// arguments: its fail, report, epoch and timeout_ns.
-template <class A>
-__device__ bool spin_until(const u64* flag, u64 target, const A& a, int rank, int block, int step, int tile,
-                           int kind) {
+// another block of this call has already failed.
+__device__ bool spin_until(const u64* flag, u64 target, const RingArgs& a, int rank, int block, int step,
+                           int tile, int kind) {
   const u64 start = global_ns();
   for (unsigned polls = 1;; ++polls) {
     if (ld_acquire(flag) >= target) return true;
@@ -235,8 +257,7 @@ __device__ bool spin_until(const u64* flag, u64 target, const A& a, int rank, in
 }
 
 // The whole block waits for thread 0's spin; every thread gets its outcome.
-template <class A>
-__device__ bool block_wait(const u64* flag, u64 target, const A& a, int rank, int block, int step, int tile,
+__device__ bool block_wait(const u64* flag, u64 target, const RingArgs& a, int rank, int block, int step, int tile,
                            int kind) {
   __shared__ int ok;
   __syncthreads();  // earlier readers of `ok` are done
@@ -245,10 +266,17 @@ __device__ bool block_wait(const u64* flag, u64 target, const A& a, int rank, in
   return ok;
 }
 
-// The entry barrier of block b of `rank` with both neighbours (at world 2
-// both are one rank, which gets both words); false if a spin ran out.
-template <class A>
-__device__ bool entry_barrier(u64* const* flags, const A& a, int rank, int blk) {
+// The walk of block `blk` of `rank`: the entry barrier with both neighbours
+// (at world 2 both are one rank, which gets both words), then the rank's
+// `phases` x n_tiles iterations, in order.  Iteration `it` of a phase after
+// the first waits for the left neighbour's counter to cover its iteration on
+// the same tile at the phase before (its iteration `it - stride`), runs
+// body(phase, tile) over this block's stripe, and releases this block's
+// counter.  `prologue` phases come before the ring's first step (reports
+// count steps).
+template <class Body>
+__device__ void walk(u64* const* flags, const RingArgs& a, int rank, int blk, int prologue, int phases,
+                     const Body& body) {
   const int W = a.world;
   const int right = (rank + 1) % W, left = (rank + W - 1) % W;
   u64* mine = flags[rank] + blk * kFlagWords;
@@ -256,12 +284,28 @@ __device__ bool entry_barrier(u64* const* flags, const A& a, int rank, int blk) 
     st_release(flags[right] + blk * kFlagWords + kBarFromLeft, a.epoch + 1);
     st_release(flags[left] + blk * kFlagWords + kBarFromRight, a.epoch + 1);
   }
-  return block_wait(mine + kBarFromLeft, a.epoch + 1, a, rank, blk, 0, 0, kWaitBarrier) &&
-         block_wait(mine + kBarFromRight, a.epoch + 1, a, rank, blk, 0, 0, kWaitBarrier);
+  if (!block_wait(mine + kBarFromLeft, a.epoch + 1, a, rank, blk, 0, 0, kWaitBarrier) ||
+      !block_wait(mine + kBarFromRight, a.epoch + 1, a, rank, blk, 0, 0, kWaitBarrier))
+    return;
+  if (rank == a.fault_rank) return;
+
+  const u64* left_ready = flags[left] + blk * kFlagWords + kReady;
+  const long long total = (long long)phases * a.n_tiles;
+  const long long stride = kTileMajor ? 1 : a.n_tiles;
+  for (long long it = 0; it < total; ++it) {
+    const int phase = (int)(kTileMajor ? it % phases : it / a.n_tiles);
+    const int tile = (int)(kTileMajor ? it / phases : it % a.n_tiles);
+    if (phase > 0 && !block_wait(left_ready, a.epoch + it - stride + 1, a, rank, blk, phase - prologue, tile,
+                                 kWaitData))
+      return;
+    body(phase, tile);
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(mine + kReady, a.epoch + it + 1);
+  }
 }
 
 // ----------------------------------------------------------------------------
-// K1: the payload moves as it is, hop by hop, with no staging
+// K1: the payload moves as it is, hop by hop
 // ----------------------------------------------------------------------------
 
 template <typename T>
@@ -293,27 +337,6 @@ __device__ __forceinline__ uint4 add16<__nv_bfloat16>(uint4 a, uint4 b) {
   }
   return r;
 }
-
-struct RingBuffers {
-  const char* x[kMaxWorld];  // rank r's input: [world][chunk_elems] (x_own: [chunk_elems])
-  char* out[kMaxWorld];      // rank r's work buffer: [world][chunk_elems]
-  u64* flags[kMaxWorld];     // rank r: [kMaxBlocks][kFlagWords]
-};
-
-struct DirectArgs {
-  u64* fail;               // the stream's failure word
-  int* report;             // this call's report, in pinned host memory
-  long long chunk_elems;
-  long long stage_elems;   // elements of a whole tile (the last may be shorter)
-  int world;
-  int n_tiles;
-  int rs;
-  int ag;
-  int x_own;
-  u64 epoch;
-  u64 timeout_ns;
-  int fault_rank;          // that rank stops after the barrier (tests); -1: none
-};
 
 // One hop over vectors [v0, v1) of a stripe: dst = local + landed (kAdd) or
 // dst = landed; `keep`, where given, also receives what landed.  `last`: no
@@ -352,20 +375,15 @@ __device__ __forceinline__ void hop(const uint4* landed, const uint4* local, uin
 }
 
 template <typename T>
-__device__ void direct_walk(const RingBuffers& p, const DirectArgs& a, int nb) {
+__device__ void direct_walk(const RingBuffers& p, const RingArgs& a, int nb) {
   const int W = a.world;
   const int rank = blockIdx.x / nb, blk = blockIdx.x % nb;
   const int left = (rank + W - 1) % W;
-  if (!entry_barrier(p.flags, a, rank, blk)) return;
-  if (rank == a.fault_rank) return;
-
   const long long C = a.chunk_elems;
   const int n_rs = a.rs ? W - 1 : 0;
   const int total_steps = n_rs + (a.ag ? W - 1 : 0);
   // after RS each rank owns the reduced chunk r + 1; a pure AG starts at r
   const int own = a.rs ? 1 : 0;
-  u64* ready = p.flags[rank] + blk * kFlagWords + kReady0;
-  const u64* left_ready = p.flags[left] + blk * kFlagWords + kReady0;
   const T* x = reinterpret_cast<const T*>(p.x[rank]);
   T* out = reinterpret_cast<T*>(p.out[rank]);
   const T* left_out = reinterpret_cast<const T*>(p.out[left]);
@@ -374,14 +392,7 @@ __device__ void direct_walk(const RingBuffers& p, const DirectArgs& a, int nb) {
   const T* left_own = reinterpret_cast<const T*>(p.x[left]) + (a.x_own ? 0 : left * C);
   T* left_keep = (a.rs && a.ag) ? nullptr : reinterpret_cast<T*>(p.out[left]) + left * C;
 
-  const long long total_iters = (long long)total_steps * a.n_tiles;
-  for (long long it = 0; it < total_iters; ++it) {
-    const int step = (int)(kTileMajor ? it % total_steps : it / a.n_tiles);
-    const int tile = (int)(kTileMajor ? it / total_steps : it % a.n_tiles);
-    // the left neighbour's stripe of this tile at the step before, which it
-    // wrote at its iteration `it - stride`
-    const long long stride = kTileMajor ? 1 : a.n_tiles;
-    if (step > 0 && !block_wait(left_ready, a.epoch + it - stride + 1, a, rank, blk, step, tile, kWaitData)) return;
+  walk(p.flags, a, rank, blk, 0, total_steps, [&](int step, int tile) {
     const bool in_rs = step < n_rs;
     const int chunk = in_rs ? (rank + 2 * W - step - 1) % W : (rank + 2 * W - 1 + own - (step - n_rs)) % W;
     const long long t0 = tile * a.stage_elems;
@@ -398,326 +409,283 @@ __device__ void direct_walk(const RingBuffers& p, const DirectArgs& a, int nb) {
       hop<T, true>(src, reinterpret_cast<const uint4*>(x + chunk * C + t0), dst, keep, v0, v1, last);
     else
       hop<T, false>(src, nullptr, dst, keep, v0, v1, last);
-    __syncthreads();
-    if (threadIdx.x == 0) st_release(ready, a.epoch + it + 1);
-  }
+  });
 }
 
 // ----------------------------------------------------------------------------
-// K5: the slot protocol and the wire codecs
+// K5: the same walk with a wire codec
 // ----------------------------------------------------------------------------
 
-// One step of the walk, as every body sees it.
-struct Hop {
-  int step;
-  int tile;
-  int chunk;    // send_idx in ship, recv_idx in land
-  bool in_rs;
-};
-
-// The fused walks' protocol: barrier, then per (step, tile) credit wait,
-// body.ship into the right neighbour's slot, ready flag, data wait, body.land
-// from this rank's slot, credit; then the drain.  The body moves this block's
-// stripe of the tile and nothing else.
-template <class Body>
-__device__ void ring_protocol(const RingPeers& peers, const RingArgs& a, int nb, Body& body) {
-  const int W = a.world;
-  const int rank = blockIdx.x / nb, blk = blockIdx.x % nb;
-  const int right = (rank + 1) % W, left = (rank + W - 1) % W;
-  u64* mine = peers.flags[rank] + blk * kFlagWords;
-  u64* right_flags = peers.flags[right] + blk * kFlagWords;
-  u64* left_flags = peers.flags[left] + blk * kFlagWords;
-  const u64 e = a.epoch;
-
-  if (!entry_barrier(peers.flags, a, rank, blk)) return;
-  if (rank == a.fault_rank) return;
-
-  const int n_rs = a.rs ? W - 1 : 0;
-  const int n_ag = a.ag ? W - 1 : 0;
-  const int total_steps = n_rs + n_ag;
-  // after RS each rank owns the reduced chunk r + 1; a pure AG starts at r
-  const int own = a.rs ? 1 : 0;
-
-  for (int step = 0; step < total_steps; ++step) {
-    const bool in_rs = step < n_rs;
-    const int send_idx = in_rs ? (rank + W - step) % W : (rank + 2 * W + own - (step - n_rs)) % W;
-    const int recv_idx = (send_idx + W - 1) % W;
-    for (int tile = 0; tile < a.n_tiles; ++tile) {
-      const long long it = (long long)step * a.n_tiles + tile;
-      const int slot = (int)(it & 1);
-
-      // 1. the slot at the right neighbour is free again
-      if (it >= 2 && !block_wait(mine + kCredit, e + it - 1, a, rank, blk, step, tile, kWaitCredit))
-        return;
-
-      // 2. ship
-      body.ship(Hop{step, tile, send_idx, in_rs}, peers.slots[right] + slot * a.slot_bytes);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence();
-        st_release(right_flags + slot, e + it + 1);
-      }
-
-      // 3. what the left neighbour shipped has landed
-      if (!block_wait(mine + slot, e + it + 1, a, rank, blk, step, tile, kWaitData)) return;
-
-      // 4. accumulate or adopt
-      body.land(Hop{step, tile, recv_idx, in_rs}, peers.slots[rank] + slot * a.slot_bytes);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence();
-        st_release(left_flags + kCredit, e + it + 1);
-      }
-    }
-  }
-
-  // drain: the right neighbour has consumed everything this rank shipped
-  const long long total_iters = (long long)total_steps * a.n_tiles;
-  block_wait(mine + kCredit, e + total_iters, a, rank, blk, total_steps, 0, kWaitDrain);
-}
-
-// What every fused body knows of its rank and stripe.
-struct Walk {
-  int rank;
-  int n_rs;
-  int total_steps;
-  long long rank_base;  // this rank's [world][chunk_elems] in x and out
-  long long own_base;   // the own chunk r in x (x_own: [world][chunk_elems])
-
-  __device__ Walk(const RingArgs& a, int nb) {
-    const int W = a.world;
-    rank = blockIdx.x / nb;
-    n_rs = a.rs ? W - 1 : 0;
-    total_steps = n_rs + (a.ag ? W - 1 : 0);
-    rank_base = (long long)rank * W * a.chunk_elems;
-    own_base = a.x_own ? (long long)rank * a.chunk_elems : rank_base + rank * a.chunk_elems;
-  }
-  // element offset of (chunk, tile) in this rank's work buffer
-  __device__ long long at(const RingArgs& a, int chunk, int tile) const {
-    return rank_base + chunk * a.chunk_elems + tile * a.stage_elems;
-  }
-};
-
-// The wire codecs.  Each works on one unit (an int8 codec block, or 1024
-// bfloat16 elements) held by one warp: lane l owns float4 l + 32 j of it.
+// The wire codecs.  A warp works on a batch of `vpl` float4 a lane: slot j of
+// lane l is float4 32 j + l of the batch, a Word of codes per float4, and a
+// codec unit (an int8 block, or 1024 bfloat16 elements) is `nv` consecutive
+// slots.  `s[j]` is the scale of slot j's unit.
 
 struct Int8Wire {
+  static constexpr bool kScaled = true;
   static constexpr int kBytes = 1;
   typedef uint32_t Word;  // the codes of one float4
 
-  __device__ static float absmax4(float4 v) {
-    return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+  __device__ static float value(Word w, int k, float s) {
+    return __fmul_rn((float)(signed char)((w >> (8 * k)) & 0xff), s);
+  }
+  __device__ static float4 decode(Word w, float s) {
+    return make_float4(value(w, 0, s), value(w, 1, s), value(w, 2, s), value(w, 3, s));
   }
   __device__ static int code(float x, float s) {
     return (int)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f);
   }
-  __device__ static float value(Word w, int k, float s) {
-    return __fmul_rn((float)(signed char)((w >> (8 * k)) & 0xff), s);
-  }
 
-  // Encode src (nv float4 per lane) into codes and *scale; where `back` is
-  // given, also write the decoded values (`decoded`) or the input there.
-  __device__ static void encode(const float4* src, Word* codes, float* scale, float4* back, bool decoded,
-                                int nv, int lane) {
-    float4 v[kMaxVecs];
-    float m = 0.0f;
+  // codes w and per-slot scales s of v: each unit's absmax is a max over its
+  // nv slots (a butterfly over slot indices known at compile time), then over
+  // the warp, for the first slot of each unit only; its scale is then copied
+  // to the unit's other slots
+  __device__ static void encode(const float4 (&v)[kUnroll], Word (&w)[kUnroll], float (&s)[kUnroll], int vpl,
+                                int nv) {
+    float m[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kMaxVecs; ++j)
-      if (j < nv) {
-        v[j] = src[lane + 32 * j];
-        m = fmaxf(m, absmax4(v[j]));
+    for (int j = 0; j < kUnroll; ++j)
+      m[j] = j < vpl ? fmaxf(fmaxf(fabsf(v[j].x), fabsf(v[j].y)), fmaxf(fabsf(v[j].z), fabsf(v[j].w))) : 0.0f;
+#pragma unroll
+    for (int d = 1; d < kUnroll; d <<= 1)
+      if (d < nv) {
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j)
+          if (!(j & d)) m[j] = fmaxf(m[j], m[j | d]);
       }
 #pragma unroll
-    for (int off = 16; off; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float s = m > 0.0f ? __fdiv_rn(m, 127.0f) : 1.0f;
+    for (int j = 0; j < kUnroll; ++j)
+      if (j < vpl && !(j & (nv - 1))) {
 #pragma unroll
-    for (int j = 0; j < kMaxVecs; ++j)
-      if (j < nv) {
-        const int q0 = code(v[j].x, s), q1 = code(v[j].y, s), q2 = code(v[j].z, s), q3 = code(v[j].w, s);
-        const Word wd = (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |
-                        ((uint32_t)(q3 & 0xff) << 24);
-        __stcg(codes + lane + 32 * j, wd);
-        if (back)
-          back[lane + 32 * j] = decoded ? make_float4(value(wd, 0, s), value(wd, 1, s), value(wd, 2, s),
-                                                      value(wd, 3, s))
-                                        : v[j];
+        for (int off = 16; off; off >>= 1) m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+        s[j] = m[j] > 0.0f ? __fdiv_rn(m[j], 127.0f) : 1.0f;
       }
-    if (lane == 0) __stcg(scale, s);
-  }
-
-  // dst = local + decoded (local == nullptr: dst = decoded)
-  __device__ static void decode(const Word* codes, const float* scale, const float4* local, float4* dst,
-                                int nv, int lane) {
-    const float s = __ldcg(scale);
 #pragma unroll
-    for (int j = 0; j < kMaxVecs; ++j)
-      if (j < nv) {
-        const Word wd = __ldcg(codes + lane + 32 * j);
-        float4 d = make_float4(value(wd, 0, s), value(wd, 1, s), value(wd, 2, s), value(wd, 3, s));
-        if (local) {
-          const float4 l = local[lane + 32 * j];
-          d = make_float4(__fadd_rn(l.x, d.x), __fadd_rn(l.y, d.y), __fadd_rn(l.z, d.z), __fadd_rn(l.w, d.w));
-        }
-        dst[lane + 32 * j] = d;
+    for (int d = kUnroll / 2; d; d >>= 1)
+      if (d < nv) {
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j)
+          if (j & d) s[j] = s[j ^ d];
+      }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j)
+      if (j < vpl) {
+        const int q0 = code(v[j].x, s[j]), q1 = code(v[j].y, s[j]), q2 = code(v[j].z, s[j]),
+                  q3 = code(v[j].w, s[j]);
+        w[j] = (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |
+               ((uint32_t)(q3 & 0xff) << 24);
       }
   }
 };
 
 struct Bf16Wire {
+  static constexpr bool kScaled = false;
   static constexpr int kBytes = 2;
   typedef uint2 Word;  // the bfloat16 values of one float4
 
-  __device__ static Word pack(float4 v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-    return make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-  }
-  __device__ static float4 unpack(Word w) {
+  __device__ static float4 decode(Word w, float) {
     const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
     const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
-
-  __device__ static void encode(const float4* src, Word* codes, float*, float4* back, bool decoded, int nv,
-                                int lane) {
+  __device__ static void encode(const float4 (&v)[kUnroll], Word (&w)[kUnroll], float (&)[kUnroll], int vpl,
+                                int) {
 #pragma unroll
-    for (int j = 0; j < kMaxVecs; ++j)
-      if (j < nv) {
-        const float4 v = src[lane + 32 * j];
-        const Word wd = pack(v);
-        __stcg(codes + lane + 32 * j, wd);
-        if (back) back[lane + 32 * j] = decoded ? unpack(wd) : v;
+    for (int j = 0; j < kUnroll; ++j)
+      if (j < vpl) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[j].x, v[j].y),
+                             hi = __floats2bfloat162_rn(v[j].z, v[j].w);
+        w[j] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
       }
   }
+};
 
-  __device__ static void decode(const Word* codes, const float*, const float4* local, float4* dst, int nv,
-                                int lane) {
+// What one K5 hop reads and writes, each at the tile's start: float4 (the
+// payload), Word (codes, one per float4) and float (int8 scales, one per
+// unit).  Null where the hop does not touch it.
+template <class C>
+struct FusedTile {
+  const float4* local;               // this rank's input term
+  const typename C::Word* landed;    // the left neighbour's wire
+  const float* landed_scales;
+  typename C::Word* mine;            // this rank's wire, for the right neighbour
+  float* mine_scales;
+  float4* out;
+};
+
+// One K5 hop over batches [b0, b1) of a tile, each warp a batch at a time:
+// v = local (kLocal), + decoded landed wire (kLanded); the landed bits
+// forwarded unchanged (kFwd); v encoded into this rank's wire and, where it
+// is also stored, replaced by its decoded value (kEncode); v stored (kOut).
+template <class C, bool kLocal, bool kLanded, bool kEncode, bool kFwd, bool kOut>
+__device__ __forceinline__ void fused_hop(const FusedTile<C>& t, long long b0, long long b1, int vpl, int nv) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int units = vpl / nv;  // codec units a batch
+  [[maybe_unused]] const int lg = __ffs(nv) - 1;  // slot j is in the batch's unit j >> lg
+  for (long long b = b0 + warp; b < b1; b += kWarps) {
+    const long long f0 = b * vpl * 32 + lane;  // slot 0 of this lane
+    const long long u0 = b * units;            // the batch's first unit
+    float4 v[kUnroll];
+    typename C::Word w[kUnroll];
+    float s[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kMaxVecs; ++j)
-      if (j < nv) {
-        float4 d = unpack(__ldcg(codes + lane + 32 * j));
-        if (local) {
-          const float4 l = local[lane + 32 * j];
-          d = make_float4(__fadd_rn(l.x, d.x), __fadd_rn(l.y, d.y), __fadd_rn(l.z, d.z), __fadd_rn(l.w, d.w));
+    for (int j = 0; j < kUnroll; ++j) s[j] = 1.0f;
+    float lane_scale = 1.0f;  // lane u < units: the scale of unit u
+    if (kLanded) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (j < vpl) w[j] = __ldcg(t.landed + f0 + 32 * j);
+      if constexpr (C::kScaled) {
+        if (lane < units) lane_scale = __ldcg(t.landed_scales + u0 + lane);
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) s[j] = __shfl_sync(0xffffffffu, lane_scale, j >> lg);
+      }
+    }
+    if (kLocal) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (j < vpl) v[j] = __ldcs(t.local + f0 + 32 * j);
+    }
+    if (kLanded) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (j < vpl) {
+          const float4 d = C::decode(w[j], s[j]);
+          v[j] = kLocal ? make_float4(__fadd_rn(v[j].x, d.x), __fadd_rn(v[j].y, d.y), __fadd_rn(v[j].z, d.z),
+                                      __fadd_rn(v[j].w, d.w))
+                        : d;
         }
-        dst[lane + 32 * j] = d;
+    }
+    if (kFwd) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (j < vpl) __stcg(t.mine + f0 + 32 * j, w[j]);
+      if constexpr (C::kScaled)
+        if (lane < units) __stcg(t.mine_scales + u0 + lane, lane_scale);
+    }
+    if (kEncode) {
+      C::encode(v, w, s, vpl, nv);
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (j < vpl) __stcg(t.mine + f0 + 32 * j, w[j]);
+      if constexpr (C::kScaled) {
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j)
+          if ((j >> lg) == lane) lane_scale = s[j];
+        if (lane < units) __stcg(t.mine_scales + u0 + lane, lane_scale);
       }
+      if (kOut) {
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j)
+          if (j < vpl) v[j] = C::decode(w[j], s[j]);
+      }
+    }
+    if (kOut) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (j < vpl) __stcs(t.out + f0 + 32 * j, v[j]);
+    }
   }
-};
+}
 
-// Byte layout of one staging slot (and one stored tile): the codes of the
-// tile's stage_elems elements, then (int8) one float32 scale per block.
 template <class C>
-struct FusedBody {
-  const RingArgs& a;
-  Walk w;
-  int unit;      // elements per unit (int8: block_size)
-  int nv;        // float4 per lane per unit
-  int u0, u1;    // this block's stripe of every tile, in units
-  int warp, lane;
+__device__ void fused_walk(const RingBuffers& p, const RingArgs& a, int nb) {
+  typedef typename C::Word Word;
+  const int W = a.world;
+  const int rank = blockIdx.x / nb, blk = blockIdx.x % nb;
+  const int left = (rank + W - 1) % W;
+  const long long Cn = a.chunk_elems;
+  const int unit = C::kScaled ? a.block_size : kBf16Unit;
+  const int nv = unit / 128;                  // slots of a unit
+  const int vpl = kOneUnit ? nv : kUnroll;    // slots of a batch
+  const long long batch = (long long)vpl * 128;
+  const int n_rs = a.rs ? W - 1 : 0, n_ag = a.ag ? W - 1 : 0;
+  // after RS each rank owns the reduced chunk r + 1; a pure AG starts at r
+  const int own = a.rs ? 1 : 0;
+  const float* x = reinterpret_cast<const float*>(p.x[rank]);
+  float* out = reinterpret_cast<float*>(p.out[rank]);
+  char* mine = p.wire[rank];
+  const char* landed = p.wire[left];
 
-  __device__ FusedBody(const RingArgs& args, int nb) : a(args), w(args, nb) {
-    unit = C::kBytes == 1 ? a.block_size : kBf16Unit;
-    nv = unit / 128;
-    const int blk = blockIdx.x % nb;
-    const int n_units = (int)(a.stage_elems / unit);
-    const int per = (n_units + nb - 1) / nb;
-    u0 = blk * per;
-    u1 = u0 + per < n_units ? u0 + per : n_units;
-    warp = threadIdx.x / 32;
-    lane = threadIdx.x % 32;
-  }
-
-  __device__ typename C::Word* codes(char* tile, int u) const {
-    return reinterpret_cast<typename C::Word*>(tile + (long long)u * unit * C::kBytes);
-  }
-  __device__ float* scale(char* tile, int u) const {
-    return reinterpret_cast<float*>(tile + a.stage_elems * C::kBytes) + u;
-  }
-  // the stored wire tile of (chunk, tile) of this rank
-  __device__ char* stored(int chunk, int tile) const {
-    return a.store + (((long long)w.rank * a.world + chunk) * a.n_tiles + tile) * a.slot_bytes;
-  }
-
-  __device__ void ship(const Hop& h, char* slot) {
-    const float* x = static_cast<const float*>(a.x);
-    float* out = static_cast<float*>(a.out);
-    const bool first_ag = !h.in_rs && h.step == w.n_rs;
-    if (h.in_rs || first_ag) {
-      // RS hops encode the moving partial; the first AG hop is the one
-      // encode of each reduced chunk, whose owner adopts the decoded values.
-      // Step 0 reads the own input chunk; a reduce-scatter alone keeps it.
-      const float* src = h.step == 0 ? x + w.own_base + h.tile * a.stage_elems : out + w.at(a, h.chunk, h.tile);
-      float* back = (first_ag || (h.step == 0 && !a.ag)) ? out + w.at(a, h.chunk, h.tile) : nullptr;
-      for (int u = u0 + warp; u < u1; u += kWarps)
-        C::encode(reinterpret_cast<const float4*>(src + (long long)u * unit), codes(slot, u), scale(slot, u),
-                  back ? reinterpret_cast<float4*>(back + (long long)u * unit) : nullptr, first_ag, nv, lane);
+  walk(p.flags, a, rank, blk, 1, 1 + n_rs + n_ag, [&](int phase, int tile) {
+    const long long t0 = tile * a.stage_elems;
+    const long long len = (Cn - t0 < a.stage_elems ? Cn - t0 : a.stage_elems);
+    const long long n_batches = len / batch;
+    const long long per = (n_batches + nb - 1) / nb;
+    const long long b0 = blk * per < n_batches ? blk * per : n_batches;
+    const long long b1 = b0 + per < n_batches ? b0 + per : n_batches;
+    // chunk c's codes and scales of this tile in a wire buffer
+    auto codes = [&](const char* wire, int c) {
+      return reinterpret_cast<Word*>(const_cast<char*>(wire) + c * a.chunk_wire_bytes) + t0 / 4;
+    };
+    auto scales = [&](const char* wire, int c) {
+      return C::kScaled ? reinterpret_cast<float*>(const_cast<char*>(wire) + c * a.chunk_wire_bytes +
+                                                   Cn * C::kBytes) + t0 / unit
+                        : nullptr;
+    };
+    auto payload = [&](const float* base, int c) { return reinterpret_cast<const float4*>(base + c * Cn + t0); };
+    auto dst = [&](int c) { return reinterpret_cast<float4*>(out + c * Cn + t0); };
+    if (phase == 0) {  // the prologue: encode the chunk this rank sends first
+      const float4* local = reinterpret_cast<const float4*>(x + (a.x_own ? 0 : rank * Cn) + t0);
+      const FusedTile<C> t{local, nullptr, nullptr, codes(mine, rank), scales(mine, rank), dst(rank)};
+      if (a.rs)
+        fused_hop<C, true, false, true, false, false>(t, b0, b1, vpl, nv);
+      else  // an all-gather alone: the owner adopts its own encode
+        fused_hop<C, true, false, true, false, true>(t, b0, b1, vpl, nv);
+    } else if (phase <= n_rs) {
+      const int step = phase - 1;
+      const int c = (rank + 2 * W - step - 1) % W;
+      const FusedTile<C> t{payload(x, c), codes(landed, c), scales(landed, c), codes(mine, c), scales(mine, c),
+                           dst(c)};
+      if (step < n_rs - 1)
+        fused_hop<C, true, true, true, false, false>(t, b0, b1, vpl, nv);
+      else if (!a.ag)  // the float32 sum of the owned chunk, out[r]'s one chunk
+        fused_hop<C, true, true, false, false, true>(FusedTile<C>{t.local, t.landed, t.landed_scales, nullptr,
+                                                                  nullptr, dst(0)},
+                                                     b0, b1, vpl, nv);
+      else  // the one encode of the owned chunk, which its owner adopts
+        fused_hop<C, true, true, true, false, true>(t, b0, b1, vpl, nv);
     } else {
-      // later AG hops forward the bits that landed at the hop before
-      char* tile = stored(h.chunk, h.tile);
-      for (int u = u0 + warp; u < u1; u += kWarps) {
-        const typename C::Word* from = codes(tile, u);
-        typename C::Word* to = codes(slot, u);
-#pragma unroll
-        for (int j = 0; j < kMaxVecs; ++j)
-          if (j < nv) __stcg(to + lane + 32 * j, from[lane + 32 * j]);
-        if (C::kBytes == 1 && lane == 0) __stcg(scale(slot, u), *scale(tile, u));
-      }
+      const int step = phase - 1 - n_rs;
+      const int c = (rank + 2 * W + own - step - 1) % W;
+      const FusedTile<C> t{nullptr, codes(landed, c), scales(landed, c), codes(mine, c), scales(mine, c), dst(c)};
+      if (step < n_ag - 1)
+        fused_hop<C, false, true, false, true, true>(t, b0, b1, vpl, nv);
+      else
+        fused_hop<C, false, true, false, false, true>(t, b0, b1, vpl, nv);
     }
-  }
+  });
+}
 
-  __device__ void land(const Hop& h, char* slot) {
-    float* dst = static_cast<float*>(a.out) + w.at(a, h.chunk, h.tile);
-    // RS: chunk recv_idx is landed on once, so its local term is the input
-    const float* local = h.in_rs ? static_cast<const float*>(a.x) + w.at(a, h.chunk, h.tile) : nullptr;
-    // AG: keep the landed bits for the next hop, which forwards them
-    char* keep = (!h.in_rs && h.step < w.total_steps - 1) ? stored(h.chunk, h.tile) : nullptr;
-    for (int u = u0 + warp; u < u1; u += kWarps) {
-      C::decode(codes(slot, u), scale(slot, u), local ? reinterpret_cast<const float4*>(local + (long long)u * unit)
-                                                      : nullptr,
-                reinterpret_cast<float4*>(dst + (long long)u * unit), nv, lane);
-      if (keep) {
-        const typename C::Word* from = codes(slot, u);
-        typename C::Word* to = codes(keep, u);
-#pragma unroll
-        for (int j = 0; j < kMaxVecs; ++j)
-          if (j < nv) to[lane + 32 * j] = __ldcg(from + lane + 32 * j);
-        if (C::kBytes == 1 && lane == 0) *scale(keep, u) = __ldcg(scale(slot, u));
-      }
-    }
-  }
-};
-
-// K1a: each chunk is one tile (one ready flag per step); K1b: each chunk
-// streams through n_tiles tiles per step.  K5a/K5b: the slot walk with the
-// codec C on the wire.  The pairs differ only in the arguments the host gives
-// them; they are separate kernels so profiles name each.
+// K1a: each chunk is one tile; K1b: each chunk streams through n_tiles tiles
+// per step.  K5a/K5b: the same with the codec C on the wire.  The pairs
+// differ only in the arguments the host gives them; they are separate
+// kernels so profiles name each.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_k1a_kernel(RingBuffers bufs, DirectArgs a, int nb) {
+__global__ void __launch_bounds__(kThreads) ring_k1a_kernel(RingBuffers bufs, RingArgs a, int nb) {
   direct_walk<T>(bufs, a, nb);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_k1b_kernel(RingBuffers bufs, DirectArgs a, int nb) {
+__global__ void __launch_bounds__(kThreads) ring_k1b_kernel(RingBuffers bufs, RingArgs a, int nb) {
   direct_walk<T>(bufs, a, nb);
 }
 
 template <class C>
-__global__ void __launch_bounds__(kThreads) ring_k5a_kernel(RingPeers peers, RingArgs a, int nb) {
-  FusedBody<C> body(a, nb);
-  ring_protocol(peers, a, nb, body);
+__global__ void __launch_bounds__(kThreads) ring_k5a_kernel(RingBuffers bufs, RingArgs a, int nb) {
+  fused_walk<C>(bufs, a, nb);
 }
 
 template <class C>
-__global__ void __launch_bounds__(kThreads) ring_k5b_kernel(RingPeers peers, RingArgs a, int nb) {
-  FusedBody<C> body(a, nb);
-  ring_protocol(peers, a, nb, body);
+__global__ void __launch_bounds__(kThreads) ring_k5b_kernel(RingBuffers bufs, RingArgs a, int nb) {
+  fused_walk<C>(bufs, a, nb);
 }
 
-// Bytes of one fused staging slot: the wire codes, then (int8) one float32
+// Bytes of one chunk of a K5 wire buffer: the codes, then (int8) one float32
 // scale per block, rounded up to 16 bytes (comm/ring.py _fused_slot_bytes).
-long long fused_slot_bytes(long long stage_elems, int wire, int block_size) {
-  long long b = stage_elems * (wire == kWireInt8 ? 1 : 2);
-  if (wire == kWireInt8) b += stage_elems / block_size * 4;
+long long fused_chunk_bytes(long long chunk_elems, int wire, int block_size) {
+  long long b = chunk_elems * (wire == kWireInt8 ? 1 : 2);
+  if (wire == kWireInt8) b += chunk_elems / block_size * 4;
   return (b + 15) / 16 * 16;
 }
 
@@ -754,10 +722,10 @@ cudaError_t resident_blocks(const void* kernel, int* out) {
 }
 
 // Launch `kernel` cooperatively on `device` with `want` blocks per rank, or
-// as many as can be co-resident, at most `cap`; then record `done` (a
+// as many as can be co-resident, at most kMaxBlocks; then record `done` (a
 // cudaEvent_t, or null) behind it on the stream.  The caller's current
 // device is restored.
-int launch(const void* kernel, void** args, int* nb, int world, long long want, int cap, int device, void* done,
+int launch(const void* kernel, void** args, int* nb, int world, long long want, int device, void* done,
            void* stream) {
   int current = 0;
   cudaError_t e = cudaGetDevice(&current);
@@ -769,8 +737,8 @@ int launch(const void* kernel, void** args, int* nb, int world, long long want, 
   if (e == cudaSuccess && fit < 1) e = cudaErrorCooperativeLaunchTooLarge;
   if (e == cudaSuccess) {
     if (want < 1) want = 1;
+    if (want > kMaxBlocks) want = kMaxBlocks;
     *nb = (int)(want < fit ? want : fit);
-    if (*nb > cap) *nb = cap;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     e = cudaLaunchCooperativeKernel(kernel, dim3(world * *nb), dim3(kThreads), args, 0, s);
     if (e == cudaSuccess) e = cudaGetLastError();
@@ -781,6 +749,36 @@ int launch(const void* kernel, void** args, int* nb, int world, long long want, 
     if (e == cudaSuccess) e = back;
   }
   return (int)e;
+}
+
+// The arguments every walk shares, and each rank's buffers as slices of one
+// allocation per kind (single controller); wire may be null (K1).
+void fill(RingArgs* a, RingBuffers* bufs, const void* x, void* out, void* wire, void* flags, void* fail,
+          void* report, int world, long long chunk_elems, long long stage_elems, int rs, int ag, int x_own,
+          long long elem_bytes, long long out_rank_bytes, long long wire_rank_bytes, u64 epoch, u64 timeout_ns,
+          int fault_rank) {
+  a->fail = static_cast<u64*>(fail);
+  a->report = static_cast<int*>(report);
+  a->chunk_elems = chunk_elems;
+  a->stage_elems = stage_elems;
+  a->chunk_wire_bytes = 0;
+  a->world = world;
+  a->n_tiles = (int)((chunk_elems + stage_elems - 1) / stage_elems);
+  a->rs = rs;
+  a->ag = ag;
+  a->x_own = x_own;
+  a->block_size = 0;
+  a->epoch = epoch;
+  a->timeout_ns = timeout_ns;
+  a->fault_rank = fault_rank;
+  const long long x_bytes = (x_own ? 1 : world) * chunk_elems * elem_bytes;
+  for (int r = 0; r < kMaxWorld; ++r) {
+    const bool in = r < world;
+    bufs->x[r] = in ? static_cast<const char*>(x) + r * x_bytes : nullptr;
+    bufs->out[r] = in ? static_cast<char*>(out) + r * out_rank_bytes : nullptr;
+    bufs->wire[r] = in && wire ? static_cast<char*>(wire) + r * wire_rank_bytes : nullptr;
+    bufs->flags[r] = in ? static_cast<u64*>(flags) + (long long)r * kMaxBlocks * kFlagWords : nullptr;
+  }
 }
 
 int launch_k1(bool streamed, const void* x, void* out, void* flags, void* fail, void* report, int world,
@@ -795,86 +793,48 @@ int launch_k1(bool streamed, const void* x, void* out, void* flags, void* fail, 
                                            : (const void*)ring_k1b_kernel<float>)
                                 : (is_bf16 ? (const void*)ring_k1a_kernel<__nv_bfloat16>
                                            : (const void*)ring_k1a_kernel<float>);
-  DirectArgs a;
-  a.fail = static_cast<u64*>(fail);
-  a.report = static_cast<int*>(report);
-  a.chunk_elems = chunk_elems;
-  a.stage_elems = stage_elems;
-  a.world = world;
-  a.n_tiles = (int)((chunk_elems + stage_elems - 1) / stage_elems);
-  a.rs = rs;
-  a.ag = ag;
-  a.x_own = x_own;
-  a.epoch = epoch;
-  a.timeout_ns = timeout_ns;
-  a.fault_rank = fault_rank;
-  // single controller: every rank's buffers are slices of one allocation
+  RingArgs a;
   RingBuffers bufs;
-  const long long rank_bytes = world * chunk_elems * elem_bytes;
-  const long long x_bytes = x_own ? chunk_elems * elem_bytes : rank_bytes;
-  for (int r = 0; r < kMaxWorld; ++r) {
-    const bool in = r < world;
-    bufs.x[r] = in ? static_cast<const char*>(x) + r * x_bytes : nullptr;
-    bufs.out[r] = in ? static_cast<char*>(out) + r * rank_bytes : nullptr;
-    bufs.flags[r] = in ? static_cast<u64*>(flags) + (long long)r * kMaxBlocks * kFlagWords : nullptr;
-  }
+  fill(&a, &bufs, x, out, nullptr, flags, fail, report, world, chunk_elems, stage_elems, rs, ag, x_own, elem_bytes,
+       world * chunk_elems * elem_bytes, 0, epoch, timeout_ns, fault_rank);
   // at least one vector a thread in each block's stripe of a tile
   const long long want = (stage_elems * elem_bytes / 16 + kThreads - 1) / kThreads;
   int nb = 0;
   void* args[] = {&bufs, &a, &nb};
-  return launch(kernel, args, &nb, world, want, kMaxBlocks, device, done, stream);
+  return launch(kernel, args, &nb, world, want, device, done, stream);
 }
 
-int launch_k5(bool streamed, const void* x, void* out, void* slots, void* store, void* flags, void* fail,
-              void* report, int world, long long chunk_elems, long long stage_elems, int n_tiles, int rs, int ag,
-              int x_own, int wire, int block_size, long long slot_bytes, u64 epoch, u64 timeout_ns,
-              int fault_rank, int device, void* done, void* stream) {
-  if (world < 2 || world > kMaxWorld) return (int)cudaErrorInvalidValue;
-  if (x_own && (rs || !ag)) return (int)cudaErrorInvalidValue;
-  if (slot_bytes % 16 || chunk_elems != stage_elems * n_tiles) return (int)cudaErrorInvalidValue;
-  const bool int8 = wire == kWireInt8;
-  if (!int8 && wire != kWireBf16) return (int)cudaErrorInvalidValue;
+int launch_k5(bool streamed, const void* x, void* out, void* wire, void* flags, void* fail, void* report, int world,
+              long long chunk_elems, long long stage_elems, int rs, int ag, int x_own, int wire_code,
+              int block_size, long long chunk_wire_bytes, u64 epoch, u64 timeout_ns, int fault_rank, int device,
+              void* done, void* stream) {
+  if (world < 2 || world > kMaxWorld || !(rs || ag) || (x_own && (rs || !ag))) return (int)cudaErrorInvalidValue;
+  const bool int8 = wire_code == kWireInt8;
+  if (!int8 && wire_code != kWireBf16) return (int)cudaErrorInvalidValue;
   const int unit = int8 ? block_size : kBf16Unit;
   if (unit != 128 && unit != 256 && unit != 512 && unit != 1024) return (int)cudaErrorInvalidValue;
-  if (stage_elems % unit || slot_bytes != fused_slot_bytes(stage_elems, wire, block_size))
+  // every tile, the ragged last one too, is whole warp batches (whole units)
+  if (chunk_elems < 1 || stage_elems < 1 || stage_elems > chunk_elems || chunk_elems % kBatchElems ||
+      stage_elems % kBatchElems || wire == nullptr ||
+      chunk_wire_bytes != fused_chunk_bytes(chunk_elems, wire_code, block_size))
     return (int)cudaErrorInvalidValue;
-  const bool forwards = ag && world > 2;  // some AG hop forwards stored bits
-  if (forwards && store == nullptr) return (int)cudaErrorInvalidValue;
   const void* kernel = streamed ? (int8 ? (const void*)ring_k5b_kernel<Int8Wire>
                                         : (const void*)ring_k5b_kernel<Bf16Wire>)
                                 : (int8 ? (const void*)ring_k5a_kernel<Int8Wire>
                                         : (const void*)ring_k5a_kernel<Bf16Wire>);
   RingArgs a;
-  a.x = x;
-  a.out = out;
-  a.fail = static_cast<u64*>(fail);
-  a.report = static_cast<int*>(report);
-  a.chunk_elems = chunk_elems;
-  a.stage_elems = stage_elems;
-  a.slot_bytes = slot_bytes;
-  a.world = world;
-  a.n_tiles = n_tiles;
-  a.rs = rs;
-  a.ag = ag;
-  a.x_own = x_own;
-  a.epoch = epoch;
-  a.timeout_ns = timeout_ns;
-  a.fault_rank = fault_rank;
-  a.store = static_cast<char*>(store);
+  RingBuffers bufs;
+  // a reduce-scatter alone returns each rank's owned chunk only
+  const long long out_rank_bytes = (rs && !ag ? 1 : world) * chunk_elems * 4;
+  fill(&a, &bufs, x, out, wire, flags, fail, report, world, chunk_elems, stage_elems, rs, ag, x_own, 4,
+       out_rank_bytes, world * chunk_wire_bytes, epoch, timeout_ns, fault_rank);
+  a.chunk_wire_bytes = chunk_wire_bytes;
   a.block_size = block_size;
-  // single controller: every rank's slots and flags are slices of one buffer
-  RingPeers peers;
-  for (int r = 0; r < kMaxWorld; ++r) {
-    const bool in = r < world;
-    peers.slots[r] = in ? static_cast<char*>(slots) + (long long)r * 2 * slot_bytes : nullptr;
-    peers.flags[r] = in ? static_cast<u64*>(flags) + (long long)r * kMaxBlocks * kFlagWords : nullptr;
-  }
-  // stripes of at least kMinVecsPerBlock float32 vectors, of whole units
-  long long want = stage_elems * 4 / 16 / kMinVecsPerBlock;
-  if (want > stage_elems / unit) want = stage_elems / unit;
+  // at least one batch a warp in each block's stripe of a tile
+  long long want = (stage_elems / kBatchElems + kWarps - 1) / kWarps;
   int nb = 0;
-  void* args[] = {&peers, &a, &nb};
-  return launch(kernel, args, &nb, world, want, kFusedMaxBlocks, device, done, stream);
+  void* args[] = {&bufs, &a, &nb};
+  return launch(kernel, args, &nb, world, want, device, done, stream);
 }
 
 }  // namespace
@@ -895,20 +855,20 @@ int adapcc_ring_k1b(const void* x, void* out, void* flags, void* fail, void* rep
                    epoch, timeout_ns, fault_rank, device, done, stream);
 }
 
-int adapcc_ring_k5a(const void* x, void* out, void* slots, void* store, void* flags, void* fail, void* report,
-                    int world, long long chunk_elems, int rs, int ag, int x_own, int wire, int block_size,
-                    long long slot_bytes, u64 epoch, u64 timeout_ns, int fault_rank, int device, void* done,
+int adapcc_ring_k5a(const void* x, void* out, void* wire, void* flags, void* fail, void* report, int world,
+                    long long chunk_elems, int rs, int ag, int x_own, int wire_code, int block_size,
+                    long long chunk_wire_bytes, u64 epoch, u64 timeout_ns, int fault_rank, int device, void* done,
                     void* stream) {
-  return launch_k5(false, x, out, slots, store, flags, fail, report, world, chunk_elems, chunk_elems, 1, rs, ag,
-                   x_own, wire, block_size, slot_bytes, epoch, timeout_ns, fault_rank, device, done, stream);
+  return launch_k5(false, x, out, wire, flags, fail, report, world, chunk_elems, chunk_elems, rs, ag, x_own,
+                   wire_code, block_size, chunk_wire_bytes, epoch, timeout_ns, fault_rank, device, done, stream);
 }
 
-int adapcc_ring_k5b(const void* x, void* out, void* slots, void* store, void* flags, void* fail, void* report,
-                    int world, long long chunk_elems, long long stage_elems, int n_tiles, int rs, int ag,
-                    int x_own, int wire, int block_size, long long slot_bytes, u64 epoch, u64 timeout_ns,
-                    int fault_rank, int device, void* done, void* stream) {
-  return launch_k5(true, x, out, slots, store, flags, fail, report, world, chunk_elems, stage_elems, n_tiles, rs,
-                   ag, x_own, wire, block_size, slot_bytes, epoch, timeout_ns, fault_rank, device, done, stream);
+int adapcc_ring_k5b(const void* x, void* out, void* wire, void* flags, void* fail, void* report, int world,
+                    long long chunk_elems, long long stage_elems, int rs, int ag, int x_own, int wire_code,
+                    int block_size, long long chunk_wire_bytes, u64 epoch, u64 timeout_ns, int fault_rank,
+                    int device, void* done, void* stream) {
+  return launch_k5(true, x, out, wire, flags, fail, report, world, chunk_elems, stage_elems, rs, ag, x_own,
+                   wire_code, block_size, chunk_wire_bytes, epoch, timeout_ns, fault_rank, device, done, stream);
 }
 
 const char* adapcc_ring_error_string(int code) {

@@ -50,11 +50,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    which must hold no padding copy (``aten::constant_pad_nd``);
 8. the fused-codec ring kernels (K5a, K5b) against ``_fused_ring_plain`` bit
    for bit: world 2, 4 and 8, int8 at blocks 128, 256 and 1024 and bf16,
-   reduce-scatter, all-gather (from the full payload and from each rank's
-   own chunk) and both, on a payload under ``chunk_bytes`` (K5a) and a
-   ragged streamed one with a padded last tile (K5b); K5a and K5b give the
-   same bits on one input; a wedged fused ring raises and the next call is
-   exact; a bf16 payload and ``block_size=384`` are refused;
+   reduce-scatter (its owned chunks, all that a fused reduce-scatter alone
+   returns), all-gather (from the full payload and from each rank's own
+   chunk) and both, on a payload under ``chunk_bytes`` (K5a) and a ragged
+   one whose chunks stream, unpadded, as whole tiles and a ragged last one
+   (K5b); K5a and K5b give the same bits on one input at every staging
+   size; a wedged fused ring raises and the next call is exact; a bf16
+   payload and ``block_size=384`` are refused;
 9. slice 3's main path: the four per-rank float32 gradients of the same
    GPT-2 (world 4, per-rank batch 16) in ZeRO-1's flat layout, 642.6 MiB a
    rank, through ``CollectiveEngine(4, Strategy.ring(4), wire_dtype
@@ -65,8 +67,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    allreduce within ``ring_error_bound`` of the float32 sum and within 4
    ulps of the unfused ring, the bf16 one bit for bit equal to
    ``_fused_ring_plain`` on the same input; each K5 kernel timed against its bound, its
-   plain version, K1b on the same payload, the unfused quant ring and the
-   stacked dispatch;
+   plain version, K1 on the same payload, the unfused quant ring and the
+   stacked dispatch, by CUDA events and by device time (K5b: its
+   reduce-scatter and all-gather alone too, each held bit for bit first);
+   one profiled engine int8 allreduce must hold no padding copy;
 10. training with the codec: the ZeRO-1 ring step with ``wire_dtype="int8"``
    at world 4, 5 steps (one K1b reduce-scatter and all-gather a step; loss
    gap to phase 7), and ``DDPTrainer(grad_compress="int8",
@@ -201,8 +205,13 @@ def _device_events(prof) -> list:
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one ``fn`` call: the durations of the kernels it
-    launches, summed from the profiler's records over ``iters`` calls, so
-    the device's idle gaps between calls do not count."""
+    launches, from the profiler's kernel records over ``iters`` calls, so
+    the device's idle gaps between calls do not count.  Each kernel counts
+    its records' mean duration times its launches a call (its records over
+    ``iters``, rounded): late in a long process the profiler has kept 9
+    records of 10 calls, which a plain sum over ``iters`` would read as a
+    kernel 10% faster.  A kernel seen less than once a call counts its
+    total over ``iters``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -212,10 +221,16 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in _device_events(prof))
-    if not total_us:
+    kernels = _device_events(prof)
+    if not kernels:
         raise RuntimeError("the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    missing = [(e.key[:60], e.count) for e in kernels if e.count % iters]
+    if missing:
+        print(f"device_ms: the profiler kept {missing} records over {iters} calls: each such kernel counts "
+              f"its records' mean", flush=True)
+    per_call = (e.self_device_time_total / e.count * round(e.count / iters) if e.count >= iters / 2
+                else e.self_device_time_total / iters for e in kernels)
+    return sum(per_call) / 1e3
 
 
 def bound(name: str, bh: int, t: int, d: int, dtype: torch.dtype, causal: bool):
@@ -438,15 +453,20 @@ def check_fused_ring(dev: torch.device) -> None:
                     got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=chunk_bytes,
                                                 wire_dtype=wire, block_size=block)
                     want = ring._fused_ring_plain(chunks, rs, ag, wire, block or 0)
+                    if not ag:  # a reduce-scatter alone returns the owned chunks
+                        want = want[ranks, (ranks + 1) % world]
                     ring.check_errors()
                     ok = torch.equal(got, want) and wrappers[kname].launches == before + 1
                     print(f"check {kname} world={world} {wire}/{block or '-'} {phase:6s} n={n} {plan.path} "
                           f"n_tiles={plan.n_tiles} stage_rows={plan.stage_bytes // 512} "
-                          f"chunk_rows={chunks.shape[2]} bit-exact {'ok' if ok else 'FAIL'}", flush=True)
+                          f"chunk_rows={chunks.shape[2]} unpadded, shape {tuple(got.shape)} "
+                          f"bit-exact {'ok' if ok else 'FAIL'}", flush=True)
                     if not ok:
                         raise RuntimeError(f"{kname} disagrees with _fused_ring_plain or did not launch")
     # one input, every staging size: a 13-tile chunk on the vmem path (K5a)
-    # and streamed in tiles of 1, 5 and 13 (K5b; 5 pads the last tile)
+    # and streamed at budgets of 1, 5 and 13 tiles (K5b: with the int8
+    # scales' share, 13 tiles of 8 rows, 4 of 32 and 2 of 56, the last two
+    # ragged)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     chunks, _ = ring._pad_chunks(torch.randn(4, 4 * 13 * 1024, device=dev, generator=gen), 4)
     one_stage = ring._run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=1 << 30, wire_dtype="int8")
@@ -720,68 +740,92 @@ def fused_engine_path(dev: torch.device, grads: torch.Tensor) -> dict:
 
 def time_fused(dev: torch.device, kname: str, stacked: torch.Tensor) -> dict:
     """The int8 allreduce walk (RS+AG, one launch) of ``kname`` at world 4 on
-    ``stacked`` ``[world, P]``: held bit for bit against the plain version,
-    then kernel, plain, K1 on the same payload (its own plan), the unfused
-    quant ring and the stacked dispatch against the bound.  K5b also times
-    its reduce-scatter and all-gather alone."""
+    ``stacked`` ``[world, P]``, on the chunks the dispatch hands it
+    (unpadded): held bit for bit against the plain version, then kernel,
+    plain, K1 on the same payload (its own plan), the unfused quant ring and
+    the stacked dispatch against the bound, by CUDA events and (all but the
+    plain version and the quant ring) by device time.  K5b also holds and
+    times its reduce-scatter and all-gather alone.  One profiled stacked
+    dispatch must run no padding copy."""
     world = stacked.shape[0]
     wrapper = {w.__name__: w for w in ring.KERNELS}[kname]
     chunks, chunk = ring._pad_chunks(stacked, world)
-
-    def staged(wire_dtype):
-        plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, wire_dtype=wire_dtype)
-        stage_rows = plan.stage_bytes // 512
-        pad = plan.n_tiles * stage_rows - chunks.shape[2]
-        return plan, stage_rows, (F.pad(chunks, (0, 0, 0, pad)) if pad else chunks)
-
-    plan, stage_rows, buf = staged("int8")
-    plan1, stage_rows1, buf1 = staged("off")
+    plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, wire_dtype="int8")
+    stage_rows = plan.stage_bytes // 512
+    stage_rows1 = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world).stage_bytes // 512
     if plan.path != {"ring_k5a": "vmem", "ring_k5b": "hbm-stream"}[kname]:
         raise RuntimeError(f"{kname}: a {stacked.shape[1]}-element payload plans {plan.path}")
     streamed = kname == "ring_k5b"
+    last_rows = chunks.shape[2] - (plan.n_tiles - 1) * stage_rows
 
-    def kernel(rs=True, ag=True):
+    def kernel(buf=chunks, rs=True, ag=True):
         return wrapper(buf, rs, ag, stage_rows, "int8") if streamed else wrapper(buf, rs, ag, "int8")
 
     def plain():
-        return ring._fused_ring_plain(buf, True, True, "int8")
+        return ring._fused_ring_plain(chunks, True, True, "int8")
 
     def k1():
-        return ring.ring_k1b(buf1, True, True, stage_rows1) if streamed else ring.ring_k1a(buf1, True, True)
+        return ring.ring_k1b(chunks, True, True, stage_rows1) if streamed else ring.ring_k1a(chunks, True, True)
+
+    def check(label, got, want):
+        ring.check_errors()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{kname} {label} disagrees with _fused_ring_plain at its path's payload")
+        return err
 
     strategy = Strategy.ring(world)
     strategy.wire_dtype = "int8"
     eng = CollectiveEngine(world, strategy)
-    got, want = kernel(), plain()
-    ring.check_errors()
-    err = (got - want).abs().max().item()
-    exact = torch.equal(got, want)
-    del got, want
+
+    def dispatch():
+        return eng.ring_allreduce(stacked)
+
+    err = check("rs+ag", kernel(), plain())
+    iters = 10 if streamed else 20  # K5a as K1a: a launch of microseconds, its host time in the mean
     payload_bytes = world * chunk * 4
     rec = {"max_abs_err": err, "bound_ms": 2 * world * payload_bytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
            "library_ms": None}
-    rec.update({"ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=3),
-                "k1_ms": cuda_ms(k1, iters=10),
+    rec.update({"ms": cuda_ms(kernel, iters=iters), "device_ms": device_ms(kernel, iters=iters),
+                "plain_ms": cuda_ms(plain, iters=3),
+                "k1_ms": cuda_ms(k1, iters=iters), "k1_device_ms": device_ms(k1, iters=iters),
                 "quant_ring_ms": cuda_ms(lambda: wire_ring_allreduce_stacked(stacked, "int8"), iters=3),
-                "dispatch_ms": cuda_ms(lambda: eng.ring_allreduce(stacked), iters=10)})
+                "dispatch_ms": cuda_ms(dispatch, iters=iters), "dispatch_device_ms": device_ms(dispatch, iters=iters)})
     if streamed:
-        own = buf[:, 0].contiguous()  # the all-gather's input, one chunk a rank
-        rec.update({"rs_ms": cuda_ms(lambda: kernel(True, False), iters=10),
-                    "ag_ms": cuda_ms(lambda: wrapper(own, False, True, stage_rows, "int8"), iters=10),
+        ranks = torch.arange(world, device=dev)
+        own = chunks[:, 0].contiguous()  # the all-gather's input, one chunk a rank
+        rec["rs_max_abs_err"] = check("rs", kernel(chunks, True, False),
+                                      ring._fused_ring_plain(chunks, True, False, "int8")[ranks, (ranks + 1) % world])
+        rec["ag_max_abs_err"] = check("ag", kernel(own, False, True), ring._fused_ring_plain(own, False, True, "int8"))
+        rec.update({"rs_ms": cuda_ms(lambda: kernel(chunks, True, False), iters=10),
+                    "rs_device_ms": device_ms(lambda: kernel(chunks, True, False), iters=10),
+                    "ag_ms": cuda_ms(lambda: kernel(own, False, True), iters=10),
+                    "ag_device_ms": device_ms(lambda: kernel(own, False, True), iters=10),
                     "rs_bound_ms": ring_bound(world, payload_bytes)[0]})
         del own
     ring.check_errors()
     print(f"time {kname} int8 rs+ag world={world} payload {payload_bytes / 2**20:.1f} MiB/rank ({plan.path}, "
-          f"n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B): kernel {rec['ms']:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms (bytes), plain {rec['plain_ms']:.4f} ms, "
-          f"{'K1b' if streamed else 'K1a'} {rec['k1_ms']:.4f} ms, unfused quant ring {rec['quant_ring_ms']:.4f} ms, "
-          f"stacked dispatch {rec['dispatch_ms']:.4f} ms"
-          + (f"; rs alone {rec['rs_ms']:.4f} ms, ag alone {rec['ag_ms']:.4f} ms (bound each "
-             f"{rec['rs_bound_ms']:.4f} ms)" if streamed else "")
-          + f"; max_abs_err {err}, bit-exact {'ok' if exact else 'FAIL'}", flush=True)
-    if not exact:
-        raise RuntimeError(f"{kname} disagrees with _fused_ring_plain at its path's payload")
-    del buf, buf1, chunks
+          f"n_tiles={plan.n_tiles}, stage {plan.stage_bytes} B, last tile {last_rows} rows, unpadded): kernel "
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), bound {rec['bound_ms']:.4f} ms (bytes), "
+          f"plain {rec['plain_ms']:.4f} ms, {'K1b' if streamed else 'K1a'} {rec['k1_ms']:.4f} ms (device "
+          f"{rec['k1_device_ms']:.4f}), unfused quant ring {rec['quant_ring_ms']:.4f} ms, stacked dispatch "
+          f"{rec['dispatch_ms']:.4f} ms (device {rec['dispatch_device_ms']:.4f})"
+          + (f"; rs alone {rec['rs_ms']:.4f} ms (device {rec['rs_device_ms']:.4f}), ag alone {rec['ag_ms']:.4f} "
+             f"ms (device {rec['ag_device_ms']:.4f}) (bound each {rec['rs_bound_ms']:.4f} ms)" if streamed else "")
+          + f"; max_abs_err {err}, bit-exact ok", flush=True)
+    # the stacked dispatch hands the kernel the caller's chunks: no padding
+    # copy (a host op: the profile needs no device records)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dispatch()
+        torch.cuda.synchronize()
+    ops = sorted({e.key for e in prof.key_averages() if e.key.startswith("aten::")})
+    pads = sum(e.count for e in prof.key_averages() if e.key == "aten::constant_pad_nd")
+    print(f"profile (engine int8 allreduce, {kname}): aten::constant_pad_nd x{pads}; host ops {ops}", flush=True)
+    if pads:
+        raise RuntimeError(f"the engine int8 allreduce ({kname}) ran aten::constant_pad_nd {pads} times")
+    del chunks, eng
     torch.cuda.empty_cache()
     return rec
 
@@ -799,7 +843,8 @@ _LAYERS = (
 def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
     """Device time of one more training step, by kernel and by layer; the
     device's busy share is that time over ``step_ms``, the unprofiled step.
-    Fails if the step ran any of the host ops ``forbid`` names."""
+    Fails if the step ran any of the host ops ``forbid`` names, whatever
+    device records the profiler kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -807,6 +852,15 @@ def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    # the host side, which issues the kernels (times inflated by the profiler)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    for op in forbid:
+        found = [e for e in host if e.key == op]
+        calls = sum(e.count for e in found)
+        print(f"profile ({label}): {op} x{calls}, device "
+              f"{sum(e.device_time_total for e in found) / 1e3:.3f} ms", flush=True)
+        if calls:
+            raise RuntimeError(f"the {label} step ran {op} {calls} times")
     kernels = _device_events(prof)
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0:
@@ -817,22 +871,13 @@ def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
         layer = next((n for n, keys in _LAYERS if any(k in e.key.lower() for k in keys)), "other")
         by_layer[layer] = by_layer.get(layer, 0.0) + e.self_device_time_total / 1e3
     named_lambda = sum(e.self_device_time_total for e in kernels if "#" in e.key) / 1e3
-    print(f"profile ({label}): one step, {total_ms:.3f} ms of kernels; device busy "
+    print(f"profile ({label}): {total_ms:.3f} ms of kernels; device busy "
           f"{100 * total_ms / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms step; kernels named after "
           f"a lambda {named_lambda:.3f} ms of it (a filter on '#' left them out before)")
     for layer, ms in sorted(by_layer.items(), key=lambda kv: -kv[1]):
         print(f"profile ({label}): layer {layer:13s} {ms:9.3f} ms  {100 * ms / total_ms:5.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile ({label}): kernel {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
-    # the host side, which issues the kernels (times inflated by the profiler)
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-    for op in forbid:
-        found = [e for e in host if e.key == op]
-        calls = sum(e.count for e in found)
-        print(f"profile ({label}): {op} x{calls}, device "
-              f"{sum(e.device_time_total for e in found) / 1e3:.3f} ms", flush=True)
-        if calls:
-            raise RuntimeError(f"the {label} step ran {op} {calls} times")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"profile ({label}): host op {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]}")
 

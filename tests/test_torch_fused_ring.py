@@ -29,6 +29,7 @@ import torch
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, wire_ring_allreduce_stacked
+from adapcc_tpu_torch.quant.codec import dequantize_int8, quantize_int8
 from adapcc_tpu_torch.strategy.ir import Strategy
 
 TILE = 8 * 128
@@ -254,6 +255,159 @@ def test_fused_plain_takes_own_chunks_and_refuses_what_the_kernels_do():
     with pytest.raises(ValueError, match="cannot run on the fused ring"):
         ring.ring_allreduce_stacked(chunks.reshape(world, -1).bfloat16(), wire_dtype="int8")
     assert [w.launches for w in ring.KERNELS] == launches
+
+
+def test_fused_reduce_scatter_alone_returns_the_owned_chunks():
+    """A fused reduce-scatter alone returns each rank's owned chunk only, row
+    ``r`` the chunk ``(r + 1) % world``, on both wrappers (their plain
+    version here) and through the stacked collective: the plain walk's
+    owned chunks, bit for bit."""
+    world = 4
+    chunks, chunk = ring._pad_chunks(torch.from_numpy(_payload(world, world * 3 * TILE - 50, seed=14)), world)
+    ranks = torch.arange(world)
+    for wire, block in (("int8", 128), ("bf16", None)):
+        want = ring._fused_ring_plain(chunks, True, False, wire, block or 0)[ranks, (ranks + 1) % world]
+        for got in (ring.ring_k5a(chunks, True, False, wire, block),
+                    ring.ring_k5b(chunks, True, False, 8, wire, block)):
+            assert got.shape == (world, chunks.shape[2], 128)
+            assert torch.equal(got, want)
+        stacked = ring.ring_reduce_scatter_stacked(chunks.reshape(world, -1), 4096, wire_dtype=wire,
+                                                   block_size=block)
+        assert torch.equal(stacked, want.reshape(world, chunk))
+
+
+# --------------------------------------------------------------------------- #
+# the schedule twin of the fused direct walk (csrc/ring.cu fused_walk)
+# --------------------------------------------------------------------------- #
+
+BATCH = 1024  # a warp's batch in csrc/ring.cu (kBatchElems): a stripe is whole batches
+
+
+def _twin_encode(v, wire, block):
+    if wire == "bf16":
+        return (v.to(torch.bfloat16),)
+    q, scales = quantize_int8(v, block)
+    return q.reshape(-1), scales
+
+
+def _twin_decode(codes, wire, block):
+    if wire == "bf16":
+        return codes[0].float()
+    return dequantize_int8(codes[0].reshape(-1, block), codes[1])
+
+
+def _twin_walk(chunks, rs, ag, wire, block, stage_rows, blocks, tile_major, seed):
+    """The fused walk as ``csrc/ring.cu::fused_walk`` runs it, with its index
+    math: per-rank wire buffers of ``world`` chunks, a prologue phase, the
+    chunk of each step, stripes of whole batches recomputed from each tile's
+    real length, and one ready counter per (rank, block) with the kernel's
+    wait target.  A seeded scheduler runs, one iteration at a time, any
+    (rank, block) whose wait would pass.  Every wire write is tagged with
+    the phase that wrote it, and every read asserts that it sees the left
+    neighbour's write of the phase before on the same tile: never an older
+    value, never a later overwrite.  Returns what the launch returns."""
+    world, rows = chunks.shape[0], chunks.shape[-2]
+    n = rows * 128
+    x = chunks.reshape(world, -1, n)  # [world, world or 1, n]
+    stage = stage_rows * 128
+    n_tiles = -(-n // stage)
+    n_rs, n_ag = (world - 1) * rs, (world - 1) * ag
+    phases = 1 + n_rs + n_ag
+    own = int(rs)
+    unit = block if wire == "int8" else 1024
+    codes = [torch.zeros(world, n, dtype=torch.int8 if wire == "int8" else torch.bfloat16) for _ in range(world)]
+    scales = [torch.zeros(world, n // unit) for _ in range(world)]
+    tags = [torch.full((world, n // BATCH), -1) for _ in range(world)]
+    out = torch.full((world, n) if rs and not ag else (world, world, n), float("nan"))
+    ready = np.zeros((world, blocks), dtype=np.int64)  # completed iterations (the counter less its epoch)
+    total = phases * n_tiles
+    stride = 1 if tile_major else n_tiles
+
+    def run(r, b, it):
+        phase, tile = (it % phases, it // phases) if tile_major else (it // n_tiles, it % n_tiles)
+        t0 = tile * stage
+        n_batches = min(stage, n - t0) // BATCH
+        per = -(-n_batches // blocks)
+        b0 = min(b * per, n_batches)
+        b1 = min(b0 + per, n_batches)
+        if b0 == b1:
+            return
+        el = slice(t0 + b0 * BATCH, t0 + b1 * BATCH)
+        bt = slice((t0 + b0 * BATCH) // BATCH, (t0 + b1 * BATCH) // BATCH)
+        un = slice((t0 + b0 * BATCH) // unit, (t0 + b1 * BATCH) // unit)
+        left = (r - 1) % world
+
+        def pull(c):
+            assert (tags[left][c, bt] == phase - 1).all(), (r, b, phase, tile, c, tags[left][c, bt])
+            return codes[left][c, el], scales[left][c, un]
+
+        def push(c, wire_tile):
+            codes[r][c, el] = wire_tile[0]
+            if wire == "int8":
+                scales[r][c, un] = wire_tile[1]
+            tags[r][c, bt] = phase
+
+        if phase == 0:
+            c = r
+            enc = _twin_encode(x[r, 0 if x.shape[1] == 1 else c, el], wire, block)
+            push(c, enc)
+            if not rs:
+                out[r, c, el] = _twin_decode(enc, wire, block)
+        elif phase <= n_rs:
+            step = phase - 1
+            c = (r - step - 1) % world
+            total_ = x[r, c, el] + _twin_decode(pull(c), wire, block)
+            if step < n_rs - 1:
+                push(c, _twin_encode(total_, wire, block))
+            elif not ag:
+                out[r, el] = total_
+            else:
+                enc = _twin_encode(total_, wire, block)
+                push(c, enc)
+                out[r, c, el] = _twin_decode(enc, wire, block)
+        else:
+            step = phase - 1 - n_rs
+            c = (r + own - step - 1) % world
+            landed = pull(c)
+            out[r, c, el] = _twin_decode(landed, wire, block)
+            if step < n_ag - 1:
+                push(c, landed)
+
+    rng = np.random.default_rng(seed)
+    while (ready < total).any():
+        runnable = [(r, b) for r in range(world) for b in range(blocks)
+                    if ready[r, b] < total and ((ready[r, b] % phases if tile_major else ready[r, b] // n_tiles) == 0
+                                                or ready[(r - 1) % world, b] >= ready[r, b] - stride + 1)]
+        assert runnable, "the walk deadlocked"
+        r, b = runnable[rng.integers(len(runnable))]
+        run(r, b, int(ready[r, b]))
+        ready[r, b] += 1
+    return out.reshape(*out.shape[:-1], rows, 128)
+
+
+@pytest.mark.parametrize("wire,block", [("int8", 256), ("bf16", None)])
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_fused_walk_twin_reads_every_wire_tile_before_its_overwrite(world, wire, block):
+    """The twin of the fused direct walk, on a ragged 3-tile chunk (tiles of
+    16, 16 and 8 rows, two blocks a rank, so one block's stripe of the last
+    tile is empty) with whole zero blocks, tile-major and step-major, under
+    seeded schedules: every read sees the write it needs, and the result
+    equals ``_fused_ring_plain`` bit for bit for a reduce-scatter alone
+    (its owned chunks), an all-gather (from each rank's own chunk and from
+    the full payload) and both."""
+    xs = _payload(world, world * 40 * 128 - 123, seed=15, scale=3)
+    xs[:, :TILE] = 0.0
+    chunks, _ = ring._pad_chunks(torch.from_numpy(xs), world)
+    assert chunks.shape[2] == 40
+    ranks = torch.arange(world)
+    own = chunks[ranks, ranks]
+    for seed, tile_major in ((0, True), (1, True), (2, False)):
+        for buf, rs, ag in ((chunks, True, False), (own, False, True), (chunks, False, True), (chunks, True, True)):
+            got = _twin_walk(buf, rs, ag, wire, block or 0, 16, 2, tile_major, seed)
+            want = ring._fused_ring_plain(chunks, rs, ag, wire, block or 0)
+            if not ag:
+                want = want[ranks, (ranks + 1) % world]
+            assert torch.equal(got, want), (seed, tile_major, rs, ag)
 
 
 # --------------------------------------------------------------------------- #

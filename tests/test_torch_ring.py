@@ -194,23 +194,28 @@ def test_k1b_dispatch_hands_the_kernel_unpadded_chunks(monkeypatch, own):
     assert torch.equal(got, ring._ring_plain(chunks, rs, ag))
 
 
-def test_k5b_dispatch_still_pads_to_whole_tiles(monkeypatch):
-    """K5b's int8 blocks need whole zero blocks: its stream path pads each
-    chunk to whole staging tiles and slices the padding back out."""
+@pytest.mark.parametrize("own", [False, True])
+def test_k5b_dispatch_hands_the_kernel_unpadded_chunks(monkeypatch, own):
+    """K5b bounds each block's stripe by the chunk's real length too, so the
+    stream path hands it the caller's chunks as they are: a 37-tile chunk at
+    8-tile int8 staging (the scales take their share of the budget: 7-tile
+    tiles of 56 rows) streams as 5 whole tiles and a ragged last one of 16
+    rows, with no stage padding to slice back out; the bits are the fused
+    walk's on the unpadded chunks."""
     seen = _recording(monkeypatch, "ring_k5b", ring._fused_ring_plain)
     world = 4
     _, x = _payload(world, world * 37 * F32_TILE - 123, "float32")
     chunks, _ = ring._pad_chunks(x, world)
+    ranks = torch.arange(world)
+    buf = chunks[ranks, ranks] if own else chunks
+    rs, ag = (False, True) if own else (True, True)
     plan = ring.plan_ring_schedule(chunks[0].numel(), torch.float32, world, 8 * F32_TILE * 4,
-                                   wire_dtype="int8")
-    stage_rows = plan.stage_bytes // 512  # the int8 scales take their share of the budget
-    padded_rows = plan.n_tiles * stage_rows
-    got = ring._run_ring_chunks(chunks, rs=True, ag=True, chunk_bytes=8 * F32_TILE * 4, wire_dtype="int8")
-    assert padded_rows > 37 * 8
-    assert seen == [((world, world, padded_rows, 128), stage_rows)]
-    assert got.shape == chunks.shape
-    padded = torch.nn.functional.pad(chunks, (0, 0, 0, padded_rows - 37 * 8))
-    assert torch.equal(got, ring._fused_ring_plain(padded, True, True, "int8", 256)[:, :, :37 * 8])
+                                   rs=rs, ag=ag, wire_dtype="int8")
+    stage_rows = plan.stage_bytes // 512
+    got = ring._run_ring_chunks(buf, rs=rs, ag=ag, chunk_bytes=8 * F32_TILE * 4, wire_dtype="int8")
+    assert (plan.path, plan.n_tiles, stage_rows) == ("hbm-stream", 6, 56)
+    assert seen == [(tuple(buf.shape), stage_rows)] and buf.shape[-2] == 37 * 8 != plan.n_tiles * stage_rows
+    assert torch.equal(got, ring._fused_ring_plain(chunks, rs, ag, "int8", 256))
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
