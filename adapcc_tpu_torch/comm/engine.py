@@ -1,31 +1,64 @@
-"""Collective engine: the psum plane and the ring plane.
+"""Collective engine: the psum plane, the schedule plane and the ring plane.
 
-The port of two parts of :mod:`adapcc_tpu.comm.engine`:
+The port of :mod:`adapcc_tpu.comm.engine`, in two forms:
 
-- the flat-collective fast path, per process: a full-world allreduce and the
-  masked (subset) allreduce ``psum(where(active, x, identity))``
-  (``masked_psum_shard``).  Each runs as one ``torch.distributed.all_reduce``
-  over the process group.  Where the JAX functions return a new array, these
-  reduce in place on the tensor they are given and return it, except an
-  integer AVG, which returns a new float32 tensor (JAX's ``s / denom``).
-- the ring entry points of :class:`CollectiveEngine` (``ring_allreduce``,
-  ``ring_reduce_scatter``, ``ring_all_gather``), in the JAX engine's
-  single-controller form: a stacked ``[world, ...]`` tensor in, the stacked
-  result out, through the hand-written ring kernels of
-  :mod:`adapcc_tpu_torch.comm.ring` on the card (their plain version on a
-  CPU tensor).  A wire codec (the argument, ``Strategy.wire_dtype`` or
-  ``ADAPCC_WIRE_DTYPE``) runs the fused codec kernels; where they cannot
-  run, the allreduce takes the unfused quant ring
+- **per rank**, one process per rank over a process group:
+
+  - the flat-collective fast path: a full-world allreduce and the masked
+    (subset) allreduce ``psum(where(active, x, identity))``
+    (``masked_psum_shard``), each one ``torch.distributed.all_reduce``.
+    Where the JAX functions return a new array, these reduce in place on the
+    tensor they are given and return it, except an integer AVG, which
+    returns a new float32 tensor (JAX's ``s / denom``);
+  - the strategy-tree ("schedule") plane with relay masks
+    (``allreduce_shard``, ``reduce_shard``, ``broadcast_shard`` and the
+    fused ``reduce_fastpath_shard`` / ``broadcast_fastpath_shard``): each
+    tree round, or each merged group of rounds, is one
+    ``dist.batch_isend_irecv``; a rank with no edge in it posts nothing.
+    These return new tensors, as JAX does.
+
+- **stacked**, the JAX engine's single-controller form: the entry points of
+  :class:`CollectiveEngine` take a ``[world, ...]`` tensor (row ``r`` = rank
+  ``r``'s contribution) on one device and return the stacked result on it.
+  ``all_reduce``, ``reduce`` and ``broadcast`` run the schedule plane, a
+  round being a gather of the sources' rows and a combine (add, max or
+  adopt) into the destinations' rows, or, unmasked and with the fast path
+  allowed, one torch reduction over the rows (trace impl ``torch_fused``,
+  where JAX runs XLA's psum); ``all_gather``, ``all_to_all`` and
+  ``reduce_scatter`` run their flat paths.  The ring entry points
+  (``ring_allreduce``, ``ring_reduce_scatter``, ``ring_all_gather``) run
+  the hand-written ring kernels of :mod:`adapcc_tpu_torch.comm.ring` on the
+  card (their plain version on a CPU tensor).  A wire codec (the argument,
+  ``Strategy.wire_dtype`` or ``ADAPCC_WIRE_DTYPE``) runs the fused codec
+  kernels; where they cannot run, the allreduce takes the unfused quant ring
   (:mod:`adapcc_tpu_torch.quant.ring`) and says so once on stderr, and the
   reduce-scatter and all-gather, which have no unfused codec plane, raise.
 
-The strategy-tree and latency planes come in later slices.
+Both forms of the schedule plane share one set of round tables
+(``Tree.reduce_rounds`` / ``broadcast_rounds`` and the merged plan) and give
+the JAX package's bits, op for op:
+
+- a round reads the state from before the round (``lax.ppermute`` sends
+  every source's value before any destination combines);
+- the unmerged SUM path adds what a round delivers to *every* rank, zeros
+  included, so a rank that is no destination of a round turns ``-0.0``
+  into ``+0.0`` (``acc = acc + recvd``); the merged path adds on
+  destinations only;
+- relays contribute the op's identity and still forward; AVG divides by the
+  active count in the result's dtype, an integer sum by true division to
+  float32, and by a tensor on the result's device (torch on CUDA turns a
+  division by a Python scalar into a multiply by its reciprocal).
+
+The latency plane (rd, tree), the IR plane and two-level worlds come in
+later slices.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+import warnings
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -34,7 +67,7 @@ from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.primitives import ReduceOp, not_ported
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.quant.ring import wire_ring_allreduce_stacked
-from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.strategy.ir import CommRound, Strategy, Tree
 
 MaskLike = Union[torch.Tensor, Sequence[bool]]
 
@@ -43,6 +76,21 @@ _DIST_OPS = {
     ReduceOp.AVG: dist.ReduceOp.SUM,  # divided afterwards, by world or active count
     ReduceOp.MAX: dist.ReduceOp.MAX,
 }
+
+
+class EpochMismatch(RuntimeError):
+    """A collective was issued against a world epoch that is no longer
+    current (the engine's plan was swapped by :meth:`CollectiveEngine.
+    advance_epoch`).  Retryable: the caller refreshes its epoch token
+    (``current``) and issues again."""
+
+    def __init__(self, issued: int, current: int) -> None:
+        super().__init__(
+            f"collective issued against dead epoch {issued} (current epoch is {current}); "
+            "refresh the epoch token and retry"
+        )
+        self.issued = issued
+        self.current = current
 
 
 def _identity_for(op: ReduceOp, dtype: torch.dtype) -> float:
@@ -87,6 +135,14 @@ def _active_count(active_mask: torch.Tensor) -> int:
     return max(int(active_mask.sum()), 1)
 
 
+def _as_mask(active_mask: MaskLike, world: int) -> torch.Tensor:
+    """A ``[world]`` bool mask on the host."""
+    mask = torch.as_tensor(active_mask, dtype=torch.bool).cpu()
+    if mask.shape != (world,):
+        raise ValueError(f"active mask of shape {tuple(mask.shape)} for a world of {world}")
+    return mask
+
+
 def masked_psum_shard(
     x: torch.Tensor,
     active_mask: MaskLike,
@@ -98,31 +154,487 @@ def masked_psum_shard(
     not, receives the result.  Reduces in place and returns ``x``, except an
     integer AVG, which returns a new float32 tensor: callers use the return
     value."""
-    mask = torch.as_tensor(active_mask, dtype=torch.bool).cpu()
-    world = dist.get_world_size(group)
-    if mask.shape != (world,):
-        raise ValueError(f"active mask of shape {tuple(mask.shape)} for a world of {world}")
+    mask = _as_mask(active_mask, dist.get_world_size(group))
     contrib = _mask_contribution(x, mask, dist.get_rank(group), op)
     return _fused_reduce(contrib, op, _active_count(mask), group)
 
+
+# --------------------------------------------------------------------------- #
+# the schedule plane's round tables (shared by both forms)
+# --------------------------------------------------------------------------- #
+
+
+def _dst_mask(round_: CommRound, world: int) -> List[bool]:
+    m = [False] * world
+    for _, d in round_.edges:
+        m[d] = True
+    return m
+
+
+def _segment_sizes(n: int, shares: Sequence[float]) -> List[int]:
+    """Static split of ``n`` elements across trees, proportional to shares
+    (``int(n * s)``, then the remainder dealt one by one from tree 0)."""
+    sizes = [int(n * s) for s in shares]
+    rem = n - sum(sizes)
+    i = 0
+    while rem > 0:
+        sizes[i % len(sizes)] += 1
+        rem -= 1
+        i += 1
+    return sizes
+
+
+#: one merged group: ``(perm, src_row, dst_row, is_dst)``, the edges of one
+#: exchange and, per rank, the tree whose stacked row it sends and the tree
+#: whose row it combines into (and whether it receives at all)
+_Group = Tuple[Tuple[Tuple[int, int], ...], Tuple[int, ...], Tuple[int, ...], Tuple[bool, ...]]
+
+
+class _MergedPlan:
+    """Per-round send/receive tables of merged multi-tree execution: the
+    trees' round-k edges combined into as few partial permutations as the
+    contract allows, each rank sending its ``src_row``-th segment and
+    folding what it receives into its ``dst_row``-th."""
+
+    def __init__(self, reduce_groups: List[_Group], broadcast_groups: List[_Group]) -> None:
+        self.reduce_groups = reduce_groups
+        self.broadcast_groups = broadcast_groups
+
+
+def _color_rounds(per_tree_rounds: Sequence[Sequence[CommRound]], world: int) -> List[_Group]:
+    """Align trees' rounds by index and split each union greedily into
+    partial permutations."""
+    groups: List[_Group] = []
+    depth = max((len(r) for r in per_tree_rounds), default=0)
+    for k in range(depth):
+        edges: List[Tuple[int, int, int]] = []  # (src, dst, tree)
+        for ti, rounds in enumerate(per_tree_rounds):
+            if k < len(rounds):
+                edges.extend((s, d, ti) for s, d in rounds[k].edges)
+        colors: List[List[Tuple[int, int, int]]] = []
+        for e in edges:
+            for c in colors:
+                if all(e[0] != s and e[1] != d for s, d, _ in c):
+                    c.append(e)
+                    break
+            else:
+                colors.append([e])
+        for c in colors:
+            src_row, dst_row, is_dst = [0] * world, [0] * world, [False] * world
+            for s, d, t in c:
+                src_row[s] = t
+                dst_row[d] = t
+                is_dst[d] = True
+            groups.append((tuple((s, d) for s, d, _ in c), tuple(src_row), tuple(dst_row), tuple(is_dst)))
+    return groups
+
+
+#: merged plans by (strategy fingerprint, shares); None = not merged
+_MERGED_PLANS: Dict[Tuple, Optional[_MergedPlan]] = {}
+
+#: env knob of the merged executor (the A/B against per-tree rounds)
+MERGE_ROUNDS_ENV = "ADAPCC_MERGE_ROUNDS"
+
+#: one deprecation warning per process for the reference's "boardcast"
+_BOARDCAST_WARNED = False
+
+
+def _merged_env_disabled() -> bool:
+    """``ADAPCC_MERGE_ROUNDS=0`` turns round merging off everywhere; an
+    unknown value raises (a typo silently keeping the default would
+    invalidate the A/B)."""
+    val = os.environ.get(MERGE_ROUNDS_ENV, "1").strip().lower()
+    if val in ("0", "off", "false", "no"):
+        return True
+    if val in ("", "1", "on", "true", "yes"):
+        return False
+    raise ValueError(f"{MERGE_ROUNDS_ENV}={val!r}: expected 1/on/true or 0/off/false")
+
+
+def _build_merged_plan(
+    strategy: Strategy,
+    world: int,
+    rounds_of: Callable[[], Tuple[list, list]],
+    cache: Dict,
+    key_extra: Tuple = (),
+) -> Optional[_MergedPlan]:
+    """The merged plan, or None where merging buys nothing: the env switch,
+    a single tree, skewed shares (``max > 2 · min``: stacking pads every
+    segment to the largest) or a coloring that does not cut the round
+    count.  Cached by strategy fingerprint and shares."""
+    if _merged_env_disabled():
+        return None
+    shares = strategy.tree_shares()
+    key = (strategy.fingerprint(), *key_extra, tuple(round(s, 6) for s in shares))
+    if key in cache:
+        return cache[key]
+    plan: Optional[_MergedPlan] = None
+    if len(strategy.trees) > 1 and max(shares) <= 2.0 * min(shares):
+        reduce_rounds, bcast_rounds = rounds_of()
+        rg = _color_rounds(reduce_rounds, world)
+        bg = _color_rounds(bcast_rounds, world)
+        n_sequential = sum(len(r) for r in reduce_rounds) + sum(len(r) for r in bcast_rounds)
+        if len(rg) + len(bg) < n_sequential:
+            plan = _MergedPlan(rg, bg)
+    cache[key] = plan
+    return plan
+
+
+def _merged_plan(strategy: Strategy) -> Optional[_MergedPlan]:
+    return _build_merged_plan(
+        strategy, strategy.world_size,
+        lambda: ([t.reduce_rounds() for t in strategy.trees], [t.broadcast_rounds() for t in strategy.trees]),
+        _MERGED_PLANS,
+    )
+
+
+def _avg_normalize(result: torch.Tensor, active_mask: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+    """AVG divides by the active count in the result's dtype (an integer sum
+    by true division, to float32), as a tensor on the result's device."""
+    if op is not ReduceOp.AVG:
+        return result
+    n_active = torch.full((), _active_count(active_mask), dtype=result.dtype, device=result.device)
+    return result / n_active
+
+
+def _stack_segments(flat: torch.Tensor, sizes: List[int], pad_value: float) -> torch.Tensor:
+    """``[rows, n]`` → a new ``[rows, T, max(sizes)]``: each tree's segment
+    of every row, padded with ``pad_value`` (the op's identity)."""
+    rows, pad = flat.shape[0], max(sizes)
+    if all(size == pad for size in sizes):
+        return flat.reshape(rows, len(sizes), pad).clone()
+    buf = torch.full((rows, len(sizes), pad), pad_value, dtype=flat.dtype, device=flat.device)
+    off = 0
+    for t, size in enumerate(sizes):
+        buf[:, t, :size].copy_(flat[:, off:off + size])
+        off += size
+    return buf
+
+
+def _unstack_segments(buf: torch.Tensor, sizes: List[int]) -> torch.Tensor:
+    if all(size == buf.shape[2] for size in sizes):
+        return buf.view(buf.shape[0], -1)
+    return torch.cat([buf[:, t, :size] for t, size in enumerate(sizes)], dim=1)
+
+
+def _stages(reduce_groups: list, broadcast_groups: list, op: ReduceOp, phases: str) -> List[Tuple[list, str]]:
+    """The merged phases to run (``phases``: reduce, broadcast or both), each
+    with its combine."""
+    stages = []
+    if phases in ("reduce", "both"):
+        stages.append((reduce_groups, "max" if op is ReduceOp.MAX else "add"))
+    if phases in ("broadcast", "both"):
+        stages.append((broadcast_groups, "adopt"))
+    return stages
+
+
+def _combine_into(dst: torch.Tensor, recvd: torch.Tensor, combine: str) -> None:
+    """Fold ``recvd`` into ``dst`` in place: add, max, or adopt (broadcast).
+    The same IEEE operation, element for element, as JAX's combine."""
+    if combine == "add":
+        dst.add_(recvd)
+    elif combine == "max":
+        torch.maximum(dst, recvd, out=dst)
+    else:
+        dst.copy_(recvd)
+
+
+# --------------------------------------------------------------------------- #
+# the schedule plane, per rank: one process per rank over a process group
+# --------------------------------------------------------------------------- #
+
+#: process groups that have run a collective (NCCL wants every rank of a
+#: group in its first call, each with its device set; a partial P2P batch
+#: may follow)
+_WARMED: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _warm(group, device: torch.device) -> None:
+    pg = dist.group.WORLD if group is None else group
+    if pg in _WARMED:
+        return
+    if dist.get_backend(pg) == "nccl":
+        dist.all_reduce(torch.zeros(1, device=device), group=pg)
+    _WARMED.add(pg)
+
+
+def _exchange(send: Optional[torch.Tensor], dst: Optional[int], src: Optional[int],
+              like: torch.Tensor, group) -> Optional[torch.Tensor]:
+    """One round for this rank: send ``send`` to ``dst`` and receive a
+    ``like``-shaped tensor from ``src`` (either may be None) as one
+    ``batch_isend_irecv``; returns what arrived.  A rank with nothing to do
+    posts nothing (the call rejects an empty list)."""
+    ops = []
+    if dst is not None:
+        peer = dst if group is None else dist.get_global_rank(group, dst)
+        ops.append(dist.P2POp(dist.isend, send, peer, group))
+    recvd = None
+    if src is not None:
+        recvd = torch.empty_like(like)
+        peer = src if group is None else dist.get_global_rank(group, src)
+        ops.append(dist.P2POp(dist.irecv, recvd, peer, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return recvd
+
+
+def _peers(edges: Sequence[Tuple[int, int]], me: int) -> Tuple[Optional[int], Optional[int]]:
+    """``(dst, src)`` of ``me`` in one partial permutation."""
+    dst = next((d for s, d in edges if s == me), None)
+    src = next((s for s, d in edges if d == me), None)
+    return dst, src
+
+
+def _shard_setup(x: torch.Tensor, strategy: Strategy, group) -> int:
+    world = dist.get_world_size(group)
+    if strategy.world_size != world:
+        raise ValueError(f"strategy for {strategy.world_size} ranks on a group of {world}")
+    _warm(group, x.device)
+    return dist.get_rank(group)
+
+
+def _run_tree_rank(acc: torch.Tensor, tree: Tree, me: int, op: ReduceOp, phases: str, group) -> torch.Tensor:
+    """One tree's rounds on this rank's segment ``acc`` (owned, updated in
+    place where it can be)."""
+    if phases in ("reduce", "both"):
+        normalized = False
+        for rnd in tree.reduce_rounds():
+            dst, src = _peers(rnd.edges, me)
+            recvd = _exchange(acc, dst, src, acc, group)
+            if op is ReduceOp.MAX:
+                if recvd is not None:
+                    acc = torch.maximum(acc, recvd)
+            elif recvd is not None:
+                acc.add_(recvd)
+            elif acc.is_floating_point() and not normalized:
+                # JAX adds the zeros ppermute delivers here: -0.0 + 0.0 is
+                # +0.0, and once normalized a row stays so
+                acc.add_(0)
+                normalized = True
+    if phases in ("broadcast", "both"):
+        for rnd in tree.broadcast_rounds():
+            dst, src = _peers(rnd.edges, me)
+            recvd = _exchange(acc, dst, src, acc, group)
+            if recvd is not None:
+                acc = recvd
+    return acc
+
+
+def _run_merged_rank(flat: torch.Tensor, sizes: List[int], plan: _MergedPlan, me: int, op: ReduceOp,
+                     phases: str, group) -> torch.Tensor:
+    """The merged groups on this rank's segments, stacked ``[T, pad]`` with
+    each tree's segment padded by the op's identity."""
+    buf = _stack_segments(flat[None], sizes, _identity_for(op, flat.dtype))[0]
+    for groups, combine in _stages(plan.reduce_groups, plan.broadcast_groups, op, phases):
+        for perm, src_row, dst_row, _ in groups:
+            dst, src = _peers(perm, me)
+            recvd = _exchange(buf[src_row[me]], dst, src, buf[0], group)
+            if recvd is not None:
+                _combine_into(buf[dst_row[me]], recvd, combine)
+    return _unstack_segments(buf[None], sizes)[0]
+
+
+def _schedule_rank(x: torch.Tensor, active_mask: Optional[torch.Tensor], strategy: Strategy, op: ReduceOp,
+                   phases: str, group) -> torch.Tensor:
+    """This rank's part of a schedule-plane collective (before AVG)."""
+    me = _shard_setup(x, strategy, group)
+    flat = x.reshape(-1)
+    if flat.numel() == 0:
+        return x
+    masked = active_mask is not None and not bool(active_mask[me])
+    sizes = _segment_sizes(flat.numel(), strategy.tree_shares())
+    plan = _merged_plan(strategy)
+    if plan is not None:
+        if masked:
+            flat = torch.full_like(flat, _identity_for(op, flat.dtype))
+        return _run_merged_rank(flat, sizes, plan, me, op, phases, group).reshape(x.shape)
+    outs = []
+    off = 0
+    for tree, size in zip(strategy.trees, sizes):
+        if size == 0:
+            continue
+        seg = flat[off:off + size].clone()
+        off += size
+        if masked:
+            seg.fill_(_identity_for(op, seg.dtype))
+        outs.append(_run_tree_rank(seg, tree, me, op, phases, group))
+    return (torch.cat(outs) if len(outs) > 1 else outs[0]).reshape(x.shape)
+
+
+def allreduce_shard(
+    x: torch.Tensor,
+    active_mask: MaskLike,
+    strategy: Strategy,
+    op: ReduceOp = ReduceOp.SUM,
+    group=None,
+) -> torch.Tensor:
+    """Strategy-shaped allreduce of this rank's ``x`` over ``group``: every
+    rank, active or not, receives the result (relays forward and receive).
+    ``active_mask`` is a ``[world]`` bool mask; inactive ranks contribute
+    the op's identity and AVG divides by the active count.  Returns a new
+    tensor."""
+    mask = _as_mask(active_mask, strategy.world_size)
+    return _avg_normalize(_schedule_rank(x, mask, strategy, op, "both", group), mask, op)
+
+
+def reduce_shard(
+    x: torch.Tensor,
+    active_mask: MaskLike,
+    strategy: Strategy,
+    op: ReduceOp = ReduceOp.SUM,
+    group=None,
+) -> torch.Tensor:
+    """Reduce to each tree's root: a tree's segment is the full reduction on
+    its root only; other ranks keep partial sums for it (reference
+    reduce.cu:258-269).  AVG divides every rank's result by the active
+    count."""
+    mask = _as_mask(active_mask, strategy.world_size)
+    return _avg_normalize(_schedule_rank(x, mask, strategy, op, "reduce", group), mask, op)
+
+
+def broadcast_shard(x: torch.Tensor, strategy: Strategy, group=None) -> torch.Tensor:
+    """Broadcast from each tree's root: the root's segment replaces every
+    other rank's (reference boardcast.cu:279-282)."""
+    return _schedule_rank(x, None, strategy, ReduceOp.SUM, "broadcast", group)
+
+
+def _segments_rank(x: torch.Tensor, strategy: Strategy,
+                   per_segment: Callable[[torch.Tensor, Tree], torch.Tensor]) -> torch.Tensor:
+    """Split ``x`` across the trees by share, run each tree's segment, join."""
+    flat = x.reshape(-1)
+    if flat.numel() == 0:
+        return x
+    outs = []
+    off = 0
+    for tree, size in zip(strategy.trees, _segment_sizes(flat.numel(), strategy.tree_shares())):
+        if size == 0:
+            continue
+        outs.append(per_segment(flat[off:off + size], tree))
+        off += size
+    return (torch.cat(outs) if len(outs) > 1 else outs[0]).reshape(x.shape)
+
+
+def reduce_fastpath_shard(x: torch.Tensor, strategy: Strategy, op: ReduceOp = ReduceOp.SUM,
+                          group=None) -> torch.Tensor:
+    """Full-world reduce as one collective per tree segment, the total kept
+    on that segment's root and the local value elsewhere."""
+    me = _shard_setup(x, strategy, group)
+
+    def per_segment(seg: torch.Tensor, tree: Tree) -> torch.Tensor:
+        total = _fused_reduce(seg.clone(), op, strategy.world_size, group)
+        return total if me == tree.root else seg.to(total.dtype)
+
+    return _segments_rank(x, strategy, per_segment)
+
+
+def broadcast_fastpath_shard(x: torch.Tensor, strategy: Strategy, group=None) -> torch.Tensor:
+    """Full-world broadcast as one sum per tree segment in which only the
+    root contributes (so ``-0.0`` arrives as ``+0.0``, as in JAX's psum)."""
+    me = _shard_setup(x, strategy, group)
+
+    def per_segment(seg: torch.Tensor, tree: Tree) -> torch.Tensor:
+        wire = seg.to(torch.int32) if seg.dtype == torch.bool else seg
+        contrib = wire.clone() if me == tree.root else torch.zeros_like(wire)
+        dist.all_reduce(contrib, group=group)
+        return contrib.to(seg.dtype)
+
+    return _segments_rank(x, strategy, per_segment)
+
+
+# --------------------------------------------------------------------------- #
+# the schedule plane, stacked: every rank's row on one device
+# --------------------------------------------------------------------------- #
+
+
+def _fill_rows(t: torch.Tensor, rows: Sequence[int], value: float) -> None:
+    for r in rows:
+        t[r].fill_(value)
+
+
+def _run_merged_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], plan: _MergedPlan,
+                        op: ReduceOp, phases: str) -> torch.Tensor:
+    """The merged groups over ``[world, n]``: every row's segments stacked as
+    ``[world, T, pad]`` (padded with the op's identity, an inactive row all
+    identity), then each edge ``(s, d)`` of a group folds rank ``s``'s
+    segment of its tree into rank ``d``'s, in place.  No edge of a group
+    reads a segment another edge of it writes (a rank never sends and
+    receives in one round of one tree), so each edge reads the state from
+    before the group, as ``ppermute`` delivers it."""
+    ident = _identity_for(op, flat.dtype)
+    buf = _stack_segments(flat, sizes, ident)
+    _fill_rows(buf, inactive, ident)
+    for groups, combine in _stages(plan.reduce_groups, plan.broadcast_groups, op, phases):
+        for perm, src_row, _, _ in groups:
+            for s, d in perm:
+                t = src_row[s]
+                _combine_into(buf[d, t], buf[s, t], combine)
+    return _unstack_segments(buf, sizes)
+
+
+def _run_trees_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], strategy: Strategy,
+                       op: ReduceOp, phases: str) -> torch.Tensor:
+    """Each tree's rounds over its segment's columns of ``[world, n]``, in
+    place on one copy; within a round no edge reads a row another writes."""
+    out = flat.clone()
+    _fill_rows(out, inactive, _identity_for(op, flat.dtype))
+    normalize = op is not ReduceOp.MAX and out.is_floating_point()
+    combine = "max" if op is ReduceOp.MAX else "add"
+    world = flat.shape[0]
+    off = 0
+    for tree, size in zip(strategy.trees, sizes):
+        if size == 0:
+            continue
+        acc = out[:, off:off + size]
+        off += size
+        if phases in ("reduce", "both"):
+            normalized: set = set()
+            for rnd in tree.reduce_rounds():
+                for s, d in rnd.edges:
+                    _combine_into(acc[d], acc[s], combine)
+                if normalize:
+                    # no destination of the round: + the zeros ppermute
+                    # delivers (-0.0 turns +0.0, once for good), after the
+                    # round's sends have read the row
+                    is_dst = _dst_mask(rnd, world)
+                    for r in range(world):
+                        if not is_dst[r] and r not in normalized:
+                            acc[r].add_(0)
+                            normalized.add(r)
+        if phases in ("broadcast", "both"):
+            for rnd in tree.broadcast_rounds():
+                for s, d in rnd.edges:
+                    acc[d].copy_(acc[s])
+    return out
 
 
 #: env override of the JAX engine that picks a plane this slice has not
 #: ported (a pin the port cannot honour raises instead of running the ring)
 COLL_ALGO_ENV = "ADAPCC_COLL_ALGO"
+#: the algorithm names the JAX engine accepts (comm/latency.py)
+_COLL_ALGOS = ("auto", "ring", "rd", "tree", "ir")
 
 
 class CollectiveEngine:
-    """The ring plane of the JAX ``CollectiveEngine`` over ``world_size``
-    ranks whose rows live on one device (the tensor's: the card, or the CPU
-    for a CPU tensor).
+    """The collective engine over ``world_size`` ranks whose rows live on one
+    device (the tensor's: the card, or the CPU for a CPU tensor), in the JAX
+    engine's single-controller form: every entry point takes a stacked
+    ``[world, ...]`` tensor, row ``r`` rank ``r``'s contribution, and returns
+    the stacked result (row ``r`` rank ``r``'s result) as a new tensor.
+
+    ``use_xla_fastpath`` keeps the reference's name for "the flat collective
+    is allowed": an unmasked ``all_reduce``, ``reduce`` or ``broadcast``
+    then runs one torch reduction over the rows instead of the tree rounds.
 
     ``trace``, when given, is a list that receives one dispatch record per
-    call: the primitive, the implementation that ran (``cuda_ring[<path>]``
-    on the card, ``plain_ring[<path>]`` on a CPU tensor, ``+<codec>`` with a
-    fused codec; ``quant_ring[<codec>]`` for the unfused quant ring, with its
-    ``reroute_reason``), the stacked bytes, the executed schedule
-    (``RingSchedule.to_row()``) and the wire bytes a rank's payload costs.
+    call: the primitive, the implementation that ran (``schedule`` for the
+    tree rounds, with ``merged``; ``torch_fused`` / ``torch_flat`` for the
+    flat paths; ``cuda_ring[<path>]`` / ``plain_ring[<path>]`` for the ring
+    plane, ``+<codec>`` with a fused codec, ``quant_ring[<codec>]`` with its
+    ``reroute_reason``), the stacked bytes and the engine's epoch; the
+    schedule and flat paths add ``algo``, the ring plane its executed
+    schedule (``RingSchedule.to_row()``) and the wire bytes a rank's payload
+    costs.
     """
 
     def __init__(
@@ -132,6 +644,7 @@ class CollectiveEngine:
         trace: Optional[List[Dict[str, Any]]] = None,
         num_slices: int = 1,
         tuner: Optional[Any] = None,
+        use_xla_fastpath: bool = True,
     ) -> None:
         if num_slices != 1:
             raise not_ported("two-level worlds (num_slices > 1)", "the two-level plane slice")
@@ -139,9 +652,53 @@ class CollectiveEngine:
             raise not_ported("a tuner-attached engine", "the tuner slice")
         if strategy.world_size != world_size:
             raise ValueError(f"strategy for {strategy.world_size} ranks on a world of {world_size}")
+        # a typo'd A/B knob fails here, not at the first collective
+        _merged_env_disabled()
         self.world_size = world_size
         self.strategy = strategy
         self.trace = trace
+        self.use_xla_fastpath = use_xla_fastpath
+        #: world epoch: bumped by :meth:`advance_epoch`; a collective issued
+        #: with a stale ``epoch=`` raises :class:`EpochMismatch`
+        self.epoch = 0
+
+    # -- epochs and bookkeeping ------------------------------------------------
+
+    def advance_epoch(self, strategy: Optional[Strategy] = None) -> int:
+        """World change: bump the epoch and optionally swap the executing
+        strategy (same world: dead ranks are masked, not removed).  The
+        round tables stay cached by strategy: a swap back finds them."""
+        if strategy is not None:
+            if strategy.world_size != self.world_size:
+                raise ValueError(
+                    f"standby strategy world {strategy.world_size} != engine world {self.world_size}; "
+                    "elastic swaps keep the world and mask dead ranks (relay semantics)"
+                )
+            self.strategy = strategy
+        self.epoch += 1
+        return self.epoch
+
+    def _check_epoch(self, epoch: Optional[int]) -> None:
+        if epoch is not None and epoch != self.epoch:
+            raise EpochMismatch(epoch, self.epoch)
+
+    def clear(self) -> None:
+        """The reference's ``exitThreads`` before a re-synthesis.  This engine
+        caches nothing of its own (no compiled program, no buffer: the round
+        tables are cached by strategy fingerprint), so there is nothing to
+        drop."""
+
+    def _active_to_mask(self, active_gpus: Optional[Sequence[int]]) -> torch.Tensor:
+        """``[world]`` bools on the host: everyone for None."""
+        if active_gpus is None:
+            return torch.ones((self.world_size,), dtype=torch.bool)
+        ranks = [int(r) for r in active_gpus]
+        bad = [r for r in ranks if not 0 <= r < self.world_size]
+        if bad:
+            raise ValueError(f"active ranks {bad} outside world [0, {self.world_size})")
+        mask = torch.zeros((self.world_size,), dtype=torch.bool)
+        mask[ranks] = True
+        return mask
 
     def _check_world_dim(self, stacked: torch.Tensor, what: str) -> None:
         if stacked.dim() == 0 or stacked.shape[0] != self.world_size:
@@ -195,7 +752,7 @@ class CollectiveEngine:
 
     def _record(self, primitive: str, impl: str, stacked: torch.Tensor, extras: Dict[str, Any]) -> None:
         if self.trace is not None:
-            self.trace.append({"primitive": primitive, "impl": impl,
+            self.trace.append({"primitive": primitive, "impl": impl, "epoch": self.epoch,
                                "nbytes": stacked.numel() * stacked.element_size(), **extras})
 
     def _record_ring(self, primitive: str, plan: ring.RingSchedule, stacked: torch.Tensor) -> None:
@@ -312,3 +869,269 @@ class CollectiveEngine:
                                            block_size=block)
         self._record_ring("all_gather", plan, stacked)
         return out
+
+    # -- the schedule plane and the flat paths ----------------------------------
+
+    def _flat_algo(self, algo: Optional[str], primitive: str) -> None:
+        """A reduce-scatter or all-gather pin: ``ADAPCC_COLL_ALGO`` > the
+        argument; rd and tree are the latency plane's, not ported; an
+        unknown name raises; anything else runs the flat path, as in JAX."""
+        env = os.environ.get(COLL_ALGO_ENV, "").strip()
+        value = env or algo
+        if value is None:
+            return
+        v = str(value).strip().lower()
+        if v not in _COLL_ALGOS:
+            raise ValueError(f"{COLL_ALGO_ENV}/algo={value!r}: expected one of {'|'.join(_COLL_ALGOS)}")
+        if v in ("rd", "tree"):
+            raise not_ported(f"{primitive} algo={v!r}", "the latency plane slice (rd, tree)")
+
+    def _schedule(self, stacked: torch.Tensor, mask: Optional[torch.Tensor], op: ReduceOp,
+                  phases: str) -> Tuple[torch.Tensor, bool]:
+        """The tree rounds over the rows of ``stacked`` (before AVG), and
+        whether the merged executor ran them."""
+        world = self.world_size
+        strategy = self.strategy
+        plan = _merged_plan(strategy)
+        flat = stacked.reshape(world, -1)
+        if flat.shape[1] == 0:
+            return stacked.clone(), plan is not None
+        inactive = [] if mask is None else [r for r in range(world) if not bool(mask[r])]
+        sizes = _segment_sizes(flat.shape[1], strategy.tree_shares())
+        if plan is not None:
+            out = _run_merged_stacked(flat, inactive, sizes, plan, op, phases)
+        else:
+            out = _run_trees_stacked(flat, inactive, sizes, strategy, op, phases)
+        return out.reshape(stacked.shape), plan is not None
+
+    def _record_schedule(self, primitive: str, stacked: torch.Tensor, merged: bool) -> None:
+        self._record(primitive, "schedule", stacked, {"algo": "ring", "merged": merged})
+
+    def all_reduce(
+        self,
+        stacked: torch.Tensor,
+        *,
+        active_gpus: Optional[Sequence[int]] = None,
+        op: ReduceOp = ReduceOp.SUM,
+        epoch: Optional[int] = None,
+        algo: Optional[str] = None,
+    ) -> torch.Tensor:
+        """Allreduce with subset semantics.  ``active_gpus`` (keyword-only,
+        as ``op``: a positional ``ReduceOp`` must not bind to it) names the
+        active ranks; the others are relays that contribute the identity,
+        forward, and receive the result; AVG averages over the active
+        count.  Unmasked with the fast path allowed, one torch reduction
+        over the rows (``torch_fused``); otherwise the strategy's tree
+        rounds (``schedule``).  ``algo`` pins other than ``ring`` raise:
+        the latency and IR planes are not ported."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "all_reduce")
+        self._check_algo(algo)
+        if self.use_xla_fastpath and active_gpus is None:
+            out = _fused_stacked(stacked, op, self.world_size)
+            self._record("allreduce", "torch_fused", stacked, {"algo": "ring"})
+            return out
+        mask = self._active_to_mask(active_gpus)
+        out, merged = self._schedule(stacked, mask, op, "both")
+        self._record_schedule("allreduce", stacked, merged)
+        return _avg_normalize(out, mask, op)
+
+    def reduce(
+        self,
+        stacked: torch.Tensor,
+        *,
+        active_gpus: Optional[Sequence[int]] = None,
+        op: ReduceOp = ReduceOp.SUM,
+        epoch: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Reduce to each tree's root: a tree's segment holds the full
+        reduction on its root's row; other rows keep partial sums (the
+        fast path: their own values)."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "reduce")
+        if self.use_xla_fastpath and active_gpus is None:
+            out = self._reduce_fast(stacked, op)
+            self._record("reduce", "torch_fused", stacked, {"algo": "ring"})
+            return out
+        mask = self._active_to_mask(active_gpus)
+        out, merged = self._schedule(stacked, mask, op, "reduce")
+        self._record_schedule("reduce", stacked, merged)
+        return _avg_normalize(out, mask, op)
+
+    def _reduce_fast(self, stacked: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+        world = self.world_size
+        flat = stacked.reshape(world, -1)
+        out = None
+        off = 0
+        for tree, size in zip(self.strategy.trees, _segment_sizes(flat.shape[1], self.strategy.tree_shares())):
+            if size == 0:
+                continue
+            total = _fused_total(flat[:, off:off + size], op, world)
+            if out is None:
+                out = flat.to(total.dtype, copy=True)
+            out[tree.root, off:off + size] = total
+            off += size
+        return stacked.clone() if out is None else out.reshape(stacked.shape)
+
+    def broadcast(
+        self,
+        stacked: torch.Tensor,
+        active_gpus: Optional[Sequence[int]] = None,
+        *,
+        epoch: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Broadcast from each tree's root.  Values do not depend on relay
+        roles (inactive ranks forward and receive), but the roots source
+        them: ``active_gpus`` that leave out a root raise rather than
+        broadcast a dead rank's row."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "broadcast")
+        self._active_to_mask(active_gpus)
+        if active_gpus is not None:
+            act = {int(r) for r in active_gpus}
+            dead_roots = sorted({t.root for t in self.strategy.trees} - act)
+            if dead_roots:
+                raise ValueError(
+                    f"broadcast roots {dead_roots} are not in the active set {sorted(act)}: a dead root "
+                    "cannot source the broadcast; swap to a plan rooted on alive ranks, or, if the root "
+                    "is only demoted-slow, include it in active_gpus (broadcast values are unaffected "
+                    "by relay roles)"
+                )
+        if self.use_xla_fastpath and active_gpus is None:
+            out = self._broadcast_fast(stacked)
+            self._record("broadcast", "torch_fused", stacked, {"algo": "ring"})
+            return out
+        out, merged = self._schedule(stacked, None, ReduceOp.SUM, "broadcast")
+        self._record_schedule("broadcast", stacked, merged)
+        return out
+
+    def _broadcast_fast(self, stacked: torch.Tensor) -> torch.Tensor:
+        """Each segment becomes its root's, as a sum in which only the root
+        contributes (``-0.0`` arrives as ``+0.0``)."""
+        world = self.world_size
+        flat = stacked.reshape(world, -1)
+        out = torch.empty_like(flat)
+        off = 0
+        for tree, size in zip(self.strategy.trees, _segment_sizes(flat.shape[1], self.strategy.tree_shares())):
+            row = flat[tree.root, off:off + size]
+            out[:, off:off + size] = row if row.dtype == torch.bool else row + 0
+            off += size
+        return out.reshape(stacked.shape)
+
+    def boardcast(
+        self,
+        stacked: torch.Tensor,
+        active_gpus: Optional[Sequence[int]] = None,
+        *,
+        epoch: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Deprecated: the reference's spelling of :meth:`broadcast`; warns
+        once a process, then delegates."""
+        global _BOARDCAST_WARNED
+        if not _BOARDCAST_WARNED:
+            _BOARDCAST_WARNED = True
+            warnings.warn(
+                "CollectiveEngine.boardcast (the reference's spelling) is deprecated; call "
+                "CollectiveEngine.broadcast instead",
+                DeprecationWarning, stacklevel=2,
+            )
+        return self.broadcast(stacked, active_gpus, epoch=epoch)
+
+    def _zero_inactive(self, stacked: torch.Tensor, active_gpus: Optional[Sequence[int]]) -> torch.Tensor:
+        """An inactive rank's row as zeros, whatever the op (the gather and
+        scatter identity)."""
+        mask = self._active_to_mask(active_gpus)
+        if active_gpus is None or bool(mask.all()):
+            return stacked
+        out = stacked.clone()
+        _fill_rows(out, [r for r in range(self.world_size) if not bool(mask[r])], 0)
+        return out
+
+    def all_gather(
+        self,
+        stacked: torch.Tensor,
+        active_gpus: Optional[Sequence[int]] = None,
+        *,
+        epoch: Optional[int] = None,
+        algo: Optional[str] = None,
+    ) -> torch.Tensor:
+        """All-gather with subset semantics: ``[world, *payload]`` →
+        ``[world, world, *payload]``, row ``r`` the gathered stack as rank
+        ``r`` holds it; an inactive rank contributes zeros and still
+        receives."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "all_gather")
+        self._flat_algo(algo, "all_gather")
+        v = self._zero_inactive(stacked, active_gpus)
+        out = v.unsqueeze(0).expand(self.world_size, *v.shape).contiguous()
+        self._record("all_gather", "torch_flat", stacked, {"algo": "ring"})
+        return out
+
+    def all_to_all(
+        self,
+        stacked: torch.Tensor,
+        active_gpus: Optional[Sequence[int]] = None,
+        *,
+        epoch: Optional[int] = None,
+    ) -> torch.Tensor:
+        """All-to-all: ``stacked[src, dst]`` blocks are exchanged so that rank
+        ``r`` holds ``stacked[:, r]``.  Blocks from inactive ranks are
+        zeros; every rank still receives."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "all_to_all")
+        if stacked.dim() < 2 or stacked.shape[1] != self.world_size:
+            raise ValueError(f"all_to_all needs a [world, world, ...] stacked tensor, got {tuple(stacked.shape)}")
+        out = self._zero_inactive(stacked, active_gpus).transpose(0, 1).contiguous()
+        self._record("all_to_all", "torch_flat", stacked, {})
+        return out
+
+    def reduce_scatter(
+        self,
+        stacked: torch.Tensor,
+        *,
+        active_gpus: Optional[Sequence[int]] = None,
+        op: ReduceOp = ReduceOp.SUM,
+        epoch: Optional[int] = None,
+        algo: Optional[str] = None,
+    ) -> torch.Tensor:
+        """Reduce-scatter with subset semantics: ``[world, n]`` → ``[world, n
+        // world]``, row ``r`` the reduction of every rank's ``r``-th slice;
+        inactive ranks contribute zeros; AVG averages over the active count
+        (the world when unmasked).  SUM and AVG only; ``n`` must divide by
+        the world."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "reduce_scatter")
+        if op is ReduceOp.MAX:
+            raise ValueError(
+                "reduce_scatter supports SUM/AVG (psum_scatter has no max variant); use reduce + a "
+                "local slice for MAX"
+            )
+        world = self.world_size
+        n = stacked[0].numel()
+        if n % world:
+            raise ValueError(f"reduce_scatter payload ({n} elems) must divide the world ({world})")
+        self._flat_algo(algo, "reduce_scatter")
+        mask = self._active_to_mask(active_gpus)
+        v = self._zero_inactive(stacked, active_gpus).reshape(world, n)
+        out = v.sum(0, dtype=v.dtype).view(world, n // world)
+        if op is ReduceOp.AVG:
+            out = _avg_normalize(out, mask, op)
+        self._record("reduce_scatter", "torch_flat", stacked, {"algo": "ring"})
+        return out
+
+
+def _fused_total(stacked: torch.Tensor, op: ReduceOp, world: int) -> torch.Tensor:
+    """The fast path's reduction over the rows: one torch sum or max, AVG
+    divided by the world in the result's dtype."""
+    if op is ReduceOp.MAX:
+        return stacked.amax(0)
+    total = stacked.sum(0, dtype=stacked.dtype)
+    if op is ReduceOp.AVG:
+        total = total / torch.full((), world, dtype=total.dtype, device=total.device)
+    return total
+
+
+def _fused_stacked(stacked: torch.Tensor, op: ReduceOp, world: int) -> torch.Tensor:
+    """The fused allreduce of the rows: every row the reduction."""
+    total = _fused_total(stacked, op, world)
+    return total.unsqueeze(0).expand((stacked.shape[0], *total.shape)).contiguous()

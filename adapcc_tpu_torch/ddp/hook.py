@@ -8,15 +8,24 @@ two halves of the JAX hook:
 - **host half** (:meth:`GradSyncHook.negotiate`): the step's ``[world]``
   active mask; without a coordinator everyone is active.
 - **device half** (:meth:`GradSyncHook.sync`): allreduce the gradients with
-  the mask.  This port has the ``"psum"`` data plane (one collective per
-  gradient tensor, subset semantics by masking), which is what a strategy on
-  one host group resolves to, with the wire codecs on it: ``bf16`` casts
-  each gradient for the collective and back, ``int8`` replaces each
+  the mask, on one of two data planes:
+
+  - ``"psum"`` (what a strategy on one host group resolves to): one
+    collective per gradient tensor, subset semantics by masking;
+  - ``"schedule"`` (a strategy over several host groups, or the fast path
+    not allowed): the gradients, in the JAX package's leaf order and layout
+    (``order``, ``transposed``), packed into buckets of at most
+    ``bucket_cap_mb`` (:mod:`adapcc_tpu_torch.ddp.bucketing`; the plan is
+    recorded at the first sync), each bucket one strategy-tree allreduce
+    with relay masks (``engine.allreduce_shard``), unpacked back.
+
+  The wire codecs apply to the gradients before either plane: ``bf16``
+  casts each gradient for the collective and back, ``int8`` replaces each
   contribution with its block-wise ``decode(encode(·))`` value before the
   float32 collective, and :meth:`GradSyncHook.sync_error_feedback` banks
-  each rank's quantization error for the next step.  The bucketed
-  ``"schedule"`` plane and overlapped sync come in later slices and raise
-  here.
+  each rank's quantization error for the next step.  Overlapped sync and the
+  observability sinks (``trace``, ``metrics``) come in later slices and
+  raise here.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from adapcc_tpu_torch.comm import engine
+from adapcc_tpu_torch.comm.ring import resolve_chunk_bytes
+from adapcc_tpu_torch.ddp.bucketing import BucketPlan, build_bucket_plan, flatten_to_buckets, unflatten_from_buckets
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.primitives import not_ported as _not_ported
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, error_feedback_step, get_codec, resolve_wire_dtype
@@ -37,6 +48,7 @@ class GradSyncHook:
         self,
         strategy: Strategy,
         op: ReduceOp = ReduceOp.AVG,
+        bucket_cap_mb: float = 100.0,
         use_xla_fastpath: bool = True,
         communicator: Optional[Any] = None,
         mode: str = "auto",
@@ -44,9 +56,12 @@ class GradSyncHook:
         error_feedback: bool = False,
         quant_block_size: int = DEFAULT_BLOCK_SIZE,
         overlap: str = "off",
+        trace: Optional[Any] = None,
+        metrics: Optional[Any] = None,
     ) -> None:
         """``mode``: ``"psum"`` = one masked allreduce per gradient tensor;
-        ``"schedule"`` = the bucketed strategy-tree allreduce (later slice);
+        ``"schedule"`` = the bucketed strategy-tree allreduce, buckets of at
+        most ``bucket_cap_mb``;
         ``"auto"`` = psum when the fast path is allowed and the strategy
         spans one host group, schedule otherwise.  ``use_xla_fastpath``
         keeps the reference's name for "the flat collective is allowed".
@@ -63,17 +78,25 @@ class GradSyncHook:
             raise _not_ported("a coordinator-attached hook (communicator=)", "the Communicator facade slice")
         if overlap != "off":
             raise _not_ported(f"overlap={overlap!r}", "the overlapped-sync slice")
+        if trace is not None or metrics is not None:
+            raise _not_ported("the bucket plan's trace and metrics sinks (trace=, metrics=)",
+                              "the observability slice")
         if compress != "strategy":
             get_codec(compress)  # an unknown name raises, listing the codecs
         if quant_block_size < 1:
             raise ValueError(f"quant_block_size must be >= 1, got {quant_block_size}")
         self.strategy = strategy
         self.op = op
+        self.bucket_cap_mb = bucket_cap_mb
         self.use_xla_fastpath = use_xla_fastpath
         self.mode = mode
         self.compress = compress
         self.error_feedback = error_feedback
         self.quant_block_size = quant_block_size
+        self._plan: Optional[BucketPlan] = None
+        #: (size, chunk_bytes) per bucket of the plan recorded at the first
+        #: schedule-plane sync
+        self.recorded_buckets: List[Tuple[int, int]] = []
 
     def _resolved_mode(self) -> str:
         if self.mode != "auto":
@@ -107,19 +130,49 @@ class GradSyncHook:
         apply = get_codec(self.effective_compress()).apply
         return apply(g.t(), self.quant_block_size).t() if transposed else apply(g, self.quant_block_size)
 
-    def _sync_impl(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor]) -> List[torch.Tensor]:
-        if self._resolved_mode() != "psum":
-            raise _not_ported(
-                "the bucketed 'schedule' data plane (strategy trees over several "
-                "host groups, or use_xla_fastpath=False)",
-                "the engine's strategy-tree plane",
+    def resolved_chunk_bytes(self) -> List[int]:
+        """The per-bucket chunk sizes in force: ``ADAPCC_RING_CHUNK_BYTES`` >
+        the recorded plan's heuristic.  Needs a recorded plan."""
+        if self._plan is None:
+            raise ValueError(
+                "no recorded bucket plan yet: resolved_chunk_bytes() reads the table the first "
+                "schedule-plane sync records"
             )
+        return [resolve_chunk_bytes(c) for c in self._plan.chunk_bytes]
+
+    def reset_plan(self) -> None:
+        """Drop the recorded bucket table (the model's structure changed)."""
+        self._plan = None
+        self.recorded_buckets = []
+
+    def _bucket_plan(self, leaves: List[torch.Tensor]) -> BucketPlan:
+        if self._plan is None:
+            # the first sync records the bucket table (the reference's
+            # step-0/1 record phase, commu.py:409-418)
+            self._plan = build_bucket_plan(leaves, self.bucket_cap_mb)
+            self.recorded_buckets = list(zip(self._plan.bucket_sizes, self._plan.chunk_bytes))
+        return self._plan
+
+    def _sync_impl(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
+                   transposed: Sequence[bool], order: Optional[Sequence[int]]) -> List[torch.Tensor]:
+        if self._resolved_mode() == "psum":
+            if active_mask is None:
+                return [engine.allreduce(g, self.op) for g in grads]
+            return [engine.masked_psum_shard(g, active_mask, self.op) for g in grads]
         if active_mask is None:
-            return [engine.allreduce(g, self.op) for g in grads]
-        return [engine.masked_psum_shard(g, active_mask, self.op) for g in grads]
+            active_mask = torch.ones((self.strategy.world_size,), dtype=torch.bool)
+        order = range(len(grads)) if order is None else order
+        leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
+        plan = self._bucket_plan(leaves)
+        synced = [engine.allreduce_shard(b, active_mask, self.strategy, self.op)
+                  for b in flatten_to_buckets(plan, leaves)]
+        for i, leaf in zip(order, unflatten_from_buckets(plan, synced)):
+            grads[i].copy_(leaf.t() if transposed[i] else leaf)
+        return grads
 
     def sync(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
-             transposed: Optional[Sequence[bool]] = None) -> List[torch.Tensor]:
+             transposed: Optional[Sequence[bool]] = None,
+             order: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
         """Allreduce each gradient tensor in place and return them.
 
         ``active_mask=None`` means statically full-world: a plain allreduce
@@ -128,33 +181,37 @@ class GradSyncHook:
         runs on bfloat16 copies, cast back into the gradients; under ``int8``
         each contribution is replaced by its wire value first, quantized in
         the JAX leaf's layout where ``transposed[i]`` says gradient ``i`` is
-        that leaf's transpose.
+        that leaf's transpose.  The schedule plane buckets the gradients as
+        the JAX leaves: in ``order`` (indices into ``grads``; None = as
+        given), each in the leaf's layout.  A bucket's dtype is its leaves'
+        promoted dtype; the results are cast back into the gradients.
         """
         transposed = transposed or [False] * len(grads)
         codec = self.effective_compress()
         if codec == "bf16":
             wire = [g.to(torch.bfloat16) for g in grads]
-            for g, w in zip(grads, self._sync_impl(wire, active_mask)):
+            for g, w in zip(grads, self._sync_impl(wire, active_mask, transposed, order)):
                 g.copy_(w)
             return grads
         if codec != "off":
             for g, t in zip(grads, transposed):
                 g.copy_(self._codec_apply(g, t))
-        return self._sync_impl(grads, active_mask)
+        return self._sync_impl(grads, active_mask, transposed, order)
 
     def sync_error_feedback(
         self, grads: List[torch.Tensor], residual: List[torch.Tensor], active_mask: Optional[torch.Tensor],
-        transposed: Optional[Sequence[bool]] = None,
+        transposed: Optional[Sequence[bool]] = None, order: Optional[Sequence[int]] = None,
     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Error-feedback sync: ``(synced, new_residual)``.  The wire carries
         ``codec(grads + residual)`` and each rank banks the difference, in
         float32, for the next step; the wire and the synced gradients keep
         each gradient's dtype (the residual absorbs the cast's error too).
-        ``transposed`` as in :meth:`sync`."""
+        ``transposed`` and ``order`` as in :meth:`sync`."""
+        transposed = transposed or [False] * len(grads)
         new_residual = []
-        for g, r, t in zip(grads, residual, transposed or [False] * len(grads)):
+        for g, r, t in zip(grads, residual, transposed):
             # g + r promotes to the float32 of the residual
             wire, kept = error_feedback_step(g, r, lambda c: self._codec_apply(c, t).to(g.dtype))
             new_residual.append(kept)
             g.copy_(wire)
-        return self._sync_impl(grads, active_mask), new_residual
+        return self._sync_impl(grads, active_mask, transposed, order), new_residual

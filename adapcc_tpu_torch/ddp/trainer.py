@@ -10,6 +10,9 @@ batch and returns new state, the port runs eagerly in each process: ``step``
 takes this rank's shard, updates the model and optimizer of the
 :class:`TrainState` in place, and returns this rank's loss.
 
+``sync_mode`` picks the hook's data plane: ``"psum"``, ``"schedule"`` (the
+bucketed strategy-tree allreduce, gradients bucketed in the JAX package's
+leaf order and layout, :meth:`DDPTrainer._flax_layout`) or ``"auto"``.
 ``grad_compress`` puts a wire codec on the gradient sync (the hook's
 ``compress``), and ``error_feedback=True`` threads this rank's float32
 quantization residual from step to step (one tensor per parameter, in
@@ -30,6 +33,7 @@ from torch import nn
 
 from adapcc_tpu_torch.comm.mesh import World
 from adapcc_tpu_torch.ddp.hook import GradSyncHook, _not_ported
+from adapcc_tpu_torch.models.convert import flax_paths
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.strategy.ir import Strategy
 
@@ -154,6 +158,17 @@ class DDPTrainer:
         return [name.endswith(".weight") and isinstance(modules[name.rpartition(".")[0]], nn.Linear)
                 for name, _ in model.named_parameters()]
 
+    @staticmethod
+    def _flax_layout(model: nn.Module) -> Tuple[List[int], List[bool]]:
+        """``(order, transposed)``: the parameters' indices in the flax
+        tree's leaf order (paths sorted, as ``jax.tree_util`` sorts dict
+        keys) and, per parameter, whether its flax leaf is its transpose.
+        The schedule plane's buckets are positional, so they follow it."""
+        paths = flax_paths(model)
+        names = [name for name, _ in model.named_parameters()]
+        order = sorted(range(len(names)), key=lambda i: paths[names[i]][0])
+        return order, [paths[name][1] for name in names]
+
     def _grads(self, model: nn.Module) -> List[torch.Tensor]:
         """Every parameter's gradient; an unused parameter gets zeros, as
         ``jax.grad`` gives it (the optimizer then still decays it)."""
@@ -169,15 +184,20 @@ class DDPTrainer:
         loss = self.loss_fn(state.model, batch)
         loss.backward()
         grads = self._grads(state.model)
-        transposed = None if self.hook.effective_compress() == "off" else self._transposed(state.model)
+        order = None
+        if self.hook._resolved_mode() == "schedule":
+            order, transposed = self._flax_layout(state.model)
+        else:
+            transposed = None if self.hook.effective_compress() == "off" else self._transposed(state.model)
         if self.error_feedback:
             if self._residual is None:
                 # float32 whatever the parameter dtype: a narrow bank would
                 # lose the very mass it defers
                 self._residual = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
-            _, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed)
+            _, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed,
+                                                              order)
         else:
-            self.hook.sync(grads, active_mask, transposed)
+            self.hook.sync(grads, active_mask, transposed, order)
         state.optimizer.step()
         state.step += 1
         return loss.detach()

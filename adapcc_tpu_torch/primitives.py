@@ -9,6 +9,11 @@ import enum
 #: default ring staging granularity in bytes (the reference's 4 MB chunk)
 DEFAULT_CHUNK_BYTES = 4 * 1024 * 1024
 
+#: buckets above this many bytes pipeline at ``DEFAULT_CHUNK_BYTES``, smaller
+#: ones at a quarter of their size (the reference's chunk heuristic,
+#: commu.py:401-403)
+CHUNK_HEURISTIC_THRESHOLD = 10 * 1024 * 1024
+
 
 class ReduceOp(enum.Enum):
     """Reduction operator for reduce-style collectives (the reference's

@@ -75,7 +75,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at world 4, 5 steps (one K1b reduce-scatter and all-gather a step; loss
    gap to phase 7), and ``DDPTrainer(grad_compress="int8",
    error_feedback=True)`` at world 1, 5 steps: losses finite and falling,
-   step time and tokens/s.
+   step time and tokens/s;
+11. slice 8's main path, the engine's strategy-tree ("schedule") plane with
+   relay masks: (a) the same GPT-2's bf16 gradients of 8 ranks (one token
+   shard each), bucketed by ``build_bucket_plan`` at the hook's 100 MB cap
+   in the flax leaf order and layout, each bucket stacked ``[8, n]`` and
+   averaged by ``CollectiveEngine(8, 4-4_1.xml).all_reduce(active_gpus=all
+   but rank 3, op=AVG)``, the two-host strategy with one straggler, on its
+   merged plan (7 reduce and 5 broadcast groups): every row identical, the
+   relay's too, the first and the largest bucket bit for bit equal to the
+   same call on CPU copies, every bucket within 8 bf16 roundings of a
+   float64 masked mean, the trace naming ``schedule`` merged; (b) phase 9's
+   float32 gradients (world 4) through ``Strategy.ring(4, 4)`` (merged),
+   ``Strategy.binary(4, 2)`` and ``4.xml`` (one tree): SUM unmasked on the
+   schedule plane, AVG with rank 2 a relay, MAX, ``reduce`` and
+   ``broadcast``, each held bit for bit against the CPU run of the same call
+   on a bucket-sized slice; (a) and (b) time each dispatch by CUDA events
+   and device time, with its launches, beside a one-call plain reduction
+   (and K1b's RS+AG for the ring); (c) ``DDPTrainer(sync_mode="schedule")``
+   at world 1, 5 steps from phase 5's weights and batch: losses bit for bit
+   phase 5's.  The flash kernels' launches are counted over (a) and (c).
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -98,15 +117,18 @@ import torch
 import torch.nn.functional as F
 
 from adapcc_tpu_torch.comm import ring
-from adapcc_tpu_torch.comm.engine import CollectiveEngine
+from adapcc_tpu_torch.comm.engine import CollectiveEngine, _merged_plan
 from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world
+from adapcc_tpu_torch.ddp.bucketing import build_bucket_plan, flatten_to_buckets
 from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
+from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.strategy.xml_io import parse_strategy_xml
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
 MAIN = GPT2Config(
@@ -162,6 +184,20 @@ FUSED_CODECS = (("int8", 128), ("int8", 256), ("int8", 1024), ("bf16", None))
 #: the int8 allreduce against the unfused quant ring: the reference's
 #: documented contraction headroom between its two data planes
 FUSED_ULPS = 4
+#: phase 11: the two-host world-8 strategy, rank 3 a straggler (a relay)
+SCHEDULE_WORLD = 8
+SCHEDULE_XML = "tests/fixtures/strategy/4-4_1.xml"
+SCHEDULE_ACTIVE = [0, 1, 2, 4, 5, 6, 7]
+#: its merged plan's groups, as the JAX package computes them
+SCHEDULE_GROUPS = (7, 5)
+#: the hook's bucket cap (GradSyncHook's bucket_cap_mb default)
+BUCKET_CAP_MB = 100.0
+#: a bf16 relay-masked AVG against the float64 mean: 7 adds and one division,
+#: each rounding at most 2**-8 of a partial sum bounded by sum |x|, so at most
+#: 8 * 2**-8 = 2**-5 of mean |x| over the active ranks
+SCHEDULE_BF16_TOL = 2.0 ** -5
+#: a float32 sum of 4 against float64: 3 adds, each at most 2**-24 of sum |x|
+SCHEDULE_F32_TOL = 4 * 2.0 ** -24
 
 
 def nvidia_smi() -> str:
@@ -204,9 +240,16 @@ def _device_events(prof) -> list:
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one ``fn`` call: the durations of the kernels it
-    launches, from the profiler's kernel records over ``iters`` calls, so
-    the device's idle gaps between calls do not count.  Each kernel counts
+    """Mean device time of one ``fn`` call (:func:`device_stats`)."""
+    return device_stats(fn, iters, warmup)[0]
+
+
+def device_stats(fn, iters: int = 20, warmup: int = 3) -> tuple:
+    """``(ms, launches)``: the mean device time of one ``fn`` call, and the
+    device records (kernels, copies, fills) it launches a call.  The time is
+    the durations of the kernels it launches, from the profiler's kernel
+    records over ``iters`` calls, so the device's idle gaps between calls
+    do not count.  Each kernel counts
     its records' mean duration times its launches a call (its records over
     ``iters``, rounded): late in a long process the profiler has kept 9
     records of 10 calls, which a plain sum over ``iters`` would read as a
@@ -230,7 +273,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
               f"its records' mean", flush=True)
     per_call = (e.self_device_time_total / e.count * round(e.count / iters) if e.count >= iters / 2
                 else e.self_device_time_total / iters for e in kernels)
-    return sum(per_call) / 1e3
+    launches = sum(round(e.count / iters) for e in kernels)
+    return sum(per_call) / 1e3, launches
 
 
 def bound(name: str, bh: int, t: int, d: int, dtype: torch.dtype, causal: bool):
@@ -830,6 +874,182 @@ def time_fused(dev: torch.device, kname: str, stacked: torch.Tensor) -> dict:
     return rec
 
 
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: the schedule plane (slice 8)
+# --------------------------------------------------------------------------- #
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits, so that -0.0 and +0.0 differ."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def time_dispatch(fn, iters: int = 10) -> dict:
+    """A dispatch's events time, device time and device launches a call."""
+    dev_ms, launches = device_stats(fn, iters=iters)
+    return {"ms": cuda_ms(fn, iters=iters), "device_ms": dev_ms, "launches": launches}
+
+
+def _fmt(times: dict) -> str:
+    return f"events {times['ms']:.4f} ms, device {times['device_ms']:.4f} ms, {times['launches']} launches"
+
+
+def plain_masked(stacked: torch.Tensor, active, op: ReduceOp):
+    """The yardstick: one plain reduction over the rows of the same
+    function (masked sum, mean or max), without the tree rounds."""
+    world = stacked.shape[0]
+    mask = torch.zeros(world, dtype=torch.bool, device=stacked.device)
+    mask[list(range(world)) if active is None else active] = True
+    if op is ReduceOp.MAX:
+        return lambda: stacked.masked_fill(~mask[:, None], float("-inf")).amax(0)
+    weight = mask.to(stacked.dtype)[:, None]
+    count = torch.full((), int(mask.sum()), dtype=stacked.dtype, device=stacked.device)
+    if op is ReduceOp.AVG:
+        return lambda: (stacked * weight).sum(0) / count
+    return lambda: (stacked * weight).sum(0)
+
+
+def schedule_gradients(dev: torch.device, init_state, tokens):
+    """Phase 11a's payload: each of ``SCHEDULE_WORLD`` ranks' bf16 gradient
+    of the main GPT-2 on its ``BATCH``-row shard, in the flax leaf order and
+    layout the hook buckets (``DDPTrainer._flax_layout``), packed by the
+    hook's plan: ``(plan, [world, n_b] per bucket)``."""
+    model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    order, transposed = DDPTrainer._flax_layout(model)
+    params = list(model.parameters())
+    plan, stacked = None, None
+    for r in range(SCHEDULE_WORLD):
+        model.zero_grad(set_to_none=True)
+        shard = tokens[r * BATCH:(r + 1) * BATCH]
+        lm_loss(model(shard), shard).backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
+        if plan is None:
+            plan = build_bucket_plan(leaves, BUCKET_CAP_MB)
+            stacked = [torch.empty((SCHEDULE_WORLD, n), dtype=torch.bfloat16, device=dev)
+                       for n in plan.bucket_sizes]
+        for b, bucket in enumerate(flatten_to_buckets(plan, leaves)):
+            stacked[b][r].copy_(bucket)
+    return plan, stacked
+
+
+def schedule_world8(dev: torch.device, init_state, tokens) -> dict:
+    """Phase 11a: the two-host world-8 strategy averages the bench GPT-2's
+    bucketed bf16 gradients with rank 3 a relay, as the hooks of 8
+    processes would."""
+    plan, buckets = schedule_gradients(dev, init_state, tokens)
+    strategy = parse_strategy_xml(SCHEDULE_XML)
+    merged = _merged_plan(strategy)
+    groups = (len(merged.reduce_groups), len(merged.broadcast_groups))
+    print(f"schedule 11a: {SCHEDULE_XML}, world {SCHEDULE_WORLD}, active {SCHEDULE_ACTIVE}; merged plan "
+          f"{groups[0]} reduce and {groups[1]} broadcast groups; bucket plan {plan.num_buckets} buckets of "
+          f"{[round(b / 2**20, 2) for b in plan.bucket_bytes]} MiB a rank (bf16, cap {BUCKET_CAP_MB} MB), "
+          f"{plan.total_bytes / 2**20:.1f} MiB a rank, {SCHEDULE_WORLD * plan.total_bytes / 2**30:.2f} GiB stacked",
+          flush=True)
+    if groups != SCHEDULE_GROUPS:
+        raise RuntimeError(f"the merged plan has {groups} groups, the JAX package's {SCHEDULE_GROUPS}")
+    trace = []
+    eng = CollectiveEngine(SCHEDULE_WORLD, strategy, trace=trace)
+    cpu_eng = CollectiveEngine(SCHEDULE_WORLD, strategy)
+    largest = max(range(plan.num_buckets), key=lambda b: plan.bucket_sizes[b])
+    active = torch.tensor(SCHEDULE_ACTIVE, device=dev)
+    times = {}
+    for b, stacked in enumerate(buckets):
+        def call(x=stacked, e=eng):
+            return e.all_reduce(x, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
+
+        out = call()
+        rec = trace[-1]
+        if rec["impl"] != "schedule" or rec["merged"] is not True:
+            raise RuntimeError(f"bucket {b} did not run the merged schedule plane: {rec}")
+        rows_same = all(same_bits(out[r], out[0]) for r in range(1, SCHEDULE_WORLD))
+        x = stacked.index_select(0, active).double()
+        err = (out[0].double() - x.mean(0)).abs()
+        within = bool((err <= SCHEDULE_BF16_TOL * x.abs().mean(0)).all())
+        exact = None
+        if b in (0, largest):
+            exact = same_bits(out.cpu(), call(stacked.cpu(), cpu_eng))
+        n = stacked.shape[1]
+        times[b] = {"dispatch": time_dispatch(call), "plain": time_dispatch(plain_masked(stacked, SCHEDULE_ACTIVE,
+                                                                                       ReduceOp.AVG))}
+        bound = 2 * stacked.numel() * stacked.element_size() / HBM_BYTES_S * 1e3
+        print(f"schedule 11a bucket {b}: {n} bf16 a rank; rows identical (relay 3 too) "
+              f"{'ok' if rows_same else 'FAIL'}; max |err| vs float64 mean {float(err.max()):.3e} "
+              f"{'ok' if within else 'FAIL'}; bit for bit vs CPU {'-' if exact is None else 'ok' if exact else 'FAIL'}; "
+              f"dispatch {_fmt(times[b]['dispatch'])}; plain masked mean {_fmt(times[b]['plain'])}; "
+              f"bound {bound:.4f} ms (bytes: [8, n] read and written once)", flush=True)
+        if not rows_same or not within or exact is False:
+            raise RuntimeError(f"phase 11a bucket {b} failed its checks")
+        del out, x, err
+        if b == 0:  # where the executor's time goes, op by op
+            profile_step("schedule 11a bucket 0", call, times[b]["dispatch"]["ms"])
+    torch.cuda.empty_cache()
+    return times
+
+
+def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
+    """Phase 11b: phase 9's float32 gradients (world 4) through three
+    strategies' schedule plane, each call held bit for bit against its CPU
+    run on a bucket-sized slice, then timed on the whole payload."""
+    world = grads.shape[0]
+    slice_n = int(BUCKET_CAP_MB * 2**20) // grads.element_size()
+    relay2 = [0, 1, 3]
+    ring_eng = CollectiveEngine(world, Strategy.ring(world))
+    k1b = time_dispatch(lambda: ring_eng.ring_allreduce(grads))
+    print(f"schedule 11b: {grads.shape[1]} float32 a rank ({grads.shape[1] * 4 / 2**20:.1f} MiB), world {world}; "
+          f"CPU checks on the first {slice_n} a rank; yardstick K1b RS+AG (ring_allreduce) {_fmt(k1b)}", flush=True)
+    ring.check_errors()
+    calls = {
+        "all_reduce SUM": lambda e, x: e.all_reduce(x, op=ReduceOp.SUM),
+        "all_reduce AVG relay 2": lambda e, x: e.all_reduce(x, active_gpus=relay2, op=ReduceOp.AVG),
+        "all_reduce MAX": lambda e, x: e.all_reduce(x, op=ReduceOp.MAX),
+        "reduce AVG relay 2": lambda e, x: e.reduce(x, active_gpus=relay2, op=ReduceOp.AVG),
+        "broadcast": lambda e, x: e.broadcast(x),
+    }
+    yardsticks = {"all_reduce SUM": (None, ReduceOp.SUM), "all_reduce AVG relay 2": (relay2, ReduceOp.AVG),
+                  "all_reduce MAX": (None, ReduceOp.MAX)}
+    plain = {k: time_dispatch(plain_masked(grads, *v)) for k, v in yardsticks.items()}
+    for k, v in plain.items():
+        print(f"schedule 11b yardstick plain {k}: {_fmt(v)}", flush=True)
+    strategies = {"ring(4,4)": Strategy.ring(world, world), "binary(4,2)": Strategy.binary(world, 2),
+                  "4.xml": parse_strategy_xml("tests/fixtures/strategy/4.xml")}
+    sliced = grads[:, :slice_n].contiguous()
+    sliced_cpu = sliced.cpu()
+    for sname, strategy in strategies.items():
+        trace = []
+        eng = CollectiveEngine(world, strategy, trace=trace, use_xla_fastpath=False)
+        cpu_eng = CollectiveEngine(world, strategy, use_xla_fastpath=False)
+        for cname, fn in calls.items():
+            exact = same_bits(fn(eng, sliced).cpu(), fn(cpu_eng, sliced_cpu))
+            out = fn(eng, grads)
+            rec = trace[-1]
+            ok = exact and rec["impl"] == "schedule" and bool(torch.isfinite(out).all())
+            if cname.startswith("all_reduce"):
+                ok = ok and all(same_bits(out[r], out[0]) for r in range(1, world))
+            if cname in ("all_reduce SUM", "all_reduce AVG relay 2"):
+                x = grads.index_select(0, torch.tensor(relay2 if "relay" in cname else range(world), device=dev))
+                want = x.double().mean(0) if "AVG" in cname else x.double().sum(0)
+                scale = x.abs().double().mean(0) if "AVG" in cname else x.abs().double().sum(0)
+                ok = ok and bool(((out[0].double() - want).abs() <= SCHEDULE_F32_TOL * scale + 1e-30).all())
+                del x, want, scale
+            del out
+            t = time_dispatch(lambda: fn(eng, grads))
+            print(f"schedule 11b {sname:11s} {cname:22s}: merged {rec['merged']}; bit for bit vs CPU "
+                  f"{'ok' if exact else 'FAIL'}, checks {'ok' if ok else 'FAIL'}; {_fmt(t)}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 11b {sname} {cname} failed its checks")
+            if cname == "all_reduce SUM" and sname != "binary(4,2)":
+                profile_step(f"schedule 11b {sname} all_reduce SUM", lambda: fn(eng, grads), t["ms"])
+    torch.cuda.empty_cache()
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -1062,6 +1282,37 @@ def main() -> None:
           f"{BATCH * MAIN.max_seq / e_step_s:.1f} tokens/s", flush=True)
     if not all(np.isfinite(e_losses)) or not e_losses[-1] < e_losses[0]:
         raise RuntimeError(f"ddp int8 losses not finite and falling: {e_losses}")
+    ring.check_errors()
+
+    # 11. slice 8's main path: the schedule plane with relay masks
+    t11 = time.perf_counter()
+    for w in fa.KERNELS:
+        w.launches = 0
+    s_tokens = torch.from_numpy(
+        rng.integers(0, MAIN.vocab_size, size=(SCHEDULE_WORLD * BATCH, MAIN.max_seq))).to(dev)
+    schedule_world8(dev, init_state, s_tokens)
+    del s_tokens
+    grads = gpt2_gradients(dev, init_state, z_tokens)
+    schedule_world4(dev, grads)
+    del grads
+    torch.cuda.empty_cache()
+    world = build_world_mesh(1)
+    c_losses, c_seconds, c_more = train(MAIN, world, init_state, tokens, sync_mode="schedule")
+    s_launches = {w.__name__: w.launches for w in fa.KERNELS}
+    profile_step("ddp schedule plane", c_more, float(np.mean(c_seconds[1:])) * 1e3)
+    del c_more
+    destroy_world()
+    c_step_s = float(np.mean(c_seconds[1:]))
+    print(f"schedule 11c (DDP sync_mode='schedule', world 1): losses {c_losses}; bit for bit phase 5's "
+          f"{'ok' if c_losses == losses else 'FAIL'}; step {c_step_s * 1e3:.2f} ms, "
+          f"{BATCH * MAIN.max_seq / c_step_s:.1f} tokens/s", flush=True)
+    if c_losses != losses:
+        raise RuntimeError(f"the schedule-plane DDP steps differ from phase 5's: {c_losses} vs {losses}")
+    want = MAIN.n_layer * (SCHEDULE_WORLD + ZERO1_WORLD + STEPS)
+    print(f"schedule path launches (11a-c): {s_launches} (each flash kernel {want}: 8 + 4 gradients and 5 steps "
+          f"of {MAIN.n_layer} layers); phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
+    if any(n != want for n in s_launches.values()):
+        raise RuntimeError(f"expected {want} launches of each flash kernel on the schedule path, got {s_launches}")
     ring.check_errors()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 

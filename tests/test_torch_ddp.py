@@ -7,7 +7,9 @@ run two AdamW(3e-4) steps on the same numpy tokens:
 - world 1 in this process (gloo), flash attention;
 - world 2 over gloo (rank 0 here, rank 1 in a spawned worker), xla attention, once with the
   full world and once with ``active_mask=[True, False]`` (rank 1's gradient
-  is dropped and the average runs over the one active rank).
+  is dropped and the average runs over the one active rank); on the psum
+  plane, and on the bucketed schedule plane (``sync_mode="schedule"``, two
+  merged chain trees, rank 1 a relay in the masked run).
 
 Per-rank losses agree to 1e-6 (float32, summation order only).  Parameters
 agree to 3e-5, a tenth of one step's learning rate: Adam normalizes every
@@ -71,7 +73,7 @@ def _flax_params(seed=0):
     return {"params": tree}
 
 
-def _jax_runs(params, tokens, world, attention, masks=(None,)):
+def _jax_runs(params, tokens, world, attention, masks=(None,), sync_mode="auto", num_trans=1):
     """Per mask: per-step ``[world]`` losses and the final params of the JAX
     trainer.  With masks, one dynamic-mask trainer (one compiled step) runs
     them all; an all-True mask is the full world, the same arithmetic as the
@@ -94,7 +96,7 @@ def _jax_runs(params, tokens, world, attention, masks=(None,)):
     dynamic = any(m is not None for m in masks)
     trainer = JaxDDPTrainer(
         lambda p, b: jax_lm_loss(model.apply(p, b), b), optax.adamw(LR), mesh,
-        JaxStrategy.ring(world), dynamic_mask=dynamic,
+        JaxStrategy.ring(world, num_trans), dynamic_mask=dynamic, sync_mode=sync_mode,
     )
     # state and batch placed as the step's outputs are, so the second step
     # reuses the first step's compiled program
@@ -111,13 +113,14 @@ def _jax_runs(params, tokens, world, attention, masks=(None,)):
     return runs
 
 
-def _torch_run(state_dict, shard, world_mesh, attention, mask=None):
+def _torch_run(state_dict, shard, world_mesh, attention, mask=None, sync_mode="auto", num_trans=1):
     """Per-step losses of this rank and its final state dict."""
     model = GPT2(GPT2Config(**TINY, dtype=torch.float32, attention=attention, flash_block=32),
                  device="cpu", seed=None)
     model.load_state_dict(state_dict)
     trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(LR), world_mesh,
-                         Strategy.ring(world_mesh.world_size), dynamic_mask=mask is not None)
+                         Strategy.ring(world_mesh.world_size, num_trans), dynamic_mask=mask is not None,
+                         sync_mode=sync_mode)
     state = TrainState.create(model, trainer.tx)
     batch = torch.from_numpy(shard)
     losses = []
@@ -144,12 +147,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _world2_rank(rank, init_method, state_dict, tokens, masks):
+def _world2_rank(rank, init_method, state_dict, tokens, masks, sync_mode="auto", num_trans=1):
     """One gloo rank of the world-2 runs: a result per mask (None = static)."""
     world = build_world_mesh(2, rank=rank, device="cpu", init_method=init_method)
     try:
         shard = tokens[rank * PER_RANK_BATCH:(rank + 1) * PER_RANK_BATCH]
-        return [_torch_run(state_dict, shard, world, "xla", mask) for mask in masks]
+        return [_torch_run(state_dict, shard, world, "xla", mask, sync_mode, num_trans) for mask in masks]
     finally:
         destroy_world()
 
@@ -201,6 +204,27 @@ def test_ddp_world2_gloo_matches_jax_with_and_without_mask(flax_params):
             _assert_params_close(params_t, params_j)
 
 
+def test_ddp_world2_schedule_plane_matches_jax_with_and_without_relay(flax_params):
+    """``sync_mode="schedule"`` with ``dynamic_mask=True`` over two merged
+    chain trees: the gradients bucketed in the flax leaf order and layout,
+    each bucket through the tree rounds; the full world, then rank 1 a
+    relay (it forwards, contributes nothing, and receives the average)."""
+    tokens = _tokens(2, seed=11)
+    masks = [[True, True], [True, False]]
+    sd = flax_to_state_dict(flax_params)
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    args = (sd, tokens, masks, "schedule", 2)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pending = pool.apply_async(_world2_child, (1, init_method, *args))
+        refs = _jax_runs(flax_params, tokens, 2, "xla", masks, sync_mode="schedule", num_trans=2)
+        per_rank = [_world2_rank(0, init_method, *args), pending.get(timeout=120)]
+    for i, (mask, (losses_j, params_j)) in enumerate(zip(masks, refs)):
+        for rank in range(2):
+            losses_t, params_t = per_rank[rank][i]
+            np.testing.assert_allclose(losses_t, losses_j[rank], atol=LOSS_ATOL, err_msg=f"rank {rank} mask {mask}")
+            _assert_params_close(params_t, params_j)
+
+
 def test_masked_psum_averages_over_active_ranks(world1):
     x = torch.tensor([2.0, 4.0])
     assert torch.equal(engine.masked_psum_shard(x.clone(), [True], ReduceOp.AVG), x)
@@ -218,8 +242,10 @@ def test_hook_resolves_psum_and_rejects_what_waits():
     assert GradSyncHook(two_hosts)._resolved_mode() == "schedule"
     assert GradSyncHook(one_host, use_xla_fastpath=False)._resolved_mode() == "schedule"
     assert torch.equal(GradSyncHook(one_host).negotiate(0), torch.ones(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="schedule"):
-        GradSyncHook(two_hosts).sync([torch.zeros(1)], None)
+    # the schedule plane runs now (tests/test_torch_schedule.py); its
+    # observability sinks wait
+    with pytest.raises(NotImplementedError, match="observability"):
+        GradSyncHook(two_hosts, metrics=object())
     # the wire codecs run now: a registered name is taken, a typo raises
     assert GradSyncHook(one_host, compress="bf16").effective_compress() == "bf16"
     assert Strategy(Strategy.ring(2).trees, 2, wire_dtype="int8").wire_dtype == "int8"

@@ -31,7 +31,9 @@ print("MODULES", sorted(n for n in sys.modules if n.startswith("adapcc_tpu_torch
 _PORT_MODULES = (
     "adapcc_tpu_torch.comm.engine", "adapcc_tpu_torch.comm.ring", "adapcc_tpu_torch.ops.flash_attention",
     "adapcc_tpu_torch.parallel.fsdp", "adapcc_tpu_torch.models.convert", "adapcc_tpu_torch.ddp.trainer",
-    "adapcc_tpu_torch.quant.codec", "adapcc_tpu_torch.quant.ring",
+    "adapcc_tpu_torch.quant.codec", "adapcc_tpu_torch.quant.ring", "adapcc_tpu_torch.strategy.ir",
+    "adapcc_tpu_torch.strategy.xml_io", "adapcc_tpu_torch.comm.relay", "adapcc_tpu_torch.ddp.bucketing",
+    "adapcc_tpu_torch.ddp.hook",
 )
 
 
