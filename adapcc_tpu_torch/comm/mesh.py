@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import socket
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -97,6 +97,34 @@ def build_world_mesh(
         rank=rank,
     )
     return World(rank, world_size, dev)
+
+
+def device_ip(process_index: int = 0) -> str:
+    """Host label of a rank, used where the reference uses the node ip
+    (tree edge classification, strategy XML): the owning process, as the
+    JAX package labels a device (``adapcc_tpu.comm.mesh.device_ip``)."""
+    return f"process-{process_index}"
+
+
+def world_processes(world_size: int, world: Optional[World] = None) -> List[int]:
+    """Rank → owning process.  One process holding every rank's row (the
+    single-controller form) owns them all; a process group of one process a
+    rank maps rank ``r`` to process ``r``."""
+    if world is None or world.world_size == 1:
+        return [0] * world_size
+    if world.world_size != world_size:
+        raise ValueError(
+            f"a world of {world_size} ranks over a process group of {world.world_size} processes: "
+            "either one process holds every rank or each process holds one"
+        )
+    return list(range(world_size))
+
+
+def world_ip_table(world_size: int, world: Optional[World] = None) -> List[str]:
+    """Rank → "ip" list of the collective world (the analog of
+    ``topology/ip_table.txt``): what ``mesh_ip_table`` gives a flat JAX mesh
+    of the same processes, so the synthesizer groups hosts alike."""
+    return [device_ip(p) for p in world_processes(world_size, world)]
 
 
 def destroy_world() -> None:

@@ -6,7 +6,9 @@ AVG semantics over the active ranks (commu.py:385-435).  The port keeps the
 two halves of the JAX hook:
 
 - **host half** (:meth:`GradSyncHook.negotiate`): the step's ``[world]``
-  active mask; without a coordinator everyone is active.
+  active mask, negotiated with the coordinator through the
+  ``communicator`` (:class:`~adapcc_tpu_torch.communicator.Communicator`);
+  without one, everyone is active.
 - **device half** (:meth:`GradSyncHook.sync`): allreduce the gradients with
   the mask, on one of two data planes:
 
@@ -74,8 +76,6 @@ class GradSyncHook:
         """
         if mode not in ("auto", "psum", "schedule"):
             raise ValueError(f"mode {mode!r} not in auto|psum|schedule")
-        if communicator is not None:
-            raise _not_ported("a coordinator-attached hook (communicator=)", "the Communicator facade slice")
         if overlap != "off":
             raise _not_ported(f"overlap={overlap!r}", "the overlapped-sync slice")
         if trace is not None or metrics is not None:
@@ -89,6 +89,7 @@ class GradSyncHook:
         self.op = op
         self.bucket_cap_mb = bucket_cap_mb
         self.use_xla_fastpath = use_xla_fastpath
+        self.communicator = communicator
         self.mode = mode
         self.compress = compress
         self.error_feedback = error_feedback
@@ -111,9 +112,22 @@ class GradSyncHook:
     # -- host half -------------------------------------------------------------
 
     def negotiate(self, step: int) -> torch.Tensor:
-        """The step's active mask.  Without a coordinator everyone is
-        active (``communicator`` is not ported yet, so always)."""
-        return torch.ones((self.strategy.world_size,), dtype=torch.bool)
+        """Coordinator round-trip → this step's ``[world]`` active mask.
+
+        The reference's per-step sequence: ``update_relay(step)`` (the
+        controller heartbeat), then the first bucket's ``hook_fetch`` (the
+        rent-or-buy freeze).  The coordinator speaks process ranks, the mask
+        indexes ranks.  Without a communicator or coordinator, everyone is
+        active."""
+        world = self.strategy.world_size
+        if self.communicator is None or self.communicator._hooker is None:
+            return torch.ones((world,), dtype=torch.bool)
+        self.communicator.update_relay(step)
+        active_processes = self.communicator.hook_ready(step)
+        active = self.communicator.chips_of_processes(active_processes)
+        mask = torch.zeros((world,), dtype=torch.bool)
+        mask[[r for r in active if 0 <= r < world]] = True
+        return mask
 
     # -- device half -----------------------------------------------------------
 

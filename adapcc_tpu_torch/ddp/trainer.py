@@ -18,6 +18,11 @@ leaf order and layout, :meth:`DDPTrainer._flax_layout`) or ``"auto"``.
 quantization residual from step to step (one tensor per parameter, in
 ``model.parameters()`` order).
 
+A ``communicator`` with a coordinator (:meth:`Communicator.
+enable_coordinator`) makes every step negotiate its active set (the hook's
+``negotiate``), and the first step pushes the trainer's gradient volume into
+the coordinator's rent-or-buy cost model.
+
 ``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
 the torch optimizer with optax's defaults.
@@ -147,7 +152,14 @@ class DDPTrainer:
         #: this rank's error-feedback bank: one float32 tensor per parameter
         #: (created at the first step), replaced every step
         self._residual: Optional[List[torch.Tensor]] = None
-        self._dynamic_mask = bool(dynamic_mask)
+        # a coordinator-attached trainer negotiates every step's mask
+        self._dynamic_mask = bool(dynamic_mask) if dynamic_mask is not None else communicator is not None
+        if communicator is not None and not self._dynamic_mask:
+            raise ValueError(
+                "a coordinator-attached trainer must run a dynamic-mask step: "
+                "dynamic_mask=False would silently discard the negotiated active set"
+            )
+        self._coord_calibrated = False
         self._host_step = 0
 
     @staticmethod
@@ -215,6 +227,17 @@ class DDPTrainer:
         ``active_mask`` (``[world]`` bools) sets the ranks whose gradients
         count this step; it needs a ``dynamic_mask=True`` trainer.
         """
+        if not self._coord_calibrated:
+            # rent-or-buy calibration: this trainer's gradient volume and the
+            # bootstrap's profiled link bandwidth replace the coordinator's
+            # default cost constants; latched on success (False: no server in
+            # this process yet, or no profile), so a later step retries
+            comm = self.hook.communicator
+            if comm is None:
+                self._coord_calibrated = True
+            else:
+                grad_bytes = sum(p.numel() * p.element_size() for p in state.model.parameters())
+                self._coord_calibrated = comm.calibrate_coordinator(float(grad_bytes))
         idx = self._host_step if step_idx is None else step_idx
         self._host_step = idx + 1
         if active_mask is not None and not self._dynamic_mask:

@@ -6,6 +6,20 @@ from __future__ import annotations
 
 import enum
 
+# --- primitive ids (reference trans.h:27-36 / commu.py:28-35) -----------------
+ALLREDUCE = 0
+REDUCE = 1
+BOARDCAST = 2  # reference spelling, kept for API compat
+BROADCAST = 2
+ALLGATHER = 3
+ALLTOALL = 4
+REDUCESCATTER = 5
+DETECT = 6
+PROFILE = 7
+
+#: entry_point value meaning "skip the detect/profile bootstrap entirely"
+SKIP_BOOTSTRAP = -1
+
 #: default ring staging granularity in bytes (the reference's 4 MB chunk)
 DEFAULT_CHUNK_BYTES = 4 * 1024 * 1024
 
@@ -13,6 +27,13 @@ DEFAULT_CHUNK_BYTES = 4 * 1024 * 1024
 #: ones at a quarter of their size (the reference's chunk heuristic,
 #: commu.py:401-403)
 CHUNK_HEURISTIC_THRESHOLD = 10 * 1024 * 1024
+
+
+#: coordinator defaults (reference proto/rpc_server.py:27-46)
+RELAY_THRESHOLD_S = 0.1
+TIME_SLOT_DURATION_S = 0.005
+FAULT_TOLERANT_TIME_S = 10.0
+COORDINATOR_PORT = 50051
 
 
 class ReduceOp(enum.Enum):

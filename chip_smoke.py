@@ -95,6 +95,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (and K1b's RS+AG for the ring); (c) ``DDPTrainer(sync_mode="schedule")``
    at world 1, 5 steps from phase 5's weights and batch: losses bit for bit
    phase 5's.  The flash kernels' launches are counted over (a) and (c).
+12. slice 9's main path, the façade, the Communicator's bootstrap and the
+   coordinator: (a) ``AdapCC.init`` with ``entry_point=DETECT`` at world 8
+   on the card in a temporary topology directory (detect, the offset-probe
+   profile timed by CUDA events, par-trees synthesis; the probe matrices'
+   ranges and the strategy printed), then ``setup(ALLREDUCE)`` and an AVG
+   ``allreduce`` of phase 11a's eight bf16 gradients with rank 3 a relay:
+   every row identical, bucket 0 bit for bit the same call on a CPU
+   communicator over the same strategy file; (b) ``CoordinatorLogic``
+   (default constants) behind a ``WaitTimeProbe`` with 8 emulated
+   participants, rank 3 slow: its frozen active lists drive the façade
+   allreduce; then a controller barrier with rank 5 silent under a 0.3 s
+   fault timeout gives status 0 and the alive set, and the allreduce goes
+   on over it; (c) ``DDPTrainer(communicator=comm)`` at world 1, 5 steps
+   from phase 5's weights and batch, each step's mask negotiated through
+   the gRPC coordinator (where ``grpc`` imports): losses bit for bit phase
+   5's, the masks and the negotiation round-trips printed.  No TPU kernel is
+   on the façade's or the coordinator's own path; 12c launches the flash
+   kernels ``n_layer × steps`` times each.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -106,29 +124,37 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adapcc_tpu_torch.api import AdapCC
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine, _merged_plan
 from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world
+from adapcc_tpu_torch.communicator import Communicator
+from adapcc_tpu_torch.config import CommArgs
+from adapcc_tpu_torch.coordinator import CoordinatorLogic
 from adapcc_tpu_torch.ddp.bucketing import build_bucket_plan, flatten_to_buckets
 from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
+from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
-from adapcc_tpu_torch.primitives import ReduceOp
+from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import Strategy
 from adapcc_tpu_torch.strategy.xml_io import parse_strategy_xml
+from adapcc_tpu_torch.topology.profile import gather_topo_profile
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
 MAIN = GPT2Config(
@@ -198,6 +224,11 @@ BUCKET_CAP_MB = 100.0
 SCHEDULE_BF16_TOL = 2.0 ** -5
 #: a float32 sum of 4 against float64: 3 adds, each at most 2**-24 of sum |x|
 SCHEDULE_F32_TOL = 4 * 2.0 ** -24
+#: phase 12: the straggler the coordinator demotes, the participant that
+#: goes silent at the controller barrier, and that barrier's fault timeout
+FACADE_SLOW = 3
+FACADE_SILENT = 5
+FACADE_FAULT_TIMEOUT_S = 0.3
 
 
 def nvidia_smi() -> str:
@@ -611,13 +642,16 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     return rec
 
 
-def train(cfg: GPT2Config, world, init_state, tokens, **trainer_kw):
+def train(cfg: GPT2Config, world, init_state, tokens, on_trainer=None, **trainer_kw):
     """``STEPS`` DDPTrainer steps from ``init_state``; returns (losses, step
-    seconds, a function that runs one more step)."""
+    seconds, a function that runs one more step).  ``on_trainer`` is called
+    with the trainer before the first step."""
     model = GPT2(cfg, device=world.device, seed=None).to(torch.bfloat16)
     model.load_state_dict(init_state)
     trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4), world, Strategy.ring(world.world_size),
                          **trainer_kw)
+    if on_trainer is not None:
+        on_trainer(trainer)
     state = TrainState.create(model, trainer.tx)
     losses, seconds = [], []
     for _ in range(STEPS):
@@ -940,10 +974,11 @@ def schedule_gradients(dev: torch.device, init_state, tokens):
     return plan, stacked
 
 
-def schedule_world8(dev: torch.device, init_state, tokens) -> dict:
+def schedule_world8(dev: torch.device, init_state, tokens) -> tuple:
     """Phase 11a: the two-host world-8 strategy averages the bench GPT-2's
     bucketed bf16 gradients with rank 3 a relay, as the hooks of 8
-    processes would."""
+    processes would.  Returns the gradients, ``[8, n_b]`` a bucket, and the
+    dispatches' device ms and bound ms summed over the buckets."""
     plan, buckets = schedule_gradients(dev, init_state, tokens)
     strategy = parse_strategy_xml(SCHEDULE_XML)
     merged = _merged_plan(strategy)
@@ -991,7 +1026,8 @@ def schedule_world8(dev: torch.device, init_state, tokens) -> dict:
         if b == 0:  # where the executor's time goes, op by op
             profile_step("schedule 11a bucket 0", call, times[b]["dispatch"]["ms"])
     torch.cuda.empty_cache()
-    return times
+    bound_ms = sum(2 * b.numel() * b.element_size() for b in buckets) / HBM_BYTES_S * 1e3
+    return buckets, sum(t["dispatch"]["device_ms"] for t in times.values()), bound_ms
 
 
 def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
@@ -1048,6 +1084,151 @@ def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
             if cname == "all_reduce SUM" and sname != "binary(4,2)":
                 profile_step(f"schedule 11b {sname} all_reduce SUM", lambda: fn(eng, grads), t["ms"])
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the façade, the bootstrap and the coordinator (slice 9)
+# --------------------------------------------------------------------------- #
+
+
+def facade_allreduce(label: str, buckets: list, active: list, cpu_comm=None) -> dict:
+    """The façade's AVG allreduce of each ``[8, n]`` bf16 bucket over
+    ``active``, as the hooks of 8 processes would run it: every row
+    identical, each bucket within ``SCHEDULE_BF16_TOL`` of a float64 masked
+    mean, bucket 0 bit for bit ``cpu_comm``'s run when one is given.
+    Returns the events, device time and launches summed over the buckets."""
+    total = {"ms": 0.0, "device_ms": 0.0, "launches": 0}
+    idx = torch.tensor(active, device=buckets[0].device)
+    for b, stacked in enumerate(buckets):
+        def call(x=stacked):
+            return AdapCC.allreduce(x, active_gpus=active, op=ReduceOp.AVG)
+
+        out = call()
+        rows_same = all(same_bits(out[r], out[0]) for r in range(1, out.shape[0]))
+        x = stacked.index_select(0, idx).double()
+        err = (out[0].double() - x.mean(0)).abs()
+        within = bool((err <= SCHEDULE_BF16_TOL * x.abs().mean(0)).all())
+        exact = None
+        if cpu_comm is not None and b == 0:
+            exact = same_bits(out.cpu(), cpu_comm.all_reduce(stacked.cpu(), active_gpus=active, op=ReduceOp.AVG))
+        times = time_dispatch(call)
+        for k in total:
+            total[k] += times[k]
+        print(f"{label} bucket {b}: {stacked.shape[1]} bf16 a rank, active {active}; rows identical "
+              f"{'ok' if rows_same else 'FAIL'}; max |err| vs float64 mean {float(err.max()):.3e} "
+              f"{'ok' if within else 'FAIL'}; bit for bit vs CPU {'-' if exact is None else 'ok' if exact else 'FAIL'}; "
+              f"dispatch {_fmt(times)}", flush=True)
+        if not rows_same or not within or exact is False:
+            raise RuntimeError(f"{label} bucket {b} failed its checks")
+        del out, x, err
+    torch.cuda.empty_cache()
+    return total
+
+
+def facade_bootstrap(buckets: list, workdir: str, ref_ms: float, bound_ms: float) -> None:
+    """Phase 12a: the DETECT bootstrap at world 8 on the card, then the
+    façade's allreduce of phase 11a's gradients on the synthesized
+    strategy, rank 3 a relay, beside phase 11a's ``ref_ms`` and the
+    ``bound_ms`` of the same gradients."""
+    topo = os.path.join(workdir, "12a")
+    args = CommArgs(strategy_file=f"{topo}/strategy.xml", logical_graph=f"{topo}/logical_graph.xml",
+                    topology_dir=topo, entry_point=DETECT, parallel_degree=2)
+    t0 = time.perf_counter()
+    AdapCC.init(args, world_size=SCHEDULE_WORLD)
+    boot_s = time.perf_counter() - t0
+    lat, bw = gather_topo_profile(topo, SCHEDULE_WORLD)
+    off = ~np.eye(SCHEDULE_WORLD, dtype=bool)
+    print(f"facade 12a: DETECT bootstrap at world {SCHEDULE_WORLD} on {AdapCC.communicator.device} in "
+          f"{boot_s:.2f} s; probe latency {lat[off].min() * 1e6:.2f}-{lat[off].max() * 1e6:.2f} us, bandwidth "
+          f"{bw[off].min():.1f}-{bw[off].max():.1f} GB/s (one card: device-memory copies of a [8, n] float32 "
+          f"tensor by row offset, timed by CUDA events, not links)", flush=True)
+    if not (lat[off] > 0).all() or not (bw[off] > 0).all():
+        raise RuntimeError("the profile left an off-diagonal pair unmeasured")
+    with open(args.strategy_file) as f:
+        print(f"facade 12a: synthesized strategy {f.read()}", flush=True)
+    strategy = AdapCC.communicator.strategy
+    print(f"facade 12a: {strategy.synthesis}, {strategy.num_trans} tree(s), chunk_bytes {strategy.chunk_bytes}, "
+          f"merged plan {'yes' if _merged_plan(strategy) is not None else 'no'}", flush=True)
+    AdapCC.setup(ALLREDUCE)
+    cpu_comm = Communicator(CommArgs(strategy_file=args.strategy_file, topology_dir=os.path.join(workdir, "12a-cpu"),
+                                     entry_point=SKIP_BOOTSTRAP), world_size=SCHEDULE_WORLD, device="cpu")
+    cpu_comm.init_threads(ALLREDUCE)
+    total = facade_allreduce("facade 12a", buckets, SCHEDULE_ACTIVE, cpu_comm)
+    print(f"facade 12a: AVG allreduce of the {len(buckets)} buckets (relay 3): events {total['ms']:.4f} ms, "
+          f"device {total['device_ms']:.4f} ms, {total['launches']} launches; phase 11a on 4-4_1.xml "
+          f"{ref_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)", flush=True)
+
+
+def facade_coordinator(buckets: list) -> None:
+    """Phase 12b: the coordinator's decisions drive the façade: rent-or-buy
+    over 8 emulated participants with one straggler, then a controller
+    barrier with one silent participant."""
+    logic = CoordinatorLogic(SCHEDULE_WORLD)
+    probe = WaitTimeProbe(logic)
+    waits = emulate_heterogeneous_steps(probe, SCHEDULE_WORLD, 2, base_compute_s=0.005, heter_alpha=40.0,
+                                        slow_ranks=(FACADE_SLOW,))
+    frozen = [sorted(logic.active_list(step)) for step in range(2)]
+    print(f"facade 12b: rent-or-buy, rank {FACADE_SLOW} slow (x40 of 5 ms): wait times "
+          f"{[round(w * 1e3, 2) for w in waits]} ms, negotiation round-trips (worst rank) "
+          f"{[round(probe.rpc_overhead(s) * 1e3, 2) for s in range(2)]} ms, frozen active lists {frozen}",
+          flush=True)
+    if any(FACADE_SLOW in f or len(f) < 2 for f in frozen):
+        raise RuntimeError(f"the straggler was not demoted: {frozen}")
+    total = facade_allreduce("facade 12b (frozen list)", buckets, frozen[-1])
+    print(f"facade 12b: AVG allreduce over the frozen list: device {total['device_ms']:.4f} ms, "
+          f"{total['launches']} launches", flush=True)
+    barrier = CoordinatorLogic(SCHEDULE_WORLD, fault_timeout=FACADE_FAULT_TIMEOUT_S)
+    reporting = [r for r in range(SCHEDULE_WORLD) if r != FACADE_SILENT]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(reporting)) as pool:
+        answers = list(pool.map(lambda r: barrier.controller_arrive(0, r), reporting))
+    barrier_s = time.perf_counter() - t0
+    alive = sorted(answers[0][0])
+    print(f"facade 12b: controller barrier, rank {FACADE_SILENT} silent, fault timeout {FACADE_FAULT_TIMEOUT_S} s: "
+          f"statuses {sorted({a[1] for a in answers})}, alive {alive}, {barrier_s:.3f} s", flush=True)
+    if any(a[1] != 0 or sorted(a[0]) != reporting for a in answers):
+        raise RuntimeError(f"the controller barrier did not report the alive set: {answers}")
+    total = facade_allreduce("facade 12b (alive set)", buckets, alive)
+    print(f"facade 12b: AVG allreduce over the alive set: device {total['device_ms']:.4f} ms, "
+          f"{total['launches']} launches", flush=True)
+
+
+def negotiated_ddp(init_state, tokens, workdir: str):
+    """Phase 12c: DDP at world 1 with a coordinator-attached Communicator:
+    every step negotiates its mask (over gRPC where ``grpc`` imports).
+    Returns (losses, step seconds, negotiated masks, round-trips)."""
+    world = build_world_mesh(1)
+    topo = os.path.join(workdir, "12c")
+    comm = Communicator(CommArgs(strategy_file=f"{topo}/strategy.xml", logical_graph=f"{topo}/lg.xml",
+                                 topology_dir=topo), world=world)
+    if importlib.util.find_spec("grpc") is not None:
+        comm.enable_coordinator(is_master=True, process_rank=0, num_processes=1, port=0)
+    else:
+        print("grpc: not installed, the gRPC transport not driven on the card", flush=True)
+    masks, trainers = [], []
+
+    def record(trainer):
+        negotiate = trainer.hook.negotiate
+
+        def recorded(step):
+            mask = negotiate(step)
+            masks.append(mask.tolist())
+            return mask
+
+        trainer.hook.negotiate = recorded
+        trainers.append(trainer)
+
+    try:
+        losses, seconds, _ = train(MAIN, world, init_state, tokens, on_trainer=record, communicator=comm)
+        rtts = [dt for _, dt in comm.rpc_latencies]
+        print(f"negotiated 12c: masks {masks}; negotiation round-trips {[round(t * 1e3, 3) for t in rtts]} ms; "
+              f"rent-or-buy calibrated {trainers[0]._coord_calibrated} (one rank: its profile has no link)",
+              flush=True)
+    finally:
+        comm.clear()
+        destroy_world()
+    return losses, seconds, masks, rtts
+
 
 
 # kernel name fragments -> the layer of the step they belong to
@@ -1290,7 +1471,7 @@ def main() -> None:
         w.launches = 0
     s_tokens = torch.from_numpy(
         rng.integers(0, MAIN.vocab_size, size=(SCHEDULE_WORLD * BATCH, MAIN.max_seq))).to(dev)
-    schedule_world8(dev, init_state, s_tokens)
+    s_buckets, s_device_ms, s_bound_ms = schedule_world8(dev, init_state, s_tokens)
     del s_tokens
     grads = gpt2_gradients(dev, init_state, z_tokens)
     schedule_world4(dev, grads)
@@ -1314,6 +1495,29 @@ def main() -> None:
     if any(n != want for n in s_launches.values()):
         raise RuntimeError(f"expected {want} launches of each flash kernel on the schedule path, got {s_launches}")
     ring.check_errors()
+
+    # 12. slice 9's main path: the façade, the bootstrap and the coordinator
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="adapcc_facade_") as workdir:
+        facade_bootstrap(s_buckets, workdir, s_device_ms, s_bound_ms)
+        facade_coordinator(s_buckets)
+        AdapCC.clear(ALLREDUCE)
+        del s_buckets
+        torch.cuda.empty_cache()
+        for w in fa.KERNELS:
+            w.launches = 0
+        n_losses, n_seconds, n_masks, _ = negotiated_ddp(init_state, tokens, workdir)
+    n_launches = {w.__name__: w.launches for w in fa.KERNELS}
+    n_step_s = float(np.mean(n_seconds[1:]))
+    print(f"negotiated 12c (DDP with a coordinator, world 1): losses {n_losses}; bit for bit phase 5's "
+          f"{'ok' if n_losses == losses else 'FAIL'}; launches {n_launches}; step {n_step_s * 1e3:.2f} ms, "
+          f"{BATCH * MAIN.max_seq / n_step_s:.1f} tokens/s; phase 12 {time.perf_counter() - t12:.1f} s", flush=True)
+    if n_losses != losses:
+        raise RuntimeError(f"the negotiated DDP steps differ from phase 5's: {n_losses} vs {losses}")
+    if n_masks != [[True]] * STEPS:
+        raise RuntimeError(f"a sole rank was not active at every step: {n_masks}")
+    if any(n != MAIN.n_layer * STEPS for n in n_launches.values()):
+        raise RuntimeError(f"expected {MAIN.n_layer * STEPS} launches of each flash kernel in 12c, got {n_launches}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [

@@ -33,8 +33,20 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.parallel.fsdp", "adapcc_tpu_torch.models.convert", "adapcc_tpu_torch.ddp.trainer",
     "adapcc_tpu_torch.quant.codec", "adapcc_tpu_torch.quant.ring", "adapcc_tpu_torch.strategy.ir",
     "adapcc_tpu_torch.strategy.xml_io", "adapcc_tpu_torch.comm.relay", "adapcc_tpu_torch.ddp.bucketing",
-    "adapcc_tpu_torch.ddp.hook",
+    "adapcc_tpu_torch.ddp.hook", "adapcc_tpu_torch.api", "adapcc_tpu_torch.communicator",
+    "adapcc_tpu_torch.config", "adapcc_tpu_torch.coordinator.logic", "adapcc_tpu_torch.coordinator.service",
+    "adapcc_tpu_torch.coordinator.protocol.coordinator_pb2", "adapcc_tpu_torch.elastic.worldview",
+    "adapcc_tpu_torch.measure.wait_time", "adapcc_tpu_torch.topology.detect", "adapcc_tpu_torch.topology.profile",
+    "adapcc_tpu_torch.strategy.partrees", "adapcc_tpu_torch.strategy.synthesizer",
 )
+
+_CHECK_NO_GRPC = """
+import sys
+import adapcc_tpu_torch, adapcc_tpu_torch.api, adapcc_tpu_torch.communicator
+import adapcc_tpu_torch.coordinator, adapcc_tpu_torch.measure, adapcc_tpu_torch.ddp.trainer
+from adapcc_tpu_torch.coordinator import CoordinatorLogic
+print("LOADED", sorted(n for n in sys.modules if n.split(".")[0] == "grpc" or n.startswith("google.protobuf")))
+"""
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -46,6 +58,16 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "BAD []" in out.stdout, out.stdout
     for name in _PORT_MODULES:
         assert f"'{name}'" in out.stdout, f"{name} was not imported"
+
+
+def test_port_without_grpc_loads_no_grpc():
+    """The façade, the Communicator and the coordinator's logic import on a
+    machine without grpcio: only the gRPC transport loads it, on first use."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK_NO_GRPC], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 def test_port_calls_no_library_attention():
