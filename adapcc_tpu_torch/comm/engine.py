@@ -15,7 +15,11 @@ The port of :mod:`adapcc_tpu.comm.engine`, in two forms:
     fused ``reduce_fastpath_shard`` / ``broadcast_fastpath_shard``): each
     tree round, or each merged group of rounds, is one
     ``dist.batch_isend_irecv``; a rank with no edge in it posts nothing.
-    These return new tensors, as JAX does.
+    These return new tensors, as JAX does;
+  - the bucket-rolling entry points ``chunked_psum_shard`` and
+    ``chunked_allreduce_shard`` (the overlapped sync's engine half): the
+    payload as independent collectives of at most ``chunk_bytes``, with an
+    ``async_op`` path that returns a :class:`PendingCollective`.
 
 - **stacked**, the JAX engine's single-controller form: the entry points of
   :class:`CollectiveEngine` take a ``[world, ...]`` tensor (row ``r`` = rank
@@ -99,6 +103,17 @@ def _identity_for(op: ReduceOp, dtype: torch.dtype) -> float:
     return 0
 
 
+def _divide(x: torch.Tensor, op: ReduceOp, denom: int) -> torch.Tensor:
+    """AVG's division of a reduced ``x`` by ``denom``: a floating ``x`` in
+    place, an integer sum as a new float32 tensor (JAX's ``s / denom``
+    promotes it)."""
+    if op is not ReduceOp.AVG:
+        return x
+    if x.is_floating_point():
+        return x.div_(denom)
+    return x.to(torch.float32) / denom
+
+
 def _fused_reduce(x: torch.Tensor, op: ReduceOp, denom: int, group=None) -> torch.Tensor:
     """One collective for the op; AVG divides by ``denom`` (the full world on
     the fast path, the active count on the masked path).  A floating ``x``
@@ -106,11 +121,7 @@ def _fused_reduce(x: torch.Tensor, op: ReduceOp, denom: int, group=None) -> torc
     returns the quotient as a new float32 tensor, as JAX's ``s / denom``
     promotes an integer sum."""
     dist.all_reduce(x, op=_DIST_OPS[op], group=group)
-    if op is not ReduceOp.AVG:
-        return x
-    if x.is_floating_point():
-        return x.div_(denom)
-    return x.to(torch.float32) / denom
+    return _divide(x, op, denom)
 
 
 def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM, group=None) -> torch.Tensor:
@@ -476,6 +487,132 @@ def allreduce_shard(
     tensor."""
     mask = _as_mask(active_mask, strategy.world_size)
     return _avg_normalize(_schedule_rank(x, mask, strategy, op, "both", group), mask, op)
+
+
+class PendingCollective:
+    """A collective issued with ``async_op=True``: :meth:`wait` waits for its
+    work handles (on NCCL: makes the current stream wait for them) and
+    returns its result; a second call returns the same tensor."""
+
+    def __init__(self, works: Sequence[Any], finish: Callable[[], torch.Tensor]) -> None:
+        self._works = list(works)
+        self._finish: Optional[Callable[[], torch.Tensor]] = finish
+        self._result: Optional[torch.Tensor] = None
+
+    @classmethod
+    def done(cls, result: torch.Tensor) -> "PendingCollective":
+        return cls((), lambda: result)
+
+    def wait(self) -> torch.Tensor:
+        if self._finish is not None:
+            for work in self._works:
+                work.wait()
+            self._result, self._finish, self._works = self._finish(), None, []
+        return self._result
+
+
+def _chunk_bounds(nelems: int, chunk_elems: int) -> List[Tuple[int, int]]:
+    """Static ``(offset, length)`` split of a flat payload at the chunk
+    granularity; the tail chunk keeps the remainder."""
+    return [(off, min(chunk_elems, nelems - off)) for off in range(0, nelems, chunk_elems)]
+
+
+def _chunk_elems(flat: torch.Tensor, chunk_bytes: Optional[int]) -> int:
+    """Elements a chunk: ``ADAPCC_RING_CHUNK_BYTES`` > ``chunk_bytes`` > the
+    default, over the payload's element size."""
+    return max(1, ring.resolve_chunk_bytes(chunk_bytes) // flat.element_size())
+
+
+def _tree_allreduce_chunk(seg: torch.Tensor, tree: Tree, active: bool, me: int, op: ReduceOp,
+                          group) -> torch.Tensor:
+    """One chunk's allreduce through one tree's rounds (before AVG): the unit
+    the chunked dispatch fans out over.  ``active``: this rank contributes;
+    a relay contributes the op's identity and still forwards."""
+    acc = seg.clone() if active else torch.full_like(seg, _identity_for(op, seg.dtype))
+    return _run_tree_rank(acc, tree, me, op, "both", group)
+
+
+def chunked_allreduce_shard(
+    x: torch.Tensor,
+    active_mask: MaskLike,
+    strategy: Strategy,
+    op: ReduceOp = ReduceOp.SUM,
+    chunk_bytes: Optional[int] = None,
+    group=None,
+    async_op: bool = False,
+) -> Union[torch.Tensor, PendingCollective]:
+    """Bucket-rolling strategy allreduce: the payload as independent
+    collectives of at most ``chunk_bytes`` each (``ADAPCC_RING_CHUNK_BYTES``
+    overrides), the engine half of the per-bucket rolling sync.
+
+    Bitwise contract, as in JAX: the payload is split across the trees by
+    share over the whole payload (``_segment_sizes``) first, and only then
+    chunked within each tree's segment, each chunk through that tree's own
+    rounds; AVG divides once over the concatenation.  Every element rides
+    the tree and the add order of :func:`allreduce_shard`.  A payload of one
+    chunk is :func:`allreduce_shard` itself.  Returns a new tensor, or with
+    ``async_op`` a :class:`PendingCollective`.  A round's adds depend on its
+    receives, so the rounds are issued here in order: on NCCL neither they
+    nor the adds block the host (each wait only orders the current stream),
+    on gloo they have completed when this returns."""
+    flat = x.reshape(-1)
+    if flat.numel() == 0:
+        return PendingCollective.done(x) if async_op else x
+    chunk_elems = _chunk_elems(flat, chunk_bytes)
+    if flat.numel() <= chunk_elems:
+        out = allreduce_shard(x, active_mask, strategy, op, group)
+        return PendingCollective.done(out) if async_op else out
+    me = _shard_setup(x, strategy, group)
+    mask = _as_mask(active_mask, strategy.world_size)
+    active = bool(mask[me])
+    outs: List[torch.Tensor] = []
+    off = 0
+    for tree, size in zip(strategy.trees, _segment_sizes(flat.numel(), strategy.tree_shares())):
+        if size == 0:
+            continue
+        seg = flat[off:off + size]
+        off += size
+        outs.extend(_tree_allreduce_chunk(seg[o:o + n], tree, active, me, op, group)
+                    for o, n in _chunk_bounds(size, chunk_elems))
+    out = _avg_normalize(torch.cat(outs) if len(outs) > 1 else outs[0], mask, op).reshape(x.shape)
+    return PendingCollective.done(out) if async_op else out
+
+
+def chunked_psum_shard(
+    x: torch.Tensor,
+    active_mask: Optional[MaskLike],
+    op: ReduceOp = ReduceOp.SUM,
+    chunk_bytes: Optional[int] = None,
+    world: Optional[int] = None,
+    group=None,
+    async_op: bool = False,
+) -> Union[torch.Tensor, PendingCollective]:
+    """Bucket-rolling flat allreduce, the psum-plane twin of
+    :func:`chunked_allreduce_shard`: one ``all_reduce`` a chunk of at most
+    ``chunk_bytes`` (``ADAPCC_RING_CHUNK_BYTES`` overrides), each issued
+    with ``async_op=True``.  ``active_mask=None`` is the static full world
+    (``world`` is AVG's denominator); a mask gives the chunks
+    :func:`masked_psum_shard`'s semantics.  A sum is elementwise, so the
+    result is the unchunked one bit for bit.
+
+    Reduces in place where ``x`` is contiguous and returns the result (an
+    integer AVG: a new float32 tensor); with ``async_op`` a
+    :class:`PendingCollective` whose ``wait`` does the AVG division."""
+    flat = x.reshape(-1)
+    if flat.numel() == 0:
+        return PendingCollective.done(x) if async_op else x
+    if active_mask is None and world is None:
+        raise ValueError("chunked_psum_shard needs world when active_mask is None")
+    if active_mask is None:
+        denom = world
+    else:
+        mask = _as_mask(active_mask, dist.get_world_size(group))
+        flat = _mask_contribution(flat, mask, dist.get_rank(group), op)
+        denom = _active_count(mask)
+    works = [dist.all_reduce(flat[o:o + n], op=_DIST_OPS[op], group=group, async_op=True)
+             for o, n in _chunk_bounds(flat.numel(), _chunk_elems(flat, chunk_bytes))]
+    pending = PendingCollective(works, lambda: _divide(flat, op, denom).reshape(x.shape))
+    return pending if async_op else pending.wait()
 
 
 def reduce_shard(

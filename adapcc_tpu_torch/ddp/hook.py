@@ -25,9 +25,13 @@ two halves of the JAX hook:
   casts each gradient for the collective and back, ``int8`` replaces each
   contribution with its block-wise ``decode(encode(·))`` value before the
   float32 collective, and :meth:`GradSyncHook.sync_error_feedback` banks
-  each rank's quantization error for the next step.  Overlapped sync and the
-  observability sinks (``trace``, ``metrics``) come in later slices and
-  raise here.
+  each rank's quantization error for the next step.
+
+  ``overlap="bucket"`` (:mod:`adapcc_tpu_torch.ddp.overlap`) buckets the
+  gradients on either plane and issues every bucket as chunked collectives
+  at its chunk size before waiting on any; ``"microbatch"`` is the
+  trainer's schedule and leaves the sync unchanged.  The observability
+  sinks (``trace``, ``metrics``) come in a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 from adapcc_tpu_torch.comm import engine
 from adapcc_tpu_torch.comm.ring import resolve_chunk_bytes
 from adapcc_tpu_torch.ddp.bucketing import BucketPlan, build_bucket_plan, flatten_to_buckets, unflatten_from_buckets
+from adapcc_tpu_torch.ddp.overlap import resolve_overlap_mode, rolling_bucket_sync
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.primitives import not_ported as _not_ported
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, error_feedback_step, get_codec, resolve_wire_dtype
@@ -73,11 +78,17 @@ class GradSyncHook:
         overrides either (:meth:`effective_compress`).  ``error_feedback``
         carries each rank's quantization error into the next step through
         :meth:`sync_error_feedback`; the trainer threads the residual.
+
+        ``overlap`` (``ADAPCC_OVERLAP`` overrides, resolved here):
+        ``"bucket"`` takes the bucketed path on either plane, every bucket
+        as chunked collectives at the plan's per-bucket ``chunk_bytes``
+        (``ADAPCC_RING_CHUNK_BYTES`` overrides), bit for bit the unchunked
+        sync; ``"microbatch"`` is the trainer's schedule and leaves this
+        hook's sync as it is.
         """
         if mode not in ("auto", "psum", "schedule"):
             raise ValueError(f"mode {mode!r} not in auto|psum|schedule")
-        if overlap != "off":
-            raise _not_ported(f"overlap={overlap!r}", "the overlapped-sync slice")
+        self.overlap = resolve_overlap_mode(overlap)
         if trace is not None or metrics is not None:
             raise _not_ported("the bucket plan's trace and metrics sinks (trace=, metrics=)",
                               "the observability slice")
@@ -167,9 +178,34 @@ class GradSyncHook:
             self.recorded_buckets = list(zip(self._plan.bucket_sizes, self._plan.chunk_bytes))
         return self._plan
 
+    def _rolling_sync(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
+                      transposed: Sequence[bool], order: Sequence[int], plane: str) -> List[torch.Tensor]:
+        """The per-bucket rolling sync: every bucket's chunk collectives
+        issued first, then bucket by bucket a wait and the copies of its
+        leaves out, which run beside the later buckets' collectives."""
+        leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
+        plan = self._bucket_plan(leaves)
+        pending = rolling_bucket_sync(flatten_to_buckets(plan, leaves), plan.chunk_bytes, active_mask,
+                                      mode=plane, strategy=self.strategy, op=self.op)
+        members: List[List[Tuple[int, int]]] = [[] for _ in pending]
+        for j, i in enumerate(order):
+            members[plan.leaf_bucket[j]].append((j, i))
+        for b, handle in enumerate(pending):
+            synced, off = handle.wait(), 0
+            for j, i in members[b]:  # a bucket holds its leaves in leaf order
+                shape = plan.leaf_shapes[j]
+                leaf = synced[off:off + grads[i].numel()].view(shape)
+                off += grads[i].numel()
+                grads[i].copy_(leaf.t() if transposed[i] else leaf)
+        return grads
+
     def _sync_impl(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
                    transposed: Sequence[bool], order: Optional[Sequence[int]]) -> List[torch.Tensor]:
-        if self._resolved_mode() == "psum":
+        plane = self._resolved_mode()
+        if self.overlap == "bucket":
+            return self._rolling_sync(grads, active_mask, transposed,
+                                      range(len(grads)) if order is None else order, plane)
+        if plane == "psum":
             if active_mask is None:
                 return [engine.allreduce(g, self.op) for g in grads]
             return [engine.masked_psum_shard(g, active_mask, self.op) for g in grads]
@@ -197,8 +233,9 @@ class GradSyncHook:
         the JAX leaf's layout where ``transposed[i]`` says gradient ``i`` is
         that leaf's transpose.  The schedule plane buckets the gradients as
         the JAX leaves: in ``order`` (indices into ``grads``; None = as
-        given), each in the leaf's layout.  A bucket's dtype is its leaves'
-        promoted dtype; the results are cast back into the gradients.
+        given), each in the leaf's layout; so do ``overlap="bucket"``'s
+        buckets on the psum plane.  A bucket's dtype is its leaves' promoted
+        dtype; the results are cast back into the gradients.
         """
         transposed = transposed or [False] * len(grads)
         codec = self.effective_compress()

@@ -23,6 +23,15 @@ enable_coordinator`) makes every step negotiate its active set (the hook's
 ``negotiate``), and the first step pushes the trainer's gradient volume into
 the coordinator's rent-or-buy cost model.
 
+``accum_steps`` splits each rank's batch into that many microbatches, one
+forward and backward each, their gradients summed in float32 in microbatch
+order and averaged (the JAX trainer's accumulation scan, run in sequence).
+``overlap`` (:mod:`adapcc_tpu_torch.ddp.overlap`; ``ADAPCC_OVERLAP``
+overrides) picks the sync schedule: ``"bucket"`` syncs bucket by bucket in
+chunked collectives, in the JAX package's leaf order and layout on either
+plane; ``"microbatch"`` syncs each microbatch's gradient on a side stream
+while the next microbatch computes.
+
 ``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
 the torch optimizer with optax's defaults.
@@ -38,6 +47,7 @@ from torch import nn
 
 from adapcc_tpu_torch.comm.mesh import World
 from adapcc_tpu_torch.ddp.hook import GradSyncHook, _not_ported
+from adapcc_tpu_torch.ddp.overlap import microbatch_pipelined_sync, resolve_overlap_mode
 from adapcc_tpu_torch.models.convert import flax_paths
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.strategy.ir import Strategy
@@ -109,8 +119,33 @@ class DDPTrainer:
                 "error_feedback=True requires BSP mode: the async relay bank already defers "
                 "gradient mass, and the quantization residual on top would carry it twice"
             )
-        if accum_steps > 1:
-            raise _not_ported("gradient accumulation (accum_steps > 1)", "the overlapped-sync slice")
+        self.accum_steps = accum_steps
+        self.overlap = resolve_overlap_mode(overlap)
+        if self.overlap == "microbatch":
+            # guard rails of the pipelined accumulation: each combination
+            # below would silently change what a step computes
+            if accum_steps < 2:
+                raise ValueError(
+                    "overlap='microbatch' needs accum_steps >= 2: with one microbatch there is no "
+                    "later compute to hide the sync behind (use overlap='bucket')"
+                )
+            if not bsp:
+                raise ValueError(
+                    "overlap='microbatch' requires BSP mode: the async relay's deferred bank folds "
+                    "into ONE sync per step, which the per-microbatch pipeline would re-sync accum times"
+                )
+            if error_feedback:
+                raise ValueError(
+                    "overlap='microbatch' with error_feedback=True would apply the codec (and bank "
+                    "its residual) per microbatch delta — a different quantization loop than the one "
+                    "the residual compensates; use overlap='bucket' (residual threads unchanged) or "
+                    "drop error_feedback"
+                )
+            if measure_gns:
+                raise ValueError(
+                    "overlap='microbatch' never materializes the unsynced accumulated gradient the "
+                    "GNS estimator contrasts; use overlap='bucket' or drop measure_gns"
+                )
         if zero1:
             raise _not_ported(
                 "ZeRO-1 optimizer sharding in DDPTrainer (one process per card)",
@@ -138,7 +173,7 @@ class DDPTrainer:
             mode=sync_mode,
             compress=grad_compress,
             error_feedback=error_feedback,
-            overlap=overlap,
+            overlap=self.overlap,
         )
         if error_feedback and self.hook.effective_compress() == "off":
             # the residual of a no-op codec is zero, but the bank would still
@@ -161,6 +196,12 @@ class DDPTrainer:
             )
         self._coord_calibrated = False
         self._host_step = 0
+        # the overlap schedules this trainer can run (the tuner's ddp_step
+        # grid is narrowed to these)
+        modes = ["off", "bucket"]
+        if accum_steps >= 2 and bsp and not error_feedback and not measure_gns:
+            modes.append("microbatch")
+        self._overlap_modes = tuple(modes)
 
     @staticmethod
     def _transposed(model: nn.Module) -> List[bool]:
@@ -191,17 +232,92 @@ class DDPTrainer:
             grads.append(p.grad)
         return grads
 
+    def _sync_layout(self, model: nn.Module) -> Tuple[Optional[List[int]], Optional[List[bool]]]:
+        """``(order, transposed)`` for the hook: the flax leaf order and
+        layout wherever the sync buckets (the schedule plane, or
+        ``overlap="bucket"`` on either plane), else the layout the codec's
+        blocks follow (None without a codec)."""
+        if self.hook._resolved_mode() == "schedule" or self.hook.overlap == "bucket":
+            return self._flax_layout(model)
+        return None, None if self.hook.effective_compress() == "off" else self._transposed(model)
+
+    def _to_microbatches(self, batch: Any) -> List[Any]:
+        """The ``accum_steps`` microbatches of ``batch``: each ``[B, ...]``
+        tensor (alone or in a tuple, list or dict) split into ``B/accum``-row
+        slices, in order."""
+        accum = self.accum_steps
+
+        def split(x: Any) -> List[Any]:
+            if isinstance(x, dict):
+                parts = {k: split(v) for k, v in x.items()}
+                return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
+            if isinstance(x, (tuple, list)):
+                parts = [split(v) for v in x]
+                return [type(x)(p[i] for p in parts) for i in range(accum)]
+            b = x.shape[0]
+            if b % accum:
+                raise ValueError(f"per-rank batch {b} not divisible by accum_steps {accum}")
+            return list(x.reshape((accum, b // accum) + tuple(x.shape[1:])))
+
+        return split(batch)
+
+    def _delta(self, model: nn.Module, mb: Any) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """One microbatch's ``(loss, gradients)``, the gradients detached
+        from the parameters so the next backward writes new tensors."""
+        model.zero_grad(set_to_none=True)
+        loss = self.loss_fn(model, mb)
+        loss.backward()
+        grads = self._grads(model)
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    def _value_and_grad(self, model: nn.Module, batch: Any) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """This rank's loss and gradients (in each ``p.grad``), accumulated
+        over ``accum_steps`` microbatches when above 1: gradients summed in
+        float32 in microbatch order from zeros, divided by ``accum`` and cast
+        to each parameter's dtype; the loss the float32 sum over ``accum``
+        (the JAX trainer's scan, in sequence)."""
+        accum = self.accum_steps
+        if accum == 1:
+            model.zero_grad(set_to_none=True)
+            loss = self.loss_fn(model, batch)
+            loss.backward()
+            return loss.detach(), self._grads(model)
+        params = list(model.parameters())
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        for mb in self._to_microbatches(batch):
+            loss, grads = self._delta(model, mb)
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            loss_sum = loss_sum + loss.to(torch.float32)
+        for p, a in zip(params, acc):
+            p.grad = (a / accum).to(p.dtype)
+        return loss_sum / accum, [p.grad for p in params]
+
+    def _loss_and_synced(self, model: nn.Module, batch: Any, active_mask, order, transposed
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """This rank's loss and synced gradients (left in each ``p.grad``)
+        on the plain sync paths: accumulate, then sync; or under
+        ``overlap="microbatch"`` the pipelined accumulation."""
+        if self.overlap != "microbatch":
+            loss, grads = self._value_and_grad(model, batch)
+            return loss, self.hook.sync(grads, active_mask, transposed, order)
+        loss, synced = microbatch_pipelined_sync(
+            lambda mb: self._delta(model, mb),
+            self._to_microbatches(batch),
+            lambda g: self.hook.sync(g, active_mask, transposed, order),
+            self.accum_steps,
+        )
+        for p, g in zip(model.parameters(), synced):
+            p.grad = g
+        return loss, synced
+
     def _step(self, state: TrainState, batch: Any, active_mask) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(state.model, batch)
-        loss.backward()
-        grads = self._grads(state.model)
-        order = None
-        if self.hook._resolved_mode() == "schedule":
-            order, transposed = self._flax_layout(state.model)
-        else:
-            transposed = None if self.hook.effective_compress() == "off" else self._transposed(state.model)
+        order, transposed = self._sync_layout(state.model)
         if self.error_feedback:
+            loss, grads = self._value_and_grad(state.model, batch)
             if self._residual is None:
                 # float32 whatever the parameter dtype: a narrow bank would
                 # lose the very mass it defers
@@ -209,10 +325,10 @@ class DDPTrainer:
             _, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed,
                                                               order)
         else:
-            self.hook.sync(grads, active_mask, transposed, order)
+            loss, _ = self._loss_and_synced(state.model, batch, active_mask, order, transposed)
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return loss
 
     def step(
         self,

@@ -113,6 +113,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    5's, the masks and the negotiation round-trips printed.  No TPU kernel is
    on the façade's or the coordinator's own path; 12c launches the flash
    kernels ``n_layer × steps`` times each.
+13. slice 10's main path, gradient accumulation, the overlapped syncs,
+   ZeRO-1 without the ring and checkpoints, from phase 5's weights and
+   batches, 5 steps each: (a) ``DDPTrainer(accum_steps=4)`` at world 1 (4
+   rows a microbatch): losses finite, falling and within ``LOSS_ATOL`` of
+   phase 5's, each flash kernel ``n_layer × 4 × 5`` times, step time, a
+   profile of one more step, and the device time of the float32
+   accumulation against its bound; (b) the same with
+   ``overlap="microbatch"``: losses bit for bit (a)'s (or, failing that,
+   within the JAX package's bound, and said so), and from a profiler trace
+   of one step the device records on each stream but the compute stream,
+   with the share of their time beside compute-stream records; (c)
+   ``overlap="bucket"`` without accumulation, on the psum plane and with
+   ``sync_mode="schedule"``: losses bit for bit phase 5's and 11c's, the
+   chunk collectives a step (counted) equal to the bucket plan's; (d) ZeRO-1
+   with ``ring=False`` (JAX's default layout) at world 4, overlap off and
+   ``"bucket"``: bit for bit each other, within ``ZERO1_LAYOUT_LOSS_ATOL``
+   of phase 7's ring losses, no ring kernel launched; (e) ZeRO-1 on the
+   ring: 2 steps, ``CheckpointManager.save``, a fresh model and optimizer
+   restored from it on the card, 3 more steps: losses bit for bit phase 7's;
+   the checkpoint refused by a non-ring optimizer, and (d)'s non-ring state
+   by a ring one; save and restore seconds and bytes.  Phase 13's flash and
+   K1b launches are counted into the kernels line.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -137,6 +159,8 @@ import torch
 import torch.nn.functional as F
 
 from adapcc_tpu_torch.api import AdapCC
+from adapcc_tpu_torch.checkpoint import CheckpointManager, TrainCheckpointState
+from adapcc_tpu_torch.comm import engine as comm_engine
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine, _merged_plan
 from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world
@@ -229,6 +253,19 @@ SCHEDULE_F32_TOL = 4 * 2.0 ** -24
 FACADE_SLOW = 3
 FACADE_SILENT = 5
 FACADE_FAULT_TIMEOUT_S = 0.3
+#: phase 13: microbatches a step (BATCH / ACCUM rows each)
+ACCUM = 4
+#: the JAX package's bound on the microbatch pipeline's reordered float32
+#: adds (tests/test_overlap.py), for where the bits do not hold
+MICROBATCH_RTOL = 2e-5
+MICROBATCH_ATOL = 1e-6
+#: ZeRO-1 without the ring against phase 7's ring losses: the same function,
+#: but the 4 contributions of each gradient element are added in another
+#: order (a float32 rounding or two), which Adam can magnify to about lr in
+#: an element whose gradient nearly cancels, and which then moves a bf16
+#: parameter by a rounding or not; over 5 steps that moves the loss (about
+#: 9.7) far less than 1e-2
+ZERO1_LAYOUT_LOSS_ATOL = 1e-2
 
 
 def nvidia_smi() -> str:
@@ -663,22 +700,31 @@ def train(cfg: GPT2Config, world, init_state, tokens, on_trainer=None, **trainer
     return losses, seconds, lambda: trainer.step(state, tokens)
 
 
-def train_zero1(dev: torch.device, init_state, tokens, wire_dtype=None):
-    """``STEPS`` ZeRO-1 ring steps at ``ZERO1_WORLD`` from ``init_state``;
-    returns (per-step ``[world]`` losses, step seconds, one more step)."""
+def zero1_run(dev: torch.device, init_state, tokens, steps: int = STEPS, **opt_kw):
+    """``steps`` ZeRO-1 steps at ``ZERO1_WORLD`` from ``init_state`` with
+    ``Zero1Optimizer(**opt_kw)``; returns (per-step ``[world]`` losses, step
+    seconds, (model, opt, master, opt_state, step))."""
     model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
     model.load_state_dict(init_state)
-    opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD, wire_dtype=wire_dtype)
+    opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD, **opt_kw)
     master, opt_state = opt.init(model)
     step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
     losses, seconds = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, _, _, loss = step(model, master, opt_state, tokens)
         losses.append(loss.tolist())  # waits for the step
         seconds.append(time.perf_counter() - t0)
     ring.check_errors()
+    return losses, seconds, (model, opt, master, opt_state, step)
+
+
+def train_zero1(dev: torch.device, init_state, tokens, wire_dtype=None):
+    """``STEPS`` ZeRO-1 ring steps at ``ZERO1_WORLD`` from ``init_state``;
+    returns (per-step ``[world]`` losses, step seconds, one more step)."""
+    losses, seconds, (model, _, master, opt_state, step) = zero1_run(
+        dev, init_state, tokens, ring=True, wire_dtype=wire_dtype)
     return losses, seconds, lambda: step(model, master, opt_state, tokens)
 
 
@@ -1231,6 +1277,313 @@ def negotiated_ddp(init_state, tokens, workdir: str):
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: accumulation, the overlapped syncs, ZeRO-1 without the ring and
+# checkpoints (slice 10)
+# --------------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def counted(owner, name: str):
+    """Count the calls of ``owner.name`` while the block runs (a step's
+    chunk dispatches); yields the list of calls."""
+    calls = []
+    inner = getattr(owner, name)
+
+    def counting(*args, **kwargs):
+        calls.append(name)
+        return inner(*args, **kwargs)
+
+    setattr(owner, name, counting)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, inner)
+
+
+def refused(fn, match: str) -> str:
+    """The message of the ``ValueError`` that ``fn`` must raise."""
+    try:
+        fn()
+    except ValueError as e:
+        if match not in str(e):
+            raise RuntimeError(f"refused for another reason than {match!r}: {e}") from e
+        return str(e)
+    raise RuntimeError(f"not refused (expected {match!r})")
+
+
+def accumulation_ms(dev: torch.device, init_state) -> dict:
+    """Device time of the trainer's float32 accumulation on the main GPT-2:
+    one microbatch's adds (each parameter's gradient into its float32
+    accumulator; the bf16 parameters stand in for gradients of their shapes)
+    and the final divide and cast, each beside its bytes' bound (an add
+    reads 4 + 2 and writes 4 bytes an element; divide and cast read 4 and
+    write 2)."""
+    model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    params = [p.detach() for p in model.parameters()]
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    n = sum(p.numel() for p in params)
+    add_ms, add_launches = device_stats(lambda: [a.add_(g) for a, g in zip(acc, params)], iters=10)
+    fin_ms, fin_launches = device_stats(lambda: [(a / ACCUM).to(p.dtype) for a, p in zip(acc, params)], iters=10)
+    return {"params": n, "add_ms": add_ms, "add_launches": add_launches, "add_bound_ms": n * 10 / HBM_BYTES_S * 1e3,
+            "final_ms": fin_ms, "final_launches": fin_launches, "final_bound_ms": n * 6 / HBM_BYTES_S * 1e3}
+
+
+def stream_overlap(label: str, step) -> dict:
+    """One profiled step's device records by stream, from the profiler's
+    trace: for each stream but the compute stream (the one the flash forward
+    runs on) the records, their device time, and how much of it overlaps
+    records on the compute stream.  Returns ``{stream: (records, µs,
+    overlapped µs)}``."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="adapcc_trace_") as workdir:
+        path = os.path.join(workdir, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    records = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    streams: dict = {}
+    for e in records:
+        streams.setdefault(e.get("args", {}).get("stream"), []).append(e)
+    compute = next((sid for sid, evs in streams.items() if any("flash_fwd" in e["name"] for e in evs)), None)
+    if compute is None:
+        print(f"streams ({label}): no flash forward record in the trace (not measured)", flush=True)
+        return {}
+    busy = []  # the compute stream's records, merged into disjoint intervals
+    for e in sorted(streams[compute], key=lambda e: e["ts"]):
+        start, end = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if busy and start <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], end)
+        else:
+            busy.append([start, end])
+    starts = [b[0] for b in busy]
+
+    def covered(start: float, end: float) -> float:
+        i, total = max(bisect.bisect_right(starts, start) - 1, 0), 0.0
+        while i < len(busy) and busy[i][0] < end:
+            total += max(0.0, min(end, busy[i][1]) - max(start, busy[i][0]))
+            i += 1
+        return total
+
+    out = {}
+    print(f"streams ({label}): compute stream {compute}: {len(streams[compute])} records, "
+          f"{sum(float(e['dur']) for e in streams[compute]):.1f} us", flush=True)
+    for sid, evs in streams.items():
+        if sid == compute:
+            continue
+        total = sum(float(e["dur"]) for e in evs)
+        overlapped = sum(covered(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in evs)
+        names: dict = {}
+        for e in evs:
+            names[e["name"][:60]] = names.get(e["name"][:60], 0) + 1
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:3]
+        print(f"streams ({label}): stream {sid}: {len(evs)} records, {total:.1f} us, {overlapped:.1f} us "
+              f"({100 * overlapped / max(total, 1e-9):.1f}%) beside compute-stream records; most: {top}", flush=True)
+        out[sid] = (len(evs), total, overlapped)
+    return out
+
+
+def slice10(dev: torch.device, init_state, tokens, z_tokens, losses, z_losses, c_losses_11) -> dict:
+    """Phase 13, slice 10's main path (the module docstring): from phase
+    5's weights, ``tokens`` (DDP) and ``z_tokens`` (ZeRO-1), held against
+    phase 5's ``losses``, phase 7's ``z_losses`` and phase 11c's
+    ``c_losses_11``.  Returns the flash and K1b launches of its runs."""
+    z_tokens_step = ZERO1_WORLD * BATCH * MAIN.max_seq
+    t13 = time.perf_counter()
+    p13 = dict.fromkeys((*(w.__name__ for w in fa.KERNELS), "ring_k1b"), 0)
+
+    def reset() -> None:
+        for w in (*fa.KERNELS, *ring.KERNELS):
+            w.launches = 0
+            getattr(w, "phases", {}).clear()
+
+    def tally(ws=fa.KERNELS) -> dict:
+        """The launches of the run just made, added to phase 13's count;
+        the counts set to 0 for the next (profiled and timed extra calls
+        are read by neither)."""
+        got = {w.__name__: w.launches for w in ws}
+        for k, v in got.items():
+            p13[k] += v
+        reset()
+        return got
+
+    reset()
+    # (a) DDP with 4 microbatches a step
+    world = build_world_mesh(1)
+    a_losses, a_seconds, a_more = train(MAIN, world, init_state, tokens, accum_steps=ACCUM)
+    a_launches = tally()
+    a_gap = max(abs(a - b) for a, b in zip(a_losses, losses))
+    a_step_s = float(np.mean(a_seconds[1:]))
+    print(f"accum 13a (DDP, accum_steps={ACCUM}, world 1): losses {a_losses}; max gap to phase 5 {a_gap:.3e} "
+          f"(tolerance {LOSS_ATOL}); launches {a_launches}; step {a_step_s * 1e3:.2f} ms, "
+          f"{BATCH * MAIN.max_seq / a_step_s:.1f} tokens/s (every step {[round(t * 1e3, 2) for t in a_seconds]} ms)",
+          flush=True)
+    want = MAIN.n_layer * ACCUM * STEPS
+    if any(n != want for n in a_launches.values()):
+        raise RuntimeError(f"expected {want} launches of each flash kernel in 13a, got {a_launches}")
+    if not all(np.isfinite(a_losses)) or not a_losses[-1] < a_losses[0] or not a_gap <= LOSS_ATOL:
+        raise RuntimeError(f"13a losses not finite, falling and within {LOSS_ATOL} of phase 5's: {a_losses}")
+    profile_step("ddp accum 4", a_more, a_step_s * 1e3)
+    del a_more
+    reset()
+    acc = accumulation_ms(dev, init_state)
+    print(f"accum 13a: float32 accumulation of {acc['params']} parameters, one microbatch: device "
+          f"{acc['add_ms']:.4f} ms ({acc['add_launches']} launches; bound {acc['add_bound_ms']:.4f} ms); divide "
+          f"and cast {acc['final_ms']:.4f} ms ({acc['final_launches']}; bound {acc['final_bound_ms']:.4f}); a step "
+          f"{ACCUM * acc['add_ms'] + acc['final_ms']:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    # (b) the same with each microbatch's sync on a side stream
+    b_losses, b_seconds, b_more = train(MAIN, world, init_state, tokens, accum_steps=ACCUM, overlap="microbatch")
+    b_launches = tally()
+    b_bits = b_losses == a_losses
+    b_close = all(abs(b - a) <= MICROBATCH_ATOL + MICROBATCH_RTOL * abs(a) for a, b in zip(a_losses, b_losses))
+    b_step_s = float(np.mean(b_seconds[1:]))
+    print(f"accum 13b (overlap='microbatch'): losses {b_losses}; bit for bit 13a's {'ok' if b_bits else 'NO'}"
+          f"{'' if b_bits else f', within rtol {MICROBATCH_RTOL} / atol {MICROBATCH_ATOL} ' + ('ok' if b_close else 'FAIL')}"
+          f"; launches {b_launches}; step {b_step_s * 1e3:.2f} ms, {BATCH * MAIN.max_seq / b_step_s:.1f} tokens/s "
+          f"(every step {[round(t * 1e3, 2) for t in b_seconds]} ms)", flush=True)
+    if not (b_bits or b_close) or any(n != want for n in b_launches.values()):
+        raise RuntimeError(f"13b disagrees with 13a or launched the flash kernels otherwise: {b_launches}")
+    profile_step("ddp accum 4 microbatch", b_more, b_step_s * 1e3)
+    side = stream_overlap("accum 13b", b_more)
+    del b_more
+    reset()
+    if not any(n for n, _, _ in side.values()):
+        raise RuntimeError("13b ran no device work beside the compute stream: the syncs did not leave it")
+    destroy_world()
+    torch.cuda.empty_cache()
+    # (c) bucket-rolling sync, on the psum plane and on the schedule plane
+    world = build_world_mesh(1)
+    hooks = []
+    with counted(torch.distributed, "all_reduce") as calls:
+        c_losses, c_seconds, c_more = train(MAIN, world, init_state, tokens, overlap="bucket",
+                                            on_trainer=lambda t: hooks.append(t.hook))
+    plan = hooks[0].recorded_buckets
+    chunks = [-(-size // max(1, cb // 2)) for size, cb in plan]  # bf16 buckets
+    from_plan = sum(chunks)
+    c_step_s = float(np.mean(c_seconds[1:]))
+    print(f"bucket 13c (psum plane): losses {c_losses}; bit for bit phase 5's {'ok' if c_losses == losses else 'FAIL'}; "
+          f"{len(plan)} buckets of {[round(size * 2 / 2**20, 1) for size, _ in plan]} MiB at "
+          f"{sorted({cb for _, cb in plan})} B chunks; {len(calls) / STEPS:.1f} chunk all_reduces a step "
+          f"({from_plan} from the plan); step {c_step_s * 1e3:.2f} ms", flush=True)
+    if c_losses != losses or len(calls) != from_plan * STEPS:
+        raise RuntimeError(f"13c: losses {c_losses} vs {losses}, {len(calls)} chunk collectives")
+    c_launches = tally()
+    profile_step("ddp bucket psum", c_more, c_step_s * 1e3)
+    del c_more
+    reset()
+    with counted(comm_engine, "_tree_allreduce_chunk") as calls:
+        cs_losses, cs_seconds, _ = train(MAIN, world, init_state, tokens, overlap="bucket", sync_mode="schedule")
+    cs_step_s = float(np.mean(cs_seconds[1:]))
+    print(f"bucket 13c (schedule plane): losses {cs_losses}; bit for bit phase 11c's "
+          f"{'ok' if cs_losses == c_losses_11 else 'FAIL'}; {len(calls) / STEPS:.1f} tree chunks a step; step "
+          f"{cs_step_s * 1e3:.2f} ms", flush=True)
+    if cs_losses != c_losses_11 or len(calls) != sum(n for n in chunks if n > 1) * STEPS:
+        raise RuntimeError(f"13c schedule plane: losses {cs_losses} vs {c_losses_11}, {len(calls)} tree chunks")
+    cs_launches = tally()
+    if any(n != MAIN.n_layer * STEPS for n in (*c_launches.values(), *cs_launches.values())):
+        raise RuntimeError(f"expected {MAIN.n_layer * STEPS} launches of each flash kernel in each 13c run: "
+                           f"{c_launches}, {cs_launches}")
+    destroy_world()
+    torch.cuda.empty_cache()
+    # (d) ZeRO-1 without the ring (JAX's default layout), unchunked and in
+    # chunks
+    d_runs = {}
+    for mode in ("off", "bucket"):
+        d_losses, d_seconds, d_more = zero1_run(dev, init_state, z_tokens, ring=False, overlap=mode)
+        _, d_opt, d_master, d_opt_state, _ = d_more
+        d_runs[mode] = (d_losses, float(np.mean(d_seconds[1:])), d_opt.overlap_chunks(), d_master.shape)
+        d_k = {w.__name__: w.launches for w in ring.KERNELS}
+        d_launches = tally()
+        if mode == "off":
+            d_ckpt = TrainCheckpointState(None, (d_master, d_opt_state.state_dict()), extra=d_opt.checkpoint_extra())
+        if any(d_k.values()) or any(n != MAIN.n_layer * ZERO1_WORLD * STEPS for n in d_launches.values()):
+            raise RuntimeError(f"13d {mode}: ring launches {d_k}, flash launches {d_launches}")
+        d_model, d_step = d_more[0], d_more[4]
+        profile_step(f"zero1 no ring {mode}", lambda: d_step(d_model, d_master, d_opt_state, z_tokens),
+                     d_runs[mode][1] * 1e3, forbid=("aten::constant_pad_nd",))
+        reset()
+        del d_master, d_opt_state, d_model, d_step, d_more
+        torch.cuda.empty_cache()
+    (d0, d0_s, c0, shape), (d1, d1_s, c1, _) = d_runs["off"], d_runs["bucket"]
+    d_gap = float(np.abs(np.array(d0) - np.array(z_losses)).max())
+    print(f"zero1 13d (ring=False, world {ZERO1_WORLD}): master {tuple(shape)} float32 "
+          f"({shape[1] * 4 / 2**20:.1f} MiB a rank), {c1} chunks under 'bucket'; losses off {d0}; bucket bit for bit "
+          f"{'ok' if d1 == d0 else 'FAIL'}; max gap to phase 7's ring {d_gap:.3e} (tolerance {ZERO1_LAYOUT_LOSS_ATOL}); "
+          f"no ring launch; step off {d0_s * 1e3:.2f} ms, bucket {d1_s * 1e3:.2f} ms, "
+          f"{z_tokens_step / d0_s:.1f} / {z_tokens_step / d1_s:.1f} tokens/s global", flush=True)
+    if d1 != d0 or c0 != 1 or c1 < 2 or not d_gap <= ZERO1_LAYOUT_LOSS_ATOL:
+        raise RuntimeError("13d: the chunked path differs from the unchunked one, or left phase 7's losses")
+    # (e) ZeRO-1 on the ring, 2 steps, a checkpoint, a fresh model and
+    # optimizer restored from it, 3 more steps
+    e_losses, _, (model, opt, master, opt_state, _) = zero1_run(dev, init_state, z_tokens, steps=2, ring=True)
+    with tempfile.TemporaryDirectory(prefix="adapcc_ckpt_") as workdir:
+        mgr = CheckpointManager(workdir, max_to_keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(2, TrainCheckpointState(model.state_dict(), (master, opt_state.state_dict()), step=2,
+                                         extra=opt.checkpoint_extra()))
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(workdir, "2", "state.ckpt"))
+        del model, opt, master, opt_state
+        torch.cuda.empty_cache()
+        model = GPT2(MAIN, device=dev, seed=SEED + 1).to(torch.bfloat16)
+        opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD, ring=True)
+        blank, blank_state = opt.init(model)
+        ckpt = TrainCheckpointState(model.state_dict(), (blank, blank_state.state_dict()), extra=opt.checkpoint_extra())
+        del blank, blank_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not mgr.restore(ckpt):
+            raise RuntimeError("13e: no checkpoint to restore")
+        model.load_state_dict(ckpt.params)
+        master, opt_state = opt.restore(ckpt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        moments = [t for t in opt_state.state[master].values() if t.is_floating_point() and t.dim()]
+        if not (master.is_cuda and all(t.is_cuda for t in (*ckpt.params.values(), *moments))):
+            raise RuntimeError("13e: the restored state is not on the card")
+        step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
+        for _ in range(STEPS - 2):
+            e_losses.append(step(model, master, opt_state, z_tokens)[3].tolist())
+        ring.check_errors()
+        # the layout guard: this ring checkpoint into JAX's default layout,
+        # and 13d's non-ring state into this ring optimizer
+        plain = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD)
+        guards = [
+            refused(lambda: plain.restore(ckpt), "layout mismatch"),
+            refused(lambda: mgr.restore(TrainCheckpointState(None, (master, {}), extra=plain.checkpoint_extra())),
+                    "checkpoint layout mismatch"),
+            refused(lambda: opt.restore(d_ckpt), "layout mismatch"),
+            refused(lambda: TrainCheckpointState(None, (master, {}), extra=opt.checkpoint_extra()).apply_snapshot(
+                d_ckpt.capture_snapshot()), "checkpoint layout mismatch"),
+        ]
+    del d_ckpt
+    e_k1b = dict(ring.ring_k1b.phases)
+    e_launches = tally((*fa.KERNELS, ring.ring_k1b))
+    print(f"checkpoint 13e (ZeRO-1 ring): losses {e_losses}; bit for bit phase 7's "
+          f"{'ok' if e_losses == z_losses else 'FAIL'}; save {save_s:.3f} s, restore {restore_s:.3f} s, "
+          f"{nbytes} bytes ({nbytes / 2**30:.2f} GiB, {nbytes / 2**30 / save_s:.2f} / "
+          f"{nbytes / 2**30 / restore_s:.2f} GiB/s); launches {e_launches}, ring_k1b by phase {e_k1b}", flush=True)
+    for msg in guards:
+        print(f"checkpoint 13e: refused: {msg[:110]}", flush=True)
+    if e_losses != z_losses or e_k1b != {"rs": STEPS, "ag": STEPS}:
+        raise RuntimeError(f"13e: the resumed run differs from phase 7's: {e_losses} vs {z_losses}, K1b {e_k1b}")
+    if any(e_launches[w.__name__] != MAIN.n_layer * ZERO1_WORLD * STEPS for w in fa.KERNELS):
+        raise RuntimeError(f"13e launched the flash kernels otherwise: {e_launches}")
+    del model, opt, master, opt_state, step, ckpt
+    torch.cuda.empty_cache()
+    print(f"phase 13 launches: {p13}; phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
+    return p13
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -1241,11 +1594,11 @@ _LAYERS = (
 )
 
 
-def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
+def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> tuple:
     """Device time of one more training step, by kernel and by layer; the
     device's busy share is that time over ``step_ms``, the unprofiled step.
     Fails if the step ran any of the host ops ``forbid`` names, whatever
-    device records the profiler kept."""
+    device records the profiler kept.  Returns (device ms, launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1266,7 +1619,7 @@ def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0:
         print(f"profile ({label}): the profiler recorded no device time (not measured)")
-        return
+        return 0.0, 0
     by_layer = {}
     for e in kernels:
         layer = next((n for n, keys in _LAYERS if any(k in e.key.lower() for k in keys)), "other")
@@ -1281,6 +1634,9 @@ def profile_step(label: str, step, step_ms: float, forbid: tuple = ()) -> None:
         print(f"profile ({label}): kernel {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"profile ({label}): host op {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:80]}")
+    launches = sum(e.count for e in kernels)
+    print(f"profile ({label}): {launches} device launches (kernels, copies, fills) in the step")
+    return total_ms, launches
 
 
 def build_all() -> None:
@@ -1489,6 +1845,7 @@ def main() -> None:
           f"{BATCH * MAIN.max_seq / c_step_s:.1f} tokens/s", flush=True)
     if c_losses != losses:
         raise RuntimeError(f"the schedule-plane DDP steps differ from phase 5's: {c_losses} vs {losses}")
+    c_losses_11 = c_losses
     want = MAIN.n_layer * (SCHEDULE_WORLD + ZERO1_WORLD + STEPS)
     print(f"schedule path launches (11a-c): {s_launches} (each flash kernel {want}: 8 + 4 gradients and 5 steps "
           f"of {MAIN.n_layer} layers); phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
@@ -1518,6 +1875,11 @@ def main() -> None:
         raise RuntimeError(f"a sole rank was not active at every step: {n_masks}")
     if any(n != MAIN.n_layer * STEPS for n in n_launches.values()):
         raise RuntimeError(f"expected {MAIN.n_layer * STEPS} launches of each flash kernel in 12c, got {n_launches}")
+
+    # 13. slice 10's main path: accumulation, the overlapped syncs, ZeRO-1
+    # without the ring, and checkpoints
+    for kname, n in slice10(dev, init_state, tokens, z_tokens, losses, z_losses, c_losses_11).items():
+        launches[kname] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [

@@ -38,6 +38,7 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.coordinator.protocol.coordinator_pb2", "adapcc_tpu_torch.elastic.worldview",
     "adapcc_tpu_torch.measure.wait_time", "adapcc_tpu_torch.topology.detect", "adapcc_tpu_torch.topology.profile",
     "adapcc_tpu_torch.strategy.partrees", "adapcc_tpu_torch.strategy.synthesizer",
+    "adapcc_tpu_torch.ddp.overlap", "adapcc_tpu_torch.checkpoint",
 )
 
 _CHECK_NO_GRPC = """

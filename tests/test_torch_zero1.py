@@ -31,7 +31,6 @@ from adapcc_tpu_torch.parallel.fsdp import (
     _flatten,
     _flatten_meta,
     _unflatten,
-    zero1_apply_shard,
     zero1_train_step,
 )
 from test_torch_ddp import LOSS_ATOL, LR, STEPS, TINY, _assert_params_close, _flax_params, _tokens
@@ -85,7 +84,7 @@ def runs():
     jax_run = _jax_zero1(params, tokens)
 
     model = _model(flax_to_state_dict(params))
-    opt = Zero1Optimizer(adamw(LR), WORLD)
+    opt = Zero1Optimizer(adamw(LR), WORLD, ring=True)
     master, opt_state = opt.init(model)
     init_master = master.clone()
     step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
@@ -148,19 +147,16 @@ def test_flat_layout_is_the_jax_tree_order():
 
 
 def test_zero1_rejects_what_waits():
-    for kwargs, match in [({"ring": False}, "per-process ring slice"), ({"tuner": object()}, "tuner"),
-                          ({"overlap": "bucket"}, "overlapped-sync"), ({"shard_replicas": 1}, "elasticity")]:
+    # the non-ring path, overlap="bucket" and restore run now
+    # (tests/test_torch_overlap.py, tests/test_torch_checkpoint.py)
+    for kwargs, match in [({"tuner": object()}, "tuner"), ({"shard_replicas": 1}, "elasticity")]:
         with pytest.raises(NotImplementedError, match=match):
             Zero1Optimizer(adamw(LR), WORLD, **kwargs)
     # the wire codec runs now; a name the registry lacks raises
     assert Zero1Optimizer(adamw(LR), WORLD, wire_dtype="int8").wire_dtype == "int8"
     with pytest.raises(ValueError, match="unknown wire codec"):
         Zero1Optimizer(adamw(LR), WORLD, wire_dtype="int4")
-    opt = Zero1Optimizer(adamw(LR), WORLD)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        opt.restore(None)
-    with pytest.raises(NotImplementedError, match="per-process ring slice"):
-        zero1_apply_shard(None, None, None, None, None, ring=False)
+    opt = Zero1Optimizer(adamw(LR), WORLD, ring=True)
     step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
     with pytest.raises(ValueError, match="does not divide"):
         step(_model(), None, None, torch.zeros(3, TINY["max_seq"], dtype=torch.long))
@@ -180,7 +176,7 @@ def test_wire_dtype_env_compresses_zero1_like_jax(monkeypatch):
     _, _, j_losses, (j_master, j_opt_state, j_params) = _jax_zero1(params, tokens)
 
     model = _model(flax_to_state_dict(params))
-    opt = Zero1Optimizer(adamw(LR), WORLD)
+    opt = Zero1Optimizer(adamw(LR), WORLD, ring=True)
     master, opt_state = opt.init(model)
     step = zero1_train_step(lambda m, b: lm_loss(m(b), b), opt)
     losses = []
