@@ -60,6 +60,7 @@ later slices.
 from __future__ import annotations
 
 import os
+import time
 import warnings
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -68,10 +69,14 @@ import torch
 import torch.distributed as dist
 
 from adapcc_tpu_torch.comm import ring
+from adapcc_tpu_torch.comm.latency import resolve_coll_algo
 from adapcc_tpu_torch.primitives import ReduceOp, not_ported
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.quant.ring import wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import CommRound, Strategy, Tree
+from adapcc_tpu_torch.tuner import CollectiveTuner, tuner_mode
+from adapcc_tpu_torch.tuner.measure import sync_outputs
+from adapcc_tpu_torch.tuner.policy import NO_CHUNK, QUANT_PATH, XLA_PATH
 
 MaskLike = Union[torch.Tensor, Sequence[bool]]
 
@@ -745,13 +750,6 @@ def _run_trees_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int]
     return out
 
 
-#: env override of the JAX engine that picks a plane this slice has not
-#: ported (a pin the port cannot honour raises instead of running the ring)
-COLL_ALGO_ENV = "ADAPCC_COLL_ALGO"
-#: the algorithm names the JAX engine accepts (comm/latency.py)
-_COLL_ALGOS = ("auto", "ring", "rd", "tree", "ir")
-
-
 class CollectiveEngine:
     """The collective engine over ``world_size`` ranks whose rows live on one
     device (the tensor's: the card, or the CPU for a CPU tensor), in the JAX
@@ -763,15 +761,24 @@ class CollectiveEngine:
     is allowed": an unmasked ``all_reduce``, ``reduce`` or ``broadcast``
     then runs one torch reduction over the rows instead of the tree rounds.
 
-    ``trace``, when given, is a list that receives one dispatch record per
-    call: the primitive, the implementation that ran (``schedule`` for the
-    tree rounds, with ``merged``; ``torch_fused`` / ``torch_flat`` for the
-    flat paths; ``cuda_ring[<path>]`` / ``plain_ring[<path>]`` for the ring
+    ``trace``, when given, is a :class:`~adapcc_tpu_torch.utils.
+    observability.CollectiveTrace` that records one event per call: the
+    primitive, the implementation that ran (``schedule`` for the tree
+    rounds, with ``merged``; ``torch_fused`` / ``torch_flat`` for the flat
+    paths; ``cuda_ring[<path>]`` / ``plain_ring[<path>]`` for the ring
     plane, ``+<codec>`` with a fused codec, ``quant_ring[<codec>]`` with its
-    ``reroute_reason``), the stacked bytes and the engine's epoch; the
-    schedule and flat paths add ``algo``, the ring plane its executed
-    schedule (``RingSchedule.to_row()``) and the wire bytes a rank's payload
-    costs.
+    ``reroute_reason``), the stacked bytes and, in its extras, the engine's
+    epoch; the schedule and flat paths add ``algo``, the ring plane its
+    executed schedule (``RingSchedule.to_row()``) and the wire bytes a
+    rank's payload costs.
+
+    ``tuner`` (a :class:`~adapcc_tpu_torch.tuner.CollectiveTuner`) is
+    consulted by :meth:`ring_allreduce` under ``ADAPCC_TUNER=choose`` and
+    fed the walltime of every ring allreduce and every unmasked flat
+    allreduce under ``record`` or ``choose``; a timed event carries
+    ``duration_s``, a consulted one ``tuner={chosen, source, objective,
+    applied}``.  Without one, a mode other than ``off`` builds one for this
+    world at the first dispatch, fingerprinted with the tensor's device.
     """
 
     def __init__(
@@ -785,12 +792,16 @@ class CollectiveEngine:
     ) -> None:
         if num_slices != 1:
             raise not_ported("two-level worlds (num_slices > 1)", "the two-level plane slice")
-        if tuner is not None:
-            raise not_ported("a tuner-attached engine", "the tuner slice")
         if strategy.world_size != world_size:
             raise ValueError(f"strategy for {strategy.world_size} ranks on a world of {world_size}")
-        # a typo'd A/B knob fails here, not at the first collective
+        # a typo'd A/B knob or tuner mode fails here, not at the first
+        # collective
         _merged_env_disabled()
+        #: a tuner mode other than off with no tuner given builds one for
+        #: this world at the first dispatch (the device is the tensor's)
+        self._auto_tuner = tuner_mode() != "off" and tuner is None
+        #: the plan tuner (None: untuned)
+        self.tuner = tuner
         self.world_size = world_size
         self.strategy = strategy
         self.trace = trace
@@ -820,10 +831,29 @@ class CollectiveEngine:
             raise EpochMismatch(epoch, self.epoch)
 
     def clear(self) -> None:
-        """The reference's ``exitThreads`` before a re-synthesis.  This engine
-        caches nothing of its own (no compiled program, no buffer: the round
-        tables are cached by strategy fingerprint), so there is nothing to
-        drop."""
+        """The reference's ``exitThreads`` before a re-synthesis.  The round
+        tables stay cached by strategy fingerprint; the tuner's timer forgets
+        its warmups, so the first dispatch after a rebuild is discarded
+        again."""
+        if self.tuner is not None:
+            self.tuner.timer.reset()
+
+    def _tuner_for(self, stacked: torch.Tensor) -> Optional[CollectiveTuner]:
+        """The tuner of a dispatch on ``stacked``: the one given, or the one
+        an ``ADAPCC_TUNER`` mode other than off at construction asked for,
+        built now for this world on the tensor's device."""
+        if self.tuner is None and self._auto_tuner:
+            self.tuner = CollectiveTuner.for_mesh(stacked.device, world=self.world_size)
+        return self.tuner
+
+    def _observe(self, tuner: CollectiveTuner, out: torch.Tensor, t0: float, key, token, extras: Dict[str, Any]) -> None:
+        """Record-mode timing of one dispatch: wait for ``out``, put the
+        walltime since ``t0`` into the trace's extras and the database (the
+        token's first sample is its warmup)."""
+        sync_outputs(out)
+        duration = time.perf_counter() - t0
+        extras["duration_s"] = duration
+        tuner.observe_dispatch(key, token, duration)
 
     def _active_to_mask(self, active_gpus: Optional[Sequence[int]]) -> torch.Tensor:
         """``[world]`` bools on the host: everyone for None."""
@@ -845,11 +875,11 @@ class CollectiveEngine:
             )
 
     def _check_algo(self, algo: Optional[str]) -> None:
-        """Raise for an algorithm pin: its planes are not ported."""
-        env_algo = os.environ.get(COLL_ALGO_ENV, "").strip()
-        for pin in (algo, env_algo or None):
-            if pin is not None and pin != "ring":
-                raise not_ported(f"algo={pin!r}", "the latency plane slice (rd, tree) and the IR slice")
+        """Raise for an algorithm pin other than the ring (``ADAPCC_COLL_ALGO``
+        > the argument; an unknown name raises): its planes are not ported."""
+        v = resolve_coll_algo(algo)
+        if v not in (None, "ring"):
+            raise not_ported(f"algo={v!r}", "the latency plane slice (rd, tree) and the IR slice")
 
     def _resolved_wire_dtype(self, wire_dtype: Optional[str]) -> str:
         """The codec a ring dispatch runs: ``ADAPCC_WIRE_DTYPE`` > the
@@ -889,13 +919,17 @@ class CollectiveEngine:
 
     def _record(self, primitive: str, impl: str, stacked: torch.Tensor, extras: Dict[str, Any]) -> None:
         if self.trace is not None:
-            self.trace.append({"primitive": primitive, "impl": impl, "epoch": self.epoch,
-                               "nbytes": stacked.numel() * stacked.element_size(), **extras})
+            self.trace.record(primitive, impl, stacked.numel() * stacked.element_size(), epoch=self.epoch,
+                              **extras)
 
-    def _record_ring(self, primitive: str, plan: ring.RingSchedule, stacked: torch.Tensor) -> None:
+    @staticmethod
+    def _ring_impl(plan: ring.RingSchedule, stacked: torch.Tensor) -> str:
         impl = "cuda_ring" if stacked.device.type == "cuda" else "plain_ring"
         suffix = "" if plan.wire_dtype == "off" else f"+{plan.wire_dtype}"
-        self._record(primitive, f"{impl}[{plan.path}{suffix}]", stacked, self._ring_extras(plan))
+        return f"{impl}[{plan.path}{suffix}]"
+
+    def _record_ring(self, primitive: str, plan: ring.RingSchedule, stacked: torch.Tensor) -> None:
+        self._record(primitive, self._ring_impl(plan, stacked), stacked, self._ring_extras(plan))
 
     def _wire_ring_allreduce(self, stacked: torch.Tensor, wire_dtype: str,
                              block_size: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -927,26 +961,71 @@ class CollectiveEngine:
         it; otherwise (``ADAPCC_FUSED_WIRE=off``, or a payload dtype or block
         size the codec kernels cannot take) the unfused quant ring runs, the
         trace records ``reroute_reason``, and stderr says so once.  A CUDA
-        tensor on a card the kernels were not built for raises."""
+        tensor on a card the kernels were not built for raises.
+
+        With a tuner, ``ADAPCC_TUNER=choose`` lets the policy fill the knobs
+        the caller left open, under the precedence **env > explicit arg >
+        tuner > strategy**: the chunk and the codec, and with a codec the
+        path (a chosen ``quant-ring`` cell runs the unfused quant ring,
+        unless ``ADAPCC_FUSED_WIRE=on`` forbids it).  The policy is asked
+        with ``algos=("ring",)``: the latency plane's rd and tree cells wait
+        for their slice.  ``record`` and ``choose`` time every dispatch to
+        completion into the database, the first of each configuration
+        discarded as its build and first launch."""
         self._check_world_dim(stacked, "ring_allreduce")
         self._check_algo(algo)
+        per_rank_bytes = stacked[0].numel() * stacked.element_size()
+        tuner = self._tuner_for(stacked)
+        tplan = None
+        tuner_chose_quant = False
+        if tuner is not None and tuner.choosing:
+            tplan = tuner.choose("allreduce", per_rank_bytes, ring._dtype_name(stacked.dtype), algos=("ring",))
+            if wire_dtype is None:
+                wire_dtype = tplan.wire_dtype
+                # a codec cell names its path too: the unfused cell must run
+                # unfused, or its side of the fused/unfused A/B never runs
+                tuner_chose_quant = tplan.wire_dtype != "off" and tplan.key.path == QUANT_PATH
+            if chunk_bytes is None and tplan.chunk_bytes is not None:
+                chunk_bytes = tplan.chunk_bytes
+        timing = tuner is not None and tuner.recording
+        t0 = time.perf_counter()
         wd = self._resolved_wire_dtype(wire_dtype)
-        if wd == "off":
-            plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=True)
-            out = ring.ring_allreduce_stacked(stacked, chunk_bytes=plan.chunk_bytes)
-            self._record_ring("allreduce", plan, stacked)
-            return out
-        block = quant_block_size or DEFAULT_BLOCK_SIZE
-        reroute = ring.fused_ring_dispatch_reason(stacked.dtype, wd, block)
+        reroute = None
+        block = (quant_block_size or DEFAULT_BLOCK_SIZE) if wd != "off" else None
+        if wd != "off":
+            reroute = ring.fused_ring_dispatch_reason(stacked.dtype, wd, block)
+            # ADAPCC_FUSED_WIRE=on outranks the tuner's path: nothing runs
+            # unfused then, exploration included
+            chosen_reroute = reroute is None and tuner_chose_quant and ring.resolve_fused_wire() != "on"
+            if chosen_reroute:
+                reroute = "tuner chose the unfused quant-ring cell"
+            elif reroute is not None:
+                ring.note_quant_reroute(wd, reroute)
         if reroute is None:
             plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=True, wire_dtype=wd, block_size=block)
             out = ring.ring_allreduce_stacked(stacked, chunk_bytes=plan.chunk_bytes, wire_dtype=wd,
                                               block_size=block)
-            self._record_ring("allreduce", plan, stacked)
-            return out
-        ring.note_quant_reroute(wd, reroute)
-        out, extras = self._wire_ring_allreduce(stacked, wd, block)
-        self._record("allreduce", f"quant_ring[{wd}]", stacked, {**extras, "reroute_reason": reroute})
+            impl, extras, stage = self._ring_impl(plan, stacked), self._ring_extras(plan), plan.stage_bytes
+            executed_path, executed_chunk = plan.path, plan.chunk_bytes
+        else:
+            out, extras = self._wire_ring_allreduce(stacked, wd, block)
+            extras["reroute_reason"] = reroute
+            impl, stage = f"quant_ring[{wd}]", 0
+            executed_path, executed_chunk = QUANT_PATH, NO_CHUNK
+        # one timer token a configuration: its first dispatch pays the build
+        # and the first launch
+        token = (impl, tuple(stacked.shape), ring._dtype_name(stacked.dtype), stage, block)
+        extras["algo"] = "ring"  # the executed algorithm, as JAX's trace has it
+        if timing:
+            # a vmem dispatch is one cell whatever its budget (the grid's key)
+            key = tuner.key_for("allreduce", per_rank_bytes, executed_path,
+                                NO_CHUNK if executed_path == "vmem" else executed_chunk, wd)
+            self._observe(tuner, out, t0, key, token, extras)
+        if tplan is not None:
+            applied = (wd == tplan.wire_dtype and executed_path == tplan.key.path
+                       and (tplan.chunk_bytes is None or executed_chunk == tplan.chunk_bytes))
+            extras["tuner"] = tplan.trace_extra(applied=applied)
+        self._record("allreduce", impl, stacked, extras)
         return out
 
     def _ring_wire_args(self, stacked: torch.Tensor, wire_dtype: Optional[str],
@@ -1013,13 +1092,7 @@ class CollectiveEngine:
         """A reduce-scatter or all-gather pin: ``ADAPCC_COLL_ALGO`` > the
         argument; rd and tree are the latency plane's, not ported; an
         unknown name raises; anything else runs the flat path, as in JAX."""
-        env = os.environ.get(COLL_ALGO_ENV, "").strip()
-        value = env or algo
-        if value is None:
-            return
-        v = str(value).strip().lower()
-        if v not in _COLL_ALGOS:
-            raise ValueError(f"{COLL_ALGO_ENV}/algo={value!r}: expected one of {'|'.join(_COLL_ALGOS)}")
+        v = resolve_coll_algo(algo)
         if v in ("rd", "tree"):
             raise not_ported(f"{primitive} algo={v!r}", "the latency plane slice (rd, tree)")
 
@@ -1060,18 +1133,43 @@ class CollectiveEngine:
         count.  Unmasked with the fast path allowed, one torch reduction
         over the rows (``torch_fused``); otherwise the strategy's tree
         rounds (``schedule``).  ``algo`` pins other than ``ring`` raise:
-        the latency and IR planes are not ported."""
+        the latency and IR planes are not ported.
+
+        With a tuner, ``record`` and ``choose`` time the fast path into the
+        ``xla`` cell (JAX's psum), and ``choose`` ranks, without exploring,
+        the cells this entry point can run: in JAX the ``xla`` cell against
+        rd and tree, here the ``xla`` cell alone until the latency plane
+        comes, so the trace's ``tuner`` extras say whether the fast path
+        ran (``applied``)."""
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "all_reduce")
         self._check_algo(algo)
-        if self.use_xla_fastpath and active_gpus is None:
+        tuner = self._tuner_for(stacked)
+        per_rank_bytes = stacked[0].numel() * stacked.element_size()
+        tplan = None
+        if tuner is not None and tuner.choosing and resolve_wire_dtype(None) == "off":
+            # an env-pinned codec leaves no cell this plane can run
+            tplan = tuner.rank_only("allreduce", per_rank_bytes, ring._dtype_name(stacked.dtype), algos=("xla",))
+        fast = self.use_xla_fastpath and active_gpus is None
+        t0 = time.perf_counter()
+        if fast:
             out = _fused_stacked(stacked, op, self.world_size)
-            self._record("allreduce", "torch_fused", stacked, {"algo": "ring"})
-            return out
-        mask = self._active_to_mask(active_gpus)
-        out, merged = self._schedule(stacked, mask, op, "both")
-        self._record_schedule("allreduce", stacked, merged)
-        return _avg_normalize(out, mask, op)
+        else:
+            mask = self._active_to_mask(active_gpus)
+            out, merged = self._schedule(stacked, mask, op, "both")
+            out = _avg_normalize(out, mask, op)
+        extras: Dict[str, Any] = {"algo": "ring"}
+        if fast and tuner is not None and tuner.recording:
+            key = tuner.key_for("allreduce", per_rank_bytes, XLA_PATH, NO_CHUNK, "off")
+            token = ("psum", tuple(stacked.shape), ring._dtype_name(stacked.dtype), op, stacked.device.type)
+            self._observe(tuner, out, t0, key, token, extras)
+        if tplan is not None:
+            extras["tuner"] = tplan.trace_extra(applied=tplan.key.path == XLA_PATH and fast)
+        if fast:
+            self._record("allreduce", "torch_fused", stacked, extras)
+        else:
+            self._record("allreduce", "schedule", stacked, {**extras, "merged": merged})
+        return out
 
     def reduce(
         self,

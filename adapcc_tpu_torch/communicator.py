@@ -19,9 +19,11 @@ Lifecycle parity (reference commu.py / run.cu):
 
 A world is either one process holding every rank's row (rank → process all
 zeros) or, given ``world=`` a process group of one process a rank, the
-identity map.  The coordinator plane works in both; the DETECT/PROFILE
-bootstrap of a multi-process world, the plan tuner, the supervisor and the
-adaptation controller raise until their slices.
+identity map.  The coordinator plane works in both.  The Communicator owns
+one plan tuner (:class:`~adapcc_tpu_torch.tuner.CollectiveTuner`), shared by
+every engine it builds; ``ADAPCC_TUNER`` decides whether anything consults
+or feeds it.  The DETECT/PROFILE bootstrap of a multi-process world, the
+supervisor and the adaptation controller raise until their slices.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ from adapcc_tpu_torch.strategy.xml_io import (
 )
 from adapcc_tpu_torch.topology.detect import dump_detected_topology, gather_detect_graph
 from adapcc_tpu_torch.topology.profile import NetworkProfiler, gather_topo_profile
+from adapcc_tpu_torch.tuner import TUNER_DB_ENV, CollectiveTuner
+from adapcc_tpu_torch.tuner.db import device_platform, topology_fingerprint
 
 _COLLECTIVE_PRIMS = (ALLREDUCE, REDUCE, BOARDCAST, ALLGATHER, ALLTOALL, REDUCESCATTER)
 
@@ -67,22 +71,6 @@ _COLLECTIVE_PRIMS = (ALLREDUCE, REDUCE, BOARDCAST, ALLGATHER, ALLTOALL, REDUCESC
 #: Exhausting the budget re-raises.
 EPOCH_RETRY_MAX = 3
 EPOCH_RETRY_BACKOFF_S = 0.02
-
-#: the plan tuner's mode switch (off | record | choose in the JAX package)
-TUNER_MODE_ENV = "ADAPCC_TUNER"
-
-
-def _check_tuner_env() -> None:
-    """The tuner is not ported: a mode that would run it raises instead of
-    being ignored, and a malformed one raises as the JAX package's does."""
-    raw = os.environ.get(TUNER_MODE_ENV, "")
-    mode = raw.strip().lower()
-    if mode in ("", "off"):
-        return
-    if mode in ("record", "choose"):
-        raise not_ported(f"{TUNER_MODE_ENV}={raw!r} (the plan tuner)", "the tuner slice")
-    raise ValueError(f"{TUNER_MODE_ENV}={raw!r}: expected one of off|record|choose")
-
 
 class Communicator:
     """One communication world: its ranks, artifacts and engines.
@@ -131,9 +119,17 @@ class Communicator:
                 write_ip_table(self.ip_table, ip_table_path)
 
         self.synthesizer = Synthesizer(args.strategy_file, self.ip_table, policy=args.policy)
-        _check_tuner_env()
-        #: the measurement-driven plan tuner comes with its slice
-        self.tuner = None
+        #: the measurement-driven plan tuner, shared by every engine built
+        #: here and fingerprinted with the ip table and the device (a median
+        #: taken under one host layout must not rank plans for another); its
+        #: database lands beside the other topology artifacts unless
+        #: ADAPCC_TUNER_DB says otherwise.  A malformed ADAPCC_TUNER raises.
+        self.tuner = CollectiveTuner(
+            world=self.world_size,
+            topology=topology_fingerprint(self.world_size, dict(enumerate(self.ip_table)),
+                                          platform=device_platform(self.device)),
+            db_path=None if os.environ.get(TUNER_DB_ENV) else os.path.join(args.topology_dir, "tuning.jsonl"),
+        )
         self._engines: Dict[int, CollectiveEngine] = {}
         self._strategy: Optional[Strategy] = None
 
@@ -155,6 +151,9 @@ class Communicator:
         #: per-step negotiate() round-trip cost, (step, seconds) (the
         #: reference's rpc latency prints, commu.py:37,387-394)
         self.rpc_latencies: List[tuple] = []
+        #: optional MetricsRegistry: negotiation round-trips under "negotiate",
+        #: and the hook's bucket plan when the hook has no registry of its own
+        self.metrics = None
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -175,7 +174,8 @@ class Communicator:
             NetworkProfiler(self.world_size, self.device).dump(self.args.topology_dir, rank=0)
         elif prim in _COLLECTIVE_PRIMS:
             self._engines[prim] = CollectiveEngine(
-                self.world_size, self._load_strategy(), use_xla_fastpath=self.args.use_xla_fastpath
+                self.world_size, self._load_strategy(), use_xla_fastpath=self.args.use_xla_fastpath,
+                tuner=self.tuner,
             )
         else:
             raise ValueError(f"unknown primitive {prim}")
@@ -503,6 +503,8 @@ class Communicator:
             self.rpc_latencies.append((step, dt))
             if len(self.rpc_latencies) > 100_000:  # bound long-run memory
                 del self.rpc_latencies[: 50_000]
+            if self.metrics is not None:
+                self.metrics.observe("negotiate", dt)
             return active
         except _grpc.RpcError as e:
             if self.num_processes <= 1:

@@ -30,8 +30,15 @@ two halves of the JAX hook:
   ``overlap="bucket"`` (:mod:`adapcc_tpu_torch.ddp.overlap`) buckets the
   gradients on either plane and issues every bucket as chunked collectives
   at its chunk size before waiting on any; ``"microbatch"`` is the
-  trainer's schedule and leaves the sync unchanged.  The observability
-  sinks (``trace``, ``metrics``) come in a later slice and raise here.
+  trainer's schedule and leaves the sync unchanged.
+
+The first bucketed sync records the bucket plan into the observability
+sinks (``trace``, a :class:`~adapcc_tpu_torch.utils.observability.
+CollectiveTrace`, and ``metrics``, a :class:`~adapcc_tpu_torch.utils.
+observability.MetricsRegistry`; with a communicator and no sink of its own,
+the communicator's): counts and the byte histogram into the registry, the
+table with the cost model's ``exposed_comm_s`` floor into a ``grad_sync``
+trace event.
 """
 
 from __future__ import annotations
@@ -45,7 +52,6 @@ from adapcc_tpu_torch.comm.ring import resolve_chunk_bytes
 from adapcc_tpu_torch.ddp.bucketing import BucketPlan, build_bucket_plan, flatten_to_buckets, unflatten_from_buckets
 from adapcc_tpu_torch.ddp.overlap import resolve_overlap_mode, rolling_bucket_sync
 from adapcc_tpu_torch.primitives import ReduceOp
-from adapcc_tpu_torch.primitives import not_ported as _not_ported
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, error_feedback_step, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.strategy.ir import Strategy
 
@@ -89,9 +95,6 @@ class GradSyncHook:
         if mode not in ("auto", "psum", "schedule"):
             raise ValueError(f"mode {mode!r} not in auto|psum|schedule")
         self.overlap = resolve_overlap_mode(overlap)
-        if trace is not None or metrics is not None:
-            raise _not_ported("the bucket plan's trace and metrics sinks (trace=, metrics=)",
-                              "the observability slice")
         if compress != "strategy":
             get_codec(compress)  # an unknown name raises, listing the codecs
         if quant_block_size < 1:
@@ -105,6 +108,8 @@ class GradSyncHook:
         self.compress = compress
         self.error_feedback = error_feedback
         self.quant_block_size = quant_block_size
+        self._trace = trace
+        self._metrics = metrics
         self._plan: Optional[BucketPlan] = None
         #: (size, chunk_bytes) per bucket of the plan recorded at the first
         #: schedule-plane sync
@@ -170,12 +175,52 @@ class GradSyncHook:
         self._plan = None
         self.recorded_buckets = []
 
-    def _bucket_plan(self, leaves: List[torch.Tensor]) -> BucketPlan:
+    def _record_plan(self, plan: BucketPlan, data_plane: str) -> None:
+        """The bucket plan into the sinks, once a plan: counts and the byte
+        histogram into the metrics registry; the table, with the resolved
+        chunk sizes and the cost model's ``exposed_comm_s`` floor for the
+        overlap schedule, as a ``grad_sync`` trace event."""
+        metrics = self._metrics
+        if metrics is None and self.communicator is not None:
+            metrics = getattr(self.communicator, "metrics", None)
+        trace = self._trace
+        if trace is None and self.communicator is not None:
+            trace = getattr(getattr(self.communicator, "engine", None), "trace", None)
+        if metrics is not None:
+            metrics.gauge("bucket_plan.num_buckets", plan.num_buckets)
+            metrics.gauge("bucket_plan.total_bytes", plan.total_bytes)
+            if plan.oversized_leaves:
+                metrics.incr("bucket_plan.oversized_leaves", plan.oversized_leaves)
+            for b in plan.bucket_bytes:
+                # the byte histogram rides the timing reservoir (p50/p99)
+                metrics.observe("bucket_plan.bucket_bytes", float(b))
+        if trace is not None:
+            from adapcc_tpu_torch.sim.calibrate import load_or_default
+            from adapcc_tpu_torch.sim.cost_model import bottleneck_ring_coeffs, exposed_comm_floor_s
+
+            world = self.strategy.world_size
+            coeffs = bottleneck_ring_coeffs(load_or_default(world=world), world)
+            wd = self.effective_compress()
+            trace.record(
+                "grad_sync", f"{data_plane}[{self.overlap}]", plan.total_bytes,
+                buckets=plan.num_buckets,
+                bucket_bytes=list(plan.bucket_bytes),
+                plan_chunk_bytes=list(plan.chunk_bytes),
+                chunk_bytes=self.resolved_chunk_bytes(),
+                oversized_leaves=plan.oversized_leaves,
+                overlap=self.overlap,
+                wire_dtype=wd,
+                exposed_comm_s=exposed_comm_floor_s(world, plan.total_bytes, coeffs, overlap=self.overlap,
+                                                    bucket_bytes=plan.bucket_bytes, wire_dtype=wd),
+            )
+
+    def _bucket_plan(self, leaves: List[torch.Tensor], data_plane: str) -> BucketPlan:
         if self._plan is None:
             # the first sync records the bucket table (the reference's
             # step-0/1 record phase, commu.py:409-418)
             self._plan = build_bucket_plan(leaves, self.bucket_cap_mb)
             self.recorded_buckets = list(zip(self._plan.bucket_sizes, self._plan.chunk_bytes))
+            self._record_plan(self._plan, data_plane)
         return self._plan
 
     def _rolling_sync(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
@@ -184,7 +229,7 @@ class GradSyncHook:
         issued first, then bucket by bucket a wait and the copies of its
         leaves out, which run beside the later buckets' collectives."""
         leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
-        plan = self._bucket_plan(leaves)
+        plan = self._bucket_plan(leaves, plane)
         pending = rolling_bucket_sync(flatten_to_buckets(plan, leaves), plan.chunk_bytes, active_mask,
                                       mode=plane, strategy=self.strategy, op=self.op)
         members: List[List[Tuple[int, int]]] = [[] for _ in pending]
@@ -213,7 +258,7 @@ class GradSyncHook:
             active_mask = torch.ones((self.strategy.world_size,), dtype=torch.bool)
         order = range(len(grads)) if order is None else order
         leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
-        plan = self._bucket_plan(leaves)
+        plan = self._bucket_plan(leaves, plane)
         synced = [engine.allreduce_shard(b, active_mask, self.strategy, self.op)
                   for b in flatten_to_buckets(plan, leaves)]
         for i, leaf in zip(order, unflatten_from_buckets(plan, synced)):

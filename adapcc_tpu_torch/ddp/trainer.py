@@ -32,6 +32,14 @@ chunked collectives, in the JAX package's leaf order and layout on either
 plane; ``"microbatch"`` syncs each microbatch's gradient on a side stream
 while the next microbatch computes.
 
+``tune=True`` (:mod:`adapcc_tpu_torch.tuner`) times each step to
+completion into the tuning database under the executed cell (the hook's
+wire codec × the overlap schedule), the first step of each new
+configuration discarded as its warmup, and every ``tune_every`` steps lets
+the policy re-choose the codec and the schedule, adopting a winner for the
+next step.  ``ADAPCC_TUNER=off`` turns it off; ``record`` measures without
+steering.
+
 ``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
 the torch optimizer with optax's defaults.
@@ -39,6 +47,8 @@ the torch optimizer with optax's defaults.
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
@@ -46,11 +56,16 @@ import torch
 from torch import nn
 
 from adapcc_tpu_torch.comm.mesh import World
-from adapcc_tpu_torch.ddp.hook import GradSyncHook, _not_ported
-from adapcc_tpu_torch.ddp.overlap import microbatch_pipelined_sync, resolve_overlap_mode
+from adapcc_tpu_torch.ddp.hook import GradSyncHook
+from adapcc_tpu_torch.ddp.overlap import OVERLAP_ENV, microbatch_pipelined_sync, resolve_overlap_mode
 from adapcc_tpu_torch.models.convert import flax_paths
 from adapcc_tpu_torch.primitives import ReduceOp
+from adapcc_tpu_torch.primitives import not_ported as _not_ported
+from adapcc_tpu_torch.quant.codec import WIRE_DTYPE_ENV
 from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.tuner import CollectiveTuner
+from adapcc_tpu_torch.tuner.measure import sync_device, sync_outputs
+from adapcc_tpu_torch.tuner.policy import NO_CHUNK, hook_overlap_of, hook_path
 
 Optimizer = torch.optim.Optimizer
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], Optimizer]
@@ -111,6 +126,8 @@ class DDPTrainer:
         error_feedback: bool = False,
         tune: bool = False,
         overlap: str = "off",
+        tuner: Optional[CollectiveTuner] = None,
+        tune_every: int = 16,
     ) -> None:
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -156,8 +173,6 @@ class DDPTrainer:
             raise _not_ported("the async relay mode (bsp=False)", "the engine's relay planes")
         if measure_gns:
             raise _not_ported("gradient-noise-scale measurement", "the measurement slice")
-        if tune:
-            raise _not_ported("the step tuner", "the tuner slice")
         if strategy.world_size != mesh.world_size:
             raise ValueError(
                 f"strategy for {strategy.world_size} ranks on a world of {mesh.world_size}"
@@ -202,6 +217,28 @@ class DDPTrainer:
         if accum_steps >= 2 and bsp and not error_feedback and not measure_gns:
             modes.append("microbatch")
         self._overlap_modes = tuple(modes)
+        # -- tuning: an attached communicator's tuner is reused, so engine
+        # dispatches and step times share one database
+        if tune_every < 1:
+            raise ValueError(f"tune_every must be >= 1, got {tune_every}")
+        self.tune_every = tune_every
+        if tune and tuner is None:
+            tuner = getattr(communicator, "tuner", None)
+        if tune and tuner is None:
+            tuner = CollectiveTuner.for_mesh(mesh)
+        if tune and tuner.explicit_mode is None:
+            # tune=True is an explicit opt-in: with ADAPCC_TUNER unset the
+            # tuner chooses; a caller's explicit mode stands, and the env
+            # overrides either
+            tuner = tuner.with_mode("choose")
+        self.tune = tune
+        self.tuner = tuner if tune else None
+        self._grad_bytes: Optional[int] = None
+        #: configurations stepped so far (strategy, codec, overlap); a new
+        #: one is a new build generation, whose first step pays the
+        #: kernels' build and first launches and is not recorded
+        self._built: set = set()
+        self._build_gen = 0
 
     @staticmethod
     def _transposed(model: nn.Module) -> List[bool]:
@@ -363,7 +400,68 @@ class DDPTrainer:
             )
         if self._dynamic_mask and active_mask is None:
             active_mask = self.hook.negotiate(idx)
-        return state, self._step(state, batch, active_mask)
+        key = self._program_key()
+        if key not in self._built:
+            self._built.add(key)
+            self._build_gen += 1
+        if not self._tuning():
+            return state, self._step(state, batch, active_mask)
+        sync_device(next(state.model.parameters()).device)
+        t0 = time.perf_counter()
+        loss = self._step(state, batch, active_mask)
+        sync_outputs(loss)
+        self._tune_observe(state, time.perf_counter() - t0)
+        return state, loss
+
+    # -- tuning ------------------------------------------------------------------
+
+    def _tuning(self) -> bool:
+        """Per-step tuning is live: ``tune=True`` and a tuner that records
+        (``ADAPCC_TUNER=off`` turns it off everywhere)."""
+        return self.tune and self.tuner is not None and self.tuner.recording
+
+    def _program_key(self) -> tuple:
+        """What a step's configuration is: the strategy, the wire codec and
+        the overlap schedule (the JAX trainer's compiled-step key)."""
+        return (self.hook.strategy.fingerprint(), self.hook.effective_compress(), self.overlap)
+
+    def _step_cell(self, grad_bytes: int):
+        """The database cell the current configuration's step times pool
+        under: the hook's wire codec × the overlap schedule (``hook_path``),
+        inside ``TuningPolicy.candidates("ddp_step")`` narrowed to this
+        trainer's schedules."""
+        return self.tuner.key_for("ddp_step", grad_bytes, hook_path(self.overlap), NO_CHUNK,
+                                  self.hook.effective_compress())
+
+    def _tune_observe(self, state: TrainState, seconds: float) -> None:
+        """Record one step's walltime; every ``tune_every`` steps let the
+        policy re-choose the codec and the overlap schedule, and adopt a
+        winner for the next step (the policy's hysteresis keeps that rare).
+        The steps of every cell share one compute, so their medians
+        compare."""
+        if self._grad_bytes is None:
+            self._grad_bytes = sum(p.numel() * p.element_size() for p in state.model.parameters())
+        grad_bytes = self._grad_bytes
+        self.tuner.observe_dispatch(self._step_cell(grad_bytes), ("ddp_step", self._build_gen), seconds)
+        if not self.tuner.choosing or self._host_step % self.tune_every:
+            return
+        if os.environ.get(WIRE_DTYPE_ENV, "").strip():
+            # the env pins the executed codec: keep measuring the pinned
+            # cell, never adopt
+            return
+        # error feedback cannot run the 'off' codec: keep it out of the
+        # grid, or the explorer pins on a cell that never gets samples
+        wire_dtypes = (tuple(w for w in self.tuner.policy.wire_dtypes if w != "off")
+                       if self.error_feedback else None)
+        # an ADAPCC_OVERLAP pin collapses the overlap axis the same way
+        overlap_modes = (self.overlap,) if os.environ.get(OVERLAP_ENV, "").strip() else self._overlap_modes
+        plan = self.tuner.choose("ddp_step", grad_bytes, wire_dtypes=wire_dtypes, overlap_modes=overlap_modes)
+        wd, ov = plan.wire_dtype, hook_overlap_of(plan.key.path)
+        if wd == self.hook.effective_compress() and ov == self.overlap:
+            return
+        self.hook.compress = wd
+        self.overlap = self.hook.overlap = ov
+        self.hook.reset_plan()
 
     def scan_steps(self, state: TrainState, batch: Any, n_steps: int) -> Tuple[TrainState, torch.Tensor]:
         """``n_steps`` full-world steps on one batch; returns ``(state,

@@ -39,22 +39,35 @@ and on the ring the summation order of every element too.  The model's
 parameters are updated in place.  :meth:`Zero1Optimizer.checkpoint_extra`
 tags a checkpoint with the layout, and :meth:`Zero1Optimizer.restore`
 refuses one of another layout.
+
+With a ``tuner`` on the ring, ``init`` asks it for the ring's staging
+chunk (``choose("zero1_ring", …)``) when nobody pinned one, and the step
+records its walltime under :meth:`Zero1Optimizer.tuning_key`, the cell the
+next ``init`` ranks: the loop closes across runs through the database.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from adapcc_tpu_torch.comm.engine import _fused_total
-from adapcc_tpu_torch.comm.ring import _tile_elems, ring_all_gather_stacked, ring_reduce_scatter_stacked
+from adapcc_tpu_torch.comm.ring import (
+    _tile_elems,
+    plan_ring_schedule,
+    ring_all_gather_stacked,
+    ring_reduce_scatter_stacked,
+)
 from adapcc_tpu_torch.ddp.overlap import even_chunk_bounds, overlap_chunk_count
 from adapcc_tpu_torch.ddp.trainer import OptimizerFactory
 from adapcc_tpu_torch.models.convert import flax_paths
 from adapcc_tpu_torch.primitives import ReduceOp, not_ported
 from adapcc_tpu_torch.quant.codec import get_codec, resolve_wire_dtype
+from adapcc_tpu_torch.tuner.measure import sync_device, sync_outputs
+from adapcc_tpu_torch.tuner.policy import NO_CHUNK
 
 
 class _Leaf(NamedTuple):
@@ -191,6 +204,12 @@ class Zero1Optimizer:
     ``wire_dtype`` (``ADAPCC_WIRE_DTYPE`` overrides it) gives each rank's
     gradient contribution its codec's wire value before the reduce-scatter,
     as the JAX package does; the collectives still move float32.
+
+    ``tuner`` (a :class:`~adapcc_tpu_torch.tuner.CollectiveTuner`): on the
+    ring with no ``ring_chunk_bytes`` given and the tuner choosing,
+    ``init`` adopts the policy's chunk for the padded flat master
+    (:attr:`tuned_plan`); ``ADAPCC_RING_CHUNK_BYTES`` still overrides it in
+    the planner.
     """
 
     LAYOUT_KEY = "zero1_layout"
@@ -207,8 +226,6 @@ class Zero1Optimizer:
         overlap_chunk_bytes: Optional[int] = None,
         shard_replicas: int = 0,
     ) -> None:
-        if tuner is not None:
-            raise not_ported("a tuner-chosen ZeRO-1 ring chunk", "the tuner slice")
         if shard_replicas:
             raise not_ported("ZeRO-1 shard replicas", "the elasticity slice")
         if overlap == "microbatch":
@@ -237,6 +254,9 @@ class Zero1Optimizer:
         #: codec of each rank's gradient contribution: ADAPCC_WIRE_DTYPE >
         #: the argument > "off", resolved now so a typo raises here
         self.wire_dtype = resolve_wire_dtype(wire_dtype)
+        self.tuner = tuner
+        #: the TunedPlan behind an adopted chunk (None: not the tuner's)
+        self.tuned_plan = None
         self._meta: Optional[_FlatMeta] = None
         #: the device of the master ``init`` made (where ``restore`` puts one)
         self._device: Optional[torch.device] = None
@@ -259,11 +279,30 @@ class Zero1Optimizer:
             shard_len = self._meta.padded // self.world
         return overlap_chunk_count(int(shard_len) * 4, self.overlap_chunk_bytes)
 
+    def tuning_key(self):
+        """The database cell the ring collectives of this optimizer execute,
+        or None off the ring, without a tuner or before ``init``: the
+        tuner-chosen cell, else the executed configuration by the ring's
+        planner, in the grid's vocabulary (vmem is one cell)."""
+        if self.tuner is None or self._meta is None or not self.ring:
+            return None
+        if self.tuned_plan is not None:
+            return self.tuned_plan.key
+        plan = plan_ring_schedule(self._meta.padded, torch.float32, self.world, self.ring_chunk_bytes)
+        return self.tuner.key_for("zero1_ring", self._meta.padded * 4, plan.path,
+                                  NO_CHUNK if plan.path == "vmem" else plan.chunk_bytes, "off")
+
     def init(self, model: nn.Module) -> Tuple[torch.Tensor, torch.optim.Optimizer]:
         """``(master [world, N/world] float32, opt_state)`` on the model's
         device: row ``r`` chunk ``r``, or on the ring chunk ``(r + 1) %
-        world``."""
+        world``.  On the ring with a choosing tuner and no pinned chunk, the
+        chunk is the policy's for the whole padded master."""
         meta = self._meta = _flatten_meta(model, self.world, self._align())
+        if self.ring and self.ring_chunk_bytes is None and self.tuner is not None and self.tuner.choosing:
+            # "zero1_ring" cells carry the chunk axis only (the codec is a
+            # separate knob)
+            self.tuned_plan = self.tuner.choose("zero1_ring", meta.padded * 4)
+            self.ring_chunk_bytes = self.tuned_plan.chunk_bytes
         flat = _flatten({n: p.detach() for n, p in model.named_parameters()}, meta)
         master = flat.view(self.world, -1)
         if self.ring:
@@ -333,13 +372,26 @@ def zero1_train_step(
     ``r``-th contiguous ``1/world`` of it; ``model``, ``master`` and
     ``opt_state`` are updated in place; ``losses`` is the ``[world]``
     per-rank loss.  Gradients are the mean over ranks, as in DDP.  The flat
-    layout is the one ``opt.init`` made.  Nothing waits for the card: a
+    layout is the one ``opt.init`` made.  Nothing waits for the card (a
     wedged ring raises at a later ring launch or at the caller's
-    ``comm.ring.check_errors()``.
+    ``comm.ring.check_errors()``), except while ``opt``'s tuner records:
+    then each step is timed to completion under ``opt.tuning_key()``, the
+    first discarded as its warmup.
     """
     world = opt.world
 
     def step(model: nn.Module, master: torch.Tensor, opt_state: torch.optim.Optimizer, batch: Any):
+        key = opt.tuning_key()
+        if key is None or not opt.tuner.recording:
+            return run(model, master, opt_state, batch)
+        sync_device(master.device)
+        t0 = time.perf_counter()
+        out = run(model, master, opt_state, batch)
+        sync_outputs(out[3])
+        opt.tuner.observe_dispatch(key, ("zero1_step",), time.perf_counter() - t0)
+        return out
+
+    def run(model: nn.Module, master: torch.Tensor, opt_state: torch.optim.Optimizer, batch: Any):
         if batch.shape[0] % world:
             raise ValueError(
                 f"zero1_train_step: batch leading dim {batch.shape[0]} does not divide world={world}"

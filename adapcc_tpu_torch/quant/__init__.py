@@ -14,6 +14,7 @@ from adapcc_tpu_torch.quant.codec import (
     quantize_int8,
     register_codec,
     resolve_wire_dtype,
+    timed_roundtrip,
 )
 from adapcc_tpu_torch.quant.ring import ring_error_bound, wire_ring_allreduce_stacked
 
@@ -31,5 +32,6 @@ __all__ = [
     "register_codec",
     "resolve_wire_dtype",
     "ring_error_bound",
+    "timed_roundtrip",
     "wire_ring_allreduce_stacked",
 ]

@@ -232,3 +232,41 @@ def error_feedback_step(grads: Any, residual: Any, apply_fn: Callable[[torch.Ten
     wire = _tree_map(apply_fn, compensated)
     new_residual = _tree_map(lambda c, w: c - w, compensated, wire)
     return wire, new_residual
+
+
+# --------------------------------------------------------------------------- #
+# host-side codec timing
+# --------------------------------------------------------------------------- #
+
+#: process-wide default registry for codec timings, created on first use
+CODEC_METRICS = None
+
+
+def _wait(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def timed_roundtrip(name: str, x: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE, registry=None) -> torch.Tensor:
+    """Encode and decode ``x`` through codec ``name``, recording each half's
+    walltime, the device's work included (a sync before each clock read),
+    as ``quant.<name>.quantize`` / ``quant.<name>.dequantize`` in the
+    metrics registry (the module's default when none is given).  Returns
+    the decoded values in ``x``'s shape, float32."""
+    global CODEC_METRICS
+    if registry is None:
+        if CODEC_METRICS is None:
+            from adapcc_tpu_torch.utils.observability import MetricsRegistry
+
+            CODEC_METRICS = MetricsRegistry()
+        registry = CODEC_METRICS
+    codec = get_codec(name)
+    flat = x.reshape(-1).to(torch.float32)
+    _wait(flat)
+    with registry.timer(f"quant.{name}.quantize"):
+        wire = codec.encode(flat, block_size)
+        _wait(wire[0])
+    with registry.timer(f"quant.{name}.dequantize"):
+        out = codec.decode(wire, flat.shape[0], block_size)
+        _wait(out)
+    return out.reshape(x.shape)

@@ -1,0 +1,544 @@
+"""Per-link α-β transfer cost model: the prior the plan tuner ranks by and
+the hook prices its overlap schedules with.
+
+The port of the part of :mod:`adapcc_tpu.sim.cost_model` that the tuner
+(:mod:`adapcc_tpu_torch.tuner.policy`) and the gradient hook call, formula
+for formula.  One point-to-point transfer of ``n`` bytes costs
+
+    t(n) = α + β·n          α = fixed latency [s], β = inverse bandwidth [s/B]
+
+and the collectives' closed forms build on the slowest ring hop
+(:func:`bottleneck_ring_coeffs`).  Links are classed ``ICI`` (one host's
+fast domain: NVLink here) or ``DCN`` (between hosts: the network) by the
+rank → ip table; the class keys keep the JAX package's spelling, since they
+are the vocabulary of calibration artifacts, which load in both packages.
+
+The defaults are the H100's, never a TPU's: every number below names its
+source.  Any calibration artifact (:mod:`adapcc_tpu_torch.sim.calibrate`)
+replaces the link classes.  ``hbm_bytes_per_s`` and ``codec_bytes_per_s``
+arguments left at None take this module's default at call time.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from adapcc_tpu_torch.topology.profile import BANDWIDTH_PROBE_FLOATS, LATENCY_PROBE_FLOATS
+
+#: link-class labels (the JAX package's keys: intra-host, inter-host)
+ICI = "ici"
+DCN = "dcn"
+
+#: probe payload sizes in bytes (float32 probes, topology/profile.py)
+LATENCY_PROBE_BYTES = LATENCY_PROBE_FLOATS * 4
+BANDWIDTH_PROBE_BYTES = BANDWIDTH_PROBE_FLOATS * 4
+
+#: α as a world-4 prior: the median walltime of one whole 4-byte-a-rank
+#: ``ring_allreduce`` dispatch on one card (Python engine, planner, one K1a
+#: launch, device sync: 233.17 µs) spread over the 2·(4−1) hops of a world-4
+#: ring, measured by ``chip_smoke.py`` phase 14(d) on an NVIDIA H100 80GB
+#: HBM3 at a 700.00 W ``nvidia-smi`` power limit (38.861 µs in one run,
+#: 29.4 µs in another).  It is a per-dispatch host cost, not a per-hop link
+#: latency: ``α·2(w−1)`` reproduces it only at world 4 and overstates it at
+#: larger worlds.  Splitting dispatch overhead from a per-hop α needs two
+#: cards, which no run has had yet.
+MEASURED_ALPHA_S = 38.861e-6
+
+#: fallback coefficients when nothing was ever measured: the intra-host
+#: class is NVLink 4, 450 GB/s a direction on an H100 SXM5 (NVIDIA data
+#: sheet: 900 GB/s bidirectional), with the world-4 α above; the inter-host
+#: class a 400 Gb/s NIC (50 GB/s, ConnectX-7 NDR data sheet), whose α was
+#: never measured and borrows the intra-host prior.
+DEFAULT_COEFFS = {
+    ICI: (MEASURED_ALPHA_S, 1.0 / 450e9),
+    DCN: (MEASURED_ALPHA_S, 1.0 / 50e9),
+}
+
+#: HBM streaming rate pricing a staged kernel's local traffic: H100 SXM5
+#: 80GB HBM3, 3.35 TB/s (NVIDIA data sheet)
+DEFAULT_HBM_BYTES_PER_S = 3.35e12
+
+#: throughput of one elementwise codec pass over float32 payload bytes: the
+#: int8 codec's quantize and dequantize (``quant/codec.py::timed_roundtrip``,
+#: p50 2.7559 and 1.0960 ms) on the GPT-2's 642.6 MiB-a-rank gradient,
+#: payload bytes over their mean, measured by ``chip_smoke.py`` phase 14(d)
+#: on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (bf16's passes ran
+#: at 1399.30 GB/s: int8, the slower codec, prices both)
+DEFAULT_CODEC_BYTES_PER_S = 349.88e9
+
+#: quantization block the pricing assumes when none is given (the codec's)
+DEFAULT_QUANT_BLOCK = 256
+
+#: wire codecs the pricing knows, "off" first
+WIRE_DTYPE_CANDIDATES = ("off", "bf16", "int8")
+
+#: overlap schedules the pricing knows (``ddp/overlap.py::OVERLAP_MODES``)
+OVERLAP_MODE_CANDIDATES = ("off", "bucket", "microbatch")
+
+Link = Tuple[int, int]
+
+
+@dataclass(frozen=True)
+class LinkCoeffs:
+    """α [s] + β [s/byte] for one link (or one link class)."""
+
+    alpha: float
+    beta: float
+
+    def time(self, nbytes: float) -> float:
+        return self.alpha + self.beta * float(nbytes)
+
+    def scaled(self, factor: float) -> "LinkCoeffs":
+        """Both terms slowed by ``factor`` (a degraded link)."""
+        return LinkCoeffs(self.alpha * factor, self.beta * factor)
+
+
+def fit_alpha_beta(points: Sequence[Tuple[float, float]]) -> LinkCoeffs:
+    """Least-squares line ``t = α + β·bytes`` through (bytes, seconds)
+    points; negative coefficients clamp to zero, and one point is read as
+    pure latency."""
+    pts = [(float(b), float(t)) for b, t in points]
+    if not pts:
+        raise ValueError("need at least one (bytes, seconds) probe point")
+    if len(pts) == 1:
+        return LinkCoeffs(alpha=max(0.0, pts[0][1]), beta=0.0)
+    a = np.array([[1.0, b] for b, _ in pts])
+    y = np.array([t for _, t in pts])
+    (alpha, beta), *_ = np.linalg.lstsq(a, y, rcond=None)
+    return LinkCoeffs(alpha=max(0.0, float(alpha)), beta=max(0.0, float(beta)))
+
+
+class LinkCostModel:
+    """Prices point-to-point transfers: per-link coefficients where probed,
+    class means elsewhere, :data:`DEFAULT_COEFFS` as the last resort."""
+
+    def __init__(
+        self,
+        world: int,
+        links: Optional[Mapping[Link, LinkCoeffs]] = None,
+        classes: Optional[Mapping[str, LinkCoeffs]] = None,
+        ips: Optional[Mapping[int, str]] = None,
+        source: str = "unspecified",
+    ) -> None:
+        if world < 1:
+            raise ValueError(f"world must be >= 1, got {world}")
+        self.world = world
+        self.links: Dict[Link, LinkCoeffs] = dict(links or {})
+        self.classes: Dict[str, LinkCoeffs] = {cls: LinkCoeffs(*DEFAULT_COEFFS[cls]) for cls in (ICI, DCN)}
+        self.classes.update(classes or {})
+        self.ips = dict(ips) if ips else None
+        #: provenance carried into artifacts ("matrices", "synthetic", ...)
+        self.source = source
+
+    def link_class_of(self, src: int, dst: int) -> str:
+        """Directed link → class by the ip table; without one everything is
+        one fast domain (ICI)."""
+        if self.ips is None:
+            return ICI
+        return ICI if self.ips.get(src) == self.ips.get(dst) else DCN
+
+    def coeffs(self, src: int, dst: int) -> LinkCoeffs:
+        hit = self.links.get((src, dst))
+        if hit is not None:
+            return hit
+        return self.classes[self.link_class_of(src, dst)]
+
+    def time_for(self, src: int, dst: int, nbytes: float) -> float:
+        """Seconds to move ``nbytes`` over (src → dst), uncontended."""
+        return self.coeffs(src, dst).time(nbytes)
+
+    @classmethod
+    def from_matrices(
+        cls,
+        lat: np.ndarray,
+        bw: np.ndarray,
+        ips: Optional[Mapping[int, str]] = None,
+        source: str = "matrices",
+    ) -> "LinkCostModel":
+        """Per-link (α, β) from the profiler's matrices: ``lat[s][d]`` the
+        small probe's time [s], ``bw[s][d]`` the large probe's rate [GB/s].
+        A pair without usable readings takes its class's coefficients, and
+        each probed class's mean is refitted from its links."""
+        lat = np.asarray(lat, dtype=float)
+        bw = np.asarray(bw, dtype=float)
+        world = lat.shape[0]
+        if lat.shape != (world, world) or bw.shape != (world, world):
+            raise ValueError(f"expected square world matrices, got {lat.shape}/{bw.shape}")
+        model = cls(world, ips=ips, source=source)
+        per_class: Dict[str, list] = {ICI: [], DCN: []}
+        for s in range(world):
+            for d in range(world):
+                if s == d:
+                    continue
+                points = []
+                if lat[s][d] > 0:
+                    points.append((LATENCY_PROBE_BYTES, lat[s][d]))
+                if bw[s][d] > 0:
+                    points.append((BANDWIDTH_PROBE_BYTES, BANDWIDTH_PROBE_BYTES / (bw[s][d] * 1e9)))
+                if not points:
+                    continue
+                coeffs = fit_alpha_beta(points)
+                model.links[(s, d)] = coeffs
+                per_class[model.link_class_of(s, d)].append(coeffs)
+        for cls_name, fitted in per_class.items():
+            if fitted:
+                model.classes[cls_name] = LinkCoeffs(
+                    alpha=float(np.mean([c.alpha for c in fitted])),
+                    beta=float(np.mean([c.beta for c in fitted])),
+                )
+        return model
+
+    @classmethod
+    def uniform(
+        cls,
+        world: int,
+        alpha: float = DEFAULT_COEFFS[ICI][0],
+        beta: float = DEFAULT_COEFFS[ICI][1],
+        ips: Optional[Mapping[int, str]] = None,
+        source: str = "synthetic",
+    ) -> "LinkCostModel":
+        """Every intra-host link identical: the default with no artifact."""
+        return cls(world, classes={ICI: LinkCoeffs(alpha, beta)}, ips=ips, source=source)
+
+    def __repr__(self) -> str:
+        return f"LinkCostModel(world={self.world}, links={len(self.links)}, source={self.source!r})"
+
+
+def _hbm_rate(rate: Optional[float]) -> float:
+    return DEFAULT_HBM_BYTES_PER_S if rate is None else rate
+
+
+def _codec_rate(rate: Optional[float]) -> float:
+    return DEFAULT_CODEC_BYTES_PER_S if rate is None else rate
+
+
+def bottleneck_ring_link(model: LinkCostModel, world: Optional[int] = None) -> Link:
+    """The slowest (r → r+1) hop: the link that paces a lockstep ring."""
+    w = model.world if world is None else int(world)
+    if w < 2:
+        return (0, 0)  # degenerate ring
+    ring_links = [(r, (r + 1) % w) for r in range(w)]
+    return max(ring_links, key=lambda link: model.coeffs(*link).time(1 << 20))
+
+
+def bottleneck_ring_coeffs(model: LinkCostModel, world: Optional[int] = None) -> LinkCoeffs:
+    """The slowest ring hop's coefficients: every ring-shaped price (the
+    tuner's prior, the hook's exposed floor) is judged there."""
+    return model.coeffs(*bottleneck_ring_link(model, world))
+
+
+def staged_ring_allreduce_time(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    chunk_bytes: float,
+    hbm_bytes_per_s: Optional[float] = None,
+) -> float:
+    """Latency of the staged ring allreduce (the ``hbm-stream`` path): each
+    of the ``2·(world−1)`` steps moves one ``nbytes/world`` chunk as
+    ``ceil(chunk / chunk_bytes)`` tiles, a tile one local read (fill), one
+    hop and two local moves (reduce-scatter's accumulate) or one (the
+    all-gather's adopt), plus the one-time seed copy of the payload."""
+    if world < 2:
+        return 0.0
+    if chunk_bytes <= 0:
+        raise ValueError(f"chunk_bytes must be positive, got {chunk_bytes}")
+    hbm_rate = _hbm_rate(hbm_bytes_per_s)
+    chunk = nbytes / world
+    tiles = max(1, int(-(-chunk // chunk_bytes)))
+    tile_bytes = chunk / tiles
+    hbm = tile_bytes / hbm_rate
+    wire = coeffs.time(tile_bytes)
+    rs_iter = hbm + wire + 2.0 * hbm       # fill + hop + accumulate in/out
+    ag_iter = hbm + wire + hbm             # fill + hop + adopt write
+    seed = nbytes / hbm_rate               # input → work buffer
+    return seed + (world - 1) * tiles * (rs_iter + ag_iter)
+
+
+def wire_bytes_per_element(wire_dtype: str, block_size: int = DEFAULT_QUANT_BLOCK, elem_bytes: float = 4.0) -> float:
+    """Wire bytes of one payload element under a codec: the payload's own,
+    a bf16 cast, or int8 codes plus the block's float32 scale."""
+    if wire_dtype == "off":
+        return float(elem_bytes)
+    if wire_dtype == "bf16":
+        return 2.0
+    if wire_dtype == "int8":
+        return 1.0 + 4.0 / block_size
+    raise ValueError(f"unknown wire_dtype {wire_dtype!r}; expected one of {WIRE_DTYPE_CANDIDATES}")
+
+
+def quantized_ring_allreduce_time(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    wire_dtype: str = "int8",
+    block_size: int = DEFAULT_QUANT_BLOCK,
+    codec_bytes_per_s: Optional[float] = None,
+) -> float:
+    """Latency of the unfused codec ring allreduce: each of the ``world −
+    1`` reduce-scatter hops pays an encode, the compressed chunk's wire time
+    and a decode-and-accumulate (3 codec passes), each all-gather hop the
+    wire and a decode (1 pass).  ``"off"`` pays no codec pass: the plain
+    chunked ring."""
+    if world < 2:
+        return 0.0
+    chunk_bytes = nbytes / world
+    elems = chunk_bytes / 4.0
+    wire_chunk = elems * wire_bytes_per_element(wire_dtype, block_size)
+    codec_pass = 0.0 if wire_dtype == "off" else chunk_bytes / _codec_rate(codec_bytes_per_s)
+    rs_hop = 3.0 * codec_pass + coeffs.time(wire_chunk)
+    ag_hop = 1.0 * codec_pass + coeffs.time(wire_chunk)
+    return (world - 1) * (rs_hop + ag_hop)
+
+
+def fused_quantized_ring_allreduce_time(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    chunk_bytes: float,
+    wire_dtype: str = "int8",
+    block_size: int = DEFAULT_QUANT_BLOCK,
+    hbm_bytes_per_s: Optional[float] = None,
+    codec_bytes_per_s: Optional[float] = None,
+) -> float:
+    """Latency of the fused codec ring (the codec inside the staged
+    kernels): a step is the 3-stage pipeline makespan over its tiles, ``fill
+    + (tiles − 1)·max(wire, fill, drain) + wire + drain``, the fill a local
+    read and an encode, the wire the compressed tile, the drain a
+    decode-accumulate (two local moves, two codec passes) in the
+    reduce-scatter or a decode-adopt (one and one) in the all-gather; plus
+    the seed copy.  ``"off"`` is refused: :func:`staged_ring_allreduce_time`
+    prices that kernel."""
+    if wire_dtype == "off":
+        raise ValueError(
+            "fused pricing needs a wire codec; the 'off' staged kernel is priced by staged_ring_allreduce_time"
+        )
+    if world < 2:
+        return 0.0
+    if chunk_bytes <= 0:
+        raise ValueError(f"chunk_bytes must be positive, got {chunk_bytes}")
+    hbm_rate = _hbm_rate(hbm_bytes_per_s)
+    chunk = nbytes / world
+    tiles = max(1, int(-(-chunk // chunk_bytes)))
+    tile_bytes = chunk / tiles
+    wire_tile = (tile_bytes / 4.0) * wire_bytes_per_element(wire_dtype, block_size)
+    hbm = tile_bytes / hbm_rate
+    codec = tile_bytes / _codec_rate(codec_bytes_per_s)
+    wire = coeffs.time(wire_tile)
+    rs_fill = hbm + codec               # stage-in + encode
+    rs_drain = 2.0 * hbm + 2.0 * codec  # accumulate read/write + decode-accumulate
+    ag_fill = hbm + codec               # stage-in + encode
+    ag_drain = hbm + codec              # decode + adopt write
+    rs_step = rs_fill + (tiles - 1) * max(wire, rs_fill, rs_drain) + wire + rs_drain
+    ag_step = ag_fill + (tiles - 1) * max(wire, ag_fill, ag_drain) + wire + ag_drain
+    seed = nbytes / hbm_rate
+    return seed + (world - 1) * (rs_step + ag_step)
+
+
+# --------------------------------------------------------------------------- #
+# overlapped-step pricing (ddp/overlap.py)
+# --------------------------------------------------------------------------- #
+
+
+def _bucket_comm_times(
+    world: int,
+    grad_bytes: float,
+    coeffs: LinkCoeffs,
+    bucket_bytes: Optional[Sequence[float]],
+    wire_dtype: str,
+) -> Tuple[float, ...]:
+    """One ring time a bucket (or one for the whole gradient without a
+    plan), each a bottleneck-link ring allreduce under the codec."""
+    payloads = tuple(float(b) for b in bucket_bytes) if bucket_bytes else (float(grad_bytes),)
+    if any(b < 0 for b in payloads):
+        raise ValueError(f"bucket bytes must be >= 0, got {list(payloads)}")
+    return tuple(quantized_ring_allreduce_time(world, b, coeffs, wire_dtype) for b in payloads)
+
+
+def _serial_pipeline(ready: Sequence[float], costs: Sequence[float]) -> float:
+    """Makespan of transfers released at ``ready[i]`` onto one serial wire."""
+    t = 0.0
+    for r, c in zip(ready, costs):
+        t = max(t, r) + c
+    return t
+
+
+def overlapped_step_time(
+    world: int,
+    grad_bytes: float,
+    coeffs: LinkCoeffs,
+    compute_s: float,
+    accum: int = 1,
+    overlap: str = "off",
+    bucket_bytes: Optional[Sequence[float]] = None,
+    wire_dtype: str = "off",
+) -> Dict[str, float]:
+    """Step time under one overlap schedule: ``"off"`` syncs after all
+    compute; ``"bucket"`` releases the buckets across the last microbatch's
+    backward and drains them as rolling collectives; ``"microbatch"`` syncs
+    every microbatch's full delta behind the next one's compute (``accum``×
+    the wire volume).  Returns ``{step_time_s, compute_s, comm_s,
+    exposed_comm_s, fill_s, drain_s}``."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    if accum < 1:
+        raise ValueError(f"accum must be >= 1, got {accum}")
+    if compute_s < 0:
+        raise ValueError(f"compute_s must be >= 0, got {compute_s}")
+    if overlap not in OVERLAP_MODE_CANDIDATES:
+        raise ValueError(f"overlap={overlap!r}: expected one of {OVERLAP_MODE_CANDIDATES}")
+    sync = _bucket_comm_times(world, grad_bytes, coeffs, bucket_bytes, wire_dtype)
+    sync_total = sum(sync)
+    compute_s = float(compute_s)
+    if overlap == "off":
+        comm = sync_total
+        step = compute_s + comm
+        fill, drain = 0.0, comm
+    elif overlap == "bucket":
+        comm = sync_total
+        n = len(sync)
+        window = compute_s / accum
+        start = compute_s - window
+        ready = [start + window * (i + 1) / n for i in range(n)]
+        step = max(compute_s, _serial_pipeline(ready, sync))
+        fill, drain = window / n, sync[-1]
+    else:  # microbatch
+        comm = sync_total * accum
+        c = compute_s / accum
+        ready = [c * (i + 1) for i in range(accum) for _ in sync]
+        costs = list(sync) * accum
+        step = max(compute_s, _serial_pipeline(ready, costs))
+        fill, drain = c, sync_total
+    return {
+        "step_time_s": step,
+        "compute_s": compute_s,
+        "comm_s": comm,
+        "exposed_comm_s": max(0.0, step - compute_s),
+        "fill_s": fill,
+        "drain_s": drain,
+    }
+
+
+def exposed_comm_floor_s(
+    world: int,
+    grad_bytes: float,
+    coeffs: LinkCoeffs,
+    overlap: str = "off",
+    bucket_bytes: Optional[Sequence[float]] = None,
+    wire_dtype: str = "off",
+) -> float:
+    """The exposed communication of a step as compute grows without bound:
+    ``"off"`` the whole sync, ``"bucket"`` the last bucket's collective,
+    ``"microbatch"`` the final delta's full sync.  The hook records it as
+    ``exposed_comm_s`` beside the bucket plan."""
+    if overlap not in OVERLAP_MODE_CANDIDATES:
+        raise ValueError(f"overlap={overlap!r}: expected one of {OVERLAP_MODE_CANDIDATES}")
+    sync = _bucket_comm_times(world, grad_bytes, coeffs, bucket_bytes, wire_dtype)
+    if overlap == "bucket":
+        return sync[-1]
+    return sum(sync)
+
+
+# --------------------------------------------------------------------------- #
+# latency-plane pricing: recursive doubling, binomial trees, all-to-all
+# --------------------------------------------------------------------------- #
+
+
+def _ring_hops(distance: int, world: int) -> int:
+    """Physical hops of a logical exchange at distance ``d`` on the ring
+    embedding (wraparound both ways)."""
+    d = int(distance) % int(world)
+    return min(d, world - d)
+
+
+def _rd_half_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
+    """One recursive-halving half (distances p/2 … 1, messages n/2 … n/p,
+    each serialized over its hop distance); a non-power-of-two world adds
+    one full-payload fold-in transfer."""
+    world = int(world)
+    if world < 2:
+        return 0.0
+    total = 0.0
+    p = 1 << (world.bit_length() - 1)
+    if p != world:
+        total += coeffs.time(nbytes)
+    d = p // 2
+    msg = float(nbytes) / 2.0
+    while d >= 1:
+        total += coeffs.alpha + coeffs.beta * _ring_hops(d, p) * msg
+        d //= 2
+        msg /= 2.0
+    return total
+
+
+def recursive_doubling_allreduce_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
+    """Recursive-halving reduce-scatter + recursive-doubling all-gather on
+    the ring embedding: ``2·log2(p)·α`` fixed cost, a hop-serialized
+    bandwidth slope."""
+    return 2.0 * _rd_half_time(world, nbytes, coeffs)
+
+
+def binomial_tree_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
+    """One binomial-tree phase (a broadcast or a reduce): ``ceil(log2 p)``
+    rounds, the full payload over each round's hop distance.  A tree
+    allreduce is two phases."""
+    world = int(world)
+    if world < 2:
+        return 0.0
+    total = 0.0
+    d = 1
+    while d < world:
+        total += coeffs.alpha + coeffs.beta * _ring_hops(d, world) * float(nbytes)
+        d *= 2
+    return total
+
+
+def all_to_all_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
+    """A flat all-to-all as the linear-shift schedule: ``world − 1`` rounds,
+    round ``k`` one ``nbytes/world`` block over ``min(k, p−k)`` hops
+    (``nbytes``: one rank's whole send volume)."""
+    world = int(world)
+    if world < 2:
+        return 0.0
+    block = float(nbytes) / world
+    total = 0.0
+    for k in range(1, world):
+        total += coeffs.alpha + coeffs.beta * _ring_hops(k, world) * block
+    return total
+
+
+def allreduce_crossover_bytes(world: int, coeffs: LinkCoeffs) -> float:
+    """The payload where the ring catches up with recursive doubling: both
+    are affine in ``n``, so the break-even is exact.  0.0 when rd never
+    wins, ``inf`` when it always does."""
+    world = int(world)
+    if world < 2:
+        return 0.0
+
+    def ring(n: float) -> float:
+        return quantized_ring_allreduce_time(world, n, coeffs, "off")
+
+    def rd(n: float) -> float:
+        return recursive_doubling_allreduce_time(world, n, coeffs)
+
+    probe = float(1 << 20)
+    ring_a, rd_a = ring(0.0), rd(0.0)
+    ring_slope = (ring(probe) - ring_a) / probe
+    rd_slope = (rd(probe) - rd_a) / probe
+    if rd_a >= ring_a:
+        return 0.0
+    if rd_slope <= ring_slope:
+        return float("inf")
+    return (ring_a - rd_a) / (rd_slope - ring_slope)
+
+
+def ring_allreduce_time(world: int, nbytes: float, coeffs: LinkCoeffs, chunks: int = 1) -> float:
+    """The chain-tree ("ring"-schedule) allreduce with ``chunks`` pipelined
+    chunks: ``(2·(w−1) + chunks − 1)·(α + β·nbytes/chunks)``."""
+    if world < 2:
+        return 0.0
+    per_hop = coeffs.time(nbytes / chunks)
+    return (2 * (world - 1) + chunks - 1) * per_hop

@@ -135,6 +135,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the checkpoint refused by a non-ring optimizer, and (d)'s non-ring state
    by a ring one; save and restore seconds and bytes.  Phase 13's flash and
    K1b launches are counted into the kernels line.
+14. slice 11's main path, the plan tuner, on databases in a temporary
+   directory: (a) ``CollectiveEngine(4, ring(4), tuner=choose)``
+   on a 4 MiB-a-rank payload (K1a/K5a, and K1b/K5b at small chunks) and on
+   phase 9's 642.6 MiB gradients (K1b/K5b), dispatched until every cell of
+   ``candidates("allreduce", algos=("ring",))`` holds its trial budget
+   (``TUNER_DISPATCH_CAP``), each cell's first dispatch bit for bit its
+   plain version; each cell's samples, median and prior, the choice, its
+   source and the incumbent; the database saved and reloaded ranks the
+   same plan; (b) ``DDPTrainer(tune=True, tune_every=2)`` on phase 5's
+   GPT-2, weights and batch, 12 steps, on a database seeded with every
+   cell at its trial budget and hook-bucket/bf16 fastest: each step's cell
+   and walltime, each adoption; losses finite, every cell a candidate, the
+   winner adopted after step 2 (codec and overlap rewritten on the hook),
+   step 3 runs it as a new configuration whose first step is discarded,
+   one sample a step but each configuration's first; (c) ``Zero1Optimizer(ring=True,
+   tuner=choose)`` at world 4, 3 steps: the chunk in the grid, losses bit
+   for bit phase 7's; (d) ``timed_roundtrip`` int8 and bf16 on one rank's
+   642.6 MiB and a 4-byte-a-rank ``ring_allreduce``: the codec rate and α
+   the cost model's defaults take, and record mode's cost on a 4 MiB
+   dispatch.  Phase 14's launches are counted into the kernels line.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -175,10 +195,15 @@ from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, SKIP_BOOTSTRAP, ReduceOp
-from adapcc_tpu_torch.quant import get_codec, ring_error_bound, wire_ring_allreduce_stacked
+from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
+from adapcc_tpu_torch.sim import cost_model
 from adapcc_tpu_torch.strategy.ir import Strategy
 from adapcc_tpu_torch.strategy.xml_io import parse_strategy_xml
 from adapcc_tpu_torch.topology.profile import gather_topo_profile
+from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase, TuningPolicy, mesh_fingerprint
+from adapcc_tpu_torch.tuner import measure as tuner_measure
+from adapcc_tpu_torch.tuner.policy import DEFAULT_CHUNK_GRID, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path
+from adapcc_tpu_torch.utils.observability import CollectiveTrace, MetricsRegistry
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
 MAIN = GPT2Config(
@@ -266,6 +291,28 @@ MICROBATCH_ATOL = 1e-6
 #: parameter by a rounding or not; over 5 steps that moves the loss (about
 #: 9.7) far less than 1e-2
 ZERO1_LAYOUT_LOSS_ATOL = 1e-2
+#: phase 14(a): dispatches a payload may take to fill every cell's budget
+#: (each cell needs its budget and one warmup; the explorer fills the least
+#: sampled cell a quarter of the time)
+TUNER_DISPATCH_CAP = 1500
+#: phase 14(b): tuned DDP steps and the policy's re-choice period
+TUNE_STEPS = 12
+TUNE_EVERY = 2
+#: phase 14(b)'s seeded database: every ddp_step cell at the policy's trial
+#: budget, the winner (``TUNE_WINNER``: codec and overlap both other than the
+#: prior's incumbent, hook/off) far faster than the rest, so the first
+#: re-choice adopts it and the adoption path runs on the card
+TUNE_WINNER = ("bucket", "bf16")
+TUNE_SEED_S = {True: 1e-3, False: 1.0}
+#: phase 14(c): ZeRO-1 steps under the tuned chunk
+TUNED_ZERO1_STEPS = 3
+#: phase 14(d): codec round trips and 4-byte dispatches timed
+CODEC_ITERS = 5
+ALPHA_ITERS = 50
+#: profiler captures a library yardstick's device timing takes before an
+#: empty one is a failure; a capture of a port kernel or a port path that
+#: holds no device record fails at once
+PROFILE_ATTEMPTS = 3
 
 
 def nvidia_smi() -> str:
@@ -307,12 +354,12 @@ def _device_events(prof) -> list:
             and e.key not in host]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, attempts: int = 1) -> float:
     """Mean device time of one ``fn`` call (:func:`device_stats`)."""
-    return device_stats(fn, iters, warmup)[0]
+    return device_stats(fn, iters, warmup, attempts)[0]
 
 
-def device_stats(fn, iters: int = 20, warmup: int = 3) -> tuple:
+def device_stats(fn, iters: int = 20, warmup: int = 3, attempts: int = 1) -> tuple:
     """``(ms, launches)``: the mean device time of one ``fn`` call, and the
     device records (kernels, copies, fills) it launches a call.  The time is
     the durations of the kernels it launches, from the profiler's kernel
@@ -322,17 +369,26 @@ def device_stats(fn, iters: int = 20, warmup: int = 3) -> tuple:
     ``iters``, rounded): late in a long process the profiler has kept 9
     records of 10 calls, which a plain sum over ``iters`` would read as a
     kernel 10% faster.  A kernel seen less than once a call counts its
-    total over ``iters``."""
+    total over ``iters``.  A capture with no device record is taken again
+    up to ``attempts`` times (only a library yardstick asks for more than
+    one), then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = _device_events(prof)
+    # the profiler has once come back with no device record at all for a
+    # library yardstick that launches kernels (PERF.md, open questions)
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = _device_events(prof)
+        if kernels:
+            break
+        print(f"device_ms: the profiler recorded no device time (capture {attempt} of {attempts})",
+              flush=True)
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     missing = [(e.key[:60], e.count) for e in kernels if e.count % iters]
@@ -457,7 +513,7 @@ def yardsticks(records: dict, q, k, v, do, scale: float, shape: tuple) -> None:
     def fwd():
         return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
 
-    fwd_ms, fwd_dev = cuda_ms(fwd), device_ms(fwd)
+    fwd_ms, fwd_dev = cuda_ms(fwd), device_ms(fwd, attempts=PROFILE_ATTEMPTS)
     ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
     dol = do.view(B, H, T, D)
@@ -465,7 +521,7 @@ def yardsticks(records: dict, q, k, v, do, scale: float, shape: tuple) -> None:
     def bwd():
         return torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
 
-    bwd_ms, bwd_dev = cuda_ms(bwd), device_ms(bwd)
+    bwd_ms, bwd_dev = cuda_ms(bwd), device_ms(bwd, attempts=PROFILE_ATTEMPTS)
     records["flash_fwd"].update(library_ms=fwd_ms, library_device_ms=fwd_dev)
     for name in ("flash_dq", "flash_dkv"):
         records[name].update(library_ms=bwd_ms, library_device_ms=bwd_dev,
@@ -660,7 +716,7 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
         del got, want
         times = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
                  "plain_ms": cuda_ms(plain, iters=5),
-                 "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+                 "library_ms": cuda_ms(library), "library_device_ms": device_ms(library, attempts=PROFILE_ATTEMPTS),
                  "dispatch_ms": cuda_ms(dispatch), "dispatch_device_ms": device_ms(dispatch)}
         ring.check_errors()
         print(f"time {kname} {phase} world={world} float32 payload {payload_bytes / 2**20:.1f} MiB/rank "
@@ -746,7 +802,7 @@ def engine_path(dev: torch.device) -> dict:
     payload per ring kernel; each result against the plain ring.  Returns
     the launches of each kernel in this run."""
     world = ZERO1_WORLD
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(world, Strategy.ring(world), trace=trace)
     for w in ring.KERNELS:
         w.launches = 0
@@ -760,7 +816,7 @@ def engine_path(dev: torch.device) -> dict:
         ring.check_errors()
         ok = all(torch.equal(a, b) for a, b in zip((ar, rs, ag), want))
         print(f"engine path {kname}: {n} float32 per rank, impl "
-              f"{sorted({r['impl'] for r in trace[-6:-3]})}, bit-exact vs plain {'ok' if ok else 'FAIL'}",
+              f"{sorted({e.impl for e in trace.events()[-6:-3]})}, bit-exact vs plain {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             raise RuntimeError(f"the engine's ring entry points disagree with the plain ring ({kname})")
@@ -799,7 +855,7 @@ def fused_engine_path(dev: torch.device, grads: torch.Tensor) -> dict:
     world = ZERO1_WORLD
     strategy = Strategy.ring(world)
     strategy.wire_dtype = "int8"
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(world, strategy, trace=trace)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     small = torch.randn(world, ENGINE_ELEMS["ring_k1a"], device=dev, generator=gen)
@@ -818,12 +874,14 @@ def fused_engine_path(dev: torch.device, grads: torch.Tensor) -> dict:
         del os.environ[ring.FUSED_WIRE_ENV]
     ring.check_errors()
     launches = {w.__name__: w.launches for w in ring.KERNELS}
-    impls = [r["impl"] for r in trace]
-    print(f"fused path: impls {impls}; reroute_reason {trace[-1].get('reroute_reason')!r}; "
-          f"wire bytes per rank {[r['wire_bytes'] for r in trace]}", flush=True)
+    events = trace.events()
+    impls = [e.impl for e in events]
+    reroute = events[-1].extra.get("reroute_reason", "")
+    print(f"fused path: impls {impls}; reroute_reason {reroute!r}; "
+          f"wire bytes per rank {[e.extra['wire_bytes'] for e in events]}", flush=True)
     want_impls = [f"cuda_ring[{p}]" for p in ("hbm-stream+int8", "hbm-stream+bf16", "hbm-stream+int8",
                                                "hbm-stream+int8", "vmem+int8")] + ["quant_ring[int8]"]
-    if impls != want_impls or "ADAPCC_FUSED_WIRE=off" not in trace[-1].get("reroute_reason", ""):
+    if impls != want_impls or "ADAPCC_FUSED_WIRE=off" not in reroute:
         raise RuntimeError(f"the fused path dispatched {impls}, expected {want_impls}")
     for label, out in (("int8", fused), ("bf16", bf16), ("4 MiB int8", small_out), ("unfused int8", unfused)):
         if not all(torch.equal(out[r], out[0]) for r in range(1, world)):
@@ -1036,7 +1094,7 @@ def schedule_world8(dev: torch.device, init_state, tokens) -> tuple:
           flush=True)
     if groups != SCHEDULE_GROUPS:
         raise RuntimeError(f"the merged plan has {groups} groups, the JAX package's {SCHEDULE_GROUPS}")
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(SCHEDULE_WORLD, strategy, trace=trace)
     cpu_eng = CollectiveEngine(SCHEDULE_WORLD, strategy)
     largest = max(range(plan.num_buckets), key=lambda b: plan.bucket_sizes[b])
@@ -1047,8 +1105,8 @@ def schedule_world8(dev: torch.device, init_state, tokens) -> tuple:
             return e.all_reduce(x, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
 
         out = call()
-        rec = trace[-1]
-        if rec["impl"] != "schedule" or rec["merged"] is not True:
+        rec = trace.events()[-1]
+        if rec.impl != "schedule" or rec.extra["merged"] is not True:
             raise RuntimeError(f"bucket {b} did not run the merged schedule plane: {rec}")
         rows_same = all(same_bits(out[r], out[0]) for r in range(1, SCHEDULE_WORLD))
         x = stacked.index_select(0, active).double()
@@ -1105,14 +1163,14 @@ def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
     sliced = grads[:, :slice_n].contiguous()
     sliced_cpu = sliced.cpu()
     for sname, strategy in strategies.items():
-        trace = []
+        trace = CollectiveTrace()
         eng = CollectiveEngine(world, strategy, trace=trace, use_xla_fastpath=False)
         cpu_eng = CollectiveEngine(world, strategy, use_xla_fastpath=False)
         for cname, fn in calls.items():
             exact = same_bits(fn(eng, sliced).cpu(), fn(cpu_eng, sliced_cpu))
             out = fn(eng, grads)
-            rec = trace[-1]
-            ok = exact and rec["impl"] == "schedule" and bool(torch.isfinite(out).all())
+            rec = trace.events()[-1]
+            ok = exact and rec.impl == "schedule" and bool(torch.isfinite(out).all())
             if cname.startswith("all_reduce"):
                 ok = ok and all(same_bits(out[r], out[0]) for r in range(1, world))
             if cname in ("all_reduce SUM", "all_reduce AVG relay 2"):
@@ -1123,7 +1181,7 @@ def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
                 del x, want, scale
             del out
             t = time_dispatch(lambda: fn(eng, grads))
-            print(f"schedule 11b {sname:11s} {cname:22s}: merged {rec['merged']}; bit for bit vs CPU "
+            print(f"schedule 11b {sname:11s} {cname:22s}: merged {rec.extra['merged']}; bit for bit vs CPU "
                   f"{'ok' if exact else 'FAIL'}, checks {'ok' if ok else 'FAIL'}; {_fmt(t)}", flush=True)
             if not ok:
                 raise RuntimeError(f"phase 11b {sname} {cname} failed its checks")
@@ -1584,6 +1642,278 @@ def slice10(dev: torch.device, init_state, tokens, z_tokens, losses, z_losses, c
     return p13
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the plan tuner (slice 11)
+# --------------------------------------------------------------------------- #
+
+
+def plain_allreduce(x: torch.Tensor, wire_dtype: str, block_size: int = 256) -> torch.Tensor:
+    """The plain version of the ring allreduce the engine ran on ``x``: the
+    walk of ``_ring_plain`` (or, under a codec, ``_fused_ring_plain``) on
+    the same padded chunks."""
+    world = x.shape[0]
+    flat = x.reshape(world, -1)
+    chunks, _ = ring._pad_chunks(flat, world)
+    work = (ring._ring_plain(chunks, True, True) if wire_dtype == "off"
+            else ring._fused_ring_plain(chunks, True, True, wire_dtype, block_size))
+    return work.reshape(world, -1)[:, : flat.shape[1]].reshape(x.shape)
+
+
+def _cell(key) -> str:
+    chunk = f"{key.chunk_bytes >> 10} KiB" if key.chunk_bytes else "-"
+    return f"{key.path}/{chunk}/{key.wire_dtype}"
+
+
+def tuner_engine_cells(dev: torch.device, grads: torch.Tensor, workdir: str) -> None:
+    """Phase 14(a): ``CollectiveEngine(4, ring(4), tuner=choose)`` on a fresh
+    database in ``workdir``, each payload dispatched until every cell of
+    ``candidates("allreduce", algos=("ring",))`` holds its trial budget;
+    each cell's first dispatch held bit for bit against the plain version
+    (the quant ring has no kernel); the medians, the choice, the incumbent;
+    the database saved, reloaded, and ranking the same plan."""
+    world = ZERO1_WORLD
+    db_path = os.path.join(workdir, "engine_tuning.jsonl")
+    topology = mesh_fingerprint(dev, world=world)
+    tuner = CollectiveTuner(world, topology, db=TuningDatabase(db_path), mode="choose")
+    db, policy = tuner.db, tuner.policy
+    trace = CollectiveTrace()
+    eng = CollectiveEngine(world, Strategy.ring(world), trace=trace, tuner=tuner)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    payloads = {"4 MiB": torch.randn(world, ENGINE_ELEMS["ring_k1a"], device=dev, generator=gen),
+                "642.6 MiB": grads}
+    for label, x in payloads.items():
+        nbytes = x[0].numel() * 4
+        cells = policy.candidates("allreduce", nbytes, "float32", algos=("ring",))
+        t0, dispatches, first = time.perf_counter(), 0, {}
+        while any(db.count(c) < policy.trial_budget for c in cells):
+            if dispatches >= TUNER_DISPATCH_CAP:
+                raise RuntimeError(f"14a {label}: {dispatches} dispatches left cells under budget: "
+                                   f"{[(_cell(c), db.count(c)) for c in cells]}")
+            out = eng.ring_allreduce(x)
+            dispatches += 1
+            event = trace.events()[-1]
+            key = tuner_measure._key_from_event(event, world, topology)
+            if key not in cells:
+                raise RuntimeError(f"14a {label}: dispatch {dispatches} ran {key}, outside the candidates")
+            if key not in first:
+                if key.path == QUANT_PATH:
+                    first[key] = None  # the unfused quant ring: eager torch, no kernel
+                else:
+                    first[key] = torch.equal(out, plain_allreduce(x, key.wire_dtype))
+                print(f"tuner 14a {label} dispatch {dispatches}: first of cell {_cell(key)} ({event.impl}, "
+                      f"source {event.extra['tuner']['source']}, applied {event.extra['tuner']['applied']}); "
+                      f"bit for bit its plain version {'-' if first[key] is None else first[key]}", flush=True)
+                if first[key] is False:
+                    raise RuntimeError(f"14a {label}: cell {_cell(key)} disagrees with its plain version")
+            del out
+        span = time.perf_counter() - t0
+        for c in cells:
+            st = db.stats(c)
+            print(f"tuner 14a {label} cell {_cell(c):28s}: {st.count} samples, median {st.median_s * 1e3:.4f} ms, "
+                  f"iqr {st.iqr_s * 1e3:.4f}, min {st.min_s * 1e3:.4f}, max {st.max_s * 1e3:.4f} ms; prior "
+                  f"{policy.prior_time(c, nbytes) * 1e3:.4f} ms; samples "
+                  f"{[round(t * 1e3, 4) for t in db.samples(c)]}", flush=True)
+        plan = tuner.choose("allreduce", nbytes, "float32", algos=("ring",))
+        incumbent = policy.incumbent("allreduce", nbytes)
+        print(f"tuner 14a {label}: {len(cells)} cells filled in {dispatches} dispatches ({span:.1f} s); chosen "
+              f"{_cell(plan.key)} (source {plan.source}, {plan.expected_s * 1e3:.4f} ms); incumbent "
+              f"{_cell(incumbent) if incumbent else None}", flush=True)
+        if plan.source != "measured":
+            raise RuntimeError(f"14a {label}: a filled grid chose by {plan.source}")
+    db.save()
+    reloaded = TuningPolicy(TuningDatabase(db_path), world, topology)
+    for label, x in payloads.items():
+        nbytes = x[0].numel() * 4
+        a = tuner.rank_only("allreduce", nbytes, "float32", algos=("ring",))
+        b = reloaded.rank_only("allreduce", nbytes, "float32", algos=("ring",))
+        print(f"tuner 14a {label}: saved and reloaded database ranks {_cell(b.key)} ({b.source}), the live one "
+              f"{_cell(a.key)}", flush=True)
+        if (a.key, a.source) != (b.key, b.source):
+            raise RuntimeError(f"14a {label}: the reloaded database ranks another plan")
+    del payloads
+    torch.cuda.empty_cache()
+
+
+def measured_defaults(dev: torch.device, grads: torch.Tensor, smi: str) -> None:
+    """Phase 14(d): the codec rate and α the cost model's card defaults
+    take: ``timed_roundtrip`` int8 and bf16 on one rank's 642.6 MiB
+    gradient, and the 4-byte-a-rank stacked ``ring_allreduce`` (K1a) over
+    its 2·(world − 1) hops; beside them, the cost of record mode on a 4 MiB
+    dispatch."""
+    world = ZERO1_WORLD
+    row = grads[0]
+    registry = MetricsRegistry()
+    rates = {}
+    for name in ("int8", "bf16"):
+        for _ in range(CODEC_ITERS):
+            timed_roundtrip(name, row, registry=registry)
+        t = registry.snapshot()["timings"]
+        q, d = t[f"quant.{name}.quantize"]["p50_s"], t[f"quant.{name}.dequantize"]["p50_s"]
+        rates[name] = row.numel() * 4 / ((q + d) / 2)
+        print(f"defaults 14d codec {name}: quantize p50 {q * 1e3:.4f} ms, dequantize p50 {d * 1e3:.4f} ms on "
+              f"{row.numel() * 4 / 2**20:.1f} MiB float32: {rates[name] / 1e9:.2f} GB/s a pass ({smi})", flush=True)
+    eng = CollectiveEngine(world, Strategy.ring(world))
+    x = torch.randn(world, 1, device=dev)
+
+    def walltimes(engine, payload, sync_each: bool = True) -> list:
+        for _ in range(3):
+            engine.ring_allreduce(payload)
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(ALPHA_ITERS):
+            t0 = time.perf_counter()
+            engine.ring_allreduce(payload)
+            if sync_each:
+                torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return out
+
+    t = float(np.median(walltimes(eng, x)))
+    alpha = t / (2 * (world - 1))
+    print(f"defaults 14d alpha: 4-byte-a-rank ring_allreduce (K1a) walltime median {t * 1e6:.2f} us over "
+          f"{ALPHA_ITERS}, alpha {alpha * 1e6:.3f} us a hop ({smi})", flush=True)
+    print(f"defaults 14d: cost model now alpha {cost_model.MEASURED_ALPHA_S * 1e6:.3f} us, codec "
+          f"{cost_model.DEFAULT_CODEC_BYTES_PER_S / 1e9:.2f} GB/s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    small = torch.randn(world, ENGINE_ELEMS["ring_k1a"], device=dev, generator=gen)
+    rec = CollectiveEngine(world, Strategy.ring(world), tuner=CollectiveTuner(
+        world, mesh_fingerprint(dev, world=world), db=TuningDatabase(persist=False), mode="record"))
+    free = walltimes(eng, small, sync_each=False)
+    synced = walltimes(eng, small)
+    recorded = walltimes(rec, small)
+    print(f"defaults 14d record-mode overhead, 4 MiB ring_allreduce (K1a): untuned {np.mean(free) * 1e3:.4f} ms a "
+          f"dispatch unsynced, {np.median(synced) * 1e3:.4f} ms median synced; record mode "
+          f"{np.median(recorded) * 1e3:.4f} ms median ({rec.tuner.timer.recorded} recorded, "
+          f"{rec.tuner.timer.discarded} discarded)", flush=True)
+
+
+def tuned_ddp(dev: torch.device, init_state, tokens, workdir: str) -> None:
+    """Phase 14(b): ``DDPTrainer(tune=True, tune_every=TUNE_EVERY)`` on phase
+    5's GPT-2, weights and batch, world 1 over NCCL, ``TUNE_STEPS`` steps
+    on a database seeded so that ``TUNE_WINNER`` wins the first re-choice:
+    each step's cell and walltime, each adoption; losses finite; every
+    executed cell a candidate; at least one adoption, the step after it
+    runs the adopted codec and overlap on a new configuration whose first
+    step is discarded; one measured sample a step but the first of each
+    configuration."""
+    world = build_world_mesh(1)
+    model = GPT2(MAIN, device=world.device, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    tuner = CollectiveTuner.for_mesh(world, db_path=os.path.join(workdir, "ddp_tuning.jsonl"))
+    trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4), world, Strategy.ring(1), tune=True,
+                         tuner=tuner, tune_every=TUNE_EVERY)
+    state = TrainState.create(model, trainer.tx)
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    candidates = trainer.tuner.policy.candidates("ddp_step", grad_bytes, overlap_modes=trainer._overlap_modes)
+    winner = tuner.key_for("ddp_step", grad_bytes, hook_path(TUNE_WINNER[0]), NO_CHUNK, TUNE_WINNER[1])
+    if winner not in candidates or winner == trainer._step_cell(grad_bytes):
+        raise RuntimeError(f"14b: the seeded winner {_cell(winner)} is not a non-incumbent candidate")
+    for key in candidates:
+        for i in range(tuner.policy.trial_budget):
+            tuner.db.record(key, TUNE_SEED_S[key == winner] * (1 + i / 100), ts=float(i))
+    seeded = {k: tuner.db.count(k) for k in candidates}
+    losses, cells, adoptions, walls = [], [], [], {}
+    for i in range(TUNE_STEPS):
+        cell = trainer._step_cell(grad_bytes)
+        discarded, count = tuner.timer.discarded, tuner.db.count(cell)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, tokens)
+        losses.append(loss.item())
+        dt = time.perf_counter() - t0
+        cells.append(cell)
+        # a step on a new configuration is its warmup: discarded, not recorded
+        warmup = tuner.timer.discarded == discarded + 1 and tuner.db.count(cell) == count
+        if not warmup and tuner.db.count(cell) != count + 1:
+            raise RuntimeError(f"14b step {i + 1}: neither discarded nor recorded under {_cell(cell)}")
+        if adoptions and adoptions[-1][0] == i and not warmup:
+            raise RuntimeError(f"14b step {i + 1}: the first step on the adopted {_cell(cell)} was recorded")
+        after = trainer._step_cell(grad_bytes)
+        if after != cell:
+            adoptions.append((i + 1, after))
+            if (trainer.hook.effective_compress(), trainer.hook.overlap) != (after.wire_dtype,
+                                                                           hook_overlap_of(after.path)):
+                raise RuntimeError(f"14b: adopted {_cell(after)} but the hook runs "
+                                   f"{trainer.hook.effective_compress()}/{trainer.hook.overlap}")
+        if not warmup:
+            walls.setdefault(cell, []).append(dt)
+        print(f"tuner 14b step {i + 1}: cell {_cell(cell)}, {dt * 1e3:.2f} ms, loss {losses[-1]:.6f}"
+              + (" (warmup, discarded)" if warmup else "")
+              + (f"; adopted {_cell(after)}" if after != cell else ""), flush=True)
+    destroy_world()
+    db = tuner.db
+    samples = sum(db.count(k) - seeded.get(k, 0) for k in db.keys())
+    gens = len(trainer._built)
+    for k in db.keys():
+        st = db.stats(k)
+        measured = (f", measured steps' median {np.median(walls[k]) * 1e3:.2f} ms" if k in walls else "")
+        print(f"tuner 14b cell {_cell(k)}: {db.count(k) - seeded.get(k, 0)} measured samples "
+              f"(+{seeded.get(k, 0)} seeded), median of all {st.median_s * 1e3:.2f} ms{measured}", flush=True)
+    print(f"tuner 14b: {samples} samples for {TUNE_STEPS} steps over {gens} configurations; adoptions "
+          f"{[(s, _cell(k)) for s, k in adoptions]}; grid {[_cell(c) for c in candidates]}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"14b losses not finite: {losses}")
+    if any(c not in candidates for c in cells):
+        raise RuntimeError(f"14b ran a cell outside the candidates: {[_cell(c) for c in cells]}")
+    if not adoptions or adoptions[0] != (TUNE_EVERY, winner):
+        raise RuntimeError(f"14b: expected the adoption of {_cell(winner)} after step {TUNE_EVERY}, "
+                           f"got {[(s, _cell(k)) for s, k in adoptions]}")
+    if cells[TUNE_EVERY] != winner:
+        raise RuntimeError(f"14b: step {TUNE_EVERY + 1} ran {_cell(cells[TUNE_EVERY])}, not the adopted cell")
+    if samples != TUNE_STEPS - gens:
+        raise RuntimeError(f"14b: {samples} samples in the database, expected {TUNE_STEPS} - {gens}")
+    del model, state, trainer
+    torch.cuda.empty_cache()
+
+
+def tuned_zero1(dev: torch.device, init_state, z_tokens, z_losses, workdir: str) -> None:
+    """Phase 14(c): ``Zero1Optimizer(ring=True, tuner=choosing)`` at world 4,
+    ``TUNED_ZERO1_STEPS`` steps: the chunk in the grid, losses bit for bit
+    phase 7's first steps (the ring adds in the same order at any tile
+    size), each step but the first recorded under ``tuning_key()``."""
+    tuner = CollectiveTuner(ZERO1_WORLD, mesh_fingerprint(dev, world=ZERO1_WORLD),
+                            db_path=os.path.join(workdir, "zero1_tuning.jsonl"), mode="choose")
+    losses, seconds, (_, opt, *_) = zero1_run(dev, init_state, z_tokens, steps=TUNED_ZERO1_STEPS, ring=True,
+                                              tuner=tuner)
+    key = opt.tuning_key()
+    want = z_losses[:TUNED_ZERO1_STEPS]
+    print(f"tuner 14c (ZeRO-1 ring, world {ZERO1_WORLD}): chunk {opt.ring_chunk_bytes} bytes "
+          f"({opt.tuned_plan.source}, cell {_cell(key)}); losses {losses}; bit for bit phase 7's "
+          f"{'ok' if losses == want else 'FAIL'}; steps {[round(s * 1e3, 2) for s in seconds]} ms; "
+          f"{tuner.db.count(key)} samples under the cell", flush=True)
+    if opt.ring_chunk_bytes not in DEFAULT_CHUNK_GRID:
+        raise RuntimeError(f"14c: chunk {opt.ring_chunk_bytes} is not in the grid {DEFAULT_CHUNK_GRID}")
+    if losses != want:
+        raise RuntimeError(f"14c: the tuned chunk's losses differ from phase 7's: {losses} vs {want}")
+    if tuner.db.count(key) != TUNED_ZERO1_STEPS - 1:
+        raise RuntimeError(f"14c: {tuner.db.count(key)} samples under {key}, expected {TUNED_ZERO1_STEPS - 1}")
+    torch.cuda.empty_cache()
+
+
+def slice11(dev: torch.device, init_state, tokens, z_tokens, z_losses, smi: str) -> dict:
+    """Phase 14, slice 11's main path (the module docstring); returns the
+    launches of each kernel in it."""
+    t14 = time.perf_counter()
+    kernels = (*fa.KERNELS, *ring.KERNELS)
+    for w in kernels:
+        w.launches = 0
+    with tempfile.TemporaryDirectory(prefix="adapcc_tuner_") as workdir:
+        grads = gpt2_gradients(dev, init_state, z_tokens)
+        tuner_engine_cells(dev, grads, workdir)
+        measured_defaults(dev, grads, smi)
+        del grads
+        torch.cuda.empty_cache()
+        tuned_ddp(dev, init_state, tokens, workdir)
+        tuned_zero1(dev, init_state, z_tokens, z_losses, workdir)
+    ring.check_errors()
+    p14 = {w.__name__: w.launches for w in kernels}
+    print(f"phase 14 launches: {p14}; phase 14 {time.perf_counter() - t14:.1f} s", flush=True)
+    if not all(p14.values()):
+        raise RuntimeError(f"a kernel was not launched in phase 14: {p14}")
+    return p14
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -1879,6 +2209,11 @@ def main() -> None:
     # 13. slice 10's main path: accumulation, the overlapped syncs, ZeRO-1
     # without the ring, and checkpoints
     for kname, n in slice10(dev, init_state, tokens, z_tokens, losses, z_losses, c_losses_11).items():
+        launches[kname] += n
+
+    # 14. slice 11's main path: the plan tuner on the ring plane, the tuned
+    # DDP step and ZeRO-1's tuned chunk
+    for kname, n in slice11(dev, init_state, tokens, z_tokens, z_losses, smi).items():
         launches[kname] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -15,11 +15,20 @@
   gives the same losses and parameters.
 
 The logics' timings are cut as ``tests/test_coordinator.py::fast_logic``
-cuts them; no default changes.  The JAX package is imported inside the
-functions that use it.
+cuts them; no default changes.  The threaded scenarios fix their arrival
+order rather than race it: threads leave one barrier together, a late rank
+waits on an event until the step froze without it, and the logic's clock
+is stepped by arrivals and reads rather than by the scheduler
+(``_SteppedClock``), so a loaded machine cannot demote an on-time rank,
+and the rent-or-buy's buy point and relay threshold fall at a known
+arrival and read (``test_rent_or_buy_freezes_at_the_formulas_time``).  The
+JAX package is imported inside the functions that use it.
 """
 
+import collections
+import contextlib
 import multiprocessing
+import sys
 import threading
 import time
 from types import SimpleNamespace
@@ -51,10 +60,13 @@ def _logics(world, **kw):
 
 
 def _run_workers(n, fn):
+    """``fn(r)`` on ``n`` threads, released together from one barrier."""
     results, errors = {}, []
+    start = threading.Barrier(n)
 
     def wrap(r):
         try:
+            start.wait(timeout=10)
             results[r] = fn(r)
         except Exception as e:  # pragma: no cover
             errors.append(e)
@@ -66,6 +78,53 @@ def _run_workers(n, fn):
         t.join(timeout=10)
     assert not errors, errors
     return results
+
+
+class _SteppedClock:
+    """The clock of ``lg``'s module (``time.monotonic`` as the logic reads
+    it), stepped by what happens instead of by the scheduler: it moves
+    ``arrival_s`` with each arrival at a step and, once no open step has
+    fewer than ``on_time`` arrivals, ``read_s`` with each read.  The
+    rent-or-buy leader thus accrues ``(m - 1) * arrival_s`` of rent at its
+    ``m``-th arrival and ``read_s`` a wait after the on-time ranks are in,
+    so its buy point and relay threshold are crossed at a known arrival
+    count and read, however a loaded machine schedules the threads.  The
+    thresholds and the decision rule are the logic's own."""
+
+    def __init__(self, lg, on_time, arrival_s=FAST["time_slot"], read_s=FAST["time_slot"]):
+        self.lg, self.on_time, self.arrival_s, self.read_s = lg, on_time, arrival_s, read_s
+        self.seen, self.reads, self.readings = {}, 0, []
+        #: set once the clock was read with that many arrivals at an open step
+        self.observed = collections.defaultdict(threading.Event)
+        self._lock = threading.Lock()
+
+    def at(self, arrivals, reads):
+        return self.arrival_s * arrivals + self.read_s * reads
+
+    def monotonic(self):
+        # the logic reads its clock holding its condition: _ready and
+        # _frozen are still while this runs
+        with self._lock:
+            held = False
+            for step, ready in list(self.lg._ready.items()):
+                self.seen[step] = max(self.seen.get(step, 0), len(ready))
+                if step not in self.lg._frozen:
+                    held |= len(ready) < self.on_time
+                    self.observed[len(ready)].set()
+            value = self.at(sum(self.seen.values()), self.reads)
+            self.reads += not held
+            self.readings.append(value)
+            return value
+
+    @contextlib.contextmanager
+    def installed(self):
+        module = sys.modules[type(self.lg).__module__]
+        real = module.time
+        module.time = SimpleNamespace(monotonic=self.monotonic)
+        try:
+            yield self
+        finally:
+            module.time = real
 
 
 def _args(topo):
@@ -98,13 +157,26 @@ def _scenario_all_arrive(lg):
     return _run_workers(4, lambda r: sorted(lg.hook_arrive(step=0, rank=r)))
 
 
-def _scenario_straggler(lg):
-    def worker(r):
-        if r == 3:
-            time.sleep(0.4)  # way past the relay threshold
-        return sorted(lg.hook_arrive(step=0, rank=r))
+def _late_rank_workers(n, late, arrive):
+    """``arrive(r)`` on ``n`` ranks: the on-time ones released together, the
+    ``late`` one held on an event until an on-time rank's arrival has
+    returned, i.e. the step is frozen without it: late past any threshold,
+    whatever the machine's load."""
+    frozen = threading.Event()
 
-    return _run_workers(4, worker)
+    def worker(r):
+        if r == late:
+            assert frozen.wait(timeout=10)
+            return arrive(r)
+        out = arrive(r)
+        frozen.set()
+        return out
+
+    return _run_workers(n, worker)
+
+
+def _scenario_straggler(lg):
+    return _late_rank_workers(4, 3, lambda r: sorted(lg.hook_arrive(step=0, rank=r)))
 
 
 def _scenario_sole_leader(lg):
@@ -149,7 +221,15 @@ def test_logic_scenarios_decide_as_jax(scenario):
     world = 2 if scenario is _scenario_sole_leader else 4
     kw = {"fault_timeout": 0.2} if scenario in (_scenario_sole_leader, _scenario_controller_fault) else {}
     port, ref = _logics(world, **kw)
-    got, want = scenario(port), scenario(ref)
+    # the ranks each scenario means to arrive on time (the others wait for
+    # a timeout, which the clock must reach)
+    on_time = {_scenario_all_arrive: 4, _scenario_straggler: 3, _scenario_controller_alive: 4,
+               _scenario_fault_plan: 3}.get(scenario)
+    results = []
+    for lg in (port, ref):
+        with _SteppedClock(lg, on_time).installed() if on_time else contextlib.nullcontext():
+            results.append(scenario(lg))
+    got, want = results
     assert got == want
     expected = {
         _scenario_all_arrive: {r: [0, 1, 2, 3] for r in range(4)},
@@ -164,6 +244,58 @@ def test_logic_scenarios_decide_as_jax(scenario):
         hooks, conts, wv = got
         assert hooks == {r: [0, 1, 3] for r in range(4)} and wv == ([0, 1, 3], 1)
         assert all(c == ([0, 1, 3], 0) for c in conts.values())
+
+
+def _freezes_at(lg, clock, m):
+    """The rent at which the rent-or-buy freezes ``m`` ranks in when
+    ``clock`` steps its time: the first read after the ``m``-th arrival at
+    which renting on costs more than buying or the relay threshold is
+    passed, from the logic's cost functions; and which of the two fired."""
+    t0 = clock.at(1, 0)
+    k = 0
+    while True:
+        rent = clock.at(m, k) - t0
+        buy = rent + lg._initial_rent_cost() >= lg._buy_cost(m)
+        if buy or rent > lg.relay_threshold:
+            return rent, "buy" if buy else "relay"
+        k += 1
+
+
+@pytest.mark.parametrize("case", ["buy", "relay"])
+def test_rent_or_buy_freezes_at_the_formulas_time(case):
+    """Three of four ranks on time, each arriving once the leader has read
+    its clock with the ranks before it in, the fourth held until the step
+    froze: the leader freezes the three at the rent its cost formula names,
+    on the stepped clock, and the port's logic at the same rent as JAX's.  ``buy``:
+    the default costs and 7 ms an arrival put the buy point between the
+    second and the third arrival (bought on the third's first read);
+    ``relay``: calibrated costs put it past the 50 ms relay threshold,
+    which fires first."""
+    port, ref = _logics(4)
+    rents = []
+    for lg in (port, ref):
+        if case == "relay":
+            lg.calibrate(1e9, 10.0)  # 25 ms of size/bandwidth: the buy of 3 at 83 ms
+        clock = _SteppedClock(lg, 3, arrival_s=0.007 if case == "buy" else FAST["time_slot"])
+        # the decision must not fall before the third arrival, or the
+        # arrival order would decide it
+        assert _freezes_at(lg, clock, 2)[0] > clock.at(2, 0) - clock.at(1, 0)
+        want_rent, fired = _freezes_at(lg, clock, 3)
+        assert fired == case
+        def arrive(r, lg=lg, clock=clock):
+            if r in (1, 2):  # rank 0 leads and decides on each arrival count
+                assert clock.observed[r].wait(timeout=10)
+            return sorted(lg.hook_arrive(step=0, rank=r))
+
+        with clock.installed():
+            out = _late_rank_workers(4, 3, arrive)
+        assert out == {r: [0, 1, 2] for r in range(4)}
+        rent = clock.readings[-1] - clock.readings[0]
+        assert rent == want_rent
+        rents.append(rent)
+    assert rents[0] == rents[1]
+    # bought on the third arrival's first read; relayed some reads later
+    assert (rents[0] == clock.at(3, 0) - clock.at(1, 0)) if case == "buy" else (rents[0] > FAST["relay_threshold"])
 
 
 def test_worldview_and_heartbeat_funnel_match_jax():
@@ -188,6 +320,30 @@ def test_worldview_and_heartbeat_funnel_match_jax():
     assert lg_port.worldview().relays == lg_ref.worldview().relays == frozenset({2})
 
 
+class _OrderedArrivals:
+    """A probe's ``hook_arrive`` with each step's arrivals ordered: the
+    on-time ranks pass one barrier together, the slow ones wait until an
+    on-time rank's arrival has returned (the step froze without them), so
+    the emulation's verdict does not hang on the scheduler's load."""
+
+    def __init__(self, probe, world, steps, slow):
+        self.probe, self.slow = probe, set(slow)
+        self.together = threading.Barrier(world - len(self.slow))
+        self.frozen = [threading.Event() for _ in range(steps)]
+
+    def hook_arrive(self, step, rank):
+        if rank in self.slow:
+            assert self.frozen[step].wait(timeout=10)
+            return self.probe.hook_arrive(step, rank)
+        self.together.wait(timeout=10)
+        out = self.probe.hook_arrive(step, rank)
+        self.frozen[step].set()
+        return out
+
+    def wait_time(self, step):
+        return self.probe.wait_time(step)
+
+
 def test_wait_time_probe_with_a_slow_rank():
     """Eight emulated participants, rank 3 slow: the probe's per-step skew
     and the logic's frozen lists leave rank 3 out, as JAX's do."""
@@ -198,7 +354,9 @@ def test_wait_time_probe_with_a_slow_rank():
     for name, probe_cls, emulate, lg in (("port", WaitTimeProbe, emulate_heterogeneous_steps, _logics(8)[0]),
                                          ("jax", JaxProbe, jax_emulate, _logics(8)[1])):
         probe = probe_cls(lg)
-        waits = emulate(probe, 8, 2, base_compute_s=0.002, heter_alpha=100.0, slow_ranks=(3,))
+        with _SteppedClock(lg, 7).installed():
+            waits = emulate(_OrderedArrivals(probe, 8, 2, (3,)), 8, 2, base_compute_s=0.002, heter_alpha=100.0,
+                            slow_ranks=(3,))
         results[name] = ([lg.active_list(s) for s in range(2)], waits, probe.steps())
     for name, (frozen, waits, steps) in results.items():
         assert [sorted(f) for f in frozen] == [[0, 1, 2, 4, 5, 6, 7]] * 2, name
@@ -239,13 +397,10 @@ def test_grpc_clients_and_servers_cross(server_side):
         controllers = [client_mod.Controller("127.0.0.1", server.port) for _ in range(3)]
         clients += hookers + controllers
 
-        def worker(r):
-            if r == 2:
-                time.sleep(0.3)  # past the relay threshold: a relay
-            active = sorted(hookers[r].send_ready_request(0, r))
-            return active, controllers[r].send_relay_request(0, r)
-
-        out = _run_workers(3, worker)
+        # rank 2 arrives after the step froze without it: a relay
+        hooks = _late_rank_workers(3, 2, lambda r: sorted(hookers[r].send_ready_request(0, r)))
+        conts = _run_workers(3, lambda r: controllers[r].send_relay_request(0, r))
+        out = {r: (hooks[r], conts[r]) for r in range(3)}
         for r in range(3):
             active, (cont_active, status) = out[r]
             assert active == [0, 1] and sorted(cont_active) == [0, 1] and status == 1

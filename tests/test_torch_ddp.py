@@ -37,6 +37,7 @@ from adapcc_tpu_torch.models.convert import flax_to_state_dict
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.utils.observability import MetricsRegistry
 
 TINY = dict(vocab_size=256, max_seq=32, n_layer=1, n_head=2, d_model=64)
 PER_RANK_BATCH = 2
@@ -242,10 +243,10 @@ def test_hook_resolves_psum_and_rejects_what_waits():
     assert GradSyncHook(two_hosts)._resolved_mode() == "schedule"
     assert GradSyncHook(one_host, use_xla_fastpath=False)._resolved_mode() == "schedule"
     assert torch.equal(GradSyncHook(one_host).negotiate(0), torch.ones(2, dtype=torch.bool))
-    # the schedule plane runs now (tests/test_torch_schedule.py); its
-    # observability sinks wait
-    with pytest.raises(NotImplementedError, match="observability"):
-        GradSyncHook(two_hosts, metrics=object())
+    # the schedule plane runs now (tests/test_torch_schedule.py), and so do
+    # its observability sinks (tests/test_torch_tuner.py)
+    registry = MetricsRegistry()
+    assert GradSyncHook(two_hosts, metrics=registry)._metrics is registry
     # the wire codecs run now: a registered name is taken, a typo raises
     assert GradSyncHook(one_host, compress="bf16").effective_compress() == "bf16"
     assert Strategy(Strategy.ring(2).trees, 2, wire_dtype="int8").wire_dtype == "int8"
@@ -275,10 +276,15 @@ def test_trainer_rejects_what_waits(world1):
     s = Strategy.ring(1)
     # accumulation runs now (tests/test_torch_overlap.py)
     for kw, match in [({"zero1": True}, "ZeRO-1"),
-                      ({"bsp": False}, "relay"), ({"measure_gns": True}, "noise"),
-                      ({"tune": True}, "tuner")]:
+                      ({"bsp": False}, "relay"), ({"measure_gns": True}, "noise")]:
         with pytest.raises(NotImplementedError, match=match):
             DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, **kw)
+    # the step tuner runs now (tests/test_torch_tuner.py): tune=True builds a
+    # choosing tuner for the world; tune_every must be positive
+    tuned = DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, tune=True)
+    assert tuned.tuner is not None and tuned.tuner.explicit_mode == "choose" and tuned.tuner.world == 1
+    with pytest.raises(ValueError, match="tune_every"):
+        DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, tune=True, tune_every=0)
     trainer = DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s)
     with pytest.raises(ValueError, match="dynamic_mask"):
         trainer.step(None, None, active_mask=torch.ones(1, dtype=torch.bool))

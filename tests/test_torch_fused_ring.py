@@ -31,6 +31,8 @@ from adapcc_tpu_torch.comm.engine import CollectiveEngine
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.quant.codec import dequantize_int8, quantize_int8
 from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.utils.observability import CollectiveTrace
+from test_torch_ring import trace_rows
 
 TILE = 8 * 128
 ULPS = 4
@@ -423,15 +425,15 @@ def test_engine_fused_dispatch_trace_rows_match_jax_plan(monkeypatch):
     monkeypatch.delenv(ring.FUSED_WIRE_ENV, raising=False)
     strategy = Strategy.ring(4)
     strategy.wire_dtype = "int8"
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(4, strategy, trace=trace)
     x = torch.from_numpy(_payload(4, 4 * 2 * TILE, seed=11))
     out = eng.ring_allreduce(x)
     eng.ring_allreduce(x, wire_dtype="bf16", chunk_bytes=4096)
     eng.ring_reduce_scatter(x, quant_block_size=1024)
-    assert [r["impl"] for r in trace] == ["plain_ring[vmem+int8]", "plain_ring[hbm-stream+bf16]",
+    assert [r["impl"] for r in trace_rows(trace)] == ["plain_ring[vmem+int8]", "plain_ring[hbm-stream+bf16]",
                                           "plain_ring[vmem+int8]"]
-    for rec, (wire, block, chunk_bytes, rs, ag) in zip(trace, [("int8", 256, None, True, True),
+    for rec, (wire, block, chunk_bytes, rs, ag) in zip(trace_rows(trace), [("int8", 256, None, True, True),
                                                                ("bf16", None, 4096, True, True),
                                                                ("int8", 1024, None, True, False)]):
         plan = jax_plan(x[0].numel(), jnp.float32, 4, chunk_bytes, rs=rs, ag=ag, wire_dtype=wire,
@@ -439,11 +441,12 @@ def test_engine_fused_dispatch_trace_rows_match_jax_plan(monkeypatch):
         assert {k: rec[k] for k in plan.to_row()} == plan.to_row()
         assert rec["fused"] is True and rec["nbytes"] == x.numel() * 4
         assert rec["wire_bytes"] == int(plan.payload_bytes / 4.0 * wire_bytes_per_element(wire, block or 1))
-    assert trace[0]["wire_bytes"] < trace[0]["nbytes"] // 3 // 4 + 1  # ~1/4 of a rank's bytes
+    rows = trace_rows(trace)
+    assert rows[0]["wire_bytes"] < rows[0]["nbytes"] // 3 // 4 + 1  # ~1/4 of a rank's bytes
     # the CUDA kernels' slot beside the TPU planner's record: a 2048-element
     # chunk's codes, then 8 scales of 4 bytes (JAX pads the scales to a tile)
-    assert trace[0]["slot_bytes"] == 2048 + 8 * 4 and trace[0]["scale_slot_bytes"] == 8 * 128 * 4
-    assert trace[1]["slot_bytes"] == trace[1]["wire_stage_bytes"] == trace[1]["stage_bytes"] // 2
+    assert rows[0]["slot_bytes"] == 2048 + 8 * 4 and rows[0]["scale_slot_bytes"] == 8 * 128 * 4
+    assert rows[1]["slot_bytes"] == rows[1]["wire_stage_bytes"] == rows[1]["stage_bytes"] // 2
     assert (np.abs(out[0].numpy() - x.numpy().sum(0)) <= ring_error_bound(x.numpy())).all()
 
 
@@ -452,12 +455,12 @@ def test_engine_reroute_records_reason_and_notes_once(monkeypatch, capfd):
     monkeypatch.setattr(ring, "_REROUTE_NOTED", set())
     strategy = Strategy.ring(8)
     strategy.wire_dtype = "int8"
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(8, strategy, trace=trace)
     x = torch.from_numpy(_payload(8, 512, seed=13))
     first, second = eng.ring_allreduce(x), eng.ring_allreduce(x)
     assert torch.equal(first, wire_ring_allreduce_stacked(x, "int8")) and torch.equal(first, second)
-    rec = trace[-1]
+    rec = trace_rows(trace)[-1]
     assert rec["impl"] == "quant_ring[int8]" and "ADAPCC_FUSED_WIRE=off" in rec["reroute_reason"]
     assert rec["wire_bytes"] == int(512 * (1 + 4 / 256)) and rec["block_size"] == 256
     err = capfd.readouterr().err
@@ -465,7 +468,8 @@ def test_engine_reroute_records_reason_and_notes_once(monkeypatch, capfd):
     # a bf16 payload cannot take the fused kernels either: the quant ring runs
     monkeypatch.delenv(ring.FUSED_WIRE_ENV)
     eng.ring_allreduce(x.bfloat16())
-    assert trace[-1]["impl"] == "quant_ring[int8]" and "float32" in trace[-1]["reroute_reason"]
+    rec = trace_rows(trace)[-1]
+    assert rec["impl"] == "quant_ring[int8]" and "float32" in rec["reroute_reason"]
 
 
 def test_a_card_the_kernels_were_not_built_for_raises_instead_of_rerouting(monkeypatch, capfd):
@@ -480,13 +484,13 @@ def test_a_card_the_kernels_were_not_built_for_raises_instead_of_rerouting(monke
         ring._check_card(torch.device("cuda", 0))
     strategy = Strategy.ring(4)
     strategy.wire_dtype = "int8"
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(4, strategy, trace=trace)
     x = torch.empty(4, 4 * TILE, device="meta")
     for call in (eng.ring_allreduce, eng.ring_reduce_scatter, lambda t: eng.ring_allreduce(t, wire_dtype="off")):
         with pytest.raises(ValueError, match="ring kernels run on CUDA or CPU tensors, got meta"):
             call(x)
-    assert trace == [] and "rerouted" not in capfd.readouterr().err
+    assert trace.events() == [] and "rerouted" not in capfd.readouterr().err
 
 
 def test_engine_rs_ag_refuse_codecs_they_cannot_run(monkeypatch):

@@ -39,7 +39,22 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.measure.wait_time", "adapcc_tpu_torch.topology.detect", "adapcc_tpu_torch.topology.profile",
     "adapcc_tpu_torch.strategy.partrees", "adapcc_tpu_torch.strategy.synthesizer",
     "adapcc_tpu_torch.ddp.overlap", "adapcc_tpu_torch.checkpoint",
+    "adapcc_tpu_torch.tuner", "adapcc_tpu_torch.tuner.db", "adapcc_tpu_torch.tuner.measure",
+    "adapcc_tpu_torch.tuner.policy", "adapcc_tpu_torch.sim", "adapcc_tpu_torch.sim.cost_model",
+    "adapcc_tpu_torch.sim.calibrate", "adapcc_tpu_torch.utils", "adapcc_tpu_torch.utils.observability",
+    "adapcc_tpu_torch.comm.latency",
 )
+
+_CHECK_TUNER = """
+import sys
+import adapcc_tpu_torch.tuner, adapcc_tpu_torch.tuner.measure, adapcc_tpu_torch.tuner.policy
+import adapcc_tpu_torch.sim, adapcc_tpu_torch.utils, adapcc_tpu_torch.comm.latency
+from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase
+tuner = CollectiveTuner(4, "t", db=TuningDatabase(persist=False), mode="choose")
+tuner.choose("allreduce", 1 << 20, algos=("ring",))
+tuner.choose("ddp_step", 1 << 20)
+print("BAD", sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu")))
+"""
 
 _CHECK_NO_GRPC = """
 import sys
@@ -59,6 +74,17 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "BAD []" in out.stdout, out.stdout
     for name in _PORT_MODULES:
         assert f"'{name}'" in out.stdout, f"{name} was not imported"
+
+
+def test_tuner_sim_and_observability_load_no_jax():
+    """The tuner, its cost model and calibration, the trace sinks and the
+    latency plane's host half, imported and consulted in a fresh
+    interpreter: neither JAX nor the JAX package loads."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK_TUNER], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_port_without_grpc_loads_no_grpc():

@@ -17,10 +17,17 @@ import torch
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine
 from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.utils.observability import CollectiveTrace
 
 F32_TILE = 8 * 128
 BF16_TILE = 16 * 128
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def trace_rows(trace):
+    """The events of an engine's ``CollectiveTrace`` as flat dicts: the
+    event's primitive, impl and bytes beside its extras."""
+    return [{"primitive": e.primitive, "impl": e.impl, "nbytes": e.nbytes, **e.extra} for e in trace.events()]
 
 
 def _jax_dtype(name):
@@ -140,7 +147,7 @@ def test_ring_matches_jax_kernels_bit_for_bit(world, n, dtype_name, chunk_bytes,
     x32, x = _payload(world, n, dtype_name)
     rs_j, ag_j, ar_j = _jax_ring(x32, dtype_name, chunk_bytes)
 
-    trace = []
+    trace = CollectiveTrace()
     strategy = Strategy.ring(world)
     if chunk_bytes is not None:
         strategy.chunk_bytes = chunk_bytes  # the engine's default granularity
@@ -148,7 +155,7 @@ def test_ring_matches_jax_kernels_bit_for_bit(world, n, dtype_name, chunk_bytes,
     ar = eng.ring_allreduce(x)
     rs = eng.ring_reduce_scatter(x)
     ag = eng.ring_all_gather(torch.from_numpy(rs_j).to(DTYPES[dtype_name]))
-    assert [r["impl"] for r in trace] == [f"plain_ring[{path}]"] * 3
+    assert [r["impl"] for r in trace_rows(trace)] == [f"plain_ring[{path}]"] * 3
     assert np.array_equal(_np(ar), ar_j)
     # the engine rolls rank r's chunk (r + 1) % world into row (r + 1)
     assert np.array_equal(_np(rs), np.roll(rs_j, 1, axis=0))
@@ -284,15 +291,16 @@ def test_engine_chunk_precedence_env_over_argument_over_strategy(monkeypatch):
     x = torch.ones(4, 16 * F32_TILE)
     strategy = Strategy.ring(4)
     strategy.chunk_bytes = 8192
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(4, strategy, trace=trace)
     eng.ring_allreduce(x)
     eng.ring_allreduce(x, chunk_bytes=1 << 20)
     monkeypatch.setenv(ring.RING_CHUNK_ENV, "4096")
     eng.ring_allreduce(x, chunk_bytes=1 << 20)
-    assert [(r["chunk_bytes"], r["ring_path"]) for r in trace] == [
+    assert [(r["chunk_bytes"], r["ring_path"]) for r in trace_rows(trace)] == [
         (8192, "hbm-stream"), (1 << 20, "vmem"), (4096, "hbm-stream")]
-    assert trace[0]["nbytes"] == x.numel() * 4 and trace[0]["stage_bytes"] == 8192
+    rec = trace_rows(trace)[0]
+    assert rec["nbytes"] == x.numel() * 4 and rec["stage_bytes"] == 8192
 
 
 def test_engine_world_one_and_stacked_shapes():
@@ -310,7 +318,7 @@ def test_engine_world_one_and_stacked_shapes():
 
 def test_engine_rejects_what_waits(monkeypatch):
     x = torch.ones(4, F32_TILE)
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(4, Strategy.ring(4), trace=trace)
     with pytest.raises(NotImplementedError, match="latency plane"):
         eng.ring_allreduce(x, algo="rd")
@@ -321,16 +329,19 @@ def test_engine_rejects_what_waits(monkeypatch):
     assert torch.equal(eng.ring_reduce_scatter(x, wire_dtype="bf16"), eng.ring_reduce_scatter(x))
     monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")
     assert torch.equal(eng.ring_all_gather(x), ring.ring_all_gather_stacked(x, wire_dtype="int8"))
-    assert [r["impl"] for r in trace] == ["plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
-                                          "plain_ring[vmem]", "plain_ring[vmem+int8]"]
+    assert [r["impl"] for r in trace_rows(trace)] == ["plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
+                                                      "plain_ring[vmem]", "plain_ring[vmem+int8]"]
     monkeypatch.delenv("ADAPCC_WIRE_DTYPE")
     monkeypatch.setenv("ADAPCC_COLL_ALGO", "auto")
     with pytest.raises(NotImplementedError, match="algo='auto'"):
         eng.ring_allreduce(x)
     with pytest.raises(NotImplementedError, match="two-level"):
         CollectiveEngine(4, Strategy.ring(4), num_slices=2)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        CollectiveEngine(4, Strategy.ring(4), tuner=object())
+    # a tuner attaches now (tests/test_torch_tuner.py); a malformed mode raises
+    monkeypatch.delenv("ADAPCC_COLL_ALGO")
+    monkeypatch.setenv("ADAPCC_TUNER", "chose")
+    with pytest.raises(ValueError, match="ADAPCC_TUNER"):
+        CollectiveEngine(4, Strategy.ring(4))
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_launch():

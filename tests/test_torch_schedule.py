@@ -33,7 +33,9 @@ from adapcc_tpu_torch.comm.engine import CollectiveEngine, EpochMismatch
 from adapcc_tpu_torch.ddp.hook import GradSyncHook
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.strategy.ir import Strategy
+from adapcc_tpu_torch.utils.observability import CollectiveTrace
 from adapcc_tpu_torch.strategy.xml_io import parse_strategy_xml
+from test_torch_ring import trace_rows
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "strategy"
 #: float32 fast-path sums against XLA's psum: the order of the adds differs
@@ -135,7 +137,7 @@ def test_stacked_schedule_plane_matches_jax_bit_for_bit(case, mesh4, mesh8, monk
     if merge is not None:
         monkeypatch.setenv("ADAPCC_MERGE_ROUNDS", merge)
     port_s, ref_s = _strategy(spec, shares, "torch"), _strategy(spec, shares, "jax")
-    trace = []
+    trace = CollectiveTrace()
     port = CollectiveEngine(world, port_s, trace=trace, use_xla_fastpath=False)
     ref = JaxEngine(mesh4 if world == 4 else mesh8, ref_s, use_xla_fastpath=False)
     merged = engine._merged_plan(port_s) is not None
@@ -150,7 +152,8 @@ def test_stacked_schedule_plane_matches_jax_bit_for_bit(case, mesh4, mesh8, monk
             got = getattr(port, prim)(_to_torch(x, dtype), op=getattr(ReduceOp, op), **kw)
             want = getattr(ref, prim)(_to_jax(x, dtype), op=getattr(JaxOp, op), **kw)
         assert _bits(got) == _bits(want), (case, prim, dtype, op, mask_kind)
-        assert trace[-1]["impl"] == "schedule" and trace[-1]["merged"] is merged
+        rec = trace_rows(trace)[-1]
+        assert rec["impl"] == "schedule" and rec["merged"] is merged
     # a root left out of a broadcast's active set raises in both
     with pytest.raises(ValueError, match="broadcast roots"):
         port.broadcast(_to_torch(_payload(world, (5,), "float32", 0), "float32"), masks["root-relay"])
@@ -164,7 +167,7 @@ def test_fused_fast_paths_and_flat_primitives_match_jax(mesh4):
     from adapcc_tpu.comm.engine import CollectiveEngine as JaxEngine
     from adapcc_tpu.primitives import ReduceOp as JaxOp
 
-    trace = []
+    trace = CollectiveTrace()
     port = CollectiveEngine(4, _strategy(("binary", 4, 2), None, "torch"), trace=trace)
     ref = JaxEngine(mesh4, _strategy(("binary", 4, 2), None, "jax"))
 
@@ -182,7 +185,7 @@ def test_fused_fast_paths_and_flat_primitives_match_jax(mesh4):
         for prim in ("all_reduce", "reduce"):
             check(getattr(port, prim)(_to_torch(x, dtype), op=getattr(ReduceOp, op)),
                   getattr(ref, prim)(_to_jax(x, dtype), op=getattr(JaxOp, op)), exact)
-            assert trace[-1]["impl"] == "torch_fused"
+            assert trace_rows(trace)[-1]["impl"] == "torch_fused"
     for dtype in ("float32", "bfloat16", "int32"):
         x = _payload(4, (1001,), dtype, seed=20)
         check(port.broadcast(_to_torch(x, dtype)), ref.broadcast(_to_jax(x, dtype)), True)
@@ -190,7 +193,7 @@ def test_fused_fast_paths_and_flat_primitives_match_jax(mesh4):
         for active in (None, [0, 1, 3]):
             check(port.all_gather(_to_torch(x, dtype), active), ref.all_gather(_to_jax(x, dtype), active), True)
             check(port.all_to_all(_to_torch(a2a, dtype), active), ref.all_to_all(_to_jax(a2a, dtype), active), True)
-    assert trace[-1]["impl"] == "torch_flat"
+    assert trace_rows(trace)[-1]["impl"] == "torch_flat"
     assert torch.equal(port.all_to_all(_to_torch(a2a, "int32")), _to_torch(a2a, "int32").transpose(0, 1))
     for i, (dtype, op, active) in enumerate([("float32", "SUM", None), ("float32", "AVG", [0, 2, 3]),
                                              ("float32", "AVG", None), ("int32", "SUM", [1, 2]),
@@ -212,7 +215,7 @@ def test_fused_fast_paths_and_flat_primitives_match_jax(mesh4):
 def test_engine_contract_epochs_pins_and_trace(monkeypatch):
     """Keyword-only options, epochs, algorithm pins that wait for their
     slices, the merge knob, the deprecated spelling and the trace."""
-    trace = []
+    trace = CollectiveTrace()
     eng = CollectiveEngine(4, Strategy.ring(4, 4), trace=trace)
     x = torch.arange(8.0).view(4, 2)
     with pytest.raises(TypeError):
@@ -225,11 +228,11 @@ def test_engine_contract_epochs_pins_and_trace(monkeypatch):
     with pytest.raises(EpochMismatch, match="dead epoch 0"):
         eng.all_reduce(x, epoch=0)
     eng.all_reduce(x, epoch=1, active_gpus=[0, 1])
-    assert trace[-1] == {"primitive": "allreduce", "impl": "schedule", "epoch": 1, "nbytes": 32, "algo": "ring",
-                         "merged": True}
+    assert trace_rows(trace)[-1] == {"primitive": "allreduce", "impl": "schedule", "epoch": 1, "nbytes": 32,
+                                     "algo": "ring", "merged": True}
     assert eng.advance_epoch(Strategy.binary(4)) == 2 and eng.strategy.synthesis == "binary"
     eng.all_reduce(x, active_gpus=[0, 1])
-    assert trace[-1]["merged"] is False
+    assert trace_rows(trace)[-1]["merged"] is False
     with pytest.raises(ValueError, match="standby strategy world"):
         eng.advance_epoch(Strategy.ring(2))
     eng.clear()
@@ -375,8 +378,9 @@ def test_hook_resolves_the_two_host_fixture_to_the_schedule_plane():
     path = str(FIXTURES / "4-4_1.xml")
     assert GradSyncHook(parse_strategy_xml(path))._resolved_mode() == "schedule" == JaxHook(
         jax_parse(path))._resolved_mode()
-    with pytest.raises(NotImplementedError, match="observability"):
-        GradSyncHook(parse_strategy_xml(path), trace=[])
+    # the observability sinks run now (tests/test_torch_tuner.py)
+    trace = CollectiveTrace()
+    assert GradSyncHook(parse_strategy_xml(path), trace=trace)._trace is trace
     hook = GradSyncHook(Strategy.ring(1, ips={0: "a"}), mode="schedule", bucket_cap_mb=1e-5)
     with pytest.raises(ValueError, match="no recorded bucket plan"):
         hook.resolved_chunk_bytes()

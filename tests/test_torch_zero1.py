@@ -149,9 +149,11 @@ def test_flat_layout_is_the_jax_tree_order():
 def test_zero1_rejects_what_waits():
     # the non-ring path, overlap="bucket" and restore run now
     # (tests/test_torch_overlap.py, tests/test_torch_checkpoint.py)
-    for kwargs, match in [({"tuner": object()}, "tuner"), ({"shard_replicas": 1}, "elasticity")]:
-        with pytest.raises(NotImplementedError, match=match):
-            Zero1Optimizer(adamw(LR), WORLD, **kwargs)
+    with pytest.raises(NotImplementedError, match="elasticity"):
+        Zero1Optimizer(adamw(LR), WORLD, shard_replicas=1)
+    # a tuner-chosen ring chunk runs now (tests/test_torch_tuner.py); without
+    # init there is no cell yet
+    assert Zero1Optimizer(adamw(LR), WORLD, ring=True, tuner=object()).tuning_key() is None
     # the wire codec runs now; a name the registry lacks raises
     assert Zero1Optimizer(adamw(LR), WORLD, wire_dtype="int8").wire_dtype == "int8"
     with pytest.raises(ValueError, match="unknown wire codec"):
