@@ -47,15 +47,19 @@ class AdapCC:
         world_size: Optional[int] = None,
         device: DeviceLike = None,
         world: Optional[World] = None,
+        num_slices: int = 1,
     ) -> None:
         """Create the communicator and run the adaptive bootstrap.
 
         ``local_rank``/``world_rank`` are accepted for signature parity with
         the reference (adapcc.py:16) and only label this process; the world
         is ``world_size`` ranks stacked on ``device``, or ``world``'s process
-        group."""
+        group.  ``num_slices > 1`` makes the stacked world two-level, as the
+        JAX package's ``("dcn", "ici")`` mesh does (``policy="hier"`` then
+        synthesizes its composed plan)."""
         comm_args = args if isinstance(args, CommArgs) else CommArgs.from_namespace(args)
-        cls.communicator = Communicator(comm_args, world_size=world_size, device=device, world=world)
+        cls.communicator = Communicator(comm_args, world_size=world_size, device=device, world=world,
+                                        num_slices=num_slices)
         cls.local_rank = local_rank
         cls.world_rank = world_rank
         cls.world_size = cls.communicator.world_size
@@ -135,6 +139,7 @@ class AdapCC:
             cls.world_size,
             device=comm.device if comm else None,
             world=comm.world if comm else None,
+            num_slices=comm.num_slices if comm else 1,
         )
         cls.setup(prim)
 

@@ -29,7 +29,13 @@ The port of :mod:`adapcc_tpu.comm.engine`, in two forms:
   adopt) into the destinations' rows, or, unmasked and with the fast path
   allowed, one torch reduction over the rows (trace impl ``torch_fused``,
   where JAX runs XLA's psum); ``all_gather``, ``all_to_all`` and
-  ``reduce_scatter`` run their flat paths.  The ring entry points
+  ``reduce_scatter`` run their flat paths.  ``all_reduce`` and
+  ``ring_allreduce`` also run the latency plane (:mod:`adapcc_tpu_torch.
+  comm.latency`: recursive halving/doubling ``rd``, the binomial ``tree``),
+  by pin or by the size-adaptive selector, and ``reduce_scatter`` and
+  ``all_gather`` its ``rd`` halves by pin; an engine over ``num_slices > 1``
+  runs every collective on the two-level plane (:mod:`adapcc_tpu_torch.
+  comm.two_level`).  The ring entry points
   (``ring_allreduce``, ``ring_reduce_scatter``, ``ring_all_gather``) run
   the hand-written ring kernels of :mod:`adapcc_tpu_torch.comm.ring` on the
   card (their plain version on a CPU tensor).  A wire codec (the argument,
@@ -53,8 +59,7 @@ the JAX package's bits, op for op:
   float32, and by a tensor on the result's device (torch on CUDA turns a
   division by a Python scalar into a multiply by its reciprocal).
 
-The latency plane (rd, tree), the IR plane and two-level worlds come in
-later slices.
+The IR plane (``algo="ir"``) comes in a later slice.
 """
 
 from __future__ import annotations
@@ -69,14 +74,22 @@ import torch
 import torch.distributed as dist
 
 from adapcc_tpu_torch.comm import ring
-from adapcc_tpu_torch.comm.latency import resolve_coll_algo
+from adapcc_tpu_torch.comm import latency as lat
+from adapcc_tpu_torch.comm.latency import latency_algo_unsupported_reason, resolve_coll_algo
 from adapcc_tpu_torch.primitives import ReduceOp, not_ported
-from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, get_codec, resolve_wire_dtype
+from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, WIRE_DTYPE_ENV, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.quant.ring import wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import CommRound, Strategy, Tree
 from adapcc_tpu_torch.tuner import CollectiveTuner, tuner_mode
 from adapcc_tpu_torch.tuner.measure import sync_outputs
-from adapcc_tpu_torch.tuner.policy import NO_CHUNK, QUANT_PATH, XLA_PATH
+from adapcc_tpu_torch.tuner.policy import (
+    ALGO_OF_PATH,
+    ALGO_PATHS,
+    NO_CHUNK,
+    QUANT_PATH,
+    TWO_LEVEL_PATH,
+    XLA_PATH,
+)
 
 MaskLike = Union[torch.Tensor, Sequence[bool]]
 
@@ -694,59 +707,80 @@ def _fill_rows(t: torch.Tensor, rows: Sequence[int], value: float) -> None:
         t[r].fill_(value)
 
 
-def _run_merged_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], plan: _MergedPlan,
-                        op: ReduceOp, phases: str) -> torch.Tensor:
-    """The merged groups over ``[world, n]``: every row's segments stacked as
-    ``[world, T, pad]`` (padded with the op's identity, an inactive row all
-    identity), then each edge ``(s, d)`` of a group folds rank ``s``'s
-    segment of its tree into rank ``d``'s, in place.  No edge of a group
-    reads a segment another edge of it writes (a rank never sends and
-    receives in one round of one tree), so each edge reads the state from
-    before the group, as ``ppermute`` delivers it."""
-    ident = _identity_for(op, flat.dtype)
-    buf = _stack_segments(flat, sizes, ident)
-    _fill_rows(buf, inactive, ident)
-    for groups, combine in _stages(plan.reduce_groups, plan.broadcast_groups, op, phases):
+def _masked_copy(flat: torch.Tensor, active_mask: Optional[torch.Tensor], value: float) -> torch.Tensor:
+    """A copy of the rows ``[world, ...]`` with every inactive row (a relay)
+    ``value``: the op's identity, or the zeros of a gather."""
+    out = flat.clone()
+    if active_mask is not None:
+        _fill_rows(out, [r for r in range(flat.shape[0]) if not bool(active_mask[r])], value)
+    return out
+
+
+def _run_groups_rows(buf: torch.Tensor, stages: List[Tuple[list, str]]) -> None:
+    """Merged groups over the rows of ``buf`` (``[rows, T, pad]``), in
+    place: each edge ``(s, d)`` of a group folds row ``s``'s segment of its
+    tree into row ``d``'s.  No edge of a group reads a segment another edge
+    of it writes (a rank never sends and receives in one round of one
+    tree), so each edge reads the state from before the group, as
+    ``ppermute`` delivers it."""
+    for groups, combine in stages:
         for perm, src_row, _, _ in groups:
             for s, d in perm:
                 t = src_row[s]
                 _combine_into(buf[d, t], buf[s, t], combine)
+
+
+def _run_merged_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], plan: _MergedPlan,
+                        op: ReduceOp, phases: str) -> torch.Tensor:
+    """The merged groups over ``[world, n]``: every row's segments stacked as
+    ``[world, T, pad]`` (padded with the op's identity, an inactive row all
+    identity), then :func:`_run_groups_rows`."""
+    ident = _identity_for(op, flat.dtype)
+    buf = _stack_segments(flat, sizes, ident)
+    _fill_rows(buf, inactive, ident)
+    _run_groups_rows(buf, _stages(plan.reduce_groups, plan.broadcast_groups, op, phases))
     return _unstack_segments(buf, sizes)
+
+
+def _tree_rounds_rows(acc: torch.Tensor, tree: Tree, op: ReduceOp, phases: str) -> None:
+    """One tree's rounds over the rows of ``acc`` (row ``r`` rank ``r``'s
+    segment, any trailing shape), in place; within a round no edge reads a
+    row another writes."""
+    normalize = op is not ReduceOp.MAX and acc.is_floating_point()
+    combine = "max" if op is ReduceOp.MAX else "add"
+    rows = acc.shape[0]
+    if phases in ("reduce", "both"):
+        normalized: set = set()
+        for rnd in tree.reduce_rounds():
+            for s, d in rnd.edges:
+                _combine_into(acc[d], acc[s], combine)
+            if normalize:
+                # no destination of the round: + the zeros ppermute
+                # delivers (-0.0 turns +0.0, once for good), after the
+                # round's sends have read the row
+                is_dst = _dst_mask(rnd, rows)
+                for r in range(rows):
+                    if not is_dst[r] and r not in normalized:
+                        acc[r].add_(0)
+                        normalized.add(r)
+    if phases in ("broadcast", "both"):
+        for rnd in tree.broadcast_rounds():
+            for s, d in rnd.edges:
+                acc[d].copy_(acc[s])
 
 
 def _run_trees_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], strategy: Strategy,
                        op: ReduceOp, phases: str) -> torch.Tensor:
     """Each tree's rounds over its segment's columns of ``[world, n]``, in
-    place on one copy; within a round no edge reads a row another writes."""
+    place on one copy."""
     out = flat.clone()
     _fill_rows(out, inactive, _identity_for(op, flat.dtype))
-    normalize = op is not ReduceOp.MAX and out.is_floating_point()
-    combine = "max" if op is ReduceOp.MAX else "add"
-    world = flat.shape[0]
     off = 0
     for tree, size in zip(strategy.trees, sizes):
         if size == 0:
             continue
-        acc = out[:, off:off + size]
+        _tree_rounds_rows(out[:, off:off + size], tree, op, phases)
         off += size
-        if phases in ("reduce", "both"):
-            normalized: set = set()
-            for rnd in tree.reduce_rounds():
-                for s, d in rnd.edges:
-                    _combine_into(acc[d], acc[s], combine)
-                if normalize:
-                    # no destination of the round: + the zeros ppermute
-                    # delivers (-0.0 turns +0.0, once for good), after the
-                    # round's sends have read the row
-                    is_dst = _dst_mask(rnd, world)
-                    for r in range(world):
-                        if not is_dst[r] and r not in normalized:
-                            acc[r].add_(0)
-                            normalized.add(r)
-        if phases in ("broadcast", "both"):
-            for rnd in tree.broadcast_rounds():
-                for s, d in rnd.edges:
-                    acc[d].copy_(acc[s])
     return out
 
 
@@ -773,12 +807,19 @@ class CollectiveEngine:
     rank's payload costs.
 
     ``tuner`` (a :class:`~adapcc_tpu_torch.tuner.CollectiveTuner`) is
-    consulted by :meth:`ring_allreduce` under ``ADAPCC_TUNER=choose`` and
-    fed the walltime of every ring allreduce and every unmasked flat
-    allreduce under ``record`` or ``choose``; a timed event carries
-    ``duration_s``, a consulted one ``tuner={chosen, source, objective,
-    applied}``.  Without one, a mode other than ``off`` builds one for this
-    world at the first dispatch, fingerprinted with the tensor's device.
+    consulted under ``ADAPCC_TUNER=choose`` by :meth:`ring_allreduce` (every
+    algorithm a pin leaves) and by :meth:`all_reduce` (its ``xla`` cell
+    against the rd and tree cells), and fed the walltime of every ring,
+    latency-plane, composed two-level and unmasked flat allreduce under
+    ``record`` or ``choose``; a timed event carries ``duration_s``, a
+    consulted one ``tuner={chosen, source, objective, applied}``.  Without
+    one, a mode other than ``off`` builds one for this world at the first
+    dispatch, fingerprinted with the tensor's device.
+
+    ``num_slices > 1`` makes the world two-level: ``num_slices`` slices of
+    ``world_size / num_slices`` ranks (flat rank ``r`` at slice ``r //
+    ici_size``), each collective on :mod:`adapcc_tpu_torch.comm.two_level`;
+    a ragged split or a slice of one rank raises.
     """
 
     def __init__(
@@ -790,13 +831,23 @@ class CollectiveEngine:
         tuner: Optional[Any] = None,
         use_xla_fastpath: bool = True,
     ) -> None:
-        if num_slices != 1:
-            raise not_ported("two-level worlds (num_slices > 1)", "the two-level plane slice")
         if strategy.world_size != world_size:
             raise ValueError(f"strategy for {strategy.world_size} ranks on a world of {world_size}")
-        # a typo'd A/B knob or tuner mode fails here, not at the first
-        # collective
+        #: a two-level world: (num_slices, ici_size) slices of lanes
+        self.two_level = num_slices != 1
+        self.num_slices, self.ici_size = 1, world_size
+        if self.two_level:
+            from adapcc_tpu_torch.comm.two_level import build_two_level_mesh
+
+            layout = build_two_level_mesh(num_slices, world_size=world_size)
+            self.num_slices, self.ici_size = layout.num_slices, layout.ici_size
+        # a typo'd A/B knob, tuner mode or algorithm fails here, not at the
+        # first collective
         _merged_env_disabled()
+        resolve_coll_algo(None)
+        #: the cost model's ring/rd crossover the ``auto`` selector reads
+        #: without a tuner, computed at first use
+        self._algo_crossover: Optional[float] = None
         #: a tuner mode other than off with no tuner given builds one for
         #: this world at the first dispatch (the device is the tensor's)
         self._auto_tuner = tuner_mode() != "off" and tuner is None
@@ -874,12 +925,90 @@ class CollectiveEngine:
                 f"{self.world_size}, got shape {tuple(stacked.shape)}"
             )
 
-    def _check_algo(self, algo: Optional[str]) -> None:
-        """Raise for an algorithm pin other than the ring (``ADAPCC_COLL_ALGO``
-        > the argument; an unknown name raises): its planes are not ported."""
-        v = resolve_coll_algo(algo)
-        if v not in (None, "ring"):
-            raise not_ported(f"algo={v!r}", "the latency plane slice (rd, tree) and the IR slice")
+    # -- the latency plane: the size-adaptive algorithm -------------------------
+
+    #: the tuner-grid narrowing a pinned algorithm implies: a dispatch that
+    #: can run one plane only must not offer the others' cells
+    _ALGO_NARROW = {"ring": ("ring",), "rd": ("rd",), "tree": ("tree",)}
+
+    def _allreduce_crossover_bytes(self) -> float:
+        """The cost model's ring/rd crossover for this world: the tuner's
+        policy's when a tuner is attached (its grid gate and this selector
+        then agree on every payload), else the calibration or the card's
+        defaults, cached."""
+        if self.tuner is not None:
+            return self.tuner.policy.algo_crossover_bytes()
+        if self._algo_crossover is None:
+            from adapcc_tpu_torch.sim.calibrate import load_or_default
+            from adapcc_tpu_torch.sim.cost_model import allreduce_crossover_bytes, bottleneck_ring_coeffs
+
+            model = load_or_default(world=self.world_size)
+            self._algo_crossover = allreduce_crossover_bytes(
+                self.world_size, bottleneck_ring_coeffs(model, self.world_size))
+        return self._algo_crossover
+
+    def _auto_algo(self, per_rank_bytes: int, wire_dtype: Optional[str] = None) -> Optional[str]:
+        """``auto``'s decision on the model: ``rd`` below the crossover where
+        the latency plane can run, None (the ring or flat plane) otherwise.
+        Trees never win an allreduce on the model; they run by pin or by a
+        measured cell.  A pinned codec keeps ``auto`` on the ring planes."""
+        if self.two_level or self.world_size < 2:
+            return None
+        if self._wire_pinned_non_off(wire_dtype):
+            return None
+        if latency_algo_unsupported_reason(self.world_size, "rd", self.two_level) is not None:
+            return None
+        if per_rank_bytes < self._allreduce_crossover_bytes():
+            return "rd"
+        return None
+
+    def _wire_pinned_non_off(self, wire_dtype: Optional[str]) -> bool:
+        """Whether an explicit codec pin (the env or the argument, never the
+        strategy's default) names a codec."""
+        env = os.environ.get(WIRE_DTYPE_ENV)
+        if wire_dtype is None and (env is None or not env.strip()):
+            return False
+        return resolve_wire_dtype(wire_dtype) != "off"
+
+    def _check_algo_wire_conflict(self, algo: str, wire_dtype: Optional[str]) -> None:
+        """A pinned latency-plane algorithm and a pinned codec contradict
+        each other (the latency plane has no codec): raise."""
+        if self._wire_pinned_non_off(wire_dtype):
+            raise ValueError(
+                f"collective algo {algo!r} has no wire-codec plane but a wire_dtype is pinned (env or argument); "
+                "pin one knob or the other — codecs ride the ring planes only"
+            )
+
+    def _latency_allreduce(self, stacked: torch.Tensor, algo: str, mask: Optional[torch.Tensor] = None,
+                           op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+        """One latency-plane allreduce (``rd`` | ``tree``) over the rows;
+        raises where the plane cannot run (reached by a pin only: the
+        selector and the tuner's grid ask the same funnel first)."""
+        reason = latency_algo_unsupported_reason(self.world_size, algo, self.two_level)
+        if reason is not None:
+            raise ValueError(f"allreduce algo={algo!r} cannot run here: {reason}")
+        if mask is None:
+            mask = torch.ones((self.world_size,), dtype=torch.bool)
+        if algo == "rd":
+            return lat.rd_allreduce_stacked(stacked, mask, op)
+        return lat.tree_allreduce_stacked(stacked, mask, op)
+
+    def _latency_variant(self, primitive: str, algo: Optional[str]) -> Optional[str]:
+        """The latency-plane algorithm of a reduce-scatter or all-gather:
+        ``ADAPCC_COLL_ALGO`` > the argument; a pin the plane cannot run
+        raises; ``auto``, ``ring``, ``ir`` and no pin keep the flat (or
+        two-level) plane."""
+        algo_req = resolve_coll_algo(algo)
+        if algo_req not in ("rd", "tree"):
+            return None
+        reason = latency_algo_unsupported_reason(self.world_size, algo_req, self.two_level, primitive=primitive)
+        if reason is not None:
+            raise ValueError(f"{primitive} algo={algo_req!r} cannot run here: {reason}")
+        return algo_req
+
+    @staticmethod
+    def _ir_not_ported() -> Exception:
+        return not_ported("algo='ir' (the compiled schedule-program executor)", "the IR slice (compiler/)")
 
     def _resolved_wire_dtype(self, wire_dtype: Optional[str]) -> str:
         """The codec a ring dispatch runs: ``ADAPCC_WIRE_DTYPE`` > the
@@ -963,32 +1092,91 @@ class CollectiveEngine:
         trace records ``reroute_reason``, and stderr says so once.  A CUDA
         tensor on a card the kernels were not built for raises.
 
+        ``algo`` (``ADAPCC_COLL_ALGO`` > the argument > the tuner's cell >
+        the crossover under ``auto``; unset keeps the ring) may run the
+        latency plane instead: ``rd`` or ``tree`` over the rows, the trace's
+        impl and ``algo`` naming it.  A pinned ``rd``/``tree`` and a pinned
+        codec raise; ``ir`` raises until the IR slice.
+
         With a tuner, ``ADAPCC_TUNER=choose`` lets the policy fill the knobs
         the caller left open, under the precedence **env > explicit arg >
-        tuner > strategy**: the chunk and the codec, and with a codec the
-        path (a chosen ``quant-ring`` cell runs the unfused quant ring,
-        unless ``ADAPCC_FUSED_WIRE=on`` forbids it).  The policy is asked
-        with ``algos=("ring",)``: the latency plane's rd and tree cells wait
-        for their slice.  ``record`` and ``choose`` time every dispatch to
+        tuner > strategy**: the algorithm, the chunk and the codec, and with
+        a codec the path (a chosen ``quant-ring`` cell runs the unfused
+        quant ring, unless ``ADAPCC_FUSED_WIRE=on`` forbids it).  The policy
+        is asked with every algorithm a pin leaves (a pinned codec leaves
+        the ring).  ``record`` and ``choose`` time every dispatch to
         completion into the database, the first of each configuration
         discarded as its build and first launch."""
+        if self.two_level:
+            raise ValueError(
+                "ring_allreduce needs a flat ranks mesh (a single ICI ring); two-level worlds use the strategy "
+                "allreduce"
+            )
         self._check_world_dim(stacked, "ring_allreduce")
-        self._check_algo(algo)
+        algo_req = resolve_coll_algo(algo)
+        wire_arg = wire_dtype  # the caller's pin, before the tuner adopts one
+        if algo_req == "ir":
+            raise self._ir_not_ported()
+        if algo_req in ("rd", "tree"):
+            # two pins in conflict, before the consult: under both the grid
+            # is empty and choose() would fail with a worse message
+            self._check_algo_wire_conflict(algo_req, wire_arg)
         per_rank_bytes = stacked[0].numel() * stacked.element_size()
         tuner = self._tuner_for(stacked)
         tplan = None
         tuner_chose_quant = False
+        tuner_chose_algo: Optional[str] = None
+        algos_narrow = self._ALGO_NARROW.get(algo_req)
+        if algos_narrow is None and self._wire_pinned_non_off(wire_arg):
+            # a codec the caller pinned rides the ring planes only
+            algos_narrow = ("ring",)
         if tuner is not None and tuner.choosing:
-            tplan = tuner.choose("allreduce", per_rank_bytes, ring._dtype_name(stacked.dtype), algos=("ring",))
-            if wire_dtype is None:
+            tplan = tuner.choose("allreduce", per_rank_bytes, ring._dtype_name(stacked.dtype), algos=algos_narrow)
+            if algo_req in (None, "auto") and tplan.key.path in ALGO_PATHS:
+                tuner_chose_algo = ALGO_OF_PATH[tplan.key.path]
+            if wire_dtype is None and tplan.key.path not in ALGO_PATHS:
                 wire_dtype = tplan.wire_dtype
                 # a codec cell names its path too: the unfused cell must run
                 # unfused, or its side of the fused/unfused A/B never runs
                 tuner_chose_quant = tplan.wire_dtype != "off" and tplan.key.path == QUANT_PATH
             if chunk_bytes is None and tplan.chunk_bytes is not None:
                 chunk_bytes = tplan.chunk_bytes
+        executed_algo: Optional[str] = None
+        if algo_req in ("rd", "tree"):
+            executed_algo = algo_req  # pinned: raises where it cannot run
+        elif tuner_chose_algo is not None:
+            executed_algo = tuner_chose_algo
+        elif algo_req == "auto" and tplan is None:
+            # the crossover is the last rung: a choosing tuner's committed
+            # cell, a ring cell included, outranks it
+            executed_algo = self._auto_algo(per_rank_bytes, wire_arg)
         timing = tuner is not None and tuner.recording
         t0 = time.perf_counter()
+        if executed_algo is not None:
+            self._check_algo_wire_conflict(executed_algo, wire_arg)
+            out = self._latency_allreduce(stacked, executed_algo)
+            impl, extras, wd = executed_algo, {"algo": executed_algo}, "off"
+            executed_path, executed_chunk = executed_algo, NO_CHUNK
+            token = (f"{executed_algo}_allreduce", tuple(stacked.shape), ring._dtype_name(stacked.dtype))
+        else:
+            out, impl, extras, wd, executed_path, executed_chunk, token = self._ring_arm(
+                stacked, wire_dtype, chunk_bytes, quant_block_size, tuner_chose_quant)
+        if timing:
+            # a vmem dispatch is one cell whatever its budget (the grid's key)
+            key = tuner.key_for("allreduce", per_rank_bytes, executed_path,
+                                NO_CHUNK if executed_path == "vmem" else executed_chunk, wd)
+            self._observe(tuner, out, t0, key, token, extras)
+        if tplan is not None:
+            applied = (wd == tplan.wire_dtype and executed_path == tplan.key.path
+                       and (tplan.chunk_bytes is None or executed_chunk == tplan.chunk_bytes))
+            extras["tuner"] = tplan.trace_extra(applied=applied)
+        self._record("allreduce", impl, stacked, extras)
+        return out
+
+    def _ring_arm(self, stacked: torch.Tensor, wire_dtype: Optional[str], chunk_bytes: Optional[int],
+                  quant_block_size: Optional[int], tuner_chose_quant: bool) -> Tuple:
+        """The ring plane of :meth:`ring_allreduce`: ``(out, impl, extras,
+        wire dtype, executed path, executed chunk, timer token)``."""
         wd = self._resolved_wire_dtype(wire_dtype)
         reroute = None
         block = (quant_block_size or DEFAULT_BLOCK_SIZE) if wd != "off" else None
@@ -1016,17 +1204,7 @@ class CollectiveEngine:
         # and the first launch
         token = (impl, tuple(stacked.shape), ring._dtype_name(stacked.dtype), stage, block)
         extras["algo"] = "ring"  # the executed algorithm, as JAX's trace has it
-        if timing:
-            # a vmem dispatch is one cell whatever its budget (the grid's key)
-            key = tuner.key_for("allreduce", per_rank_bytes, executed_path,
-                                NO_CHUNK if executed_path == "vmem" else executed_chunk, wd)
-            self._observe(tuner, out, t0, key, token, extras)
-        if tplan is not None:
-            applied = (wd == tplan.wire_dtype and executed_path == tplan.key.path
-                       and (tplan.chunk_bytes is None or executed_chunk == tplan.chunk_bytes))
-            extras["tuner"] = tplan.trace_extra(applied=applied)
-        self._record("allreduce", impl, stacked, extras)
-        return out
+        return out, impl, extras, wd, executed_path, executed_chunk, token
 
     def _ring_wire_args(self, stacked: torch.Tensor, wire_dtype: Optional[str],
                         quant_block_size: Optional[int], primitive: str) -> Tuple[str, Optional[int]]:
@@ -1046,6 +1224,12 @@ class CollectiveEngine:
             )
         return wd, block
 
+    def _check_flat_ring(self, what: str) -> None:
+        if self.two_level:
+            raise ValueError(
+                f"{what} needs a flat ranks mesh (a single ICI ring); two-level worlds use the strategy primitives"
+            )
+
     def ring_reduce_scatter(
         self,
         stacked: torch.Tensor,
@@ -1059,6 +1243,7 @@ class CollectiveEngine:
         chunk ``(r + 1) % world`` on rank ``r``; one roll restores chunk order.
         A codec (precedence as in :meth:`ring_allreduce`) runs the fused
         kernels, or raises where they cannot run."""
+        self._check_flat_ring("ring_reduce_scatter")
         self._check_world_dim(stacked, "ring_reduce_scatter")
         wd, block = self._ring_wire_args(stacked, wire_dtype, quant_block_size, "ring_reduce_scatter")
         plan = self._ring_plan(stacked, chunk_bytes, rs=True, ag=False, wire_dtype=wd, block_size=block)
@@ -1078,6 +1263,7 @@ class CollectiveEngine:
         tile-aligned payload) → ``[world, world, chunk]``, row ``r`` the
         gathered stack as rank ``r`` holds it.  Under a codec each rank's
         chunk is encoded once and every rank holds the same decoded bits."""
+        self._check_flat_ring("ring_all_gather")
         self._check_world_dim(stacked, "ring_all_gather")
         wd, block = self._ring_wire_args(stacked, wire_dtype, quant_block_size, "ring_all_gather")
         plan = self._ring_plan(stacked, chunk_bytes, rs=False, ag=True, wire_dtype=wd, block_size=block)
@@ -1088,20 +1274,18 @@ class CollectiveEngine:
 
     # -- the schedule plane and the flat paths ----------------------------------
 
-    def _flat_algo(self, algo: Optional[str], primitive: str) -> None:
-        """A reduce-scatter or all-gather pin: ``ADAPCC_COLL_ALGO`` > the
-        argument; rd and tree are the latency plane's, not ported; an
-        unknown name raises; anything else runs the flat path, as in JAX."""
-        v = resolve_coll_algo(algo)
-        if v in ("rd", "tree"):
-            raise not_ported(f"{primitive} algo={v!r}", "the latency plane slice (rd, tree)")
-
     def _schedule(self, stacked: torch.Tensor, mask: Optional[torch.Tensor], op: ReduceOp,
                   phases: str) -> Tuple[torch.Tensor, bool]:
-        """The tree rounds over the rows of ``stacked`` (before AVG), and
-        whether the merged executor ran them."""
+        """The tree rounds over the rows of ``stacked`` (before AVG), on the
+        two-level plane for a two-level world, and whether the merged
+        executor ran them."""
         world = self.world_size
         strategy = self.strategy
+        if self.two_level:
+            from adapcc_tpu_torch.comm import two_level
+
+            out = two_level._schedule_two_level(stacked, mask, strategy, self.num_slices, self.ici_size, op, phases)
+            return out, two_level._two_level_merged_plan(strategy, self.num_slices, self.ici_size) is not None
         plan = _merged_plan(strategy)
         flat = stacked.reshape(world, -1)
         if flat.shape[1] == 0:
@@ -1126,42 +1310,98 @@ class CollectiveEngine:
         epoch: Optional[int] = None,
         algo: Optional[str] = None,
     ) -> torch.Tensor:
-        """Allreduce with subset semantics.  ``active_gpus`` (keyword-only,
-        as ``op``: a positional ``ReduceOp`` must not bind to it) names the
-        active ranks; the others are relays that contribute the identity,
-        forward, and receive the result; AVG averages over the active
-        count.  Unmasked with the fast path allowed, one torch reduction
-        over the rows (``torch_fused``); otherwise the strategy's tree
-        rounds (``schedule``).  ``algo`` pins other than ``ring`` raise:
-        the latency and IR planes are not ported.
+        """Allreduce with subset semantics and a size-adaptive algorithm.
+        ``active_gpus`` (keyword-only, as ``op``: a positional ``ReduceOp``
+        must not bind to it) names the active ranks; the others are relays
+        that contribute the identity, forward, and receive the result; AVG
+        averages over the active count.
+
+        ``algo`` is ``auto|ring|rd|tree`` under the precedence **env >
+        explicit arg > tuner > crossover**: ``ADAPCC_COLL_ALGO``, then the
+        argument (``rd``/``tree`` run the latency plane, and raise where it
+        cannot run), then, unpinned or ``auto`` with a choosing tuner, the
+        measured cell of ``xla``/``rd``/``tree`` (read only: no
+        exploration), then under ``auto`` the cost model's crossover.  What
+        is left runs as before: unmasked with the fast path allowed, one
+        torch reduction over the rows (``torch_fused``, JAX's psum), else
+        the strategy's tree rounds (``schedule``; on a two-level world the
+        two-level plane, or, unpinned and for SUM/AVG, the composed plan of
+        a strategy that carries one, ``two_level[composed]``).  ``ir``
+        raises until the IR slice.  The trace names the executed algorithm.
 
         With a tuner, ``record`` and ``choose`` time the fast path into the
-        ``xla`` cell (JAX's psum), and ``choose`` ranks, without exploring,
-        the cells this entry point can run: in JAX the ``xla`` cell against
-        rd and tree, here the ``xla`` cell alone until the latency plane
-        comes, so the trace's ``tuner`` extras say whether the fast path
-        ran (``applied``)."""
+        ``xla`` cell, a latency-plane dispatch into its algorithm's and the
+        composed plan into the ``two-level`` cell."""
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "all_reduce")
-        self._check_algo(algo)
+        algo_req = resolve_coll_algo(algo)
+        if algo_req == "ir":
+            raise self._ir_not_ported()
         tuner = self._tuner_for(stacked)
         per_rank_bytes = stacked[0].numel() * stacked.element_size()
+        dtype = ring._dtype_name(stacked.dtype)
+        mask = self._active_to_mask(active_gpus)
         tplan = None
-        if tuner is not None and tuner.choosing and resolve_wire_dtype(None) == "off":
-            # an env-pinned codec leaves no cell this plane can run
-            tplan = tuner.rank_only("allreduce", per_rank_bytes, ring._dtype_name(stacked.dtype), algos=("xla",))
+        executed_algo: Optional[str] = None
+        if algo_req in ("rd", "tree"):
+            executed_algo = algo_req  # pinned: raises where it cannot run
+        elif (algo_req in (None, "auto") and not self.two_level and tuner is not None and tuner.choosing
+              # a pinned codec leaves no cell this plane can run
+              and not self._wire_pinned_non_off(None)):
+            # rank the cells this plane can run, read only: an exploring
+            # choose() would pin the explorer on ring cells it never fills
+            tplan = tuner.rank_only("allreduce", per_rank_bytes, dtype, algos=("xla", "rd", "tree"))
+            executed_algo = ALGO_OF_PATH.get(tplan.key.path)
+        elif algo_req == "auto":
+            executed_algo = self._auto_algo(per_rank_bytes)
+        timing = tuner is not None and tuner.recording
+        if executed_algo is not None:
+            self._check_algo_wire_conflict(executed_algo, None)
+            t0 = time.perf_counter()
+            out = self._latency_allreduce(stacked, executed_algo, mask, op)
+            extras: Dict[str, Any] = {"algo": executed_algo}
+            if timing:
+                key = tuner.key_for("allreduce", per_rank_bytes, executed_algo, NO_CHUNK, "off")
+                token = (f"{executed_algo}_allreduce", tuple(stacked.shape), dtype, op, stacked.device.type)
+                self._observe(tuner, out, t0, key, token, extras)
+            if tplan is not None:
+                extras["tuner"] = tplan.trace_extra(applied=tplan.key.path == executed_algo)
+            self._record("allreduce", executed_algo, stacked, extras)
+            return out
+        plan2l = None
+        # an explicit ring pin names the psum/schedule plane: the composed
+        # plan stands down, as every selector does; MAX has no reduce-scatter
+        if self.two_level and op is not ReduceOp.MAX and algo_req in (None, "auto"):
+            from adapcc_tpu_torch.strategy.hierarchy import plan_of
+
+            candidate = plan_of(self.strategy)
+            if candidate is not None and candidate.pod_algo == "rs-ag":
+                plan2l = candidate
+        if plan2l is not None:
+            from adapcc_tpu_torch.comm.two_level import allreduce_two_level_composed_stacked
+
+            t0 = time.perf_counter()
+            out = allreduce_two_level_composed_stacked(stacked, mask, plan2l, self.num_slices, self.ici_size, op)
+            extras = {"algo": "two-level", "hier": {
+                "pods": plan2l.sketch.num_pods, "pod_size": plan2l.sketch.pod_size, "pod_algo": plan2l.pod_algo,
+                "leader_algo": plan2l.leader_algo, "resolved_level": plan2l.resolved_level}}
+            if timing:
+                key = tuner.key_for("allreduce", per_rank_bytes, TWO_LEVEL_PATH, NO_CHUNK, "off")
+                token = ("allreduce2l-composed", plan2l.leader_algo, tuple(stacked.shape), dtype, op)
+                self._observe(tuner, out, t0, key, token, extras)
+            self._record("allreduce", "two_level[composed]", stacked, extras)
+            return out
         fast = self.use_xla_fastpath and active_gpus is None
         t0 = time.perf_counter()
         if fast:
             out = _fused_stacked(stacked, op, self.world_size)
         else:
-            mask = self._active_to_mask(active_gpus)
             out, merged = self._schedule(stacked, mask, op, "both")
             out = _avg_normalize(out, mask, op)
-        extras: Dict[str, Any] = {"algo": "ring"}
-        if fast and tuner is not None and tuner.recording:
+        extras = {"algo": "ring"}
+        if fast and timing:
             key = tuner.key_for("allreduce", per_rank_bytes, XLA_PATH, NO_CHUNK, "off")
-            token = ("psum", tuple(stacked.shape), ring._dtype_name(stacked.dtype), op, stacked.device.type)
+            token = ("psum", tuple(stacked.shape), dtype, op, stacked.device.type)
             self._observe(tuner, out, t0, key, token, extras)
         if tplan is not None:
             extras["tuner"] = tplan.trace_extra(applied=tplan.key.path == XLA_PATH and fast)
@@ -1181,10 +1421,11 @@ class CollectiveEngine:
     ) -> torch.Tensor:
         """Reduce to each tree's root: a tree's segment holds the full
         reduction on its root's row; other rows keep partial sums (the
-        fast path: their own values)."""
+        fast path: their own values).  On a two-level world every lane of
+        the root's slice holds the total, and other slices their partials."""
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "reduce")
-        if self.use_xla_fastpath and active_gpus is None:
+        if self.use_xla_fastpath and active_gpus is None and not self.two_level:
             out = self._reduce_fast(stacked, op)
             self._record("reduce", "torch_fused", stacked, {"algo": "ring"})
             return out
@@ -1232,7 +1473,7 @@ class CollectiveEngine:
                     "is only demoted-slow, include it in active_gpus (broadcast values are unaffected "
                     "by relay roles)"
                 )
-        if self.use_xla_fastpath and active_gpus is None:
+        if self.use_xla_fastpath and active_gpus is None and not self.two_level:
             out = self._broadcast_fast(stacked)
             self._record("broadcast", "torch_fused", stacked, {"algo": "ring"})
             return out
@@ -1293,13 +1534,24 @@ class CollectiveEngine:
         """All-gather with subset semantics: ``[world, *payload]`` →
         ``[world, world, *payload]``, row ``r`` the gathered stack as rank
         ``r`` holds it; an inactive rank contributes zeros and still
-        receives."""
+        receives.  ``algo="rd"`` (or ``ADAPCC_COLL_ALGO``) runs the
+        recursive-doubling all-gather, and raises where it cannot run; a
+        two-level world gathers on the two-level plane."""
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "all_gather")
-        self._flat_algo(algo, "all_gather")
+        variant = self._latency_variant("all_gather", algo)
         v = self._zero_inactive(stacked, active_gpus)
-        out = v.unsqueeze(0).expand(self.world_size, *v.shape).contiguous()
-        self._record("all_gather", "torch_flat", stacked, {"algo": "ring"})
+        if variant == "rd":
+            out = lat.rd_all_gather_stacked(v)
+            self._record("all_gather", "rd", stacked, {"algo": "rd"})
+        elif self.two_level:
+            from adapcc_tpu_torch.comm.two_level import all_gather_two_level_stacked
+
+            out = all_gather_two_level_stacked(v, self.num_slices, self.ici_size)
+            self._record("all_gather", "two_level", stacked, {"algo": "ring"})
+        else:
+            out = v.unsqueeze(0).expand(self.world_size, *v.shape).contiguous()
+            self._record("all_gather", "torch_flat", stacked, {"algo": "ring"})
         return out
 
     def all_to_all(
@@ -1316,8 +1568,15 @@ class CollectiveEngine:
         self._check_world_dim(stacked, "all_to_all")
         if stacked.dim() < 2 or stacked.shape[1] != self.world_size:
             raise ValueError(f"all_to_all needs a [world, world, ...] stacked tensor, got {tuple(stacked.shape)}")
-        out = self._zero_inactive(stacked, active_gpus).transpose(0, 1).contiguous()
-        self._record("all_to_all", "torch_flat", stacked, {})
+        v = self._zero_inactive(stacked, active_gpus)
+        if self.two_level:
+            from adapcc_tpu_torch.comm.two_level import all_to_all_two_level_stacked
+
+            out = all_to_all_two_level_stacked(v, self.num_slices, self.ici_size)
+            self._record("all_to_all", "two_level", stacked, {})
+        else:
+            out = v.transpose(0, 1).contiguous()
+            self._record("all_to_all", "torch_flat", stacked, {})
         return out
 
     def reduce_scatter(
@@ -1333,7 +1592,9 @@ class CollectiveEngine:
         // world]``, row ``r`` the reduction of every rank's ``r``-th slice;
         inactive ranks contribute zeros; AVG averages over the active count
         (the world when unmasked).  SUM and AVG only; ``n`` must divide by
-        the world."""
+        the world.  ``algo="rd"`` (or ``ADAPCC_COLL_ALGO``) runs the
+        recursive-halving reduce-scatter, and raises where it cannot run; a
+        two-level world scatters on the two-level plane."""
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "reduce_scatter")
         if op is ReduceOp.MAX:
@@ -1345,13 +1606,23 @@ class CollectiveEngine:
         n = stacked[0].numel()
         if n % world:
             raise ValueError(f"reduce_scatter payload ({n} elems) must divide the world ({world})")
-        self._flat_algo(algo, "reduce_scatter")
         mask = self._active_to_mask(active_gpus)
+        if self._latency_variant("reduce_scatter", algo) == "rd":
+            out = lat.rd_reduce_scatter_stacked(stacked.reshape(world, n), None if active_gpus is None else mask, op)
+            self._record("reduce_scatter", "rd", stacked, {"algo": "rd"})
+            return out
         v = self._zero_inactive(stacked, active_gpus).reshape(world, n)
-        out = v.sum(0, dtype=v.dtype).view(world, n // world)
+        if self.two_level:
+            from adapcc_tpu_torch.comm.two_level import reduce_scatter_two_level_stacked
+
+            out = reduce_scatter_two_level_stacked(v, self.num_slices, self.ici_size)
+            impl = "two_level"
+        else:
+            out = v.sum(0, dtype=v.dtype).view(world, n // world)
+            impl = "torch_flat"
         if op is ReduceOp.AVG:
             out = _avg_normalize(out, mask, op)
-        self._record("reduce_scatter", "torch_flat", stacked, {"algo": "ring"})
+        self._record("reduce_scatter", impl, stacked, {"algo": "ring"})
         return out
 
 

@@ -127,6 +127,19 @@ def world_ip_table(world_size: int, world: Optional[World] = None) -> List[str]:
     return [device_ip(p) for p in world_processes(world_size, world)]
 
 
+def mesh_ip_table(world_size: int, num_slices: int = 1, world: Optional[World] = None) -> List[str]:
+    """Rank → "ip" list as the JAX package's ``mesh_ip_table`` gives it: on
+    a two-level world (``num_slices > 1``) the slice row, ``slice-<k>``
+    (the synthesizer's hosts must be the slices the two-level plane runs),
+    otherwise :func:`world_ip_table`.  A ragged split raises."""
+    if num_slices > 1:
+        from adapcc_tpu_torch.comm.two_level import build_two_level_mesh
+
+        ici = build_two_level_mesh(num_slices, world_size=world_size).ici_size
+        return [f"slice-{r // ici}" for r in range(world_size)]
+    return world_ip_table(world_size, world)
+
+
 def destroy_world() -> None:
     """Leave the process group, if this process joined one."""
     if dist.is_initialized():

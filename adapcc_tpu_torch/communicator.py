@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from adapcc_tpu_torch.comm.engine import CollectiveEngine, EpochMismatch
-from adapcc_tpu_torch.comm.mesh import DeviceLike, World, resolve_device, world_ip_table, world_processes
+from adapcc_tpu_torch.comm.mesh import DeviceLike, World, mesh_ip_table, resolve_device, world_processes
 from adapcc_tpu_torch.config import CommArgs
 from adapcc_tpu_torch.primitives import (
     ALLGATHER,
@@ -78,7 +78,11 @@ class Communicator:
     ``world_size`` ranks stacked on ``device`` (the card unless the caller
     passes ``"cpu"``); ``world``, a multi-process :class:`World` of one
     process a rank, sets both and makes rank ``r`` process ``r``.  Without
-    either, the world is one rank."""
+    either, the world is one rank.  ``num_slices > 1`` makes the stacked
+    world two-level (the JAX package's ``("dcn", "ici")`` mesh): its ip
+    table labels each rank by its slice row, never read from an existing
+    ``ip_table.txt`` and written only where none exists, and its engines run
+    the two-level plane."""
 
     def __init__(
         self,
@@ -86,8 +90,12 @@ class Communicator:
         world_size: Optional[int] = None,
         device: DeviceLike = None,
         world: Optional[World] = None,
+        num_slices: int = 1,
     ) -> None:
         multi = world is not None and world.world_size > 1
+        if multi and num_slices != 1:
+            raise not_ported("a two-level world over a process group (one subgroup of lanes, one of slices)",
+                             "the per-process slice")
         if multi:
             if world_size is not None and world_size != world.world_size:
                 raise ValueError(
@@ -99,6 +107,7 @@ class Communicator:
         self.args = args
         self.world = world
         self.world_size = int(world_size) if world_size is not None else 1
+        self.num_slices = int(num_slices)
         self.device = resolve_device(device)
         self.chunk_bytes = args.default_chunk_bytes
         #: rank → owning process
@@ -107,14 +116,17 @@ class Communicator:
         os.makedirs(args.topology_dir, exist_ok=True)
         ip_table_path = os.path.join(args.topology_dir, "ip_table.txt")
         self.ip_table = None
-        if os.path.exists(ip_table_path):
+        # a two-level world's hosts are its slice rows: an existing table
+        # (real ips, or a flat run's) would split the synthesizer's hosts
+        # away from the plane's slices
+        if os.path.exists(ip_table_path) and self.num_slices == 1:
             table = read_ip_table(ip_table_path)
             if len(table) == self.world_size:
                 self.ip_table = table
         if self.ip_table is None:
-            # missing or stale (another world size): derive from the world,
-            # and persist only when no artifact exists
-            self.ip_table = world_ip_table(self.world_size, world if multi else None)
+            # missing, stale (another world size) or two-level: derive from
+            # the world, and persist only when no artifact exists
+            self.ip_table = mesh_ip_table(self.world_size, self.num_slices, world if multi else None)
             if not os.path.exists(ip_table_path):
                 write_ip_table(self.ip_table, ip_table_path)
 
@@ -168,14 +180,14 @@ class Communicator:
     def init_threads(self, prim: int) -> None:
         if prim == DETECT:
             self._single_process_bootstrap("DETECT")
-            dump_detected_topology(world_ip_table(self.world_size), self.args.topology_dir)
+            dump_detected_topology(mesh_ip_table(self.world_size, self.num_slices), self.args.topology_dir)
         elif prim == PROFILE:
             self._single_process_bootstrap("PROFILE")
             NetworkProfiler(self.world_size, self.device).dump(self.args.topology_dir, rank=0)
         elif prim in _COLLECTIVE_PRIMS:
             self._engines[prim] = CollectiveEngine(
                 self.world_size, self._load_strategy(), use_xla_fastpath=self.args.use_xla_fastpath,
-                tuner=self.tuner,
+                tuner=self.tuner, num_slices=self.num_slices,
             )
         else:
             raise ValueError(f"unknown primitive {prim}")

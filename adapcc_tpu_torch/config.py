@@ -26,8 +26,8 @@ class CommArgs:
     profile_freq: int = 0
     #: directory holding the XML/CSV topology artifacts
     topology_dir: str = "topology"
-    #: synthesis policy: par-trees | ring | binary (milp, sim-rank and hier
-    #: come with their slices)
+    #: synthesis policy: par-trees | milp | ring | binary | hier (sim-rank
+    #: comes with the simulator slice)
     policy: str = "par-trees"
     #: an unmasked allreduce takes the flat one-call path instead of the
     #: tree rounds

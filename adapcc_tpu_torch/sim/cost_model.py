@@ -78,6 +78,10 @@ WIRE_DTYPE_CANDIDATES = ("off", "bf16", "int8")
 #: overlap schedules the pricing knows (``ddp/overlap.py::OVERLAP_MODES``)
 OVERLAP_MODE_CANDIDATES = ("off", "bucket", "microbatch")
 
+#: allreduce algorithms the pricing knows (the engine's ``algo`` values but
+#: ``auto`` and ``ir``)
+COLL_ALGO_CANDIDATES = ("ring", "rd", "tree")
+
 Link = Tuple[int, int]
 
 
@@ -190,6 +194,10 @@ class LinkCostModel:
                     beta=float(np.mean([c.beta for c in fitted])),
                 )
         return model
+
+    def with_ips(self, ips: Optional[Mapping[int, str]]) -> "LinkCostModel":
+        """A copy pricing the same coefficients under ``ips``'s host layout."""
+        return LinkCostModel(self.world, links=self.links, classes=self.classes, ips=ips, source=self.source)
 
     @classmethod
     def uniform(
@@ -481,6 +489,20 @@ def recursive_doubling_allreduce_time(world: int, nbytes: float, coeffs: LinkCoe
     return 2.0 * _rd_half_time(world, nbytes, coeffs)
 
 
+def recursive_halving_reduce_scatter_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
+    """The recursive-halving reduce-scatter (``comm/latency.py::
+    rd_reduce_scatter_shard``): the RS half of the rd allreduce.  ``nbytes``
+    is the full payload before the scatter."""
+    return _rd_half_time(world, nbytes, coeffs)
+
+
+def recursive_doubling_all_gather_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
+    """The recursive-doubling all-gather (``rd_all_gather_shard``): the
+    halving schedule's (distance, size) pairs mirrored, so the same cost.
+    ``nbytes`` is the full payload after the gather."""
+    return _rd_half_time(world, nbytes, coeffs)
+
+
 def binomial_tree_time(world: int, nbytes: float, coeffs: LinkCoeffs) -> float:
     """One binomial-tree phase (a broadcast or a reduce): ``ceil(log2 p)``
     rounds, the full payload over each round's hop distance.  A tree
@@ -533,6 +555,117 @@ def allreduce_crossover_bytes(world: int, coeffs: LinkCoeffs) -> float:
     if rd_slope <= ring_slope:
         return float("inf")
     return (ring_a - rd_a) / (rd_slope - ring_slope)
+
+
+def choose_allreduce_algo(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    candidates: Sequence[str] = COLL_ALGO_CANDIDATES,
+) -> Tuple[str, Dict[str, float]]:
+    """The cheapest allreduce algorithm for one payload on the model:
+    ``(winner, {algo: seconds})``, ties broken by candidate order (the ring
+    first)."""
+    if not candidates:
+        raise ValueError("need at least one collective-algorithm candidate")
+    pricing = {
+        "ring": lambda: quantized_ring_allreduce_time(world, nbytes, coeffs, "off"),
+        "rd": lambda: recursive_doubling_allreduce_time(world, nbytes, coeffs),
+        "tree": lambda: 2.0 * binomial_tree_time(world, nbytes, coeffs),
+    }
+    unknown = [c for c in candidates if c not in pricing]
+    if unknown:
+        raise ValueError(f"unknown algorithm(s) {unknown}; expected a subset of {COLL_ALGO_CANDIDATES}")
+    times = {c: pricing[c]() for c in candidates}
+    return min(candidates, key=lambda c: times[c]), times
+
+
+# --------------------------------------------------------------------------- #
+# two-level pricing (strategy/hierarchy.py): RS within the node, allreduce
+# across the node leaders, AG within the node, against the flat ring
+# --------------------------------------------------------------------------- #
+
+#: the composed plan's schedules a level (``strategy/hierarchy.py``'s
+#: ``POD_ALGOS`` / ``LEADER_ALGOS``)
+TWO_LEVEL_POD_ALGOS = ("rs-ag", "replicate")
+TWO_LEVEL_LEADER_ALGOS = ("tree", "rs-ag")
+
+
+def two_level_leader_time(num_pods: int, nbytes: float, dcn: LinkCoeffs, algo: str = "tree") -> float:
+    """One allreduce of ``nbytes`` a leader across the pod leaders on the
+    inter-host class: ``tree`` is ``2·ceil(log2 P)`` rounds of the full
+    payload (a switched fabric: no hop serialization), ``rs-ag`` the
+    segmented leader ring, ``2·(P−1)`` rounds of ``nbytes/P``."""
+    P = int(num_pods)
+    if P < 2:
+        return 0.0
+    if algo == "tree":
+        rounds = (P - 1).bit_length()  # ceil(log2 P)
+        return 2.0 * rounds * dcn.time(nbytes)
+    if algo == "rs-ag":
+        return 2.0 * (P - 1) * (dcn.alpha + dcn.beta * float(nbytes) / P)
+    raise ValueError(f"unknown leader algo {algo!r}; expected one of {TWO_LEVEL_LEADER_ALGOS}")
+
+
+def two_level_allreduce_time(
+    num_pods: int,
+    pod_size: int,
+    nbytes: float,
+    ici: LinkCoeffs,
+    dcn: LinkCoeffs,
+    pod_algo: str = "rs-ag",
+    leader_algo: str = "tree",
+) -> float:
+    """The composed two-level allreduce: ``2·(I−1)`` intra-pod hops of
+    ``n/I`` plus the leader level's allreduce of what the pod algorithm
+    leaves it: ``n/I`` under ``rs-ag``, the whole ``n`` under
+    ``replicate`` (the slice-local reduction, then the full payload across
+    the leaders)."""
+    P, I = int(num_pods), int(pod_size)
+    if P < 1 or I < 1:
+        raise ValueError(f"need num_pods/pod_size >= 1, got {P}x{I}")
+    if P * I < 2:
+        return 0.0
+    if pod_algo not in TWO_LEVEL_POD_ALGOS:
+        raise ValueError(f"unknown pod algo {pod_algo!r}; expected one of {TWO_LEVEL_POD_ALGOS}")
+    n = float(nbytes)
+    ici_phases = 2.0 * (I - 1) * ici.time(n / I) if I > 1 else 0.0
+    leader_payload = n / I if pod_algo == "rs-ag" else n
+    return ici_phases + two_level_leader_time(P, leader_payload, dcn, leader_algo)
+
+
+def choose_two_level(
+    num_pods: int, pod_size: int, nbytes: float, ici: LinkCoeffs, dcn: LinkCoeffs,
+) -> Tuple[str, Dict[str, float]]:
+    """Two-level against flat for one layout and payload: ``(winner,
+    {"two_level": s, "flat": s})``, the two-level arm the best of both pod
+    algorithms by their leader schedules, the flat arm the lockstep ring
+    paced by the inter-host class; one pod is flat (priced on the
+    intra-host class); a tie keeps flat."""
+    P, I = int(num_pods), int(pod_size)
+    if P < 2:
+        flat = quantized_ring_allreduce_time(max(P * I, 1), nbytes, ici, "off")
+        return "flat", {"two_level": flat, "flat": flat}
+    two = min(
+        two_level_allreduce_time(P, I, nbytes, ici, dcn, pod_algo=pa, leader_algo=la)
+        for pa in TWO_LEVEL_POD_ALGOS
+        for la in TWO_LEVEL_LEADER_ALGOS
+    )
+    flat = quantized_ring_allreduce_time(P * I, nbytes, dcn, "off")
+    return ("two_level" if two < flat else "flat"), {"two_level": two, "flat": flat}
+
+
+def two_level_crossover_pods(
+    pod_size: int, nbytes: float, ici: LinkCoeffs, dcn: LinkCoeffs, max_pods: int = 4096,
+) -> Optional[int]:
+    """The smallest power-of-two pod count at which the composed plan beats
+    the flat ring for this payload, or None within ``max_pods``."""
+    P = 2
+    while P <= max_pods:
+        if choose_two_level(P, pod_size, nbytes, ici, dcn)[0] == "two_level":
+            return P
+        P *= 2
+    return None
 
 
 def ring_allreduce_time(world: int, nbytes: float, coeffs: LinkCoeffs, chunks: int = 1) -> float:

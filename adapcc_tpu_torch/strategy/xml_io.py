@@ -4,15 +4,16 @@ would load JAX through its package).
 
 - strategy XML: ``<trees><root id ip><gpu id ip>…</gpu></root></trees>``
   (reference strategy/*.xml), plus the ``schema``, ``synthesis``,
-  ``chunk_bytes`` and ``wire_dtype`` attributes the JAX package stamps;
+  ``chunk_bytes``, ``wire_dtype`` and two-level ``hier``/``hier_pod_algo``/
+  ``hier_leader_algo`` attributes the JAX package stamps;
 - logical graph XML: ``<graph version><server id ip><nic id><gpu id/></nic>
   </server></graph>`` (reference topology/logical_graph_*.xml);
 - ip table: one ip per line, line index = world rank.
 
 The reference fixtures hold attribute pairs with no space between them
 (``<gpu id='1'ip='…'/>``), which strict XML rejects, so parsing retries
-through a lenient pre-pass.  A two-level ``hier`` attribute and the schedule
-program artifact wait for their slices.
+through a lenient pre-pass.  The schedule program artifact waits for the IR
+slice.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 from xml.etree import ElementTree as ET
 
-from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES, not_ported
+from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES
 from adapcc_tpu_torch.quant.codec import codec_names
 from adapcc_tpu_torch.strategy.ir import Strategy, Tree
 
@@ -101,8 +102,6 @@ def parse_strategy_xml(text_or_path: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES
     if doc.tag != "trees":
         raise ValueError(f"expected <trees> root element, got <{doc.tag}>")
     _check_schema_version(doc, "trees")
-    if doc.attrib.get("hier"):
-        raise not_ported("a two-level strategy artifact (<trees hier=...>)", "the two-level plane slice")
 
     trees: List[Tree] = []
     all_ranks: set = set()
@@ -134,12 +133,29 @@ def parse_strategy_xml(text_or_path: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES
         # a tree without its own attribute pipelines at the document chunk
         tree_chunk_bytes = [c if c is not None else chunk_bytes for c in per_tree_chunks]
     raw_wire = doc.attrib.get("wire_dtype")
-    return Strategy(
+    strategy = Strategy(
         trees, world_size, chunk_bytes,
         synthesis=doc.attrib.get("synthesis") or None,
         tree_chunk_bytes=tree_chunk_bytes,
         wire_dtype=_valid_wire_dtype(raw_wire) if raw_wire else "off",
     )
+    raw_hier = doc.attrib.get("hier")
+    if raw_hier:
+        # a composed two-level plan's sketch rides the artifact: reattached,
+        # a parsed strategy runs the composed phases; a malformed attribute
+        # fails at the file that carries it
+        from adapcc_tpu_torch.strategy import hierarchy
+
+        m = re.fullmatch(r"([1-9]\d*)x([1-9]\d*)", raw_hier)
+        if not m:
+            raise ValueError(f"<trees hier={raw_hier!r}>: expected '<pods>x<pod_size>'")
+        hierarchy.plan_from_strategy(
+            strategy,
+            hierarchy.HierarchySketch(int(m.group(1)), int(m.group(2))),
+            doc.attrib.get("hier_pod_algo", "rs-ag"),
+            doc.attrib.get("hier_leader_algo", "tree"),
+        )
+    return strategy
 
 
 def emit_strategy_xml(strategy: Strategy, path: Optional[str] = None) -> str:
@@ -150,6 +166,13 @@ def emit_strategy_xml(strategy: Strategy, path: Optional[str] = None) -> str:
     if strategy.synthesis:
         doc.set("synthesis", strategy.synthesis)
     doc.set("chunk_bytes", str(strategy.chunk_bytes))
+    plan = getattr(strategy, "_two_level_plan", None)
+    if plan is not None:
+        # the composed plan's sketch and level schedules: a re-parsed
+        # strategy runs the same phases
+        doc.set("hier", f"{plan.sketch.num_pods}x{plan.sketch.pod_size}")
+        doc.set("hier_pod_algo", plan.pod_algo)
+        doc.set("hier_leader_algo", plan.leader_algo)
     if strategy.wire_dtype != "off":
         # only a codec is persisted: absence means "off"
         doc.set("wire_dtype", strategy.wire_dtype)

@@ -155,6 +155,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    642.6 MiB and a 4-byte-a-rank ``ring_allreduce``: the codec rate and α
    the cost model's defaults take, and record mode's cost on a 4 MiB
    dispatch.  Phase 14's launches are counted into the kernels line.
+15. slice 12's main path, the latency plane, the two-level plane and the
+   ``hier`` and ``milp`` policies: (a) ``CollectiveEngine(w, ring(w))`` at
+   worlds 4 and 8, float32, 4 B to 4 MiB a rank: ``all_reduce`` pinned to
+   ``rd`` and ``tree``, the psum plane (``torch_fused``) and
+   ``ring_allreduce`` (K1a), each bit for bit the plain sum on
+   integer-valued data and within ``(world - 1)·2⁻²⁴`` of Σ|x| of the
+   float64 sum on random data, each by events, device time, launches and
+   the median walltime of a synced dispatch, beside the bound (the stacked
+   tensor read and written once); what ``auto`` picks at each size against
+   the cost model's crossover at the card's defaults; rd and tree with rank
+   3 a relay (AVG) bit for bit the plain masked mean on every row; rd at
+   world 6 refused with the JAX engine's words; (b) every leaf of phase
+   11a's world-8 bf16 gradients through ``all_reduce(algo="auto", op=AVG)``:
+   the leaves and bytes each plane took, the pass's device time, launches
+   and walltime against the same leaves on the psum plane, each leaf within
+   ``SCHEDULE_BF16_TOL`` of the float64 mean; (c) a choosing
+   ``CollectiveEngine(8, ring(8))`` on a fresh database at 4 KiB and 4 MiB a
+   rank, dispatched until every cell of the full grid (rd and tree included)
+   holds its trial budget, each cell's first dispatch bit for bit its plain
+   version, the choice and its source; (d) phase 11a's gradients on the
+   world as 2 slices × 4, rank 3 a relay (AVG): the projected schedule of
+   ``4-4_1.xml`` and the composed plan the ``hier`` policy synthesizes, bit
+   for bit the plain masked mean on integer-valued bf16 data and within
+   ``SCHEDULE_BF16_TOL`` on the gradients, by device time and launches
+   against phase 11a and the bound; (e) ``AdapCC.init`` on that two-level
+   world with ``policy="hier"`` and one relayed allreduce of the buckets,
+   then ``policy="milp"`` on a two-host world-8 profile: the solve's
+   seconds, the trees, one relayed allreduce.  Phase 15's launches (K1a
+   from (a) and (c), K1b, K5a and K5b from (c)) are counted into the
+   kernels line.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -183,7 +213,7 @@ from adapcc_tpu_torch.checkpoint import CheckpointManager, TrainCheckpointState
 from adapcc_tpu_torch.comm import engine as comm_engine
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine, _merged_plan
-from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world
+from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world, mesh_ip_table
 from adapcc_tpu_torch.communicator import Communicator
 from adapcc_tpu_torch.config import CommArgs
 from adapcc_tpu_torch.coordinator import CoordinatorLogic
@@ -194,15 +224,17 @@ from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
-from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, SKIP_BOOTSTRAP, ReduceOp
+from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.sim import cost_model
+from adapcc_tpu_torch.strategy import hierarchy
 from adapcc_tpu_torch.strategy.ir import Strategy
-from adapcc_tpu_torch.strategy.xml_io import parse_strategy_xml
+from adapcc_tpu_torch.strategy.synthesizer import Synthesizer
+from adapcc_tpu_torch.strategy.xml_io import emit_strategy_xml, parse_strategy_xml, write_ip_table
 from adapcc_tpu_torch.topology.profile import gather_topo_profile
 from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase, TuningPolicy, mesh_fingerprint
 from adapcc_tpu_torch.tuner import measure as tuner_measure
-from adapcc_tpu_torch.tuner.policy import DEFAULT_CHUNK_GRID, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path
+from adapcc_tpu_torch.tuner.policy import ALGO_PATHS, DEFAULT_CHUNK_GRID, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path
 from adapcc_tpu_torch.utils.observability import CollectiveTrace, MetricsRegistry
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
@@ -309,10 +341,36 @@ TUNED_ZERO1_STEPS = 3
 #: phase 14(d): codec round trips and 4-byte dispatches timed
 CODEC_ITERS = 5
 ALPHA_ITERS = 50
-#: profiler captures a library yardstick's device timing takes before an
-#: empty one is a failure; a capture of a port kernel or a port path that
-#: holds no device record fails at once
-PROFILE_ATTEMPTS = 3
+#: phase 15(a): the latency plane's worlds and per-rank payloads (bytes),
+#: the relay of its relay check, and the trace impl each arm must show
+LATENCY_WORLDS = (4, 8)
+LATENCY_BYTES = (4, 4 << 10, 64 << 10, 1 << 20, 4 << 20)
+LATENCY_RELAY = 3
+LATENCY_IMPLS = {"rd": "rd", "tree": "tree", "psum": "torch_fused", "ring": "cuda_ring[vmem]"}
+#: the refusal of rd at world 6, word for word the JAX engine's
+RD_WORLD6_REFUSAL = (
+    "allreduce algo='rd' cannot run here: recursive doubling pairs ranks by XOR and needs a power-of-two world, "
+    "got 6; the cost model prices the fold-in, the data plane rejects it")
+#: synced dispatches a walltime median is taken over, and profiled calls
+SYNCED_ITERS = 10
+PHASE15_ITERS = 5
+#: 15(d)-(e): the two-level layout of the world-8 gradients
+TWO_LEVEL_SLICES = 2
+#: 15(e): the two-host ip table of the milp policy's world-8 profile
+MILP_IPS = ["h0"] * 4 + ["h1"] * 4
+#: profiler captures a device timing takes before an empty one is a
+#: failure: on an NVIDIA H100 80GB HBM3 at 700 W with torch 2.11 the
+#: profiler has come back with no device record for a library yardstick and
+#: for a port kernel that launched (its launch and its bits are checked
+#: apart from its timing), up to three times running, so any capture is
+#: retaken, after a pause and one more call
+PROFILE_ATTEMPTS = 5
+PROFILE_RETRY_PAUSE_S = 0.2
+#: spin kernels a capture launches before its calls and after them: on the
+#: same card and torch a capture has lost one call's device records in most
+#: captures and four of five K1a calls' in some (PERF.md §7); the pads, left
+#: out of the count, take such a loss at either end
+PROFILER_PADS = 8
 
 
 def nvidia_smi() -> str:
@@ -338,8 +396,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _pads() -> None:
+    for _ in range(PROFILER_PADS):
+        torch.cuda._sleep(1000)
+
+
 def _device_events(prof) -> list:
-    """The device's kernel, memcpy and memset records of a profile.  A
+    """The device's kernel, memcpy and memset records of a profile, but the
+    capture's spin-kernel pads (:func:`_pads`).  A
     record_function range (the optimizer's "Optimizer.step#AdamW.step")
     shows on the device too, under its host range's name, spanning kernels
     already counted: a device record that shares a host record's name is
@@ -351,15 +415,15 @@ def _device_events(prof) -> list:
     host = {e.key for e in events if e.device_type != DeviceType.CUDA}
     return [e for e in events
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            and e.key not in host]
+            and e.key not in host and "spin_kernel" not in e.key]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, attempts: int = 1) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, attempts: int = PROFILE_ATTEMPTS) -> float:
     """Mean device time of one ``fn`` call (:func:`device_stats`)."""
     return device_stats(fn, iters, warmup, attempts)[0]
 
 
-def device_stats(fn, iters: int = 20, warmup: int = 3, attempts: int = 1) -> tuple:
+def device_stats(fn, iters: int = 20, warmup: int = 3, attempts: int = PROFILE_ATTEMPTS) -> tuple:
     """``(ms, launches)``: the mean device time of one ``fn`` call, and the
     device records (kernels, copies, fills) it launches a call.  The time is
     the durations of the kernels it launches, from the profiler's kernel
@@ -370,25 +434,31 @@ def device_stats(fn, iters: int = 20, warmup: int = 3, attempts: int = 1) -> tup
     records of 10 calls, which a plain sum over ``iters`` would read as a
     kernel 10% faster.  A kernel seen less than once a call counts its
     total over ``iters``.  A capture with no device record is taken again
-    up to ``attempts`` times (only a library yardstick asks for more than
-    one), then fails."""
+    up to ``attempts`` times, then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # the profiler has once come back with no device record at all for a
-    # library yardstick that launches kernels (PERF.md, open questions)
+    # the profiler has come back with no device record at all for calls
+    # that launch kernels, and without some of a capture's records (PERF.md,
+    # open questions): the calls sit between pads of spin kernels
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _pads()
             for _ in range(iters):
                 fn()
+            _pads()
             torch.cuda.synchronize()
         kernels = _device_events(prof)
         if kernels:
             break
-        print(f"device_ms: the profiler recorded no device time (capture {attempt} of {attempts})",
-              flush=True)
+        pads = sum(e.count for e in prof.key_averages() if "spin_kernel" in e.key)
+        print(f"device_ms: the profiler recorded no device time (capture {attempt} of {attempts}; "
+              f"{pads} of its {2 * PROFILER_PADS} pads recorded)", flush=True)
+        time.sleep(PROFILE_RETRY_PAUSE_S)
+        fn()
+        torch.cuda.synchronize()
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     missing = [(e.key[:60], e.count) for e in kernels if e.count % iters]
@@ -513,7 +583,7 @@ def yardsticks(records: dict, q, k, v, do, scale: float, shape: tuple) -> None:
     def fwd():
         return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
 
-    fwd_ms, fwd_dev = cuda_ms(fwd), device_ms(fwd, attempts=PROFILE_ATTEMPTS)
+    fwd_ms, fwd_dev = cuda_ms(fwd), device_ms(fwd)
     ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
     dol = do.view(B, H, T, D)
@@ -521,7 +591,7 @@ def yardsticks(records: dict, q, k, v, do, scale: float, shape: tuple) -> None:
     def bwd():
         return torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
 
-    bwd_ms, bwd_dev = cuda_ms(bwd), device_ms(bwd, attempts=PROFILE_ATTEMPTS)
+    bwd_ms, bwd_dev = cuda_ms(bwd), device_ms(bwd)
     records["flash_fwd"].update(library_ms=fwd_ms, library_device_ms=fwd_dev)
     for name in ("flash_dq", "flash_dkv"):
         records[name].update(library_ms=bwd_ms, library_device_ms=bwd_dev,
@@ -716,7 +786,7 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
         del got, want
         times = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
                  "plain_ms": cuda_ms(plain, iters=5),
-                 "library_ms": cuda_ms(library), "library_device_ms": device_ms(library, attempts=PROFILE_ATTEMPTS),
+                 "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
                  "dispatch_ms": cuda_ms(dispatch), "dispatch_device_ms": device_ms(dispatch)}
         ring.check_errors()
         print(f"time {kname} {phase} world={world} float32 payload {payload_bytes / 2**20:.1f} MiB/rank "
@@ -1081,8 +1151,9 @@ def schedule_gradients(dev: torch.device, init_state, tokens):
 def schedule_world8(dev: torch.device, init_state, tokens) -> tuple:
     """Phase 11a: the two-host world-8 strategy averages the bench GPT-2's
     bucketed bf16 gradients with rank 3 a relay, as the hooks of 8
-    processes would.  Returns the gradients, ``[8, n_b]`` a bucket, and the
-    dispatches' device ms and bound ms summed over the buckets."""
+    processes would.  Returns the bucket plan, the gradients, ``[8, n_b]`` a
+    bucket, and the dispatches' device ms and bound ms summed over the
+    buckets."""
     plan, buckets = schedule_gradients(dev, init_state, tokens)
     strategy = parse_strategy_xml(SCHEDULE_XML)
     merged = _merged_plan(strategy)
@@ -1131,7 +1202,7 @@ def schedule_world8(dev: torch.device, init_state, tokens) -> tuple:
             profile_step("schedule 11a bucket 0", call, times[b]["dispatch"]["ms"])
     torch.cuda.empty_cache()
     bound_ms = sum(2 * b.numel() * b.element_size() for b in buckets) / HBM_BYTES_S * 1e3
-    return buckets, sum(t["dispatch"]["device_ms"] for t in times.values()), bound_ms
+    return plan, buckets, sum(t["dispatch"]["device_ms"] for t in times.values()), bound_ms
 
 
 def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
@@ -1195,7 +1266,7 @@ def schedule_world4(dev: torch.device, grads: torch.Tensor) -> None:
 # --------------------------------------------------------------------------- #
 
 
-def facade_allreduce(label: str, buckets: list, active: list, cpu_comm=None) -> dict:
+def facade_allreduce(label: str, buckets: list, active: list, cpu_comm=None, iters: int = 10) -> dict:
     """The façade's AVG allreduce of each ``[8, n]`` bf16 bucket over
     ``active``, as the hooks of 8 processes would run it: every row
     identical, each bucket within ``SCHEDULE_BF16_TOL`` of a float64 masked
@@ -1215,7 +1286,7 @@ def facade_allreduce(label: str, buckets: list, active: list, cpu_comm=None) -> 
         exact = None
         if cpu_comm is not None and b == 0:
             exact = same_bits(out.cpu(), cpu_comm.all_reduce(stacked.cpu(), active_gpus=active, op=ReduceOp.AVG))
-        times = time_dispatch(call)
+        times = time_dispatch(call, iters=iters)
         for k in total:
             total[k] += times[k]
         print(f"{label} bucket {b}: {stacked.shape[1]} bf16 a rank, active {active}; rows identical "
@@ -1666,8 +1737,9 @@ def _cell(key) -> str:
 
 def tuner_engine_cells(dev: torch.device, grads: torch.Tensor, workdir: str) -> None:
     """Phase 14(a): ``CollectiveEngine(4, ring(4), tuner=choose)`` on a fresh
-    database in ``workdir``, each payload dispatched until every cell of
-    ``candidates("allreduce", algos=("ring",))`` holds its trial budget;
+    database in ``workdir``, each payload dispatched with ``algo="ring"``
+    until every cell of ``candidates("allreduce", algos=("ring",))`` holds
+    its trial budget;
     each cell's first dispatch held bit for bit against the plain version
     (the quant ring has no kernel); the medians, the choice, the incumbent;
     the database saved, reloaded, and ranking the same plan."""
@@ -1689,7 +1761,7 @@ def tuner_engine_cells(dev: torch.device, grads: torch.Tensor, workdir: str) -> 
             if dispatches >= TUNER_DISPATCH_CAP:
                 raise RuntimeError(f"14a {label}: {dispatches} dispatches left cells under budget: "
                                    f"{[(_cell(c), db.count(c)) for c in cells]}")
-            out = eng.ring_allreduce(x)
+            out = eng.ring_allreduce(x, algo="ring")  # the ring plane's cells (phase 15c: the full grid)
             dispatches += 1
             event = trace.events()[-1]
             key = tuner_measure._key_from_event(event, world, topology)
@@ -1912,6 +1984,312 @@ def slice11(dev: torch.device, init_state, tokens, z_tokens, z_losses, smi: str)
     if not all(p14.values()):
         raise RuntimeError(f"a kernel was not launched in phase 14: {p14}")
     return p14
+
+
+def synced_ms(fn, iters: int = SYNCED_ITERS) -> float:
+    """Median walltime of one ``fn`` call with the device synced after it:
+    what a caller waiting on the result pays, host dispatch included."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out)) * 1e3
+
+
+def _stacked_bound_ms(stacked: torch.Tensor) -> float:
+    """The bytes bound of a stacked allreduce: the ``[world, n]`` tensor read
+    once and written once, over the card's memory rate."""
+    return 2 * stacked.numel() * stacked.element_size() / HBM_BYTES_S * 1e3
+
+
+def latency_plane(dev: torch.device, smi: str) -> None:
+    """Phase 15(a): the latency plane against the psum plane and K1a."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for world in LATENCY_WORLDS:
+        trace = CollectiveTrace()
+        eng = CollectiveEngine(world, Strategy.ring(world), trace=trace)
+        timer = CollectiveEngine(world, Strategy.ring(world))
+        crossover = eng._allreduce_crossover_bytes()
+        arms = {"rd": lambda e, x: e.all_reduce(x, algo="rd"), "tree": lambda e, x: e.all_reduce(x, algo="tree"),
+                "psum": lambda e, x: e.all_reduce(x), "ring": lambda e, x: e.ring_allreduce(x)}
+        picks = {}
+        for nbytes in LATENCY_BYTES:
+            n = nbytes // 4
+            ints = torch.randint(-64, 65, (world, n), device=dev, generator=gen).float()
+            rand = torch.randn(world, n, device=dev, generator=gen)
+            want_int = ints.sum(0)
+            exact = rand.double().sum(0)
+            tol = (world - 1) * 2.0 ** -24 * rand.double().abs().sum(0)
+            for arm, call in arms.items():
+                out = call(eng, ints)
+                impl = trace.events()[-1].impl
+                bits = all(same_bits(out[r], want_int) for r in range(world))
+                out = call(eng, rand)
+                within = bool(((out.double() - exact[None]).abs() <= tol[None]).all())
+                times = time_dispatch(lambda c=call, x=rand: c(timer, x), iters=PHASE15_ITERS)
+                wall = synced_ms(lambda c=call, x=rand: c(timer, x))
+                print(f"latency 15a world {world} {nbytes} B a rank, {arm}: {impl}; integer data bit for bit the "
+                      f"plain sum {'ok' if bits else 'FAIL'}; random data within (w-1)*2^-24*sum|x| "
+                      f"{'ok' if within else 'FAIL'}; {_fmt(times)}; synced walltime {wall:.4f} ms; bound "
+                      f"{_stacked_bound_ms(rand):.6f} ms ({smi})", flush=True)
+                if impl != LATENCY_IMPLS[arm] or not bits or not within:
+                    raise RuntimeError(f"15a world {world} {nbytes} B {arm} ran {impl} or failed its checks")
+            eng.all_reduce(rand, algo="auto")
+            picks[nbytes] = trace.events()[-1].impl
+            if picks[nbytes] != ("rd" if nbytes < crossover else "torch_fused"):
+                raise RuntimeError(f"15a world {world}: auto picked {picks[nbytes]} at {nbytes} B against the "
+                                   f"crossover {crossover:.0f} B")
+        print(f"latency 15a world {world}: auto picks {picks} (cost model crossover at the card's defaults "
+              f"{crossover:.0f} B a rank: rd below it)", flush=True)
+        # the relay contract: rank 3 contributes nothing, forwards, receives
+        active = [r for r in range(world) if r != LATENCY_RELAY]
+        ints = torch.randint(-64, 65, (world, 1024), device=dev, generator=gen).float()
+        want = plain_masked(ints, active, ReduceOp.AVG)()
+        for arm in ("rd", "tree"):
+            out = eng.all_reduce(ints, algo=arm, active_gpus=active, op=ReduceOp.AVG)
+            ok = all(same_bits(out[r], want) for r in range(world))
+            print(f"latency 15a world {world} {arm} AVG, rank {LATENCY_RELAY} a relay: every row (the relay's "
+                  f"too) bit for bit the plain masked mean {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"15a world {world}: {arm} broke the relay contract")
+    try:
+        CollectiveEngine(6, Strategy.ring(6)).all_reduce(torch.ones(6, 8, device=dev), algo="rd")
+    except ValueError as e:
+        if str(e) != RD_WORLD6_REFUSAL:
+            raise RuntimeError(f"15a: rd at world 6 refused in other words: {e}") from e
+        print(f"latency 15a world 6: rd refused: {e}", flush=True)
+    else:
+        raise RuntimeError("15a: rd ran at world 6")
+
+
+def _leaves(plan, buckets: list) -> list:
+    """Each gradient leaf of the bucket plan as its own ``[world, n]``
+    tensor, cut from the stacked buckets."""
+    offsets = [0] * plan.num_buckets
+    leaves = []
+    for i, shape in enumerate(plan.leaf_shapes):
+        b, n = plan.leaf_bucket[i], int(np.prod(shape))
+        leaves.append(buckets[b][:, offsets[b]:offsets[b] + n].contiguous())
+        offsets[b] += n
+    return leaves
+
+
+def selector_on_leaves(plan, buckets: list, smi: str) -> None:
+    """Phase 15(b): ``auto`` on every leaf of the world-8 bf16 gradients."""
+    leaves = _leaves(plan, buckets)
+    trace = CollectiveTrace()
+    eng = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD), trace=trace)
+    timer = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD))
+    taken: dict = {}
+    for i, leaf in enumerate(leaves):
+        out = eng.all_reduce(leaf, algo="auto", op=ReduceOp.AVG)
+        impl = trace.events()[-1].impl
+        count, nbytes, sizes = taken.get(impl, (0, 0, set()))
+        taken[impl] = (count + 1, nbytes + leaf[0].numel() * 2, sizes | {leaf[0].numel() * 2})
+        x = leaf.double()
+        rows_same = all(same_bits(out[r], out[0]) for r in range(1, SCHEDULE_WORLD))
+        within = bool(((out[0].double() - x.mean(0)).abs() <= SCHEDULE_BF16_TOL * x.abs().mean(0)).all())
+        if not rows_same or not within:
+            raise RuntimeError(f"15b leaf {i} ({tuple(leaf.shape)}) on {impl} failed its checks")
+    for impl, (count, nbytes, sizes) in sorted(taken.items()):
+        print(f"selector 15b: {impl}: {count} leaves, {nbytes / 2**20:.3f} MiB a rank, leaf sizes "
+              f"{min(sizes)}-{max(sizes)} B a rank", flush=True)
+    passes = {"auto": lambda: [timer.all_reduce(x, algo="auto", op=ReduceOp.AVG) for x in leaves],
+              "psum plane": lambda: [timer.all_reduce(x, op=ReduceOp.AVG) for x in leaves]}
+    for name, run in passes.items():
+        times = time_dispatch(run, iters=1)
+        wall = synced_ms(run, iters=3)
+        print(f"selector 15b: {len(leaves)} leaves on {name}: {_fmt(times)} a pass; synced walltime {wall:.4f} ms "
+              f"a pass; bound {sum(_stacked_bound_ms(x) for x in leaves):.4f} ms (bytes) ({smi})", flush=True)
+    print(f"selector 15b: every leaf's rows identical and within {SCHEDULE_BF16_TOL} of the float64 mean; "
+          f"crossover {eng._allreduce_crossover_bytes():.0f} B a rank at world {SCHEDULE_WORLD}", flush=True)
+
+
+def _plain_cell(x: torch.Tensor, key) -> torch.Tensor:
+    """The plain version of the cell a ring_allreduce dispatch ran: the
+    latency plane's executor on CPU copies, or the plain ring walk."""
+    if key.path in ALGO_PATHS:
+        return CollectiveEngine(x.shape[0], Strategy.ring(x.shape[0]))._latency_allreduce(x.cpu(), key.path)
+    return plain_allreduce(x, key.wire_dtype)
+
+
+def tuner_full_grid(dev: torch.device, workdir: str) -> None:
+    """Phase 15(c): a choosing ``CollectiveEngine(8, ring(8))`` fills the
+    full allreduce grid, rd and tree among its cells."""
+    world = SCHEDULE_WORLD
+    topology = mesh_fingerprint(dev, world=world)
+    tuner = CollectiveTuner(world, topology, db=TuningDatabase(os.path.join(workdir, "grid.jsonl")), mode="choose")
+    db, policy = tuner.db, tuner.policy
+    trace = CollectiveTrace()
+    eng = CollectiveEngine(world, Strategy.ring(world), trace=trace, tuner=tuner)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, nbytes in (("4 KiB", 4 << 10), ("4 MiB", 4 << 20)):
+        x = torch.randn(world, nbytes // 4, device=dev, generator=gen)
+        cells = policy.candidates("allreduce", nbytes, "float32")
+        t0, dispatches, first = time.perf_counter(), 0, {}
+        while any(db.count(c) < policy.trial_budget for c in cells):
+            if dispatches >= TUNER_DISPATCH_CAP:
+                raise RuntimeError(f"15c {label}: {dispatches} dispatches left cells under budget: "
+                                   f"{[(_cell(c), db.count(c)) for c in cells]}")
+            out = eng.ring_allreduce(x)
+            dispatches += 1
+            event = trace.events()[-1]
+            key = tuner_measure._key_from_event(event, world, topology)
+            if key not in cells:
+                raise RuntimeError(f"15c {label}: dispatch {dispatches} ran {key}, outside the candidates")
+            if key not in first:
+                first[key] = None if key.path == QUANT_PATH else same_bits(out.cpu(), _plain_cell(x, key).cpu())
+                if first[key] is False:
+                    raise RuntimeError(f"15c {label}: cell {_cell(key)} disagrees with its plain version")
+            del out
+        span = time.perf_counter() - t0
+        for c in cells:
+            st = db.stats(c)
+            print(f"tuner 15c {label} cell {_cell(c):28s}: {st.count} samples, median {st.median_s * 1e3:.4f} ms, "
+                  f"iqr {st.iqr_s * 1e3:.4f}; prior {policy.prior_time(c, nbytes) * 1e3:.4f} ms; first dispatch bit "
+                  f"for bit its plain version {'-' if first.get(c) is None else first[c]}", flush=True)
+        plan = tuner.choose("allreduce", nbytes, "float32")
+        print(f"tuner 15c {label}: {len(cells)} cells ({sum(c.path in ALGO_PATHS for c in cells)} rd/tree) filled "
+              f"in {dispatches} dispatches ({span:.1f} s); chosen {_cell(plan.key)} (source {plan.source}, "
+              f"{plan.expected_s * 1e3:.4f} ms)", flush=True)
+        if not {"rd", "tree"} <= {c.path for c in cells} or plan.source != "measured":
+            raise RuntimeError(f"15c {label}: the grid lacks rd/tree, or a filled grid chose by {plan.source}")
+
+
+def _two_level_run(label: str, eng: CollectiveEngine, buckets: list, ref_ms: float, bound_ms: float,
+                   smi: str, want_impl: str) -> None:
+    """One two-level AVG allreduce of the world-8 buckets with rank 3 a
+    relay: integer-valued bf16 bit for bit the plain masked mean on every
+    row, each gradient bucket's rows identical and within
+    ``SCHEDULE_BF16_TOL``; the pass by device time and launches."""
+    gen = torch.Generator(device=buckets[0].device).manual_seed(SEED)
+    ints = torch.randint(-8, 9, buckets[0].shape, device=buckets[0].device, generator=gen).to(torch.bfloat16)
+    out = eng.all_reduce(ints, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
+    want = plain_masked(ints, SCHEDULE_ACTIVE, ReduceOp.AVG)()
+    bits = all(same_bits(out[r], want) for r in range(SCHEDULE_WORLD))
+    impl = eng.trace.events()[-1].impl
+    del ints, out, want
+    idx = torch.tensor(SCHEDULE_ACTIVE, device=buckets[0].device)
+    for b, stacked in enumerate(buckets):
+        out = eng.all_reduce(stacked, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
+        x = stacked.index_select(0, idx).double()
+        rows_same = all(same_bits(out[r], out[0]) for r in range(1, SCHEDULE_WORLD))
+        within = bool(((out[0].double() - x.mean(0)).abs() <= SCHEDULE_BF16_TOL * x.abs().mean(0)).all())
+        if not rows_same or not within:
+            raise RuntimeError(f"{label} bucket {b} failed its checks")
+        del out, x
+    torch.cuda.empty_cache()
+    times = time_dispatch(lambda: [eng.all_reduce(x, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
+                                   for x in buckets], iters=2)
+    extras = eng.trace.events()[-1].extra
+    print(f"{label}: {impl} {extras.get('hier', '')}; integer-valued bf16 bit for bit the plain masked mean on "
+          f"every row {'ok' if bits else 'FAIL'}; every bucket's rows identical and within {SCHEDULE_BF16_TOL} of "
+          f"the float64 mean; {_fmt(times)} for the {len(buckets)} buckets; phase 11a (flat, this run) "
+          f"{ref_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes) ({smi})", flush=True)
+    if impl != want_impl or not bits:
+        raise RuntimeError(f"{label} ran {impl}, not {want_impl}, or broke the bits")
+    torch.cuda.empty_cache()
+
+
+def two_level_full_width(buckets: list, ref_ms: float, bound_ms: float, smi: str) -> None:
+    """Phase 15(d): the world-8 gradients on 2 slices × 4 of the one card."""
+    strategy = parse_strategy_xml(SCHEDULE_XML)
+    eng = CollectiveEngine(SCHEDULE_WORLD, strategy, trace=CollectiveTrace(), num_slices=TWO_LEVEL_SLICES)
+    _two_level_run("two-level 15d(i) projected 4-4_1.xml", eng, buckets, ref_ms, bound_ms, smi, "schedule")
+    if eng.trace.events()[-1].extra.get("merged") is not True:
+        raise RuntimeError("15d(i) did not run the merged two-level plan")
+    nbytes = sum(b[0].numel() * b.element_size() for b in buckets)
+    ips = mesh_ip_table(SCHEDULE_WORLD, TWO_LEVEL_SLICES)
+    t0 = time.perf_counter()
+    composed = Synthesizer(None, ips, "hier").synthesize(ALLREDUCE, 1, nbytes, None, None)
+    plan = hierarchy.plan_of(composed)
+    print(f"two-level 15d(ii): hier policy on {ips[0]}..{ips[-1]} ({TWO_LEVEL_SLICES} x "
+          f"{SCHEDULE_WORLD // TWO_LEVEL_SLICES}), {nbytes / 2**20:.1f} MiB a rank, card defaults: "
+          f"{time.perf_counter() - t0:.4f} s; plan {plan.to_row()}", flush=True)
+    if plan.pod_algo != "rs-ag":
+        raise RuntimeError(f"15d(ii): the hier policy chose pod algo {plan.pod_algo}")
+    eng = CollectiveEngine(SCHEDULE_WORLD, composed, trace=CollectiveTrace(), num_slices=TWO_LEVEL_SLICES)
+    _two_level_run("two-level 15d(ii) composed", eng, buckets, ref_ms, bound_ms, smi, "two_level[composed]")
+
+
+def facade_two_level(buckets: list, workdir: str) -> None:
+    """Phase 15(e): the façade on the two-level world with the hier policy,
+    then the milp policy on a two-host world-8 profile."""
+    topo = os.path.join(workdir, "15e-hier")
+    args = CommArgs(strategy_file=f"{topo}/strategy.xml", logical_graph=f"{topo}/logical_graph.xml",
+                    topology_dir=topo, entry_point=DETECT, parallel_degree=2, policy="hier")
+    t0 = time.perf_counter()
+    AdapCC.init(args, world_size=SCHEDULE_WORLD, num_slices=TWO_LEVEL_SLICES)
+    boot_s = time.perf_counter() - t0
+    strategy = AdapCC.communicator._load_strategy()
+    plan = hierarchy.plan_of(strategy)
+    print(f"facade 15e: AdapCC.init(DETECT, policy='hier') on {SCHEDULE_WORLD} ranks as {TWO_LEVEL_SLICES} slices "
+          f"in {boot_s:.2f} s; ip table {AdapCC.communicator.ip_table}; plan {plan.sketch.num_pods} x "
+          f"{plan.sketch.pod_size}, pod {plan.pod_algo}, leader {plan.leader_algo}", flush=True)
+    AdapCC.setup(ALLREDUCE)
+    eng = AdapCC.communicator._engine(ALLREDUCE)
+    eng.trace = CollectiveTrace()
+    total = facade_allreduce("facade 15e (hier)", buckets, SCHEDULE_ACTIVE, iters=PHASE15_ITERS)
+    impl = eng.trace.events()[-1].impl
+    print(f"facade 15e (hier): {impl}; device {total['device_ms']:.4f} ms, {total['launches']} launches for the "
+          f"{len(buckets)} buckets", flush=True)
+    if impl != "two_level[composed]":
+        raise RuntimeError(f"15e: the façade's hier strategy ran {impl}")
+    AdapCC.clear(ALLREDUCE)
+    topo = os.path.join(workdir, "15e-milp")
+    os.makedirs(topo)
+    write_ip_table(MILP_IPS, os.path.join(topo, "ip_table.txt"))
+    args = CommArgs(strategy_file=f"{topo}/strategy.xml", logical_graph=f"{topo}/logical_graph.xml",
+                    topology_dir=topo, entry_point=PROFILE, parallel_degree=2, policy="milp")
+    t0 = time.perf_counter()
+    AdapCC.init(args, world_size=SCHEDULE_WORLD)
+    boot_s = time.perf_counter() - t0
+    lat, bw = gather_topo_profile(topo, SCHEDULE_WORLD)
+    t0 = time.perf_counter()
+    again = Synthesizer(None, MILP_IPS, "milp").synthesize(ALLREDUCE, 2, args.default_chunk_bytes, bw, lat)
+    solve_s = time.perf_counter() - t0
+    strategy = AdapCC.communicator._load_strategy()
+    print(f"facade 15e: AdapCC.init(PROFILE, policy='milp') on the two-host ip table {MILP_IPS} in {boot_s:.2f} s; "
+          f"the solve alone {solve_s:.4f} s ({again.synthesis}); strategy {emit_strategy_xml(strategy)}", flush=True)
+    if not strategy.synthesis.startswith("milp"):
+        raise RuntimeError(f"15e: the milp policy synthesized {strategy.synthesis}")
+    AdapCC.setup(ALLREDUCE)
+    total = facade_allreduce("facade 15e (milp)", buckets, SCHEDULE_ACTIVE, iters=PHASE15_ITERS)
+    print(f"facade 15e (milp): device {total['device_ms']:.4f} ms, {total['launches']} launches for the "
+          f"{len(buckets)} buckets", flush=True)
+    AdapCC.clear(ALLREDUCE)
+
+
+def slice12(dev: torch.device, plan, buckets: list, ref_ms: float, bound_ms: float, smi: str) -> dict:
+    """Phase 15, slice 12's main path (the module docstring); returns the
+    launches of each kernel in it."""
+    t15 = time.perf_counter()
+    kernels = (*fa.KERNELS, *ring.KERNELS)
+    for w in kernels:
+        w.launches = 0
+    marks = [time.perf_counter()]
+    latency_plane(dev, smi)
+    marks.append(time.perf_counter())
+    selector_on_leaves(plan, buckets, smi)
+    marks.append(time.perf_counter())
+    with tempfile.TemporaryDirectory(prefix="adapcc_slice12_") as workdir:
+        tuner_full_grid(dev, workdir)
+        marks.append(time.perf_counter())
+        two_level_full_width(buckets, ref_ms, bound_ms, smi)
+        marks.append(time.perf_counter())
+        facade_two_level(buckets, workdir)
+        marks.append(time.perf_counter())
+    ring.check_errors()
+    p15 = {w.__name__: w.launches for w in kernels}
+    parts = ", ".join(f"15{c} {b - a:.1f} s" for c, a, b in zip("abcde", marks, marks[1:]))
+    print(f"phase 15 launches: {p15}; phase 15 {time.perf_counter() - t15:.1f} s ({parts})", flush=True)
+    if not all(p15[k.__name__] for k in ring.KERNELS):
+        raise RuntimeError(f"a ring kernel was not launched in phase 15: {p15}")
+    return p15
 
 
 # kernel name fragments -> the layer of the step they belong to
@@ -2157,7 +2535,7 @@ def main() -> None:
         w.launches = 0
     s_tokens = torch.from_numpy(
         rng.integers(0, MAIN.vocab_size, size=(SCHEDULE_WORLD * BATCH, MAIN.max_seq))).to(dev)
-    s_buckets, s_device_ms, s_bound_ms = schedule_world8(dev, init_state, s_tokens)
+    s_plan, s_buckets, s_device_ms, s_bound_ms = schedule_world8(dev, init_state, s_tokens)
     del s_tokens
     grads = gpt2_gradients(dev, init_state, z_tokens)
     schedule_world4(dev, grads)
@@ -2189,7 +2567,6 @@ def main() -> None:
         facade_bootstrap(s_buckets, workdir, s_device_ms, s_bound_ms)
         facade_coordinator(s_buckets)
         AdapCC.clear(ALLREDUCE)
-        del s_buckets
         torch.cuda.empty_cache()
         for w in fa.KERNELS:
             w.launches = 0
@@ -2215,6 +2592,13 @@ def main() -> None:
     # DDP step and ZeRO-1's tuned chunk
     for kname, n in slice11(dev, init_state, tokens, z_tokens, z_losses, smi).items():
         launches[kname] += n
+
+    # 15. slice 12's main path: the latency plane, the two-level plane and
+    # the hier and milp policies
+    for kname, n in slice12(dev, s_plan, s_buckets, s_device_ms, s_bound_ms, smi).items():
+        launches[kname] += n
+    del s_buckets
+    torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, calls
-no library attention and no library collective on its ring, and its entry
-points run on the card or raise."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+scipy, which only the MILP solve loads), calls no library attention and no
+library collective on its ring, and its entry points run on the card or
+raise."""
 
 import pathlib
 import subprocess
@@ -22,7 +23,7 @@ import adapcc_tpu_torch
 for m in pkgutil.walk_packages(adapcc_tpu_torch.__path__, "adapcc_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu"))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu", "scipy"))
 print("BAD", bad)
 print("MODULES", sorted(n for n in sys.modules if n.startswith("adapcc_tpu_torch.")))
 """
@@ -42,7 +43,8 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.tuner", "adapcc_tpu_torch.tuner.db", "adapcc_tpu_torch.tuner.measure",
     "adapcc_tpu_torch.tuner.policy", "adapcc_tpu_torch.sim", "adapcc_tpu_torch.sim.cost_model",
     "adapcc_tpu_torch.sim.calibrate", "adapcc_tpu_torch.utils", "adapcc_tpu_torch.utils.observability",
-    "adapcc_tpu_torch.comm.latency",
+    "adapcc_tpu_torch.comm.latency", "adapcc_tpu_torch.comm.two_level", "adapcc_tpu_torch.strategy.hierarchy",
+    "adapcc_tpu_torch.strategy.solver",
 )
 
 _CHECK_TUNER = """
@@ -66,7 +68,8 @@ print("LOADED", sorted(n for n in sys.modules if n.split(".")[0] == "grpc" or n.
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
+    """Every module of the port, and chip_smoke.py, in a fresh interpreter:
+    neither JAX, nor the JAX package, nor scipy loads."""
     out = subprocess.run(
         [sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True, text=True, timeout=120,
     )

@@ -320,8 +320,11 @@ def test_engine_rejects_what_waits(monkeypatch):
     x = torch.ones(4, F32_TILE)
     trace = CollectiveTrace()
     eng = CollectiveEngine(4, Strategy.ring(4), trace=trace)
-    with pytest.raises(NotImplementedError, match="latency plane"):
-        eng.ring_allreduce(x, algo="rd")
+    # the IR plane waits for its slice; the latency plane runs (its
+    # parity is tests/test_torch_latency.py)
+    with pytest.raises(NotImplementedError, match="IR slice"):
+        eng.ring_allreduce(x, algo="ir")
+    assert torch.equal(eng.ring_allreduce(x, algo="rd"), torch.full_like(x, 4.0))
     # the wire codecs run now, through the fused walk (its plain version on
     # a CPU tensor): the argument, and the env over the strategy's "off"
     assert torch.equal(eng.ring_allreduce(x, wire_dtype="int8"),
@@ -329,14 +332,16 @@ def test_engine_rejects_what_waits(monkeypatch):
     assert torch.equal(eng.ring_reduce_scatter(x, wire_dtype="bf16"), eng.ring_reduce_scatter(x))
     monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")
     assert torch.equal(eng.ring_all_gather(x), ring.ring_all_gather_stacked(x, wire_dtype="int8"))
-    assert [r["impl"] for r in trace_rows(trace)] == ["plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
+    assert [r["impl"] for r in trace_rows(trace)] == ["rd", "plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
                                                       "plain_ring[vmem]", "plain_ring[vmem+int8]"]
     monkeypatch.delenv("ADAPCC_WIRE_DTYPE")
     monkeypatch.setenv("ADAPCC_COLL_ALGO", "auto")
-    with pytest.raises(NotImplementedError, match="algo='auto'"):
-        eng.ring_allreduce(x)
-    with pytest.raises(NotImplementedError, match="two-level"):
-        CollectiveEngine(4, Strategy.ring(4), num_slices=2)
+    eng.ring_allreduce(x)  # below the card's crossover: recursive doubling
+    assert trace_rows(trace)[-1]["impl"] == "rd"
+    with pytest.raises(ValueError, match="do not split into 3 slices"):
+        CollectiveEngine(4, Strategy.ring(4), num_slices=3)
+    with pytest.raises(ValueError, match="ring_allreduce needs a flat ranks mesh"):
+        CollectiveEngine(4, Strategy.ring(4), num_slices=2).ring_allreduce(x)
     # a tuner attaches now (tests/test_torch_tuner.py); a malformed mode raises
     monkeypatch.delenv("ADAPCC_COLL_ALGO")
     monkeypatch.setenv("ADAPCC_TUNER", "chose")

@@ -123,8 +123,12 @@ def test_strategy_and_artifact_validation_raise_like_jax(tmp_path):
                        ("<graph/>", "expected <trees>")]:
         with pytest.raises(ValueError, match=match):
             xml_io.parse_strategy_xml(bad)
-    with pytest.raises(NotImplementedError, match="two-level"):
+    # a two-level sketch parses now (tests/test_torch_two_level.py); a bad
+    # one still fails at the file that carries it
+    with pytest.raises(ValueError, match="pod_size must be >= 2"):
         xml_io.parse_strategy_xml(good.replace("<trees>", '<trees hier="2x1">'))
+    with pytest.raises(ValueError, match="expected '<pods>x<pod_size>'"):
+        xml_io.parse_strategy_xml(good.replace("<trees>", '<trees hier="2by1">'))
     # a newer minor of the same major is accepted; a reference file has no stamp
     assert xml_io.parse_strategy_xml(good.replace("<trees>", '<trees schema="1.7">')).world_size == 2
     # the reference's attribute pairs without a space between them

@@ -488,9 +488,11 @@ def test_engine_seeded_choice_matches_jax(winner_path, winner_wire, mesh4):
     cells = jt.policy.candidates("allreduce", ENGINE_N * 4, algos=("ring",))
     assert _dicts(cells) == _dicts(pt.policy.candidates("allreduce", ENGINE_N * 4, algos=("ring",)))
     winner = next(c for c in cells if (c.path, c.wire_dtype) == (winner_path, winner_wire))
-    # JAX's ring_allreduce asks with every algorithm: its rd/tree cells are
-    # measured too (slower), so neither side explores
+    # both engines' ring_allreduce ask with every algorithm: the rd/tree
+    # cells are offered alike and measured too (slower), so neither explores
     cells = jt.policy.candidates("allreduce", ENGINE_N * 4)
+    assert _dicts(cells) == _dicts(pt.policy.candidates("allreduce", ENGINE_N * 4))
+    assert {"rd", "tree"} <= {c.path for c in cells}
     _seed(pt.db, cells, winner, TuningKey)
     from adapcc_tpu.tuner import TuningKey as JKey
 
@@ -578,8 +580,10 @@ def test_engine_precedence_off_mode_and_record_warmup(monkeypatch):
 
 def test_engine_auto_tuner_and_fast_path_cell(monkeypatch, mesh4, tmp_path):
     """A non-off mode builds the tuner JAX's engine builds, fingerprinted
-    alike; the flat fast path times into the ``xla`` cell and a choosing
-    tuner's ranking says whether that plane ran."""
+    alike; a choosing tuner ranks the ``xla`` cell against rd and tree (a
+    4 × 16-float payload: rd by the card's prior, masked or not) and the
+    trace says whether its plane ran; a ring pin runs the flat fast path,
+    timed into the ``xla`` cell."""
     from adapcc_tpu.comm.engine import CollectiveEngine as JEngine
     from adapcc_tpu.strategy.ir import Strategy as JStrategy
 
@@ -591,14 +595,18 @@ def test_engine_auto_tuner_and_fast_path_cell(monkeypatch, mesh4, tmp_path):
     eng.all_reduce(x)
     eng.all_reduce(x)
     eng.all_reduce(x, active_gpus=[0, 2])
+    eng.all_reduce(x, algo="ring")
+    eng.all_reduce(x, algo="ring")
+    eng.all_reduce(x, active_gpus=[0, 2], algo="ring")
     assert eng.tuner.topology == JEngine(mesh4, JStrategy.ring(4)).tuner.topology
     assert eng.tuner.db.path == str(tmp_path / "auto.jsonl")
     events = eng.trace.events()
-    assert events[1].extra["tuner"]["chosen"]["path"] == XLA_PATH and events[1].extra["tuner"]["applied"] is True
-    assert events[2].impl == "schedule" and events[2].extra["tuner"]["applied"] is False
-    assert "duration_s" in events[1].extra and "duration_s" not in events[2].extra
-    (key,) = eng.tuner.db.keys()
-    assert (key.path, eng.tuner.db.count(key)) == (XLA_PATH, 1)
+    for e in events[1:3]:
+        assert e.impl == "rd" and e.extra["tuner"]["chosen"]["path"] == "rd" and e.extra["tuner"]["applied"] is True
+        assert "duration_s" in e.extra
+    assert events[4].impl == "torch_fused" and "duration_s" in events[4].extra and "tuner" not in events[4].extra
+    assert events[5].impl == "schedule" and "duration_s" not in events[5].extra
+    assert {k.path: eng.tuner.db.count(k) for k in eng.tuner.db.keys()} == {"rd": 2, XLA_PATH: 1}
     monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")  # no cell of this plane runs a codec: no ranking
     eng.all_reduce(x)
     assert "tuner" not in eng.trace.events()[-1].extra
