@@ -59,7 +59,13 @@ the JAX package's bits, op for op:
   float32, and by a tensor on the result's device (torch on CUDA turns a
   division by a Python scalar into a multiply by its reciprocal).
 
-The IR plane (``algo="ir"``) comes in a later slice.
+``all_reduce`` and ``ring_allreduce`` also run the IR plane (``algo="ir"``):
+the engine's :class:`~adapcc_tpu_torch.compiler.ir.ScheduleProgram` (pinned
+by :meth:`CollectiveEngine.set_schedule_program`, else derived from the
+strategy), verified once per fingerprint, through the optimizer passes in
+force (``ADAPCC_IR_OPT``) and the stacked executor of
+:mod:`adapcc_tpu_torch.compiler.lower`; per rank, :func:`ir_allreduce_shard`
+runs a program over a process group.
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ import torch.distributed as dist
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm import latency as lat
 from adapcc_tpu_torch.comm.latency import latency_algo_unsupported_reason, resolve_coll_algo
-from adapcc_tpu_torch.primitives import ReduceOp, not_ported
+from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, WIRE_DTYPE_ENV, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.quant.ring import wire_ring_allreduce_stacked
 from adapcc_tpu_torch.strategy.ir import CommRound, Strategy, Tree
@@ -85,6 +91,8 @@ from adapcc_tpu_torch.tuner.measure import sync_outputs
 from adapcc_tpu_torch.tuner.policy import (
     ALGO_OF_PATH,
     ALGO_PATHS,
+    IR_OPT_PATH,
+    IR_PATH,
     NO_CHUNK,
     QUANT_PATH,
     TWO_LEVEL_PATH,
@@ -507,6 +515,49 @@ def allreduce_shard(
     return _avg_normalize(_schedule_rank(x, mask, strategy, op, "both", group), mask, op)
 
 
+#: program fingerprints :func:`ir_allreduce_shard` has verified, and its
+#: optimized programs by (base fingerprint, passes)
+_IR_VERIFIED: set = set()
+_IR_OPTIMIZED: Dict[Tuple, Any] = {}
+
+
+def _certify(program, verified: set) -> None:
+    """Verify ``program`` once per fingerprint (``verified`` remembers)."""
+    from adapcc_tpu_torch.compiler.verify import verify_program
+
+    fp = program.fingerprint()
+    if fp not in verified:
+        verify_program(program)
+        verified.add(fp)
+
+
+def _optimized_program(program, verified: set, optimized: Dict[Tuple, Any]):
+    """``program`` certified and through the optimizer passes in force
+    (``ADAPCC_IR_OPT``), memoized per (base fingerprint, passes); a program
+    the passes leave alone comes back as itself."""
+    from adapcc_tpu_torch.compiler.optimize import optimize_program, resolve_ir_opt
+
+    _certify(program, verified)
+    passes = resolve_ir_opt()
+    key = (program.fingerprint(), passes)
+    out = optimized.get(key)
+    if out is None:
+        out = optimize_program(program, passes=passes)
+        verified.add(out.fingerprint())
+        optimized[key] = out
+    return out
+
+
+def ir_allreduce_shard(x: torch.Tensor, program, op: ReduceOp = ReduceOp.SUM, group=None) -> torch.Tensor:
+    """The IR plane per rank: this rank's ``x`` through ``program`` (a
+    ``compiler.ScheduleProgram`` for the group's world, verified once per
+    fingerprint and optimized by the passes in force) over ``group``, one
+    ``batch_isend_irecv`` a color and wire array.  Returns a new tensor."""
+    from adapcc_tpu_torch.compiler.lower import execute_program_shard
+
+    return execute_program_shard(x, _optimized_program(program, _IR_VERIFIED, _IR_OPTIMIZED), group, op)
+
+
 class PendingCollective:
     """A collective issued with ``async_op=True``: :meth:`wait` waits for its
     work handles (on NCCL: makes the current stream wait for them) and
@@ -810,9 +861,10 @@ class CollectiveEngine:
     consulted under ``ADAPCC_TUNER=choose`` by :meth:`ring_allreduce` (every
     algorithm a pin leaves) and by :meth:`all_reduce` (its ``xla`` cell
     against the rd and tree cells), and fed the walltime of every ring,
-    latency-plane, composed two-level and unmasked flat allreduce under
-    ``record`` or ``choose``; a timed event carries ``duration_s``, a
-    consulted one ``tuner={chosen, source, objective, applied}``.  Without
+    latency-plane, composed two-level, IR (``ir``/``ir-opt``) and unmasked
+    flat allreduce under ``record`` or ``choose``; a timed event carries
+    ``duration_s``, a consulted one ``tuner={chosen, source, objective,
+    applied}``.  Without
     one, a mode other than ``off`` builds one for this world at the first
     dispatch, fingerprinted with the tensor's device.
 
@@ -860,6 +912,18 @@ class CollectiveEngine:
         #: world epoch: bumped by :meth:`advance_epoch`; a collective issued
         #: with a stale ``epoch=`` raises :class:`EpochMismatch`
         self.epoch = 0
+        #: the program ``algo="ir"`` runs: None derives it from the strategy
+        #: at first use; a :meth:`set_schedule_program` pin survives a
+        #: strategy swap, a derived program is derived again after one
+        self._ir_program: Optional[Any] = None
+        self._ir_program_explicit = False
+        #: fingerprints verified (once each) and optimized programs by
+        #: (base fingerprint, passes)
+        self._ir_verified: set = set()
+        self._ir_optimized: Dict[Tuple, Any] = {}
+        #: whether the last derived program came from the strategy's memo
+        #: (a trace extra); None until something derives
+        self._ir_derived_cache_hit: Optional[bool] = None
 
     # -- epochs and bookkeeping ------------------------------------------------
 
@@ -874,6 +938,9 @@ class CollectiveEngine:
                     "elastic swaps keep the world and mask dead ranks (relay semantics)"
                 )
             self.strategy = strategy
+            # a derived program belongs to the old strategy (a pin stays)
+            if not self._ir_program_explicit:
+                self._ir_program = None
         self.epoch += 1
         return self.epoch
 
@@ -1006,9 +1073,112 @@ class CollectiveEngine:
             raise ValueError(f"{primitive} algo={algo_req!r} cannot run here: {reason}")
         return algo_req
 
-    @staticmethod
-    def _ir_not_ported() -> Exception:
-        return not_ported("algo='ir' (the compiled schedule-program executor)", "the IR slice (compiler/)")
+    # -- the IR plane (compiler/): the ScheduleProgram executor -----------------
+
+    def _certify_program(self, program) -> None:
+        """Verify a program once per fingerprint."""
+        _certify(program, self._ir_verified)
+
+    def set_schedule_program(self, program) -> None:
+        """Pin the :class:`~adapcc_tpu_torch.compiler.ir.ScheduleProgram`
+        ``algo="ir"`` runs (a synthesized schedule with no Strategy
+        spelling, for one).  It is verified here: a bad program dies at the
+        pin, before anything runs."""
+        if program.world != self.world_size:
+            raise ValueError(
+                f"schedule program {program.name!r} is for world {program.world}, engine world is {self.world_size}"
+            )
+        self._certify_program(program)
+        self._ir_program = program
+        self._ir_program_explicit = True
+
+    def schedule_program(self):
+        """The program ``algo="ir"`` resolves before the optimizer: the
+        pinned one, else the strategy's (``Strategy.schedule_program``,
+        memoized; whether the memo hit goes into the trace), and on a
+        two-level world the composed two-level program of its shape."""
+        if self._ir_program is None:
+            if self.two_level:
+                from adapcc_tpu_torch.compiler.builders import two_level_allreduce_program
+
+                program = two_level_allreduce_program(self.num_slices, self.ici_size,
+                                                      wire_dtype=self.strategy.wire_dtype)
+                self._ir_derived_cache_hit = False
+            else:
+                program = self.strategy.schedule_program()
+                self._ir_derived_cache_hit = bool(self.strategy.__dict__.get("_last_program_cache_hit"))
+            self._certify_program(program)
+            self._ir_program = program
+        return self._ir_program
+
+    def optimized_schedule_program(self):
+        """The program ``algo="ir"`` runs: :meth:`schedule_program` through
+        the passes in force (``ADAPCC_IR_OPT``), memoized per (base
+        fingerprint, passes); every pass is verified on the way in and out,
+        and a program the passes leave alone comes back as the same
+        object."""
+        return _optimized_program(self.schedule_program(), self._ir_verified, self._ir_optimized)
+
+    def _ir_allreduce(self, stacked: torch.Tensor, op: ReduceOp, active_gpus: Optional[Sequence[int]]) -> torch.Tensor:
+        """One allreduce through the program executor: resolve the program,
+        run the optimized one over the rows, and trace its name,
+        fingerprint, codec, passes and static dispatch count; ``record`` and
+        ``choose`` time it into the ``ir`` cell, or ``ir-opt`` where the
+        passes rewrote the program."""
+        from adapcc_tpu_torch.compiler import lower as ir_lower
+
+        if active_gpus is not None:
+            raise ValueError(
+                "algo='ir' executes the program's own relay masks; "
+                "active_gpus subsets are not expressible on this path — "
+                "build a program with relays= and set_schedule_program it"
+            )
+        base = self.schedule_program()
+        program = self.optimized_schedule_program()
+        # the codec is a program property: an env pin that disagrees with it
+        # cannot be honored silently
+        if self._wire_pinned_non_off(None):
+            pinned = resolve_wire_dtype(None)
+            if pinned != program.wire_dtype:
+                raise ValueError(
+                    f"algo='ir' program {program.name!r} carries "
+                    f"wire_dtype={program.wire_dtype!r} but {pinned!r} is "
+                    "pinned; IR wire codecs are program properties — "
+                    "rebuild the program with that codec or drop the pin"
+                )
+        if self.two_level:
+            # refuses a program that does not decompose, naming the round,
+            # before anything runs
+            ir_lower.two_level_color_axes(program, self.num_slices, self.ici_size)
+        tuner = self._tuner_for(stacked)
+        timing = tuner is not None and tuner.recording
+        t0 = time.perf_counter()
+        out = ir_lower.execute_program_stacked(stacked, program, op)
+        extras: Dict[str, Any] = {
+            "algo": "ir",
+            "program": program.name,
+            "program_fingerprint": program.fingerprint(),
+            "wire_dtype": program.wire_dtype,
+            "passes": list(program.applied_passes),
+            "dispatches": ir_lower.dispatch_count(program),
+        }
+        if program is not base:
+            extras["base_fingerprint"] = base.fingerprint()
+        if not self._ir_program_explicit and self._ir_derived_cache_hit is not None:
+            extras["program_cache_hit"] = self._ir_derived_cache_hit
+        if self.two_level:
+            extras["hier"] = f"{self.num_slices}x{self.ici_size}"
+        if timing:
+            # the naive and the optimized program are different executables:
+            # two cells, so measured medians arbitrate ADAPCC_IR_OPT
+            per_rank_bytes = stacked[0].numel() * stacked.element_size()
+            key = tuner.key_for("allreduce", per_rank_bytes, IR_PATH if program is base else IR_OPT_PATH, NO_CHUNK,
+                                program.wire_dtype)
+            token = ("ir_allreduce", program.fingerprint(), tuple(stacked.shape), ring._dtype_name(stacked.dtype), op,
+                     stacked.device.type)
+            self._observe(tuner, out, t0, key, token, extras)
+        self._record("allreduce", "ir", stacked, extras)
+        return out
 
     def _resolved_wire_dtype(self, wire_dtype: Optional[str]) -> str:
         """The codec a ring dispatch runs: ``ADAPCC_WIRE_DTYPE`` > the
@@ -1096,7 +1266,9 @@ class CollectiveEngine:
         the crossover under ``auto``; unset keeps the ring) may run the
         latency plane instead: ``rd`` or ``tree`` over the rows, the trace's
         impl and ``algo`` naming it.  A pinned ``rd``/``tree`` and a pinned
-        codec raise; ``ir`` raises until the IR slice.
+        codec raise; ``ir`` runs the IR plane (:meth:`all_reduce`), and then
+        ``chunk_bytes`` and ``wire_dtype``, which a program carries itself,
+        raise.
 
         With a tuner, ``ADAPCC_TUNER=choose`` lets the policy fill the knobs
         the caller left open, under the precedence **env > explicit arg >
@@ -1116,7 +1288,15 @@ class CollectiveEngine:
         algo_req = resolve_coll_algo(algo)
         wire_arg = wire_dtype  # the caller's pin, before the tuner adopts one
         if algo_req == "ir":
-            raise self._ir_not_ported()
+            # the program carries its own chunking and codec: the ring
+            # plane's knobs conflict with the pin
+            if wire_arg is not None or chunk_bytes is not None:
+                raise ValueError(
+                    "algo='ir' executes a ScheduleProgram whose chunking "
+                    "and wire codec are program properties; drop the "
+                    "chunk_bytes/wire_dtype arguments or the ir pin"
+                )
+            return self._ir_allreduce(stacked, ReduceOp.SUM, None)
         if algo_req in ("rd", "tree"):
             # two pins in conflict, before the consult: under both the grid
             # is empty and choose() would fail with a worse message
@@ -1316,7 +1496,7 @@ class CollectiveEngine:
         that contribute the identity, forward, and receive the result; AVG
         averages over the active count.
 
-        ``algo`` is ``auto|ring|rd|tree`` under the precedence **env >
+        ``algo`` is ``auto|ring|rd|tree|ir`` under the precedence **env >
         explicit arg > tuner > crossover**: ``ADAPCC_COLL_ALGO``, then the
         argument (``rd``/``tree`` run the latency plane, and raise where it
         cannot run), then, unpinned or ``auto`` with a choosing tuner, the
@@ -1326,8 +1506,12 @@ class CollectiveEngine:
         torch reduction over the rows (``torch_fused``, JAX's psum), else
         the strategy's tree rounds (``schedule``; on a two-level world the
         two-level plane, or, unpinned and for SUM/AVG, the composed plan of
-        a strategy that carries one, ``two_level[composed]``).  ``ir``
-        raises until the IR slice.  The trace names the executed algorithm.
+        a strategy that carries one, ``two_level[composed]``).  ``ir`` runs
+        the engine's schedule program (:meth:`schedule_program` through the
+        passes in force, trace impl ``ir``); its relays are the program's,
+        so ``active_gpus`` raises there, as does an ``ADAPCC_WIRE_DTYPE``
+        pin other than the program's codec.  The trace names the executed
+        algorithm.
 
         With a tuner, ``record`` and ``choose`` time the fast path into the
         ``xla`` cell, a latency-plane dispatch into its algorithm's and the
@@ -1336,7 +1520,7 @@ class CollectiveEngine:
         self._check_world_dim(stacked, "all_reduce")
         algo_req = resolve_coll_algo(algo)
         if algo_req == "ir":
-            raise self._ir_not_ported()
+            return self._ir_allreduce(stacked, op, active_gpus)
         tuner = self._tuner_for(stacked)
         per_rank_bytes = stacked[0].numel() * stacked.element_size()
         dtype = ring._dtype_name(stacked.dtype)

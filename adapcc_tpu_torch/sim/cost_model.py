@@ -675,3 +675,33 @@ def ring_allreduce_time(world: int, nbytes: float, coeffs: LinkCoeffs, chunks: i
         return 0.0
     per_hop = coeffs.time(nbytes / chunks)
     return (2 * (world - 1) + chunks - 1) * per_hop
+
+
+def schedule_program_time(program, nbytes: float, coeffs: LinkCoeffs, per_dispatch_s: float = 0.0) -> float:
+    """Analytical latency of a ``compiler.ScheduleProgram``: its rounds are
+    barriers, so the sum over rounds of the slowest link of the round.  In a
+    round, sends on one directed (src, dst) link serialize (their bytes one
+    ``α + β·bytes`` transfer) and distinct links run at once; a send carries
+    ``span`` chunks of ``nbytes / chunks``, so an optimized program and its
+    source price alike.  ``per_dispatch_s`` adds that many seconds for each
+    transfer the lowering issues (``compiler.lower.round_dispatch_counts``),
+    which prices the coalesce pass's fewer dispatches.  The segmented ring
+    prices at ``2(w−1)·(α + β·n/w)``, the pipelined bidirectional ring at
+    ``2(w−1)·(α + β·n/(2w))``."""
+    if program.world < 2:
+        return 0.0
+    seg = float(nbytes) / max(1, program.chunks)
+    total = 0.0
+    for round_steps in program.rounds:
+        link_bytes: Dict[Tuple[int, int], float] = {}
+        for step in round_steps:
+            if step.kind == "send":
+                link = (step.rank, step.peer)
+                link_bytes[link] = link_bytes.get(link, 0.0) + seg * step.span
+        if link_bytes:
+            total += max(coeffs.time(b) for b in link_bytes.values())
+    if per_dispatch_s:
+        from adapcc_tpu_torch.compiler.lower import round_dispatch_counts
+
+        total += per_dispatch_s * float(sum(round_dispatch_counts(program)))
+    return total

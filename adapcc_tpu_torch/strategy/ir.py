@@ -10,9 +10,10 @@ up the tree and the broadcast down it.  The engine's schedule plane runs one
 round as a gather of the sources' rows and a combine into the destinations'
 rows (stacked), or as one ``batch_isend_irecv`` (per rank).
 
-Not ported: the native lowering of pod-scale trees (the pure-Python lowering
-gives the same rounds) and ``schedule_program``, which comes with the IR
-slice.
+:meth:`Strategy.schedule_program` gives the strategy as a chunk-granular
+:class:`~adapcc_tpu_torch.compiler.ir.ScheduleProgram`, the form the
+engine's ``algo="ir"`` runs.  Not ported: the native lowering of pod-scale
+trees (the pure-Python lowering gives the same rounds).
 """
 
 from __future__ import annotations
@@ -188,6 +189,10 @@ def _pack_rounds(edges: Sequence[Tuple[int, int]]) -> List[CommRound]:
     return [CommRound(tuple(es)) for es in rounds]
 
 
+#: (fingerprint, wire_dtype, synthesis, name) -> the strategy's program
+_PROGRAM_CACHE: Dict[tuple, object] = {}
+
+
 @dataclass
 class Strategy:
     """``num_trans`` parallel spanning trees over ``world_size`` ranks; the
@@ -262,6 +267,26 @@ class Strategy:
             h.update(str(t.root).encode())
         self.__dict__["_fingerprint"] = fp = h.hexdigest()[:16]
         return fp
+
+    def schedule_program(self, name: Optional[str] = None):
+        """This strategy as a ``compiler.ScheduleProgram``: chunk ``t`` is
+        tree ``t``'s segment, reduce rounds aligned by index across trees,
+        then the broadcast rounds (``compiler.program_from_strategy``).
+
+        Memoized per (structural fingerprint, wire_dtype, synthesis, name),
+        so repeated ``algo="ir"`` dispatches reuse one program object;
+        whether this call hit the memo is left on
+        ``_last_program_cache_hit`` for the engine's trace."""
+        from adapcc_tpu_torch.compiler.builders import program_from_strategy
+
+        # synthesis is in the key: the derived name spells it
+        key = (self.fingerprint(), self.wire_dtype, self.synthesis, name)
+        program = _PROGRAM_CACHE.get(key)
+        self.__dict__["_last_program_cache_hit"] = program is not None
+        if program is None:
+            program = program_from_strategy(self, name=name)
+            _PROGRAM_CACHE[key] = program
+        return program
 
     @staticmethod
     def ring(world_size: int, num_trans: int = 1, ips: Optional[Dict[int, str]] = None) -> "Strategy":

@@ -12,8 +12,12 @@ would load JAX through its package).
 
 The reference fixtures hold attribute pairs with no space between them
 (``<gpu id='1'ip='…'/>``), which strict XML rejects, so parsing retries
-through a lenient pre-pass.  The schedule program artifact waits for the IR
-slice.
+through a lenient pre-pass.
+
+- schedule program XML: ``<schedule schema name world chunks collective
+  wire_dtype [relays]><round><step kind rank chunk [peer] [codec]/>…</round>
+  </schedule>``, a ``compiler.ScheduleProgram`` step by step in program
+  order, byte for byte the JAX package's text.
 """
 
 from __future__ import annotations
@@ -192,6 +196,80 @@ def emit_strategy_xml(strategy: Strategy, path: Optional[str] = None) -> str:
         with open(path, "w") as f:
             f.write(text)
     return text
+
+
+# --------------------------------------------------------------------------- #
+# schedule programs (the compiler IR's artifact)
+# --------------------------------------------------------------------------- #
+
+
+def emit_program_xml(program, path: Optional[str] = None) -> str:
+    """A ``compiler.ScheduleProgram`` as its XML artifact: one ``<round>`` a
+    round and one ``<step>`` a step, in program order (the order inside a
+    round fixes the combine order, hence the bits), so
+    :func:`parse_program_xml` gives back an equal fingerprint."""
+    doc = ET.Element("schedule")
+    doc.set("schema", SCHEDULE_SCHEMA_VERSION)
+    doc.set("name", program.name)
+    doc.set("world", str(program.world))
+    doc.set("chunks", str(program.chunks))
+    doc.set("collective", program.collective)
+    doc.set("wire_dtype", program.wire_dtype)
+    if program.relays:
+        doc.set("relays", ",".join(str(r) for r in program.relays))
+    for round_steps in program.rounds:
+        round_el = ET.SubElement(doc, "round")
+        for step in round_steps:
+            el = ET.SubElement(round_el, "step")
+            el.set("kind", step.kind)
+            el.set("rank", str(step.rank))
+            el.set("chunk", str(step.chunk))
+            if step.peer is not None:
+                el.set("peer", str(step.peer))
+            if step.codec is not None:
+                el.set("codec", step.codec)
+    text = ET.tostring(doc, encoding="unicode")
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
+
+
+def parse_program_xml(text_or_path: str):
+    """A schedule-program artifact (text or path) back into a
+    ``compiler.ScheduleProgram``.  A different schema major raises; the
+    program's own checks then bound every rank and chunk."""
+    from adapcc_tpu_torch.compiler.ir import ScheduleProgram, Step
+
+    text = _maybe_read(text_or_path)
+    doc = _lenient_fromstring(text)
+    if doc.tag != "schedule":
+        raise ValueError(f"expected <schedule> root element, got <{doc.tag}>")
+    _check_schema_version(doc, "schedule")
+    try:
+        world = int(doc.attrib["world"])
+        chunks = int(doc.attrib["chunks"])
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"<schedule>: bad or missing world/chunks attribute: {e}")
+    raw_relays = doc.attrib.get("relays", "")
+    relays = tuple(int(r) for r in raw_relays.split(",") if r.strip()) if raw_relays else ()
+    rounds = []
+    for round_el in doc.findall("round"):
+        steps = []
+        for el in round_el.findall("step"):
+            peer = el.attrib.get("peer")
+            steps.append(Step(el.attrib["kind"], int(el.attrib["rank"]), int(el.attrib["chunk"]),
+                              peer=int(peer) if peer is not None else None, codec=el.attrib.get("codec")))
+        rounds.append(tuple(steps))
+    return ScheduleProgram(
+        name=doc.attrib.get("name", "parsed"),
+        world=world,
+        chunks=chunks,
+        rounds=tuple(rounds),
+        collective=doc.attrib.get("collective", "allreduce"),
+        wire_dtype=doc.attrib.get("wire_dtype", "off"),
+        relays=relays,
+    )
 
 
 # --------------------------------------------------------------------------- #

@@ -109,11 +109,17 @@ ALGO_OF_PATH = {RD_PATH: "rd", TREE_PATH: "tree"}
 #: the flat all-to-all: the one static cell of the ``all_to_all`` primitive
 A2A_XLA_PATH = "xla"
 
-#: key vocabulary of the composed two-level allreduce and of the compiled
-#: schedule-program executor (plain and optimized): their planes come in
-#: later slices; a database holding such cells loads unchanged, and a
-#: recorded cell competes where its algorithm is allowed
+#: the composed two-level allreduce: a record-mode engine on a two-level
+#: world times composed dispatches into this cell
 TWO_LEVEL_PATH = "two-level"
+
+#: the schedule-program executor (``engine.all_reduce(algo="ir")``): a
+#: record-mode engine times a dispatch into ``ir`` where the optimizer
+#: passes left the program as it was and into ``ir-opt`` where they
+#: rewrote it (two executables, two cells), the key's wire_dtype slot
+#: holding the program's codec.  IR cells join a grid only when ``algos``
+#: names "ir" and a recorded cell exists, so the default grids stay as
+#: they were
 IR_PATH = "ir"
 IR_OPT_PATH = "ir-opt"
 

@@ -185,6 +185,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    seconds, the trees, one relayed allreduce.  Phase 15's launches (K1a
    from (a) and (c), K1b, K5a and K5b from (c)) are counted into the
    kernels line.
+16. slice 13's main path, the schedule compiler's IR plane through
+   ``all_reduce(algo="ir")``, each program naive (``ADAPCC_IR_OPT=off``) and
+   optimized: (a) phase 11a's world-8 bf16 gradients, rank 3 a relay (AVG):
+   the IR ring bit for bit the merged plane on ``Strategy.ring(8, 8)``
+   (where the world divides a bucket; chunk boundaries differ elsewhere), IR
+   rd and tree bit for bit ``algo="rd"``/``"tree"``, ``program_from_strategy``
+   on ``4-4_1.xml`` and the pipelined bidirectional ring against the plain
+   masked mean, the two-level program on 2 slices × 4 against the composed
+   plan (bit for bit on integer-valued data, within ``SCHEDULE_BF16_TOL`` on
+   the gradients where the order of adds differs), each by device time,
+   launches and synced walltime against the bound (the stacked tensor read
+   and written once), its plane and phase 11a; (b) float32 at world 8, 4 KiB
+   and 4 MiB a rank, unmasked: naive and optimized bit for bit, ring, rd
+   and tree bit for bit their planes, each program's static dispatches
+   beside its times, rd coalesced to one dispatch a round; (c) the fused
+   int8 ring bit for bit its unfused form, with the wire bytes of a run
+   against float32's; (d) a recording tuner fills the ``ir`` and ``ir-opt``
+   cells, which join a grid that names "ir" and no default grid.  No kernel
+   lies on this path: phase 16 launches none, and fails if it does.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -208,6 +227,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adapcc_tpu_torch import compiler
 from adapcc_tpu_torch.api import AdapCC
 from adapcc_tpu_torch.checkpoint import CheckpointManager, TrainCheckpointState
 from adapcc_tpu_torch.comm import engine as comm_engine
@@ -215,6 +235,7 @@ from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine, _merged_plan
 from adapcc_tpu_torch.comm.mesh import build_world_mesh, destroy_world, mesh_ip_table
 from adapcc_tpu_torch.communicator import Communicator
+from adapcc_tpu_torch.compiler import lower as ir_lower
 from adapcc_tpu_torch.config import CommArgs
 from adapcc_tpu_torch.coordinator import CoordinatorLogic
 from adapcc_tpu_torch.ddp.bucketing import build_bucket_plan, flatten_to_buckets
@@ -226,6 +247,7 @@ from adapcc_tpu_torch.ops import flash_attention as fa
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
+from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE
 from adapcc_tpu_torch.sim import cost_model
 from adapcc_tpu_torch.strategy import hierarchy
 from adapcc_tpu_torch.strategy.ir import Strategy
@@ -234,7 +256,9 @@ from adapcc_tpu_torch.strategy.xml_io import emit_strategy_xml, parse_strategy_x
 from adapcc_tpu_torch.topology.profile import gather_topo_profile
 from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase, TuningPolicy, mesh_fingerprint
 from adapcc_tpu_torch.tuner import measure as tuner_measure
-from adapcc_tpu_torch.tuner.policy import ALGO_PATHS, DEFAULT_CHUNK_GRID, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path
+from adapcc_tpu_torch.tuner.policy import (
+    ALGO_PATHS, DEFAULT_CHUNK_GRID, IR_OPT_PATH, IR_PATH, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path,
+)
 from adapcc_tpu_torch.utils.observability import CollectiveTrace, MetricsRegistry
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
@@ -358,6 +382,10 @@ PHASE15_ITERS = 5
 TWO_LEVEL_SLICES = 2
 #: 15(e): the two-host ip table of the milp policy's world-8 profile
 MILP_IPS = ["h0"] * 4 + ["h1"] * 4
+#: phase 16: the IR plane's float32 payloads at world 8 (bytes a rank), and
+#: the calls a timing takes
+IR_BYTES = (4 << 10, 4 << 20)
+PHASE16_ITERS = 3
 #: profiler captures a device timing takes before an empty one is a
 #: failure: on an NVIDIA H100 80GB HBM3 at 700 W with torch 2.11 the
 #: profiler has come back with no device record for a library yardstick and
@@ -2292,6 +2320,259 @@ def slice12(dev: torch.device, plan, buckets: list, ref_ms: float, bound_ms: flo
     return p15
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: the schedule compiler's IR plane (slice 13)
+# --------------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def ir_opt(value: str):
+    """``ADAPCC_IR_OPT`` set to ``value`` inside the block."""
+    old = os.environ.get(compiler.IR_OPT_ENV)
+    os.environ[compiler.IR_OPT_ENV] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[compiler.IR_OPT_ENV]
+        else:
+            os.environ[compiler.IR_OPT_ENV] = old
+
+
+def wire_bytes(program, n: int, elem_bytes: int) -> int:
+    """Bytes every pair of the color plan ships in one run of ``program`` on
+    ``n``-element rows: the payload dtype, or a fused codec's arrays."""
+    seg = -(-n // program.chunks)
+    block = program.block_size or DEFAULT_BLOCK_SIZE
+    nblocks = -(-seg // block)
+    total = 0
+    for colors in ir_lower._color_rounds(program):
+        for col in colors:
+            rows = col.k * len(col.perm)
+            if col.codec == "int8":
+                total += rows * nblocks * (block + 4)
+            elif col.codec == "bf16":
+                total += rows * seg * 2
+            else:
+                total += rows * seg * elem_bytes
+    return total
+
+
+def _ir_programs(relay) -> dict:
+    """Phase 16's programs at world 8, each with ``relay`` a relay where
+    one is given: name -> program."""
+    relays = () if relay is None else (relay,)
+    strategy = parse_strategy_xml(SCHEDULE_XML)
+    return {
+        "ring": dataclasses.replace(compiler.ring_allreduce_program(SCHEDULE_WORLD), relays=relays),
+        "rd": dataclasses.replace(compiler.rd_allreduce_program(SCHEDULE_WORLD), relays=relays),
+        "tree": dataclasses.replace(compiler.tree_allreduce_program(SCHEDULE_WORLD), relays=relays),
+        "4-4_1.xml": dataclasses.replace(compiler.program_from_strategy(strategy), relays=relays),
+        "pipelined": dataclasses.replace(compiler.pipelined_allreduce_program(SCHEDULE_WORLD), relays=relays),
+        "two-level": dataclasses.replace(compiler.two_level_allreduce_program(
+            TWO_LEVEL_SLICES, SCHEDULE_WORLD // TWO_LEVEL_SLICES), relays=relays),
+    }
+
+
+def ir_gradients(buckets: list, bound_ms: float, ref_ms: float, smi: str) -> None:
+    """Phase 16(a)-(b) on phase 11a's bf16 gradients, rank 3 a relay (AVG):
+    each program through ``all_reduce(algo="ir")`` naive and optimized,
+    against the plane JAX pins it to, timed beside that plane."""
+    ips = mesh_ip_table(SCHEDULE_WORLD, TWO_LEVEL_SLICES)
+    nbytes = sum(b[0].numel() * b.element_size() for b in buckets)
+    composed = Synthesizer(None, ips, "hier").synthesize(ALLREDUCE, 1, nbytes, None, None)
+    flat_ring = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD, SCHEDULE_WORLD),
+                                 trace=CollectiveTrace(), use_xla_fastpath=False)
+    flat = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD), trace=CollectiveTrace())
+    two_level = CollectiveEngine(SCHEDULE_WORLD, composed, trace=CollectiveTrace(), num_slices=TWO_LEVEL_SLICES)
+    active = dict(active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
+    # the plane JAX pins each program to, and whether the two add in one
+    # order (bit for bit on any data) or not (bit for bit on integer-valued
+    # data, within SCHEDULE_BF16_TOL of the float64 mean on the gradients)
+    legacy = {
+        "ring": (lambda x: flat_ring.all_reduce(x, **active), "merged plane ring(8, 8)", True),
+        "rd": (lambda x: flat.all_reduce(x, algo="rd", **active), "latency plane rd", True),
+        "tree": (lambda x: flat.all_reduce(x, algo="tree", **active), "latency plane tree", True),
+        "4-4_1.xml": (lambda x: plain_masked(x, SCHEDULE_ACTIVE, ReduceOp.AVG)().expand_as(x),
+                      "plain masked mean", False),
+        "pipelined": (lambda x: plain_masked(x, SCHEDULE_ACTIVE, ReduceOp.AVG)().expand_as(x),
+                      "plain masked mean", False),
+        "two-level": (lambda x: two_level.all_reduce(x, **active), "composed plan (15d(ii))", False),
+    }
+    gen = torch.Generator(device=buckets[0].device).manual_seed(SEED)
+    ints = torch.randint(-8, 9, buckets[0].shape, device=buckets[0].device, generator=gen).to(torch.bfloat16)
+    idx = torch.tensor(SCHEDULE_ACTIVE, device=buckets[0].device)
+    live = SCHEDULE_ACTIVE
+    for name, program in _ir_programs(LATENCY_RELAY).items():
+        eng = two_level if name == "two-level" else flat
+        eng.set_schedule_program(program)
+        ref, ref_name, same_order = legacy[name]
+        row = {}
+        for opt in ("off", "on"):
+            with ir_opt(opt):
+                ran = eng.optimized_schedule_program()
+                out = eng.all_reduce(ints, algo="ir", op=ReduceOp.AVG)
+                ev = eng.trace.events()[-1]
+                want = ref(ints)
+                bits = all(same_bits(out[r], want[r]) for r in live)
+                grads_ok = True
+                for b, stacked in enumerate(buckets):
+                    out = eng.all_reduce(stacked, algo="ir", op=ReduceOp.AVG)
+                    n = stacked.shape[1]
+                    if same_order and (name != "ring" or n % SCHEDULE_WORLD == 0):
+                        grads_ok &= all(same_bits(out[r], w) for r, w in zip(live, ref(stacked)[idx]))
+                    else:
+                        x = stacked.index_select(0, idx).double()
+                        grads_ok &= bool(((out[idx].double() - x.mean(0)).abs()
+                                          <= SCHEDULE_BF16_TOL * x.abs().mean(0)).all())
+                    del out
+                times = time_dispatch(lambda: [eng.all_reduce(x, algo="ir", op=ReduceOp.AVG) for x in buckets],
+                                      iters=PHASE16_ITERS)
+                wall = synced_ms(lambda: [eng.all_reduce(x, algo="ir", op=ReduceOp.AVG) for x in buckets],
+                                 iters=PHASE16_ITERS)
+            row[opt] = times["device_ms"]
+            if name == "ring" and opt == "off":  # where the executor's time goes, op by op
+                one = lambda: eng.all_reduce(buckets[0], algo="ir", op=ReduceOp.AVG)  # noqa: E731
+                profile_step("ir 16a ring bucket 0", one, synced_ms(one, iters=PHASE16_ITERS))
+            print(f"ir 16a {name} (ADAPCC_IR_OPT={opt}): {ev.extra['program']} {ran.fingerprint()} passes "
+                  f"{ev.extra['passes']}, {ev.extra['dispatches']} dispatches{' ' + ev.extra['hier'] if 'hier' in ev.extra else ''}; "
+                  f"integer-valued bf16 bit for bit the {ref_name} on every live row {'ok' if bits else 'FAIL'}; "
+                  f"gradients {'bit for bit the ' + ref_name if same_order else 'within ' + str(SCHEDULE_BF16_TOL) + ' of the float64 mean'} "
+                  f"{'ok' if grads_ok else 'FAIL'}; {_fmt(times)}; synced walltime {wall:.4f} ms for the "
+                  f"{len(buckets)} buckets; bound {bound_ms:.4f} ms ({smi})", flush=True)
+            if ev.impl != "ir" or not bits or not grads_ok:
+                raise RuntimeError(f"16a {name} (ADAPCC_IR_OPT={opt}) failed its checks")
+        torch.cuda.empty_cache()
+        legacy_times = time_dispatch(lambda: [ref(x) for x in buckets], iters=PHASE16_ITERS)
+        print(f"ir 16a {name}: the {ref_name} {_fmt(legacy_times)} for the buckets; device ms naive "
+              f"{row['off']:.4f}, optimized {row['on']:.4f}, bound {bound_ms:.4f}, phase 11a's merged plane on "
+              f"4-4_1.xml (this run) {ref_ms:.4f} ({smi})", flush=True)
+        torch.cuda.empty_cache()
+
+
+def ir_float32(dev: torch.device, smi: str) -> None:
+    """Phase 16(a)-(c) at world 8 on float32, 4 KiB and 4 MiB a rank: the
+    IR ring, rd and tree bit for bit their planes, naive against optimized
+    bit for bit on every program (live rows), rd coalesced to one dispatch a
+    round, and the fused int8 ring bit for bit its unfused form."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flat_ring = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD, SCHEDULE_WORLD),
+                                 use_xla_fastpath=False)
+    flat = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD), trace=CollectiveTrace())
+    two_level = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD), trace=CollectiveTrace(),
+                                 num_slices=TWO_LEVEL_SLICES)
+    legacy = {"ring": lambda x: flat_ring.all_reduce(x), "rd": lambda x: flat.all_reduce(x, algo="rd"),
+              "tree": lambda x: flat.all_reduce(x, algo="tree")}
+    for nbytes in IR_BYTES:
+        x = torch.randn(SCHEDULE_WORLD, nbytes // 4, device=dev, generator=gen)
+        for name, program in _ir_programs(None).items():
+            eng = two_level if name == "two-level" else flat
+            eng.set_schedule_program(program)
+            outs, row = {}, {}
+            for opt in ("off", "on"):
+                with ir_opt(opt):
+                    outs[opt] = eng.all_reduce(x, algo="ir")
+                    ev = eng.trace.events()[-1]
+                    times = time_dispatch(lambda: eng.all_reduce(x, algo="ir"), iters=PHASE16_ITERS)
+                    wall = synced_ms(lambda: eng.all_reduce(x, algo="ir"), iters=PHASE16_ITERS)
+                row[opt] = (ev.extra["dispatches"], times, wall)
+            same = same_bits(outs["off"], outs["on"])
+            legacy_ok, legacy_times = None, None
+            if name in legacy:
+                legacy_ok = same_bits(outs["off"], legacy[name](x))
+                legacy_times = time_dispatch(lambda: legacy[name](x), iters=PHASE16_ITERS)
+            exact = x.double().sum(0)
+            within = bool(((outs["on"].double() - exact).abs()
+                           <= (SCHEDULE_WORLD - 1) * 2.0 ** -24 * x.double().abs().sum(0)).all())
+            print(f"ir 16b world {SCHEDULE_WORLD} {nbytes} B a rank {name}: naive {row['off'][0]} dispatches "
+                  f"{_fmt(row['off'][1])}, synced {row['off'][2]:.4f} ms; optimized {row['on'][0]} dispatches "
+                  f"{_fmt(row['on'][1])}, synced {row['on'][2]:.4f} ms; float32 naive and optimized bit for bit "
+                  f"{'ok' if same else 'FAIL'}; within (w-1)*2^-24*sum|x| of the float64 sum "
+                  f"{'ok' if within else 'FAIL'}"
+                  + ("" if legacy_ok is None else f"; bit for bit its plane {'ok' if legacy_ok else 'FAIL'} "
+                     f"({_fmt(legacy_times)})")
+                  + f"; bound {_stacked_bound_ms(x):.6f} ms ({smi})", flush=True)
+            if not same or not within or legacy_ok is False:
+                raise RuntimeError(f"16b {nbytes} B {name} failed its checks")
+            if name == "rd" and row["on"][0] != int(np.log2(SCHEDULE_WORLD)) * 2:
+                raise RuntimeError(f"16b: rd at world 8 optimized to {row['on'][0]} dispatches, not one a round")
+        # (c) the fused int8 ring against its unfused form
+        program = compiler.ring_allreduce_program(SCHEDULE_WORLD, wire_dtype="int8")
+        flat.set_schedule_program(program)
+        outs, row = {}, {}
+        for opt in ("off", "on"):
+            with ir_opt(opt):
+                ran = flat.optimized_schedule_program()
+                outs[opt] = flat.all_reduce(x, algo="ir")
+                row[opt] = (ran, time_dispatch(lambda: flat.all_reduce(x, algo="ir"), iters=PHASE16_ITERS))
+        same = same_bits(outs["off"], outs["on"])
+        n = x.shape[1]
+        fused_b, plain_b = wire_bytes(row["on"][0], n, 4), wire_bytes(row["off"][0], n, 4)
+        print(f"ir 16c world {SCHEDULE_WORLD} {nbytes} B a rank int8 ring: fused ({row['on'][0].applied_passes}, "
+              f"block {row['on'][0].block_size}, {ir_lower.dispatch_count(row['on'][0])} dispatches) bit for bit "
+              f"its unfused form ({ir_lower.dispatch_count(row['off'][0])} dispatches) {'ok' if same else 'FAIL'}; "
+              f"wire bytes of a run {fused_b} fused against {plain_b} float32 ({fused_b / plain_b:.4f}); fused "
+              f"{_fmt(row['on'][1])}, unfused {_fmt(row['off'][1])} ({smi})", flush=True)
+        if not same or "fuse_codec" not in row["on"][0].applied_passes:
+            raise RuntimeError(f"16c {nbytes} B: the fused int8 ring differs from its unfused form")
+        del x, outs
+    torch.cuda.empty_cache()
+
+
+def ir_tuner(dev: torch.device, workdir: str) -> None:
+    """Phase 16(d): a recording tuner fills the ``ir`` cell (the ring, which
+    the passes leave alone) and the ``ir-opt`` cell (rd, which they
+    coalesce); the cells join a grid that names "ir"."""
+    topology = mesh_fingerprint(dev, world=SCHEDULE_WORLD)
+    path = os.path.join(workdir, "ir.jsonl")
+    tuner = CollectiveTuner(SCHEDULE_WORLD, topology, db=TuningDatabase(path), mode="record")
+    eng = CollectiveEngine(SCHEDULE_WORLD, Strategy.ring(SCHEDULE_WORLD), trace=CollectiveTrace(), tuner=tuner)
+    x = torch.randn(SCHEDULE_WORLD, IR_BYTES[-1] // 4, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    with ir_opt("on"):
+        for program in (compiler.ring_allreduce_program(SCHEDULE_WORLD), compiler.rd_allreduce_program(SCHEDULE_WORLD)):
+            eng.set_schedule_program(program)
+            for _ in range(1 + tuner.policy.trial_budget):
+                eng.all_reduce(x, algo="ir")
+    cells = tuner.policy.candidates("allreduce", IR_BYTES[-1], "float32", algos=("ir",))
+    paths = {c.path: c for c in cells}
+    tuner.db.save()
+    with open(path) as f:
+        first = f.readline().strip()
+    for p in (IR_PATH, IR_OPT_PATH):
+        if p not in paths:
+            raise RuntimeError(f"16d: the recording tuner left no {p} cell: {cells}")
+        st = tuner.db.stats(paths[p])
+        print(f"ir 16d cell {_cell(paths[p])}: {st.count} samples, median {st.median_s * 1e3:.4f} ms", flush=True)
+    print(f"ir 16d: the database's first line {first}", flush=True)
+    if {IR_PATH, IR_OPT_PATH} & {c.path for c in tuner.policy.candidates("allreduce", IR_BYTES[-1], "float32")}:
+        raise RuntimeError("16d: an IR cell joined the default grid")
+
+
+def slice13(dev: torch.device, buckets: list, ref_ms: float, smi: str) -> dict:
+    """Phase 16, slice 13's main path (the module docstring); returns the
+    launches of each kernel in it, which must be none."""
+    t16 = time.perf_counter()
+    kernels = (*fa.KERNELS, *ring.KERNELS)
+    for w in kernels:
+        w.launches = 0
+    bound_ms = sum(_stacked_bound_ms(b) for b in buckets)
+    marks = [time.perf_counter()]
+    ir_gradients(buckets, bound_ms, ref_ms, smi)
+    marks.append(time.perf_counter())
+    ir_float32(dev, smi)
+    marks.append(time.perf_counter())
+    with tempfile.TemporaryDirectory(prefix="adapcc_slice13_") as workdir:
+        ir_tuner(dev, workdir)
+    marks.append(time.perf_counter())
+    p16 = {w.__name__: w.launches for w in kernels}
+    parts = ", ".join(f"{c} {b - a:.1f} s" for c, a, b in zip(("16a", "16b-c", "16d"), marks, marks[1:]))
+    print(f"phase 16 launches: {p16} (no kernel lies on the IR path); phase 16 {time.perf_counter() - t16:.1f} s "
+          f"({parts})", flush=True)
+    if any(p16.values()):
+        raise RuntimeError(f"phase 16 launched a kernel: {p16}")
+    return p16
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -2596,6 +2877,11 @@ def main() -> None:
     # 15. slice 12's main path: the latency plane, the two-level plane and
     # the hier and milp policies
     for kname, n in slice12(dev, s_plan, s_buckets, s_device_ms, s_bound_ms, smi).items():
+        launches[kname] += n
+    torch.cuda.empty_cache()
+
+    # 16. slice 13's main path: the schedule compiler's IR plane
+    for kname, n in slice13(dev, s_buckets, s_device_ms, smi).items():
         launches[kname] += n
     del s_buckets
     torch.cuda.empty_cache()

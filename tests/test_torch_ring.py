@@ -320,10 +320,12 @@ def test_engine_rejects_what_waits(monkeypatch):
     x = torch.ones(4, F32_TILE)
     trace = CollectiveTrace()
     eng = CollectiveEngine(4, Strategy.ring(4), trace=trace)
-    # the IR plane waits for its slice; the latency plane runs (its
-    # parity is tests/test_torch_latency.py)
-    with pytest.raises(NotImplementedError, match="IR slice"):
-        eng.ring_allreduce(x, algo="ir")
+    # the IR plane runs, its program carrying its own codec and chunking
+    # (its parity is tests/test_torch_compiler.py); the latency plane runs
+    # (its parity is tests/test_torch_latency.py)
+    assert torch.equal(eng.ring_allreduce(x, algo="ir"), torch.full_like(x, 4.0))
+    with pytest.raises(ValueError, match="program properties"):
+        eng.ring_allreduce(x, algo="ir", wire_dtype="int8")
     assert torch.equal(eng.ring_allreduce(x, algo="rd"), torch.full_like(x, 4.0))
     # the wire codecs run now, through the fused walk (its plain version on
     # a CPU tensor): the argument, and the env over the strategy's "off"
@@ -332,7 +334,7 @@ def test_engine_rejects_what_waits(monkeypatch):
     assert torch.equal(eng.ring_reduce_scatter(x, wire_dtype="bf16"), eng.ring_reduce_scatter(x))
     monkeypatch.setenv("ADAPCC_WIRE_DTYPE", "int8")
     assert torch.equal(eng.ring_all_gather(x), ring.ring_all_gather_stacked(x, wire_dtype="int8"))
-    assert [r["impl"] for r in trace_rows(trace)] == ["rd", "plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
+    assert [r["impl"] for r in trace_rows(trace)] == ["ir", "rd", "plain_ring[vmem+int8]", "plain_ring[vmem+bf16]",
                                                       "plain_ring[vmem]", "plain_ring[vmem+int8]"]
     monkeypatch.delenv("ADAPCC_WIRE_DTYPE")
     monkeypatch.setenv("ADAPCC_COLL_ALGO", "auto")

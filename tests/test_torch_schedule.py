@@ -237,10 +237,11 @@ def test_engine_contract_epochs_pins_and_trace(monkeypatch):
         eng.advance_epoch(Strategy.ring(2))
     eng.clear()
     x4 = torch.arange(16.0).view(4, 4)
-    # the IR plane waits for its slice; the latency plane runs by pin, and
-    # a pin it cannot run raises (tests/test_torch_latency.py holds its bits)
-    with pytest.raises(NotImplementedError, match="IR slice"):
-        eng.all_reduce(x4, algo="ir")
+    # the IR plane runs the strategy's program (tests/test_torch_compiler.py
+    # holds its bits); the latency plane runs by pin, and a pin it cannot run
+    # raises (tests/test_torch_latency.py holds its bits)
+    assert torch.equal(eng.all_reduce(x4, algo="ir"), x4.sum(0).expand(4, 4))
+    assert trace_rows(trace)[-1]["impl"] == "ir"
     with pytest.raises(ValueError, match="has no 'tree' variant"):
         eng.reduce_scatter(x4, algo="tree")
     eng.all_gather(x4, algo="rd")
