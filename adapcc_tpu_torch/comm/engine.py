@@ -238,6 +238,20 @@ class _MergedPlan:
         self.broadcast_groups = broadcast_groups
 
 
+class _Prepared:
+    """What one stacked schedule-plane dispatch derives on the host, kept by
+    the engine under its cache key: the merged plan (None: the trees'
+    rounds one by one), the trees' segment sizes and the pad value (the
+    op's identity)."""
+
+    __slots__ = ("plan", "sizes", "pad")
+
+    def __init__(self, plan: Optional[_MergedPlan], sizes: List[int], pad: float) -> None:
+        self.plan = plan
+        self.sizes = sizes
+        self.pad = pad
+
+
 def _color_rounds(per_tree_rounds: Sequence[Sequence[CommRound]], world: int) -> List[_Group]:
     """Align trees' rounds by index and split each union greedily into
     partial permutations."""
@@ -782,13 +796,12 @@ def _run_groups_rows(buf: torch.Tensor, stages: List[Tuple[list, str]]) -> None:
 
 
 def _run_merged_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], plan: _MergedPlan,
-                        op: ReduceOp, phases: str) -> torch.Tensor:
+                        op: ReduceOp, phases: str, pad: float) -> torch.Tensor:
     """The merged groups over ``[world, n]``: every row's segments stacked as
-    ``[world, T, pad]`` (padded with the op's identity, an inactive row all
-    identity), then :func:`_run_groups_rows`."""
-    ident = _identity_for(op, flat.dtype)
-    buf = _stack_segments(flat, sizes, ident)
-    _fill_rows(buf, inactive, ident)
+    ``[world, T, pad]`` (padded with ``pad``, the op's identity, an inactive
+    row all identity), then :func:`_run_groups_rows`."""
+    buf = _stack_segments(flat, sizes, pad)
+    _fill_rows(buf, inactive, pad)
     _run_groups_rows(buf, _stages(plan.reduce_groups, plan.broadcast_groups, op, phases))
     return _unstack_segments(buf, sizes)
 
@@ -821,11 +834,11 @@ def _tree_rounds_rows(acc: torch.Tensor, tree: Tree, op: ReduceOp, phases: str) 
 
 
 def _run_trees_stacked(flat: torch.Tensor, inactive: List[int], sizes: List[int], strategy: Strategy,
-                       op: ReduceOp, phases: str) -> torch.Tensor:
+                       op: ReduceOp, phases: str, pad: float) -> torch.Tensor:
     """Each tree's rounds over its segment's columns of ``[world, n]``, in
-    place on one copy."""
+    place on one copy, an inactive row ``pad`` (the op's identity)."""
     out = flat.clone()
-    _fill_rows(out, inactive, _identity_for(op, flat.dtype))
+    _fill_rows(out, inactive, pad)
     off = 0
     for tree, size in zip(strategy.trees, sizes):
         if size == 0:
@@ -855,7 +868,15 @@ class CollectiveEngine:
     ``reroute_reason``), the stacked bytes and, in its extras, the engine's
     epoch; the schedule and flat paths add ``algo``, the ring plane its
     executed schedule (``RingSchedule.to_row()``) and the wire bytes a
-    rank's payload costs.
+    rank's payload costs.  Every dispatch but the ring plane's stamps
+    ``cache_hit``: whether the engine's prepared-plan cache already held the
+    dispatch's key (the JAX engine's compiled-program keys: primitive,
+    strategy variant, shape, dtype, op), looked up before the dispatch
+    fills it.  The cache holds what the port derives on the host (the
+    merged plan, the segment sizes, the pad value); it survives
+    :meth:`advance_epoch`, so a swap back to a warmed plan is a hit, and
+    :meth:`clear` drops it.  Relay masks are runtime state, not part of a
+    key.
 
     ``tuner`` (a :class:`~adapcc_tpu_torch.tuner.CollectiveTuner`) is
     consulted under ``ADAPCC_TUNER=choose`` by :meth:`ring_allreduce` (every
@@ -909,6 +930,8 @@ class CollectiveEngine:
         self.strategy = strategy
         self.trace = trace
         self.use_xla_fastpath = use_xla_fastpath
+        #: prepared plans by the JAX engine's cache keys (class docstring)
+        self._cache: Dict[Tuple, Any] = {}
         #: world epoch: bumped by :meth:`advance_epoch`; a collective issued
         #: with a stale ``epoch=`` raises :class:`EpochMismatch`
         self.epoch = 0
@@ -930,7 +953,8 @@ class CollectiveEngine:
     def advance_epoch(self, strategy: Optional[Strategy] = None) -> int:
         """World change: bump the epoch and optionally swap the executing
         strategy (same world: dead ranks are masked, not removed).  The
-        round tables stay cached by strategy: a swap back finds them."""
+        prepared plans stay cached under their strategy's key: a swap to a
+        warmed standby plan, or back to the base plan, finds them."""
         if strategy is not None:
             if strategy.world_size != self.world_size:
                 raise ValueError(
@@ -949,12 +973,55 @@ class CollectiveEngine:
             raise EpochMismatch(epoch, self.epoch)
 
     def clear(self) -> None:
-        """The reference's ``exitThreads`` before a re-synthesis.  The round
-        tables stay cached by strategy fingerprint; the tuner's timer forgets
-        its warmups, so the first dispatch after a rebuild is discarded
-        again."""
+        """The reference's ``exitThreads`` before a re-synthesis: the prepared
+        plans are dropped, and the tuner's timer forgets its warmups, so the
+        first dispatch after a rebuild is discarded again."""
+        self._cache.clear()
         if self.tuner is not None:
             self.tuner.timer.reset()
+
+    def _prepare(self, key: Tuple, build: Callable[[], Any]) -> Tuple[Any, bool]:
+        """The prepared plan under ``key`` and whether the cache held it
+        (looked up before ``build`` fills it)."""
+        hit = key in self._cache
+        if not hit:
+            self._cache[key] = build()
+        return self._cache[key], hit
+
+    def _schedule_variant(self) -> Tuple[str, bool]:
+        """The strategy part of a schedule-plane key: its fingerprint and
+        whether the merged executor runs it (flipping
+        ``ADAPCC_MERGE_ROUNDS`` must miss)."""
+        return (self.strategy.fingerprint(), self._merged() is not None)
+
+    def _merged(self) -> Optional[_MergedPlan]:
+        if self.two_level:
+            from adapcc_tpu_torch.comm.two_level import _two_level_merged_plan
+
+            return _two_level_merged_plan(self.strategy, self.num_slices, self.ici_size)
+        return _merged_plan(self.strategy)
+
+    def _prepare_schedule(self, primitive: str, stacked: torch.Tensor, tail: Any) -> Tuple[_Prepared, bool]:
+        """The schedule plane's prepared plan for ``stacked``: JAX's key
+        ``(primitive[2l], variant, shape, dtype, tail)``, ``tail`` the op
+        (the masked flag for a broadcast)."""
+        name = f"{primitive}2l" if self.two_level else primitive
+        key = (name, self._schedule_variant(), tuple(stacked.shape), ring._dtype_name(stacked.dtype), tail)
+        op = tail if isinstance(tail, ReduceOp) else ReduceOp.SUM
+
+        def build() -> _Prepared:
+            n = stacked[0].numel()
+            return _Prepared(self._merged(), _segment_sizes(n, self.strategy.tree_shares()),
+                             _identity_for(op, stacked.dtype))
+
+        return self._prepare(key, build)
+
+    def _prepare_sizes(self, name: str, stacked: torch.Tensor, *tail: Any) -> Tuple[List[int], bool]:
+        """A fast path's prepared segment sizes under JAX's key ``(name,
+        fingerprint, shape, dtype, *tail)``."""
+        key = (name, self.strategy.fingerprint(), tuple(stacked.shape), ring._dtype_name(stacked.dtype), *tail)
+        flat_n = stacked[0].numel()
+        return self._prepare(key, lambda: _segment_sizes(flat_n, self.strategy.tree_shares()))
 
     def _tuner_for(self, stacked: torch.Tensor) -> Optional[CollectiveTuner]:
         """The tuner of a dispatch on ``stacked``: the one given, or the one
@@ -1047,18 +1114,21 @@ class CollectiveEngine:
             )
 
     def _latency_allreduce(self, stacked: torch.Tensor, algo: str, mask: Optional[torch.Tensor] = None,
-                           op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
-        """One latency-plane allreduce (``rd`` | ``tree``) over the rows;
-        raises where the plane cannot run (reached by a pin only: the
-        selector and the tuner's grid ask the same funnel first)."""
+                           op: ReduceOp = ReduceOp.SUM) -> Tuple[torch.Tensor, bool]:
+        """One latency-plane allreduce (``rd`` | ``tree``) over the rows and
+        its ``cache_hit``; raises where the plane cannot run (reached by a
+        pin only: the selector and the tuner's grid ask the same funnel
+        first)."""
         reason = latency_algo_unsupported_reason(self.world_size, algo, self.two_level)
         if reason is not None:
             raise ValueError(f"allreduce algo={algo!r} cannot run here: {reason}")
+        _, hit = self._prepare((f"{algo}_allreduce", tuple(stacked.shape), ring._dtype_name(stacked.dtype), op),
+                               lambda: None)
         if mask is None:
             mask = torch.ones((self.world_size,), dtype=torch.bool)
         if algo == "rd":
-            return lat.rd_allreduce_stacked(stacked, mask, op)
-        return lat.tree_allreduce_stacked(stacked, mask, op)
+            return lat.rd_allreduce_stacked(stacked, mask, op), hit
+        return lat.tree_allreduce_stacked(stacked, mask, op), hit
 
     def _latency_variant(self, primitive: str, algo: Optional[str]) -> Optional[str]:
         """The latency-plane algorithm of a reduce-scatter or all-gather:
@@ -1153,8 +1223,12 @@ class CollectiveEngine:
         tuner = self._tuner_for(stacked)
         timing = tuner is not None and tuner.recording
         t0 = time.perf_counter()
+        _, hit = self._prepare(
+            ("ir_allreduce", program.fingerprint(), tuple(stacked.shape), ring._dtype_name(stacked.dtype), op),
+            lambda: program)
         out = ir_lower.execute_program_stacked(stacked, program, op)
         extras: Dict[str, Any] = {
+            "cache_hit": hit,
             "algo": "ir",
             "program": program.name,
             "program_fingerprint": program.fingerprint(),
@@ -1334,8 +1408,8 @@ class CollectiveEngine:
         t0 = time.perf_counter()
         if executed_algo is not None:
             self._check_algo_wire_conflict(executed_algo, wire_arg)
-            out = self._latency_allreduce(stacked, executed_algo)
-            impl, extras, wd = executed_algo, {"algo": executed_algo}, "off"
+            out, hit = self._latency_allreduce(stacked, executed_algo)
+            impl, extras, wd = executed_algo, {"cache_hit": hit, "algo": executed_algo}, "off"
             executed_path, executed_chunk = executed_algo, NO_CHUNK
             token = (f"{executed_algo}_allreduce", tuple(stacked.shape), ring._dtype_name(stacked.dtype))
         else:
@@ -1454,32 +1528,29 @@ class CollectiveEngine:
 
     # -- the schedule plane and the flat paths ----------------------------------
 
-    def _schedule(self, stacked: torch.Tensor, mask: Optional[torch.Tensor], op: ReduceOp,
-                  phases: str) -> Tuple[torch.Tensor, bool]:
-        """The tree rounds over the rows of ``stacked`` (before AVG), on the
-        two-level plane for a two-level world, and whether the merged
-        executor ran them."""
+    def _schedule(self, stacked: torch.Tensor, mask: Optional[torch.Tensor], op: ReduceOp, phases: str,
+                  prepared: _Prepared) -> torch.Tensor:
+        """The tree rounds over the rows of ``stacked`` (before AVG) under
+        the prepared plan, on the two-level plane for a two-level world."""
         world = self.world_size
         strategy = self.strategy
         if self.two_level:
             from adapcc_tpu_torch.comm import two_level
 
-            out = two_level._schedule_two_level(stacked, mask, strategy, self.num_slices, self.ici_size, op, phases)
-            return out, two_level._two_level_merged_plan(strategy, self.num_slices, self.ici_size) is not None
-        plan = _merged_plan(strategy)
+            return two_level._schedule_two_level(stacked, mask, strategy, self.num_slices, self.ici_size, op, phases)
         flat = stacked.reshape(world, -1)
         if flat.shape[1] == 0:
-            return stacked.clone(), plan is not None
+            return stacked.clone()
         inactive = [] if mask is None else [r for r in range(world) if not bool(mask[r])]
-        sizes = _segment_sizes(flat.shape[1], strategy.tree_shares())
-        if plan is not None:
-            out = _run_merged_stacked(flat, inactive, sizes, plan, op, phases)
+        if prepared.plan is not None:
+            out = _run_merged_stacked(flat, inactive, prepared.sizes, prepared.plan, op, phases, prepared.pad)
         else:
-            out = _run_trees_stacked(flat, inactive, sizes, strategy, op, phases)
-        return out.reshape(stacked.shape), plan is not None
+            out = _run_trees_stacked(flat, inactive, prepared.sizes, strategy, op, phases, prepared.pad)
+        return out.reshape(stacked.shape)
 
-    def _record_schedule(self, primitive: str, stacked: torch.Tensor, merged: bool) -> None:
-        self._record(primitive, "schedule", stacked, {"algo": "ring", "merged": merged})
+    def _record_schedule(self, primitive: str, stacked: torch.Tensor, prepared: _Prepared, hit: bool) -> None:
+        self._record(primitive, "schedule", stacked,
+                     {"cache_hit": hit, "algo": "ring", "merged": prepared.plan is not None})
 
     def all_reduce(
         self,
@@ -1542,8 +1613,8 @@ class CollectiveEngine:
         if executed_algo is not None:
             self._check_algo_wire_conflict(executed_algo, None)
             t0 = time.perf_counter()
-            out = self._latency_allreduce(stacked, executed_algo, mask, op)
-            extras: Dict[str, Any] = {"algo": executed_algo}
+            out, hit = self._latency_allreduce(stacked, executed_algo, mask, op)
+            extras: Dict[str, Any] = {"cache_hit": hit, "algo": executed_algo}
             if timing:
                 key = tuner.key_for("allreduce", per_rank_bytes, executed_algo, NO_CHUNK, "off")
                 token = (f"{executed_algo}_allreduce", tuple(stacked.shape), dtype, op, stacked.device.type)
@@ -1565,8 +1636,10 @@ class CollectiveEngine:
             from adapcc_tpu_torch.comm.two_level import allreduce_two_level_composed_stacked
 
             t0 = time.perf_counter()
+            _, hit = self._prepare(("allreduce2l-composed", self.strategy.fingerprint(), plan2l.leader_algo,
+                                    tuple(stacked.shape), dtype, op), lambda: plan2l)
             out = allreduce_two_level_composed_stacked(stacked, mask, plan2l, self.num_slices, self.ici_size, op)
-            extras = {"algo": "two-level", "hier": {
+            extras = {"cache_hit": hit, "algo": "two-level", "hier": {
                 "pods": plan2l.sketch.num_pods, "pod_size": plan2l.sketch.pod_size, "pod_algo": plan2l.pod_algo,
                 "leader_algo": plan2l.leader_algo, "resolved_level": plan2l.resolved_level}}
             if timing:
@@ -1578,11 +1651,12 @@ class CollectiveEngine:
         fast = self.use_xla_fastpath and active_gpus is None
         t0 = time.perf_counter()
         if fast:
+            _, hit = self._prepare(("psum", tuple(stacked.shape), dtype, op), lambda: None)
             out = _fused_stacked(stacked, op, self.world_size)
         else:
-            out, merged = self._schedule(stacked, mask, op, "both")
-            out = _avg_normalize(out, mask, op)
-        extras = {"algo": "ring"}
+            prepared, hit = self._prepare_schedule("allreduce", stacked, op)
+            out = _avg_normalize(self._schedule(stacked, mask, op, "both", prepared), mask, op)
+        extras = {"cache_hit": hit, "algo": "ring"}
         if fast and timing:
             key = tuner.key_for("allreduce", per_rank_bytes, XLA_PATH, NO_CHUNK, "off")
             token = ("psum", tuple(stacked.shape), dtype, op, stacked.device.type)
@@ -1592,7 +1666,7 @@ class CollectiveEngine:
         if fast:
             self._record("allreduce", "torch_fused", stacked, extras)
         else:
-            self._record("allreduce", "schedule", stacked, {**extras, "merged": merged})
+            self._record("allreduce", "schedule", stacked, {**extras, "merged": prepared.plan is not None})
         return out
 
     def reduce(
@@ -1610,20 +1684,22 @@ class CollectiveEngine:
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "reduce")
         if self.use_xla_fastpath and active_gpus is None and not self.two_level:
-            out = self._reduce_fast(stacked, op)
-            self._record("reduce", "torch_fused", stacked, {"algo": "ring"})
+            sizes, hit = self._prepare_sizes("reduce_fast", stacked, op)
+            out = self._reduce_fast(stacked, op, sizes)
+            self._record("reduce", "torch_fused", stacked, {"cache_hit": hit, "algo": "ring"})
             return out
         mask = self._active_to_mask(active_gpus)
-        out, merged = self._schedule(stacked, mask, op, "reduce")
-        self._record_schedule("reduce", stacked, merged)
+        prepared, hit = self._prepare_schedule("reduce", stacked, op)
+        out = self._schedule(stacked, mask, op, "reduce", prepared)
+        self._record_schedule("reduce", stacked, prepared, hit)
         return _avg_normalize(out, mask, op)
 
-    def _reduce_fast(self, stacked: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+    def _reduce_fast(self, stacked: torch.Tensor, op: ReduceOp, sizes: List[int]) -> torch.Tensor:
         world = self.world_size
         flat = stacked.reshape(world, -1)
         out = None
         off = 0
-        for tree, size in zip(self.strategy.trees, _segment_sizes(flat.shape[1], self.strategy.tree_shares())):
+        for tree, size in zip(self.strategy.trees, sizes):
             if size == 0:
                 continue
             total = _fused_total(flat[:, off:off + size], op, world)
@@ -1651,28 +1727,31 @@ class CollectiveEngine:
             act = {int(r) for r in active_gpus}
             dead_roots = sorted({t.root for t in self.strategy.trees} - act)
             if dead_roots:
+                # the JAX engine's words, the standby module the port's
                 raise ValueError(
                     f"broadcast roots {dead_roots} are not in the active set {sorted(act)}: a dead root "
-                    "cannot source the broadcast; swap to a plan rooted on alive ranks, or, if the root "
-                    "is only demoted-slow, include it in active_gpus (broadcast values are unaffected "
-                    "by relay roles)"
+                    "cannot source the broadcast — swap to a degraded plan rooted on alive ranks "
+                    "(adapcc_tpu_torch.elastic.standby), or, if the root is only demoted-slow, include it "
+                    "in active_gpus (broadcast values are unaffected by relay roles)"
                 )
         if self.use_xla_fastpath and active_gpus is None and not self.two_level:
-            out = self._broadcast_fast(stacked)
-            self._record("broadcast", "torch_fused", stacked, {"algo": "ring"})
+            sizes, hit = self._prepare_sizes("broadcast_fast", stacked)
+            out = self._broadcast_fast(stacked, sizes)
+            self._record("broadcast", "torch_fused", stacked, {"cache_hit": hit, "algo": "ring"})
             return out
-        out, merged = self._schedule(stacked, None, ReduceOp.SUM, "broadcast")
-        self._record_schedule("broadcast", stacked, merged)
+        prepared, hit = self._prepare_schedule("broadcast", stacked, active_gpus is not None)
+        out = self._schedule(stacked, None, ReduceOp.SUM, "broadcast", prepared)
+        self._record_schedule("broadcast", stacked, prepared, hit)
         return out
 
-    def _broadcast_fast(self, stacked: torch.Tensor) -> torch.Tensor:
+    def _broadcast_fast(self, stacked: torch.Tensor, sizes: List[int]) -> torch.Tensor:
         """Each segment becomes its root's, as a sum in which only the root
         contributes (``-0.0`` arrives as ``+0.0``)."""
         world = self.world_size
         flat = stacked.reshape(world, -1)
         out = torch.empty_like(flat)
         off = 0
-        for tree, size in zip(self.strategy.trees, _segment_sizes(flat.shape[1], self.strategy.tree_shares())):
+        for tree, size in zip(self.strategy.trees, sizes):
             row = flat[tree.root, off:off + size]
             out[:, off:off + size] = row if row.dtype == torch.bool else row + 0
             off += size
@@ -1725,17 +1804,20 @@ class CollectiveEngine:
         self._check_world_dim(stacked, "all_gather")
         variant = self._latency_variant("all_gather", algo)
         v = self._zero_inactive(stacked, active_gpus)
+        name = "allgather_rd" if variant == "rd" else "allgather2l" if self.two_level else "allgather"
+        _, hit = self._prepare((name, tuple(stacked.shape), ring._dtype_name(stacked.dtype), active_gpus is not None),
+                               lambda: None)
         if variant == "rd":
             out = lat.rd_all_gather_stacked(v)
-            self._record("all_gather", "rd", stacked, {"algo": "rd"})
+            self._record("all_gather", "rd", stacked, {"cache_hit": hit, "algo": "rd"})
         elif self.two_level:
             from adapcc_tpu_torch.comm.two_level import all_gather_two_level_stacked
 
             out = all_gather_two_level_stacked(v, self.num_slices, self.ici_size)
-            self._record("all_gather", "two_level", stacked, {"algo": "ring"})
+            self._record("all_gather", "two_level", stacked, {"cache_hit": hit, "algo": "ring"})
         else:
             out = v.unsqueeze(0).expand(self.world_size, *v.shape).contiguous()
-            self._record("all_gather", "torch_flat", stacked, {"algo": "ring"})
+            self._record("all_gather", "torch_flat", stacked, {"cache_hit": hit, "algo": "ring"})
         return out
 
     def all_to_all(
@@ -1753,14 +1835,16 @@ class CollectiveEngine:
         if stacked.dim() < 2 or stacked.shape[1] != self.world_size:
             raise ValueError(f"all_to_all needs a [world, world, ...] stacked tensor, got {tuple(stacked.shape)}")
         v = self._zero_inactive(stacked, active_gpus)
+        _, hit = self._prepare(("alltoall2l" if self.two_level else "alltoall", tuple(stacked.shape),
+                                ring._dtype_name(stacked.dtype), active_gpus is not None), lambda: None)
         if self.two_level:
             from adapcc_tpu_torch.comm.two_level import all_to_all_two_level_stacked
 
             out = all_to_all_two_level_stacked(v, self.num_slices, self.ici_size)
-            self._record("all_to_all", "two_level", stacked, {})
+            self._record("all_to_all", "two_level", stacked, {"cache_hit": hit})
         else:
             out = v.transpose(0, 1).contiguous()
-            self._record("all_to_all", "torch_flat", stacked, {})
+            self._record("all_to_all", "torch_flat", stacked, {"cache_hit": hit})
         return out
 
     def reduce_scatter(
@@ -1791,9 +1875,13 @@ class CollectiveEngine:
         if n % world:
             raise ValueError(f"reduce_scatter payload ({n} elems) must divide the world ({world})")
         mask = self._active_to_mask(active_gpus)
-        if self._latency_variant("reduce_scatter", algo) == "rd":
+        rd = self._latency_variant("reduce_scatter", algo) == "rd"
+        name = "reducescatter_rd" if rd else "reducescatter2l" if self.two_level else "reducescatter"
+        _, hit = self._prepare((name, tuple(stacked.shape), ring._dtype_name(stacked.dtype), op,
+                                active_gpus is not None), lambda: None)
+        if rd:
             out = lat.rd_reduce_scatter_stacked(stacked.reshape(world, n), None if active_gpus is None else mask, op)
-            self._record("reduce_scatter", "rd", stacked, {"algo": "rd"})
+            self._record("reduce_scatter", "rd", stacked, {"cache_hit": hit, "algo": "rd"})
             return out
         v = self._zero_inactive(stacked, active_gpus).reshape(world, n)
         if self.two_level:
@@ -1806,7 +1894,7 @@ class CollectiveEngine:
             impl = "torch_flat"
         if op is ReduceOp.AVG:
             out = _avg_normalize(out, mask, op)
-        self._record("reduce_scatter", impl, stacked, {"algo": "ring"})
+        self._record("reduce_scatter", impl, stacked, {"cache_hit": hit, "algo": "ring"})
         return out
 
 

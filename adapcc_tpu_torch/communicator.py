@@ -22,8 +22,10 @@ zeros) or, given ``world=`` a process group of one process a rank, the
 identity map.  The coordinator plane works in both.  The Communicator owns
 one plan tuner (:class:`~adapcc_tpu_torch.tuner.CollectiveTuner`), shared by
 every engine it builds; ``ADAPCC_TUNER`` decides whether anything consults
-or feeds it.  The DETECT/PROFILE bootstrap of a multi-process world, the
-supervisor and the adaptation controller raise until their slices.
+or feeds it.  :meth:`Communicator.supervisor` hands the world's failover to
+an out-of-band :class:`~adapcc_tpu_torch.supervisor.Supervisor`.  The
+DETECT/PROFILE bootstrap of a multi-process world and the adaptation
+controller raise until their slices.
 """
 
 from __future__ import annotations
@@ -436,8 +438,37 @@ class Communicator:
         self._heartbeat_thread.start()
 
     def supervisor(self, prim: int = ALLREDUCE, **kwargs):
-        raise not_ported("Communicator.supervisor() (the autonomous supervisor daemon)",
-                         "the elasticity and supervisor slice")
+        """An autonomous :class:`~adapcc_tpu_torch.supervisor.Supervisor`
+        over this world: the ``prim`` engine, a coordinator logic of the
+        engine's world (the in-process coordinator's when it has that world,
+        so its heartbeats feed the daemon; a logic of its own otherwise), a
+        :class:`~adapcc_tpu_torch.elastic.StandbyPlanCache` over the engine,
+        built (its warms on this world's device), and a journal at
+        ``<topology_dir>/supervisor.journal``; any of them can be passed
+        instead."""
+        from adapcc_tpu_torch.supervisor import Supervisor
+
+        engine = kwargs.pop("engine", None) or self._engine(prim)
+        logic = kwargs.pop("logic", None)
+        if logic is None:
+            server = self._coordinator_server
+            if server is not None and server.logic.world_size == engine.world_size:
+                logic = server.logic
+            else:
+                from adapcc_tpu_torch.coordinator import CoordinatorLogic
+
+                logic = CoordinatorLogic(engine.world_size)
+        kwargs.setdefault("metrics", self.metrics)
+        kwargs.setdefault("journal_path", os.path.join(self.args.topology_dir, "supervisor.journal"))
+        if "cache" not in kwargs:
+            # every plausible shrink ranked up front: the daemon's failover is
+            # a dispatch-time cache-key switch, not a cold re-plan
+            from adapcc_tpu_torch.elastic import StandbyPlanCache
+
+            cache = StandbyPlanCache(engine, device=self.device)
+            cache.build()
+            kwargs["cache"] = cache
+        return Supervisor(logic, engine=engine, **kwargs)
 
     def adaptation_controller(self, prim: int = ALLREDUCE, trainer=None, mode: Optional[str] = None, **kwargs):
         raise not_ported("Communicator.adaptation_controller() (online adaptation)",

@@ -26,8 +26,7 @@ condition variable so waits wake on arrival instead of on a poll tick.
 A whole copy of :mod:`adapcc_tpu.coordinator.logic` (importing the reference
 module would load JAX through its package).  ``fault_plan`` is duck-typed:
 any object whose ``state_at(step)`` returns a state with ``down`` and
-``slow_map`` (the JAX package's ``elastic/faults.py`` comes with the
-elasticity slice).
+``slow_map``, as :class:`adapcc_tpu_torch.elastic.FaultPlan`'s does.
 """
 
 from __future__ import annotations

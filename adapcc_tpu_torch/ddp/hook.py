@@ -26,6 +26,8 @@ two halves of the JAX hook:
   contribution with its block-wise ``decode(encode(·))`` value before the
   float32 collective, and :meth:`GradSyncHook.sync_error_feedback` banks
   each rank's quantization error for the next step.
+  :meth:`GradSyncHook.sync_deferred` is the async relay mode's sync: a rank
+  masked out of a step banks its gradients for its next active step.
 
   ``overlap="bucket"`` (:mod:`adapcc_tpu_torch.ddp.overlap`) buckets the
   gradients on either plane and issues every bucket as chunked collectives
@@ -46,6 +48,7 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from adapcc_tpu_torch.comm import engine
 from adapcc_tpu_torch.comm.ring import resolve_chunk_bytes
@@ -311,3 +314,25 @@ class GradSyncHook:
             new_residual.append(kept)
             g.copy_(wire)
         return self._sync_impl(grads, active_mask, transposed, order), new_residual
+
+    def sync_deferred(
+        self, grads: List[torch.Tensor], deferred: List[torch.Tensor], active_mask: torch.Tensor,
+        transposed: Optional[Sequence[bool]] = None, order: Optional[Sequence[int]] = None,
+    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Async (non-BSP) relay sync: ``(synced, new_deferred)``.
+
+        The reference's non-BSP mode replays a straggler's recorded buckets
+        through relay ranks so its gradients still land (commu.py:160-170,
+        427-431).  Here the replay is a per-rank bank: every rank's
+        contribution is ``grads + deferred`` (each in the gradient's dtype);
+        a rank masked out of this step banks that sum for its next active
+        step, when the masked allreduce folds it into the average, and an
+        active rank leaves with a cleared bank.  The bank is one tensor per
+        gradient, in the gradient's layout; ``transposed`` and ``order`` as
+        in :meth:`sync`.  This process's rank is its place in the default
+        process group."""
+        contrib = [g + d for g, d in zip(grads, deferred)]
+        active = bool(active_mask[dist.get_rank()])
+        # banked before the sync, which reduces the contributions in place
+        new_deferred = [torch.zeros_like(c) if active else c.clone() for c in contrib]
+        return self.sync(contrib, active_mask, transposed, order), new_deferred

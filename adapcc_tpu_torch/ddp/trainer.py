@@ -40,6 +40,14 @@ the policy re-choose the codec and the schedule, adopting a winner for the
 next step.  ``ADAPCC_TUNER=off`` turns it off; ``record`` measures without
 steering.
 
+``bsp=False`` is the async relay mode: a rank masked out of a step banks
+its gradients (the hook's ``sync_deferred``) and contributes them at its next
+active step; it needs a dynamic mask, and refuses error feedback and
+``overlap="microbatch"``.  ``attach_supervisor`` hands the step's mask to an
+out-of-band supervisor, whose strategy swaps arrive through
+``adopt_strategy``; ``prewarm`` builds a standby strategy's configuration
+without touching the training state.
+
 ``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
 the torch optimizer with optax's defaults.
@@ -166,11 +174,9 @@ class DDPTrainer:
         if zero1:
             raise _not_ported(
                 "ZeRO-1 optimizer sharding in DDPTrainer (one process per card)",
-                "the per-process ring slice; the single-controller ZeRO-1 ring "
-                "step is adapcc_tpu_torch.parallel.fsdp.zero1_train_step",
+                "the ZeRO-1 elastic-state slice (zero1_ring=True with the per-process ring slice); "
+                "the single-controller ZeRO-1 ring step is adapcc_tpu_torch.parallel.fsdp.zero1_train_step",
             )
-        if not bsp:
-            raise _not_ported("the async relay mode (bsp=False)", "the engine's relay planes")
         if measure_gns:
             raise _not_ported("gradient-noise-scale measurement", "the measurement slice")
         if strategy.world_size != mesh.world_size:
@@ -202,8 +208,17 @@ class DDPTrainer:
         #: this rank's error-feedback bank: one float32 tensor per parameter
         #: (created at the first step), replaced every step
         self._residual: Optional[List[torch.Tensor]] = None
-        # a coordinator-attached trainer negotiates every step's mask
-        self._dynamic_mask = bool(dynamic_mask) if dynamic_mask is not None else communicator is not None
+        self.bsp = bsp
+        #: the async relay's bank (``bsp=False``): one tensor per parameter in
+        #: its dtype (created at the first step), replaced every step
+        self._deferred: Optional[List[torch.Tensor]] = None
+        #: an attached out-of-band supervisor (:meth:`attach_supervisor`)
+        self._supervisor: Optional[Any] = None
+        # a coordinator-attached or async-relay trainer takes a mask every step
+        self._dynamic_mask = (bool(dynamic_mask) if dynamic_mask is not None
+                              else communicator is not None or not bsp)
+        if not bsp and not self._dynamic_mask:
+            raise ValueError("async relay (bsp=False) needs a runtime active mask")
         if communicator is not None and not self._dynamic_mask:
             raise ValueError(
                 "a coordinator-attached trainer must run a dynamic-mask step: "
@@ -361,6 +376,13 @@ class DDPTrainer:
                 self._residual = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
             _, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed,
                                                               order)
+        elif not self.bsp:
+            loss, grads = self._value_and_grad(state.model, batch)
+            if self._deferred is None:
+                self._deferred = [torch.zeros_like(g) for g in grads]
+            synced, self._deferred = self.hook.sync_deferred(grads, self._deferred, active_mask, transposed, order)
+            for g, s in zip(grads, synced):
+                g.copy_(s)
         else:
             loss, _ = self._loss_and_synced(state.model, batch, active_mask, order, transposed)
         state.optimizer.step()
@@ -398,6 +420,10 @@ class DDPTrainer:
                 "this trainer runs a static full-world step; pass "
                 "dynamic_mask=True to drive explicit active masks"
             )
+        if active_mask is None and self._supervisor is not None:
+            # supervised: the daemon owns detect → decide → swap, and the step
+            # takes the mask of its last actuated view
+            active_mask = torch.as_tensor(self._supervisor.current_mask(), dtype=torch.bool)
         if self._dynamic_mask and active_mask is None:
             active_mask = self.hook.negotiate(idx)
         key = self._program_key()
@@ -420,10 +446,81 @@ class DDPTrainer:
         (``ADAPCC_TUNER=off`` turns it off everywhere)."""
         return self.tune and self.tuner is not None and self.tuner.recording
 
-    def _program_key(self) -> tuple:
+    def _program_key(self, strategy: Optional[Strategy] = None) -> tuple:
         """What a step's configuration is: the strategy, the wire codec and
         the overlap schedule (the JAX trainer's compiled-step key)."""
-        return (self.hook.strategy.fingerprint(), self.hook.effective_compress(), self.overlap)
+        s = strategy if strategy is not None else self.hook.strategy
+        return (s.fingerprint(), self.hook.effective_compress(), self.overlap)
+
+    # -- strategy swaps: re-synthesis and elastic failover ------------------------
+
+    def rebuild(self, strategy: Strategy) -> None:
+        """Swap in a new strategy for the next step (the bucket plan is
+        recorded again at its first sync).  A configuration already built
+        (stepped or prewarmed) starts no new build generation."""
+        self.hook.strategy = strategy
+        self.hook.reset_plan()
+
+    @property
+    def recompiles(self) -> int:
+        """Build generations so far: configurations stepped or prewarmed
+        (the JAX trainer's count of compiled step programs).  A failover
+        onto a prewarmed strategy must not move it."""
+        return self._build_gen
+
+    def prewarm(self, strategy: Strategy, state: TrainState, batch: Any = None,
+                active_mask: Optional[torch.Tensor] = None) -> bool:
+        """Build what a step under the standby ``strategy`` keys on, so a
+        later :meth:`adopt_strategy` is a switch with nothing derived on the
+        failover step: the configuration's build generation, the hook's
+        bucket plan and the schedule plane's merged plan for the standby
+        strategy on the real gradient shapes.  It syncs zeros shaped like
+        the gradients through the hook (a collective: every rank calls it,
+        as it calls ``step``), never through the optimizer, so the model,
+        the optimizer's state and the deferred and residual banks are left
+        bit for bit as they were (the JAX trainer's throwaway step would
+        update the port's state in place).  ``batch`` is taken for the JAX
+        trainer's signature; the shapes are the parameters'.  Returns False
+        when the configuration was already built."""
+        saved = self.hook.strategy
+        # the key resolves under the swapped strategy: a "strategy" codec is
+        # the standby's
+        self.hook.strategy = strategy
+        try:
+            key = self._program_key()
+            if key in self._built:
+                return False
+            if self._dynamic_mask and active_mask is None:
+                active_mask = torch.ones((strategy.world_size,), dtype=torch.bool)
+            order, transposed = self._sync_layout(state.model)
+            zeros = [torch.zeros_like(p) for p in state.model.parameters()]
+            self.hook.sync(zeros, active_mask, transposed, order)
+            self._built.add(key)
+            self._build_gen += 1
+        finally:
+            self.hook.strategy = saved
+        return True
+
+    def attach_supervisor(self, supervisor) -> "DDPTrainer":
+        """Hand membership to an out-of-band
+        :class:`~adapcc_tpu_torch.supervisor.Supervisor`: every ``step``
+        without an explicit ``active_mask`` takes its last actuated mask,
+        and its strategy swaps arrive through :meth:`adopt_strategy`.  Needs
+        a dynamic-mask trainer."""
+        if supervisor is not None and not self._dynamic_mask:
+            raise ValueError(
+                "a supervised trainer needs dynamic_mask=True: the supervisor's world changes arrive as "
+                "runtime masks, and a static full-world step could not shrink without a retrace"
+            )
+        self._supervisor = supervisor
+        return self
+
+    def adopt_strategy(self, strategy: Strategy) -> bool:
+        """Hot-swap the step onto ``strategy``: True when its configuration
+        was already built (stepped or prewarmed), False when the next step
+        builds it."""
+        self.rebuild(strategy)
+        return self._program_key() in self._built
 
     def _step_cell(self, grad_bytes: int):
         """The database cell the current configuration's step times pool

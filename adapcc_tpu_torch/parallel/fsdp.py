@@ -227,7 +227,7 @@ class Zero1Optimizer:
         shard_replicas: int = 0,
     ) -> None:
         if shard_replicas:
-            raise not_ported("ZeRO-1 shard replicas", "the elasticity slice")
+            raise not_ported("ZeRO-1 shard replicas", "the ZeRO-1 elastic-state slice")
         if overlap == "microbatch":
             raise ValueError(
                 "Zero1Optimizer has no microbatch axis to pipeline over — microbatch overlap lives in "

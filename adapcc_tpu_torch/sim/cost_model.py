@@ -2,8 +2,9 @@
 the hook prices its overlap schedules with.
 
 The port of the part of :mod:`adapcc_tpu.sim.cost_model` that the tuner
-(:mod:`adapcc_tpu_torch.tuner.policy`) and the gradient hook call, formula
-for formula.  One point-to-point transfer of ``n`` bytes costs
+(:mod:`adapcc_tpu_torch.tuner.policy`), the gradient hook, the simulator's
+ranking (the lower bounds, the ``sim-rank`` codec choice) and the failover
+pricing call, formula for formula.  One point-to-point transfer of ``n`` bytes costs
 
     t(n) = α + β·n          α = fixed latency [s], β = inverse bandwidth [s/B]
 
@@ -21,6 +22,7 @@ arguments left at None take this module's default at call time.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -195,6 +197,20 @@ class LinkCostModel:
                 )
         return model
 
+    def degraded(self, slow_ranks: Sequence[int], slowdown: float) -> "LinkCostModel":
+        """A copy with every link touching a slow rank ``slowdown`` ≥ 1 times
+        dearer (both terms): the straggler scenario the relay rule prices."""
+        if slowdown < 1.0:
+            raise ValueError(f"slowdown must be >= 1, got {slowdown}")
+        model = LinkCostModel(self.world, dict(self.links), dict(self.classes), self.ips, source=self.source)
+        for r in set(slow_ranks):
+            for other in range(self.world):
+                if other == r:
+                    continue
+                for link in ((r, other), (other, r)):
+                    model.links[link] = self.coeffs(*link).scaled(slowdown)
+        return model
+
     def with_ips(self, ips: Optional[Mapping[int, str]]) -> "LinkCostModel":
         """A copy pricing the same coefficients under ``ips``'s host layout."""
         return LinkCostModel(self.world, links=self.links, classes=self.classes, ips=ips, source=self.source)
@@ -266,6 +282,70 @@ def staged_ring_allreduce_time(
     return seed + (world - 1) * tiles * (rs_iter + ag_iter)
 
 
+# --------------------------------------------------------------------------- #
+# lower bounds: the latency and bandwidth floors no schedule beats, against
+# which every ranked candidate's optimality gap is stated
+# --------------------------------------------------------------------------- #
+
+#: collectives the lower bounds cover (``sim.replay.COLLECTIVES``; repeated
+#: here because replay imports this module)
+_LB_COLLECTIVES = ("allreduce", "reduce", "broadcast")
+
+
+def fastest_coeffs(model: LinkCostModel) -> LinkCoeffs:
+    """The smallest α and the smallest β any link offers, taken apart: the
+    intra-host class, the inter-host class where an ip table routes over it,
+    and every per-link fit."""
+    coeffs = [model.classes[ICI]]
+    if model.ips is not None:
+        coeffs.append(model.classes[DCN])
+    coeffs.extend(model.links.values())
+    return LinkCoeffs(alpha=min(c.alpha for c in coeffs), beta=min(c.beta for c in coeffs))
+
+
+def _check_lb_collective(collective: str) -> None:
+    if collective not in _LB_COLLECTIVES:
+        raise ValueError(f"unknown collective {collective!r}; expected one of {_LB_COLLECTIVES}")
+
+
+def latency_lower_bound(model: LinkCostModel, collective: str = "allreduce", world: Optional[int] = None) -> float:
+    """``α·⌈log₂ p⌉``: the informed set at best doubles a message start, each
+    start at least the cheapest α.  ``world`` is the participant count of a
+    relay-masked collective."""
+    _check_lb_collective(collective)
+    p = model.world if world is None else int(world)
+    if p <= 1:
+        return 0.0
+    return math.ceil(math.log2(p)) * fastest_coeffs(model).alpha
+
+
+def bandwidth_lower_bound(model: LinkCostModel, nbytes: float, collective: str = "allreduce",
+                          world: Optional[int] = None) -> float:
+    """The byte floor of the busiest port at the cheapest β: ``2(p−1)/p·n``
+    for an allreduce, ``(p−1)/p·n`` for a reduce or a broadcast."""
+    _check_lb_collective(collective)
+    p = model.world if world is None else int(world)
+    n = float(nbytes)
+    if p <= 1 or n <= 0:
+        return 0.0
+    factor = 2.0 * (p - 1) / p if collective == "allreduce" else (p - 1) / p
+    return factor * n * fastest_coeffs(model).beta
+
+
+def collective_lower_bound(model: LinkCostModel, nbytes: float, collective: str = "allreduce",
+                           world: Optional[int] = None) -> float:
+    """Latency floor plus bandwidth floor (they bound disjoint costs)."""
+    return latency_lower_bound(model, collective, world) + bandwidth_lower_bound(model, nbytes, collective, world)
+
+
+def optimality_gap(seconds: float, lower_bound_s: float) -> float:
+    """``seconds / LB − 1``; 0 where the bound is degenerate.  Never clamped:
+    a negative gap would mean the bound is wrong."""
+    if lower_bound_s <= 0:
+        return 0.0
+    return seconds / lower_bound_s - 1.0
+
+
 def wire_bytes_per_element(wire_dtype: str, block_size: int = DEFAULT_QUANT_BLOCK, elem_bytes: float = 4.0) -> float:
     """Wire bytes of one payload element under a codec: the payload's own,
     a bf16 cast, or int8 codes plus the block's float32 scale."""
@@ -300,6 +380,25 @@ def quantized_ring_allreduce_time(
     rs_hop = 3.0 * codec_pass + coeffs.time(wire_chunk)
     ag_hop = 1.0 * codec_pass + coeffs.time(wire_chunk)
     return (world - 1) * (rs_hop + ag_hop)
+
+
+def choose_wire_dtype(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    block_size: int = DEFAULT_QUANT_BLOCK,
+    candidates: Sequence[str] = WIRE_DTYPE_CANDIDATES,
+    codec_bytes_per_s: Optional[float] = None,
+) -> Tuple[str, Dict[str, float]]:
+    """The cheapest wire codec of a ring allreduce on ``coeffs`` (the
+    ``sim-rank`` policy's codec): ``(winner, {codec: seconds})``, ties to the
+    earlier candidate, so ``"off"`` survives an equal alternative."""
+    if not candidates:
+        raise ValueError("need at least one wire_dtype candidate")
+    times = {wd: quantized_ring_allreduce_time(world, nbytes, coeffs, wd, block_size, codec_bytes_per_s)
+             for wd in candidates}
+    winner = min(candidates, key=lambda wd: times[wd])
+    return winner, times
 
 
 def fused_quantized_ring_allreduce_time(
@@ -705,3 +804,107 @@ def schedule_program_time(program, nbytes: float, coeffs: LinkCoeffs, per_dispat
 
         total += per_dispatch_s * float(sum(round_dispatch_counts(program)))
     return total
+
+
+# --------------------------------------------------------------------------- #
+# failover pricing: detection latency, the plan-swap stall and the degraded
+# steady state, the three terms a world shrink costs
+# --------------------------------------------------------------------------- #
+
+#: a plan swap when the standby cache holds the prepared plan: a cache-key
+#: switch and the dispatch.  The JAX package's round-number prior, kept so
+#: the two packages price a fault plan alike; it was never measured on the
+#: card (``chip_smoke.py`` phase 17 times the port's swap beside it)
+DEFAULT_PLAN_SWAP_DISPATCH_S = 250e-6
+
+#: a cold plan swap's extra cost, the JAX package's round-number prior for a
+#: trace and compile of the degraded schedule (the port derives round tables
+#: instead of compiling; phase 17 times that too)
+DEFAULT_COLD_COMPILE_S = 2.0
+
+#: re-synthesis walltime folded into a full rebuild (the JAX package's prior)
+DEFAULT_RESYNTHESIS_S = 0.1
+
+
+def detection_latency_s(heartbeat_timeout_s: float, step_time_s: float = 0.0) -> float:
+    """From a rank dying to the coordinator knowing: half a step (the death
+    lands uniformly inside one) plus the heartbeat timeout."""
+    if heartbeat_timeout_s < 0 or step_time_s < 0:
+        raise ValueError("heartbeat timeout / step time must be >= 0")
+    return 0.5 * step_time_s + heartbeat_timeout_s
+
+
+def supervised_detection_latency_s(heartbeat_period_s: float, heartbeat_timeout_s: float, grace: int,
+                                   sweep_period_s: float = 0.0) -> float:
+    """From a rank dying to the supervisor confirming it dead: half a
+    heartbeat period, the suspicion timeout, ``grace`` further periods and
+    half a sweep period."""
+    if heartbeat_period_s <= 0 or heartbeat_timeout_s < 0 or sweep_period_s < 0:
+        raise ValueError("heartbeat period must be > 0, timeout/sweep period >= 0")
+    if grace < 1:
+        raise ValueError(f"grace must be >= 1, got {grace}")
+    return 0.5 * heartbeat_period_s + heartbeat_timeout_s + grace * heartbeat_period_s + 0.5 * sweep_period_s
+
+
+def plan_swap_stall_s(standby_cached: bool, dispatch_s: Optional[float] = None,
+                      compile_s: Optional[float] = None) -> float:
+    """The failover step's stall: the dispatch of a prepared plan, plus the
+    cold preparation where the standby cache did not hold it.  Arguments
+    left at None take this module's defaults at call time."""
+    dispatch = DEFAULT_PLAN_SWAP_DISPATCH_S if dispatch_s is None else dispatch_s
+    compile_ = DEFAULT_COLD_COMPILE_S if compile_s is None else compile_s
+    return dispatch if standby_cached else dispatch + compile_
+
+
+def failover_cost(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    n_down: int = 1,
+    slowdown: Optional[float] = None,
+    heartbeat_timeout_s: float = 1.0,
+    step_time_s: float = 0.0,
+    standby_cached: bool = True,
+    wire_dtype: str = "off",
+) -> Dict[str, float]:
+    """One fault end to end: ``healthy_s`` (the full-world ring),
+    ``undetected_s`` (a slow rank stretching every hop, or a dead one
+    costing the heartbeat timeout a step), ``degraded_s`` (the ring of the
+    ``world − n_down`` survivors), ``degraded_ratio``, the one-time
+    ``detection_s`` and ``swap_s``, and ``failover_total_s`` (their sum)."""
+    if world < 2:
+        raise ValueError(f"failover pricing needs world >= 2, got {world}")
+    if not 0 < n_down < world:
+        raise ValueError(f"n_down must be in (0, {world}), got {n_down}")
+    healthy = quantized_ring_allreduce_time(world, nbytes, coeffs, wire_dtype)
+    if slowdown is not None:
+        undetected = quantized_ring_allreduce_time(world, nbytes, coeffs.scaled(slowdown), wire_dtype)
+    else:
+        # a dead rank's ring never completes: until detection every step
+        # burns the heartbeat timeout
+        undetected = heartbeat_timeout_s
+    degraded = quantized_ring_allreduce_time(world - n_down, nbytes, coeffs, wire_dtype)
+    detection = detection_latency_s(heartbeat_timeout_s, step_time_s)
+    swap = plan_swap_stall_s(standby_cached)
+    return {
+        "healthy_s": healthy,
+        "undetected_s": undetected,
+        "degraded_s": degraded,
+        "degraded_ratio": degraded / healthy if healthy > 0 else 1.0,
+        "detection_s": detection,
+        "swap_s": swap,
+        "failover_total_s": detection + swap,
+    }
+
+
+def full_rebuild_stall_s(world: int, coeffs: LinkCoeffs, compile_s: Optional[float] = None,
+                         synthesis_s: Optional[float] = None) -> float:
+    """One ``reconstruct_topology`` cycle: every directed pair's two probes,
+    re-synthesis and the cold preparation of the new schedule."""
+    world = int(world)
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    compile_ = DEFAULT_COLD_COMPILE_S if compile_s is None else compile_s
+    synthesis = DEFAULT_RESYNTHESIS_S if synthesis_s is None else synthesis_s
+    probes = world * max(0, world - 1) * (coeffs.time(LATENCY_PROBE_BYTES) + coeffs.time(BANDWIDTH_PROBE_BYTES))
+    return probes + synthesis + compile_

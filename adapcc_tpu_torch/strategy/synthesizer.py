@@ -5,23 +5,21 @@ reference's policy dispatch (gurobi/synthesizer.py:44-62): the default
 heuristic is ParTrees; ``milp`` is the exact formulation
 (:mod:`adapcc_tpu_torch.strategy.solver`); ``ring`` and ``binary`` are fixed
 shapes that need no profile; ``hier`` synthesizes the two-level plan of a
-multi-host world (:mod:`adapcc_tpu_torch.strategy.hierarchy`).  The
-simulated ranking pass (``sim-rank``) raises until the simulator slice.
+multi-host world (:mod:`adapcc_tpu_torch.strategy.hierarchy`); ``sim-rank``
+synthesizes every cheap candidate (ParTrees, ring, binary) and commits to the
+one the calibrated α-β replay (:mod:`adapcc_tpu_torch.sim`) predicts fastest,
+with the wire codec priced on its bottleneck link.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import sys
+from typing import List, Optional, Sequence, Tuple
 
 from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES, not_ported
 from adapcc_tpu_torch.strategy.ir import Strategy
 from adapcc_tpu_torch.strategy.partrees import ParTrees
 from adapcc_tpu_torch.strategy.xml_io import emit_strategy_xml
-
-#: the policies of the JAX package that wait for a later slice, and that slice
-_WAITING_POLICIES = {
-    "sim-rank": ("the simulated ranking policy", "the simulator slice (sim/)"),
-}
 
 
 class Synthesizer:
@@ -79,8 +77,9 @@ class Synthesizer:
                 self.ip_table, local_rank0_list, prim, parallel_degree, transmission_size,
                 bandwidth_graph, latency_graph,
             )
-        if self.policy in _WAITING_POLICIES:
-            raise not_ported(*_WAITING_POLICIES[self.policy])
+        if self.policy == "sim-rank":
+            return self._sim_ranked(prim, parallel_degree, transmission_size, bandwidth_graph, latency_graph,
+                                    local_rank0_list)
         if self.policy == "hier":
             return self._hierarchical(parallel_degree, transmission_size, bandwidth_graph, latency_graph)
         ips = {r: ip for r, ip in enumerate(self.ip_table)}
@@ -116,6 +115,106 @@ class Synthesizer:
         nbytes = transmission_size if transmission_size and transmission_size > 0 else DEFAULT_CHUNK_BYTES
         plan = hierarchy.synthesize_two_level(sketch, model, nbytes=nbytes, num_trans=max(1, parallel_degree))
         return plan.strategy
+
+    # -- the simulated ranking pass --------------------------------------------
+
+    def candidates(
+        self,
+        parallel_degree: int,
+        bandwidth_graph: Sequence[Sequence[float]],
+        latency_graph: Sequence[Sequence[float]],
+        local_rank0_list: Optional[Sequence[int]] = None,
+    ) -> List[Tuple[str, Strategy]]:
+        """Every cheap candidate shape, ParTrees first so a predicted tie
+        keeps the default heuristic.  A ParTrees failure (a degenerate
+        topology) leaves the fixed shapes to compete and says so on
+        stderr."""
+        world = len(self.ip_table)
+        if local_rank0_list is None:
+            local_rank0_list = _infer_local_rank0s(self.ip_table)
+        ips = {r: ip for r, ip in enumerate(self.ip_table)}
+        degree = max(1, parallel_degree)
+        out: List[Tuple[str, Strategy]] = []
+        try:
+            out.append(("par-trees", ParTrees().synthesize(
+                self.ip_table, local_rank0_list, degree, bandwidth_graph, latency_graph)))
+        except Exception as e:  # noqa: BLE001
+            print(f"[synthesizer] par-trees candidate dropped: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        out.append(("ring", Strategy.ring(world, degree, ips)))
+        out.append(("binary", Strategy.binary(world, degree, ips)))
+        return out
+
+    def rank(
+        self,
+        candidates: Sequence[Tuple[str, Strategy]],
+        nbytes: int,
+        bandwidth_graph: Optional[Sequence[Sequence[float]]] = None,
+        latency_graph: Optional[Sequence[Sequence[float]]] = None,
+        collective: str = "allreduce",
+        model=None,
+        engine: Optional[str] = None,
+    ):
+        """Labeled candidates fastest-first on the α-β replay
+        (:class:`~adapcc_tpu_torch.sim.rank.RankedCandidate` rows, each with
+        its optimality gap), under ``model``, else the profiled matrices,
+        else the calibration artifact or the defaults."""
+        from adapcc_tpu_torch import sim
+
+        if model is None:
+            model = self._cost_model(bandwidth_graph, latency_graph)
+        return sim.rank_candidates(list(candidates), model, max(1, int(nbytes)), collective, engine=engine)
+
+    def resynthesize(self, model, nbytes: int, *args, **kwargs):
+        raise not_ported("Synthesizer.resynthesize (the online re-rank)", "the adaptation-loop slice")
+
+    def _cost_model(self, bandwidth_graph, latency_graph):
+        import numpy as np
+
+        from adapcc_tpu_torch.sim.calibrate import load_or_default
+        from adapcc_tpu_torch.sim.cost_model import LinkCostModel
+
+        world = len(self.ip_table)
+        ips = {r: ip for r, ip in enumerate(self.ip_table)}
+        if bandwidth_graph is not None and latency_graph is not None:
+            bw = np.asarray(bandwidth_graph, dtype=float)
+            lat = np.asarray(latency_graph, dtype=float)
+            if bw.shape == (world, world) and (bw > 0).any():
+                return LinkCostModel.from_matrices(lat, bw, ips, source="profile-graphs")
+        model = load_or_default(world=world)
+        if model.ips is None:
+            # the fallback still prices cross-host edges as DCN
+            model = model.with_ips(ips)
+        return model
+
+    def _sim_ranked(self, prim: int, parallel_degree: int, transmission_size: int, bandwidth_graph,
+                    latency_graph, local_rank0_list) -> Strategy:
+        """The ``sim-rank`` policy: rank on the primitive being synthesized
+        (the scatter/gather family on allreduce, the superset schedule),
+        label the winner ``<shape>+sim-rank`` and price its codec."""
+        from adapcc_tpu_torch.primitives import BROADCAST, REDUCE
+
+        collective = {REDUCE: "reduce", BROADCAST: "broadcast"}.get(prim, "allreduce")
+        nbytes = transmission_size if transmission_size > 0 else DEFAULT_CHUNK_BYTES
+        ranked = self.rank(self.candidates(parallel_degree, bandwidth_graph, latency_graph, local_rank0_list),
+                           nbytes, bandwidth_graph, latency_graph, collective=collective)
+        winner = ranked[0]
+        winner.strategy.synthesis = f"{winner.label}+sim-rank"
+        winner.strategy.wire_dtype = self._choose_wire_dtype(winner.strategy, nbytes, bandwidth_graph, latency_graph)
+        return winner.strategy
+
+    def _choose_wire_dtype(self, strategy: Strategy, nbytes: int, bandwidth_graph, latency_graph) -> str:
+        """The cheapest wire codec on the strategy's bottleneck link (a
+        lockstep schedule advances at its slowest edge); the choice rides
+        the strategy XML."""
+        from adapcc_tpu_torch.sim.cost_model import choose_wire_dtype
+
+        model = self._cost_model(bandwidth_graph, latency_graph)
+        edges = [(parent, child) for tree in strategy.trees for child, parent in tree.parent.items()]
+        if not edges:  # world 1: nothing crosses a wire
+            return "off"
+        bottleneck = max((model.coeffs(s, d) for s, d in edges), key=lambda c: c.time(1 << 20))
+        choice, _ = choose_wire_dtype(strategy.world_size, max(1, int(nbytes)), bottleneck)
+        return choice
 
 
 def _infer_local_rank0s(ip_table: Sequence[str]) -> List[int]:

@@ -204,6 +204,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against float32's; (d) a recording tuner fills the ``ir`` and ``ir-opt``
    cells, which join a grid that names "ir" and no default grid.  No kernel
    lies on this path: phase 16 launches none, and fails if it does.
+17. slice 14's main path, elastic failover and the supervisor on phase 11a's
+   world-8 bf16 gradients over ``4-4_1.xml``: (a) ``StandbyPlanCache.build``
+   ranks the 10 shrink scenarios (8 one-rank-down, 2 one-host-down) on the
+   cost model's H100 defaults (labels, shapes, predicted seconds, the build's
+   host seconds), and ``warm`` prepares the top 4 on every bucket's shape;
+   (b) a ``Supervisor`` over ``CoordinatorLogic(8, fault_plan=...)`` on an
+   injected clock drives an 8-step fault plan (rank 3 slow throughout, a
+   warmed plan's rank down from step 2 to 5, an unwarmed plan's rank down
+   from step 6): each step a poll, then an AVG ``all_reduce`` of every bucket
+   under ``current_mask()`` and the supervisor's engine epoch, printing the
+   epochs, mask, plan, ``cache_hit``, device ms and synced walltime; the
+   warmed failover and the recovery are cache hits, the cold failover a
+   miss, every row identical, bucket 0 bit for bit its CPU run, every bucket
+   within ``SCHEDULE_BF16_TOL`` of the float64 masked mean, and a dispatch
+   at the pre-swap epoch raises; (c) a second ``Supervisor`` on the same
+   journal resumes to an equal WorldView with no epoch bump, and an fsync'd
+   append is timed; (d) ``simulate_fault_plan`` of the same plan beside the
+   measured walltimes; (e) the supervised ``DDPTrainer(sync_mode="schedule",
+   bsp=False)`` at world 1, 5 steps: losses bit for bit phase 11c's, then
+   ``prewarm`` (state bit for bit unchanged), ``adopt_strategy`` True and no
+   new build generation (K2–K4 counted into the kernels line); (f)
+   ``AdapCC.init(policy="sim-rank")`` at world 8, its winner and synthesis
+   seconds, and one relayed allreduce of the buckets, bucket 0 bit for bit
+   its CPU run.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -240,6 +264,7 @@ from adapcc_tpu_torch.config import CommArgs
 from adapcc_tpu_torch.coordinator import CoordinatorLogic
 from adapcc_tpu_torch.ddp.bucketing import build_bucket_plan, flatten_to_buckets
 from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
+from adapcc_tpu_torch.elastic import FaultEvent, FaultPlan, StandbyPlanCache
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
 from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
@@ -248,11 +273,12 @@ from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_me
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE
-from adapcc_tpu_torch.sim import cost_model
+from adapcc_tpu_torch.sim import cost_model, simulate_fault_plan
 from adapcc_tpu_torch.strategy import hierarchy
 from adapcc_tpu_torch.strategy.ir import Strategy
 from adapcc_tpu_torch.strategy.synthesizer import Synthesizer
 from adapcc_tpu_torch.strategy.xml_io import emit_strategy_xml, parse_strategy_xml, write_ip_table
+from adapcc_tpu_torch.supervisor import DecisionJournal, LivenessConfig, Supervisor
 from adapcc_tpu_torch.topology.profile import gather_topo_profile
 from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase, TuningPolicy, mesh_fingerprint
 from adapcc_tpu_torch.tuner import measure as tuner_measure
@@ -386,6 +412,18 @@ MILP_IPS = ["h0"] * 4 + ["h1"] * 4
 #: the calls a timing takes
 IR_BYTES = (4 << 10, 4 << 20)
 PHASE16_ITERS = 3
+#: phase 17: the supervised failover's fault plan over ``FAILOVER_STEPS``
+#: steps: rank ``SCHEDULE_ACTIVE``'s relay (3) slow throughout, a warmed
+#: one-rank-down plan's rank down at ``FAILOVER_DOWN[0]`` and back at
+#: ``FAILOVER_DOWN[1]``, a built but unwarmed plan's rank down at
+#: ``FAILOVER_COLD_STEP``; the top ``FAILOVER_WARM_K`` plans are warmed
+FAILOVER_STEPS = 8
+FAILOVER_SLOW = 3
+FAILOVER_DOWN = (2, 5)
+FAILOVER_COLD_STEP = 6
+FAILOVER_WARM_K = 4
+#: fsync'd journal appends a timing takes
+JOURNAL_APPENDS = 20
 #: profiler captures a device timing takes before an empty one is a
 #: failure: on an NVIDIA H100 80GB HBM3 at 700 W with torch 2.11 the
 #: profiler has come back with no device record for a library yardstick and
@@ -2141,7 +2179,7 @@ def _plain_cell(x: torch.Tensor, key) -> torch.Tensor:
     """The plain version of the cell a ring_allreduce dispatch ran: the
     latency plane's executor on CPU copies, or the plain ring walk."""
     if key.path in ALGO_PATHS:
-        return CollectiveEngine(x.shape[0], Strategy.ring(x.shape[0]))._latency_allreduce(x.cpu(), key.path)
+        return CollectiveEngine(x.shape[0], Strategy.ring(x.shape[0]))._latency_allreduce(x.cpu(), key.path)[0]
     return plain_allreduce(x, key.wire_dtype)
 
 
@@ -2573,6 +2611,293 @@ def slice13(dev: torch.device, buckets: list, ref_ms: float, smi: str) -> dict:
     return p16
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: elastic failover and the supervisor (slice 14)
+# --------------------------------------------------------------------------- #
+
+
+def standby_ranking(buckets: list) -> tuple:
+    """17(a): the standby cache of the world-8 engine over ``4-4_1.xml``,
+    ranked on the cost model's H100 defaults, the top plans warmed on every
+    bucket's shape (AVG, the op of 17(b)).  Returns (engine, trace, cache,
+    per-rank bytes)."""
+    trace = CollectiveTrace()
+    eng = CollectiveEngine(SCHEDULE_WORLD, parse_strategy_xml(SCHEDULE_XML), trace=trace)
+    per_rank = sum(b[0].numel() * b.element_size() for b in buckets)
+    cache = StandbyPlanCache(eng, nbytes=per_rank, top_k=FAILOVER_WARM_K,
+                             cost_model=cost_model.LinkCostModel(SCHEDULE_WORLD, source="defaults"),
+                             device=buckets[0].device)
+    t0 = time.perf_counter()
+    plans = cache.build()
+    build_s = time.perf_counter() - t0
+    print(f"failover 17a: StandbyPlanCache.build() of {len(plans)} scenarios in {build_s:.4f} s (host), "
+          f"{per_rank / 2**20:.1f} MiB a rank, cost model {cache.cost_model!r} (H100 defaults)", flush=True)
+    for p in plans:
+        print(f"failover 17a: {p.label:16s} {p.strategy.synthesis} x{p.strategy.num_trans} predicted "
+              f"{p.predicted_s * 1e3:.4f} ms", flush=True)
+    if len(plans) != SCHEDULE_WORLD + 2 or sum(p.label.startswith("host") for p in plans) != 2:
+        raise RuntimeError(f"17a: expected {SCHEDULE_WORLD} one-rank-down and 2 one-host-down plans, got "
+                           f"{[p.label for p in plans]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in buckets:
+        warmed = cache.warm((b.shape[1],), b.dtype, op=ReduceOp.AVG)
+    torch.cuda.synchronize()
+    print(f"failover 17a: warm of the top {FAILOVER_WARM_K} ({[p.label for p in warmed]}) on the {len(buckets)} "
+          f"bucket shapes in {time.perf_counter() - t0:.4f} s ({FAILOVER_WARM_K * len(buckets)} zeros "
+          f"dispatches); engine strategy restored {eng.strategy is cache.base_strategy}", flush=True)
+    if eng.strategy is not cache.base_strategy:
+        raise RuntimeError("17a: warm left the engine on a standby strategy")
+    return eng, trace, cache, per_rank
+
+
+def _one_rank_down(plans, exclude) -> int:
+    """The rank of the first one-rank-down plan of ``plans`` whose rank is
+    not in ``exclude``."""
+    return next(int(p.label[4:-5]) for p in plans if p.label.startswith("rank") and int(p.label[4:-5]) not in exclude)
+
+
+def supervised_failover(eng, trace, cache, buckets: list, workdir: str, smi: str) -> tuple:
+    """17(b)-(c): the supervised failover on the card, then a restart on the
+    same journal.  Returns (fault plan, per-step synced walltime ms)."""
+    ranked = cache.ranked()
+    warm_rank = _one_rank_down(ranked[:FAILOVER_WARM_K], {FAILOVER_SLOW})
+    cold_rank = _one_rank_down(ranked[FAILOVER_WARM_K:], {FAILOVER_SLOW, warm_rank})
+    plan = FaultPlan([FaultEvent(0, "slow", FAILOVER_SLOW), FaultEvent(FAILOVER_DOWN[0], "down", warm_rank),
+                      FaultEvent(FAILOVER_DOWN[1], "recover", warm_rank),
+                      FaultEvent(FAILOVER_COLD_STEP, "down", cold_rank)], SCHEDULE_WORLD, label="phase17")
+    logic = CoordinatorLogic(SCHEDULE_WORLD, fault_plan=plan)
+    step = [0]
+    clock = [0.0]
+    journal = os.path.join(workdir, "supervisor.journal")
+    config = LivenessConfig(timeout_s=100.0, period_s=1.0, grace=1)
+    sup = Supervisor(logic, cache=cache, fault_plan=plan, step_source=lambda: step[0], journal_path=journal,
+                     config=config, clock=lambda: clock[0])
+    print(f"failover 17b: plan {[e.to_dict() for e in plan.events]} (rank {warm_rank}: best-ranked warmed "
+          f"one-rank-down plan; rank {cold_rank}: built, not warmed)", flush=True)
+    # bucket 0's CPU run, once a (strategy, active set): the steps between two
+    # swaps repeat the same call, whose card result must repeat too
+    cpu_b0, cpu_refs = buckets[0].cpu(), {}
+    walls, hits = [], {}
+    for s in range(FAILOVER_STEPS):
+        step[0], clock[0] = s, float(s)
+        t0 = time.perf_counter()
+        taken = sup.poll()
+        poll_ms = (time.perf_counter() - t0) * 1e3
+        active = sup.applied_view.active_list()
+        epoch = sup.engine_epoch
+        n_before = len(trace.events())
+
+        def dispatch(active=active, epoch=epoch):
+            return [eng.all_reduce(b, active_gpus=active, op=ReduceOp.AVG, epoch=epoch) for b in buckets]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = dispatch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        walls.append(wall_ms)
+        events = [e for e in trace.events()[n_before:] if e.primitive == "allreduce"]
+        hit = [bool(e.extra["cache_hit"]) for e in events]
+        hits[s] = hit
+        dev_ms, dev_launches = device_stats(dispatch, iters=1, warmup=0)
+        label = next((p.label for p in cache.plans.values() if p.strategy is eng.strategy), "base")
+        rows_same = all(same_bits(o[r], o[0]) for o in outs for r in range(1, SCHEDULE_WORLD))
+        act = torch.tensor(active, device=buckets[0].device)
+        within = all(bool(((o[0].double() - b.index_select(0, act).double().mean(0)).abs()
+                           <= SCHEDULE_BF16_TOL * b.index_select(0, act).double().abs().mean(0)).all())
+                     for o, b in zip(outs, buckets))
+        key = (eng.strategy.fingerprint(), tuple(active))
+        if key not in cpu_refs:
+            cpu_refs[key] = CollectiveEngine(SCHEDULE_WORLD, eng.strategy).all_reduce(
+                cpu_b0, active_gpus=active, op=ReduceOp.AVG).to(buckets[0].device)
+        exact = same_bits(outs[0], cpu_refs[key])
+        print(f"failover 17b step {s}: decisions {[d['kind'] for d in taken]} (poll {poll_ms:.3f} ms); WorldView "
+              f"epoch {sup.worldview().epoch}, engine epoch {epoch}; mask {sup.current_mask().astype(int).tolist()}; "
+              f"plan {label}; cache_hit {hit}; synced walltime {wall_ms:.3f} ms, device {dev_ms:.4f} ms "
+              f"({dev_launches} launches); rows identical {'ok' if rows_same else 'FAIL'}, within "
+              f"{SCHEDULE_BF16_TOL} of the float64 mean {'ok' if within else 'FAIL'}, bucket 0 bit for bit CPU "
+              f"{'ok' if exact else 'FAIL'}", flush=True)
+        if not (rows_same and within and exact):
+            raise RuntimeError(f"17b step {s} failed its checks")
+        if s == FAILOVER_DOWN[0]:
+            try:
+                eng.all_reduce(buckets[0], active_gpus=active, op=ReduceOp.AVG, epoch=epoch - 1)
+            except comm_engine.EpochMismatch as e:
+                print(f"failover 17b: a dispatch at the pre-swap epoch raises: {e}", flush=True)
+            else:
+                raise RuntimeError("17b: a dispatch at the pre-swap epoch ran")
+        del outs
+    del cpu_b0, cpu_refs
+    # the cold plan misses once a key: a bucket of a shape an earlier bucket
+    # of its step had finds the plan that dispatch prepared
+    shapes = [tuple(b.shape) for b in buckets]
+    cold = [shapes.index(sh) != i for i, sh in enumerate(shapes)]
+    want = {FAILOVER_DOWN[0]: [True] * len(buckets), FAILOVER_DOWN[1]: [True] * len(buckets), FAILOVER_COLD_STEP: cold}
+    for s, hit in want.items():
+        if hits[s] != hit:
+            raise RuntimeError(f"17b step {s}: expected cache_hit {hit}, got {hits[s]}")
+    swaps = [json.loads(line) for line in open(journal) if '"swap"' in line]
+    print(f"failover 17b: swaps {[(d['label'], d['warmed'], d['engine_epoch']) for d in swaps]}; supervisor trace "
+          f"records {sum(e.primitive == 'supervisor' for e in trace.events())}", flush=True)
+    # 17c: a restart on the same journal
+    view, engine_epoch = sup.applied_view, eng.epoch
+    sup.stop()
+    t0 = time.perf_counter()
+    sup2 = Supervisor(logic, cache=cache, fault_plan=plan, step_source=lambda: step[0], journal_path=journal,
+                      config=config, clock=lambda: clock[0])
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    same = sup2.applied_view == view and eng.epoch == engine_epoch and sup2.engine_epoch == engine_epoch
+    sup2.stop()
+    probe = DecisionJournal(os.path.join(workdir, "probe.journal"))
+    appends = []
+    for i in range(JOURNAL_APPENDS):
+        t0 = time.perf_counter()
+        probe.append("probe", i=i)
+        appends.append(time.perf_counter() - t0)
+    probe.close()
+    print(f"failover 17c: restart resumed in {resume_ms:.3f} ms to {sup2.applied_view} "
+          f"{'ok' if same else 'FAIL'} (engine epoch {eng.epoch}, no bump); fsync'd append median "
+          f"{float(np.median(appends)) * 1e6:.1f} us over {JOURNAL_APPENDS} (the checkout's file system)", flush=True)
+    if not same:
+        raise RuntimeError("17c: the restart did not resume to an equal WorldView without an epoch bump")
+    return plan, walls
+
+
+def failover_model(plan, cache, per_rank: int, walls: list, smi: str) -> None:
+    """17(d): ``simulate_fault_plan`` on the cache's cost model beside the
+    measured walltimes."""
+    rows = simulate_fault_plan(cache.base_strategy, cache.cost_model, per_rank, plan, steps=FAILOVER_STEPS)
+    for row, wall in zip(rows, walls):
+        print(f"failover 17d step {row.step}: model {row.to_row()}; measured synced walltime {wall:.3f} ms",
+              flush=True)
+    steady_steps = [r.step for r in rows if not r.swapped]
+    steady = float(np.median([walls[s] for s in steady_steps]))
+    print(f"failover 17d: measured steady {steady:.3f} ms (the median of steps {steady_steps}), warm failover "
+          f"{walls[FAILOVER_DOWN[0]]:.3f} ms, cold failover {walls[FAILOVER_COLD_STEP]:.3f} ms; the model's swap "
+          f"stall {rows[FAILOVER_DOWN[0]].swap_s * 1e3:.3f} ms warm (its prior). On one card every 'link' is HBM and "
+          f"the host's dispatch, not NVLink or a NIC: the model prices links this card does not have ({smi})",
+          flush=True)
+
+
+def supervised_trainer(dev: torch.device, init_state, tokens, c_losses: list) -> dict:
+    """17(e): ``DDPTrainer(sync_mode="schedule", dynamic_mask=True,
+    bsp=False)`` at world 1 under a world-1 supervisor, 5 steps from phase
+    5's weights and batch; then ``prewarm`` of a second world-1 strategy
+    (state bit for bit unchanged), ``adopt_strategy`` and one more step.
+    Returns the flash kernels' launches."""
+    for w in fa.KERNELS:
+        w.launches = 0
+    world = build_world_mesh(1)
+    try:
+        model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
+        model.load_state_dict(init_state)
+        trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4), world, Strategy.ring(1),
+                             sync_mode="schedule", dynamic_mask=True, bsp=False)
+        sup = Supervisor(CoordinatorLogic(1), trainer=trainer)
+        trainer.attach_supervisor(sup)
+        state = TrainState.create(model, trainer.tx)
+        losses = [trainer.step(state, tokens)[1].item() for _ in range(STEPS)]
+        print(f"failover 17e (supervised DDP, bsp=False, world 1): losses {losses}; bit for bit phase 11c's "
+              f"{'ok' if losses == c_losses else 'FAIL'}", flush=True)
+        if losses != c_losses:
+            raise RuntimeError(f"17e: the supervised async-relay steps differ from phase 11c's: {losses} vs {c_losses}")
+        before = ({k: v.clone() for k, v in model.state_dict().items()},
+                  [{k: v.clone() for k, v in st.items() if torch.is_tensor(v)} for st in state.optimizer.state.values()],
+                  [d.clone() for d in trainer._deferred])
+        r0 = trainer.recompiles
+        standby = Strategy.ring(1, num_trans=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warmed = trainer.prewarm(standby, state, tokens)
+        torch.cuda.synchronize()
+        prewarm_ms = (time.perf_counter() - t0) * 1e3
+        after = ({k: v.clone() for k, v in model.state_dict().items()},
+                 [{k: v.clone() for k, v in st.items() if torch.is_tensor(v)} for st in state.optimizer.state.values()],
+                 [d.clone() for d in trainer._deferred])
+        unchanged = (all(same_bits(before[0][k], after[0][k]) for k in before[0])
+                     and all(same_bits(a[k], b[k]) for a, b in zip(before[1], after[1]) for k in a)
+                     and all(same_bits(a, b) for a, b in zip(before[2], after[2])))
+        r1 = trainer.recompiles
+        adopted = trainer.adopt_strategy(standby)
+        more = trainer.step(state, tokens)[1].item()
+        r2 = trainer.recompiles
+        print(f"failover 17e: prewarm {warmed} in {prewarm_ms:.2f} ms, state bit for bit unchanged "
+              f"{'ok' if unchanged else 'FAIL'}; recompiles {r0} -> {r1} (prewarm) -> {r2} (adopt_strategy "
+              f"{adopted}, one more step, loss {more})", flush=True)
+        if not (warmed and unchanged and adopted and r1 == r0 + 1 and r2 == r1):
+            raise RuntimeError("17e: prewarm/adopt_strategy failed its checks")
+    finally:
+        destroy_world()
+    launches = {w.__name__: w.launches for w in fa.KERNELS}
+    want = MAIN.n_layer * (STEPS + 1)
+    if any(n != want for n in launches.values()):
+        raise RuntimeError(f"17e: expected {want} launches of each flash kernel, got {launches}")
+    return launches
+
+
+def facade_sim_rank(buckets: list, workdir: str) -> None:
+    """17(f): ``AdapCC.init(policy="sim-rank")`` at world 8, its winner and
+    the synthesis seconds, one relayed allreduce of the buckets."""
+    topo = os.path.join(workdir, "17f")
+    args = CommArgs(strategy_file=f"{topo}/strategy.xml", logical_graph=f"{topo}/logical_graph.xml",
+                    topology_dir=topo, entry_point=DETECT, parallel_degree=2, policy="sim-rank")
+    t0 = time.perf_counter()
+    AdapCC.init(args, world_size=SCHEDULE_WORLD)
+    boot_s = time.perf_counter() - t0
+    comm = AdapCC.communicator
+    lat, bw = gather_topo_profile(topo, SCHEDULE_WORLD)
+    t0 = time.perf_counter()
+    again = Synthesizer(None, comm.ip_table, "sim-rank").synthesize(ALLREDUCE, 2, args.default_chunk_bytes, bw, lat)
+    synth_s = time.perf_counter() - t0
+    strategy = comm._load_strategy()
+    print(f"failover 17f: AdapCC.init(DETECT, policy='sim-rank') on {SCHEDULE_WORLD} ranks in {boot_s:.2f} s; "
+          f"winner {strategy.synthesis} x{strategy.num_trans}, wire_dtype {strategy.wire_dtype}; the ranking pass "
+          f"alone {synth_s:.4f} s ({again.synthesis})", flush=True)
+    if not strategy.synthesis.endswith("+sim-rank"):
+        raise RuntimeError(f"17f: the sim-rank policy synthesized {strategy.synthesis}")
+    AdapCC.setup(ALLREDUCE)
+    try:
+        outs = [AdapCC.allreduce(b, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG) for b in buckets]
+        exact = same_bits(outs[0].cpu(), CollectiveEngine(SCHEDULE_WORLD, strategy).all_reduce(
+            buckets[0].cpu(), active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG))
+        print(f"failover 17f: relayed AVG allreduce of the {len(buckets)} buckets (rank 3 a relay); bucket 0 bit "
+              f"for bit the CPU call {'ok' if exact else 'FAIL'}", flush=True)
+        if not exact:
+            raise RuntimeError("17f: the sim-rank strategy's allreduce differs from its CPU run")
+    finally:
+        AdapCC.clear(ALLREDUCE)
+
+
+def slice14(dev: torch.device, init_state, tokens, buckets: list, c_losses: list, smi: str) -> dict:
+    """Phase 17, slice 14's main path (the module docstring); returns the
+    launches of each kernel in it (the flash kernels, from 17(e) alone)."""
+    t17 = time.perf_counter()
+    for w in ring.KERNELS:
+        w.launches = 0
+    marks = [time.perf_counter()]
+    eng, trace, cache, per_rank = standby_ranking(buckets)
+    marks.append(time.perf_counter())
+    with tempfile.TemporaryDirectory(prefix="adapcc_slice14_") as workdir:
+        plan, walls = supervised_failover(eng, trace, cache, buckets, workdir, smi)
+        marks.append(time.perf_counter())
+        failover_model(plan, cache, per_rank, walls, smi)
+        marks.append(time.perf_counter())
+        del eng, trace, cache
+        torch.cuda.empty_cache()
+        p17 = supervised_trainer(dev, init_state, tokens, c_losses)
+        marks.append(time.perf_counter())
+        facade_sim_rank(buckets, workdir)
+        marks.append(time.perf_counter())
+    p17.update({w.__name__: w.launches for w in ring.KERNELS})
+    parts = ", ".join(f"{c} {b - a:.1f} s" for c, a, b in zip(("17a", "17b-c", "17d", "17e", "17f"), marks, marks[1:]))
+    print(f"phase 17 launches: {p17} (the flash kernels from 17e; no ring kernel lies on the failover path); "
+          f"phase 17 {time.perf_counter() - t17:.1f} s ({parts})", flush=True)
+    if any(p17[w.__name__] for w in ring.KERNELS):
+        raise RuntimeError(f"phase 17 launched a ring kernel: {p17}")
+    return p17
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -2882,6 +3207,11 @@ def main() -> None:
 
     # 16. slice 13's main path: the schedule compiler's IR plane
     for kname, n in slice13(dev, s_buckets, s_device_ms, smi).items():
+        launches[kname] += n
+    torch.cuda.empty_cache()
+
+    # 17. slice 14's main path: elastic failover and the supervisor
+    for kname, n in slice14(dev, init_state, tokens, s_buckets, c_losses_11, smi).items():
         launches[kname] += n
     del s_buckets
     torch.cuda.empty_cache()

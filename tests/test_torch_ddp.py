@@ -275,10 +275,14 @@ def test_strategy_copy_matches_jax():
 def test_trainer_rejects_what_waits(world1):
     s = Strategy.ring(1)
     # accumulation runs now (tests/test_torch_overlap.py)
-    for kw, match in [({"zero1": True}, "ZeRO-1"),
-                      ({"bsp": False}, "relay"), ({"measure_gns": True}, "noise")]:
+    for kw, match in [({"zero1": True}, "ZeRO-1"), ({"measure_gns": True}, "noise")]:
         with pytest.raises(NotImplementedError, match=match):
             DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, **kw)
+    # the async relay runs now (tests/test_torch_elastic.py); it takes a
+    # mask every step, and refuses a static one in JAX's words
+    assert DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, bsp=False)._dynamic_mask
+    with pytest.raises(ValueError, match="relay"):
+        DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, bsp=False, dynamic_mask=False)
     # the step tuner runs now (tests/test_torch_tuner.py): tune=True builds a
     # choosing tuner for the world; tune_every must be positive
     tuned = DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, tune=True)

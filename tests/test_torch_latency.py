@@ -326,7 +326,8 @@ def test_engine_pins_env_and_refusals_like_jax(mesh8, monkeypatch):
 
     want = ref.all_reduce(jnp.asarray(x), algo="rd", active_gpus=[0, 2, 3, 5, 6, 7], op=JOp.AVG)
     assert np.array_equal(got.numpy(), np.asarray(want))
-    assert port.trace.events()[-1].extra == {"epoch": 0, "algo": "rd"}
+    # the extras, prepared-plan cache_hit included, are the JAX engine's
+    assert port.trace.events()[-1].extra == ref.trace.events()[-1].extra
     # the rd halves through the engine
     xr = torch.from_numpy(x)
     assert np.array_equal(port.reduce_scatter(xr, algo="rd", active_gpus=[1, 2]).numpy(),

@@ -228,8 +228,9 @@ def test_engine_contract_epochs_pins_and_trace(monkeypatch):
     with pytest.raises(EpochMismatch, match="dead epoch 0"):
         eng.all_reduce(x, epoch=0)
     eng.all_reduce(x, epoch=1, active_gpus=[0, 1])
+    # the first dispatch at its key prepares the plan: no cache hit
     assert trace_rows(trace)[-1] == {"primitive": "allreduce", "impl": "schedule", "epoch": 1, "nbytes": 32,
-                                     "algo": "ring", "merged": True}
+                                     "algo": "ring", "merged": True, "cache_hit": False}
     assert eng.advance_epoch(Strategy.binary(4)) == 2 and eng.strategy.synthesis == "binary"
     eng.all_reduce(x, active_gpus=[0, 1])
     assert trace_rows(trace)[-1]["merged"] is False

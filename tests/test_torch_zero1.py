@@ -149,7 +149,7 @@ def test_flat_layout_is_the_jax_tree_order():
 def test_zero1_rejects_what_waits():
     # the non-ring path, overlap="bucket" and restore run now
     # (tests/test_torch_overlap.py, tests/test_torch_checkpoint.py)
-    with pytest.raises(NotImplementedError, match="elasticity"):
+    with pytest.raises(NotImplementedError, match="ZeRO-1 elastic-state slice"):
         Zero1Optimizer(adamw(LR), WORLD, shard_replicas=1)
     # a tuner-chosen ring chunk runs now (tests/test_torch_tuner.py); without
     # init there is no cell yet
