@@ -23,9 +23,10 @@ identity map.  The coordinator plane works in both.  The Communicator owns
 one plan tuner (:class:`~adapcc_tpu_torch.tuner.CollectiveTuner`), shared by
 every engine it builds; ``ADAPCC_TUNER`` decides whether anything consults
 or feeds it.  :meth:`Communicator.supervisor` hands the world's failover to
-an out-of-band :class:`~adapcc_tpu_torch.supervisor.Supervisor`.  The
-DETECT/PROFILE bootstrap of a multi-process world and the adaptation
-controller raise until their slices.
+an out-of-band :class:`~adapcc_tpu_torch.supervisor.Supervisor`, and
+:meth:`Communicator.adaptation_controller` its online adaptation to an
+:class:`~adapcc_tpu_torch.adapt.AdaptationController`.  The DETECT/PROFILE
+bootstrap of a multi-process world raises until its slice.
 """
 
 from __future__ import annotations
@@ -471,8 +472,23 @@ class Communicator:
         return Supervisor(logic, engine=engine, **kwargs)
 
     def adaptation_controller(self, prim: int = ALLREDUCE, trainer=None, mode: Optional[str] = None, **kwargs):
-        raise not_ported("Communicator.adaptation_controller() (online adaptation)",
-                         "the adaptation-loop slice")
+        """The closed online adaptation loop over this world: an
+        :class:`~adapcc_tpu_torch.adapt.AdaptationController` on the ``prim``
+        engine, the communicator's synthesizer (the bootstrap's candidate
+        pool), the tuner's database (the measurement feed) and topology
+        fingerprint, a calibration artifact at
+        ``<topology_dir>/calibration.json`` and this world's device; any of
+        them can be passed instead.  ``ADAPCC_ADAPT`` gates the loop;
+        ``mode`` is the default when it is unset."""
+        from adapcc_tpu_torch.adapt import AdaptationController
+
+        engine = self._engine(prim)
+        kwargs.setdefault("db", self.tuner.db)
+        kwargs.setdefault("fingerprint", self.tuner.topology)
+        kwargs.setdefault("calibration_path", os.path.join(self.args.topology_dir, "calibration.json"))
+        kwargs.setdefault("parallel_degree", max(1, self.args.parallel_degree))
+        kwargs.setdefault("device", self.device)
+        return AdaptationController(engine, self.synthesizer, trainer=trainer, mode=mode, **kwargs)
 
     def calibrate_coordinator(self, total_grad_bytes: float) -> bool:
         """Feed measured quantities into the rent-or-buy cost model: the

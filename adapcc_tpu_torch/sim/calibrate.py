@@ -1,10 +1,13 @@
-"""α-β calibration artifacts: fit, persist, load.
+"""α-β calibration artifacts: fit, persist, load, merge.
 
-The port of :mod:`adapcc_tpu.sim.calibrate`'s artifact half.  The JSON
-format is the JAX package's, key for key, so a ``calibration.json`` written
-by either package loads in the other: class coefficients under the shared
-link-class keys (``ici``, ``dcn``), an optional per-link table and ip map,
-and the provenance stamps.
+The port of :mod:`adapcc_tpu.sim.calibrate`.  The JSON format is the JAX
+package's, key for key, so a ``calibration.json`` written by either package
+loads in the other: class coefficients under the shared link-class keys
+(``ici``, ``dcn``), an optional per-link table and ip map, and the
+provenance stamps.  Three sources fit one: the profiler's matrices, its
+``topo_profile_*`` CSV shards, and a hardware battery's sweep rows through
+each collective's ring structure.  :func:`merge_calibration` folds a
+re-calibration into an artifact with decay, never last-writer-wins.
 """
 
 from __future__ import annotations
@@ -17,12 +20,27 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from adapcc_tpu_torch.sim.cost_model import LinkCoeffs, LinkCostModel
+from adapcc_tpu_torch.sim.cost_model import DCN, ICI, LinkCoeffs, LinkCostModel
 
 CALIBRATION_VERSION = 1
 
 #: where an artifact lives, beside the other topology artifacts
 DEFAULT_CALIBRATION_PATH = os.path.join("topology", "calibration.json")
+
+#: serial rounds and per-link byte fraction of each collective's ring form:
+#: time ≈ rounds(w)·α + byte_factor(w)·size·β (the byte factors are the
+#: nccl-tests busbw corrections, the rounds the ring schedule's depth)
+_RING_STRUCTURE = {
+    "allreduce": (lambda w: 2 * (w - 1), lambda w: 2 * (w - 1) / w),
+    "reduce_scatter": (lambda w: w - 1, lambda w: (w - 1) / w),
+    "all_gather": (lambda w: w - 1, lambda w: (w - 1) / w),
+    "all_to_all": (lambda w: w - 1, lambda w: (w - 1) / w),
+    "broadcast": (lambda w: w - 1, lambda w: 1.0),
+    "reduce": (lambda w: w - 1, lambda w: 1.0),
+}
+
+#: merge-history entries an artifact keeps, newest last
+MAX_PROVENANCE = 8
 
 
 @dataclass
@@ -103,6 +121,11 @@ class Calibration:
             return cls.from_dict(json.load(f))
 
 
+def _from_model(model: LinkCostModel) -> Calibration:
+    return Calibration(world=model.world, classes=dict(model.classes), links=dict(model.links), ips=model.ips,
+                       source=model.source)
+
+
 def calibrate_from_matrices(
     lat: np.ndarray,
     bw: np.ndarray,
@@ -111,9 +134,115 @@ def calibrate_from_matrices(
 ) -> Calibration:
     """Per-link fit from the profiler's latency [s] and bandwidth [GB/s]
     matrices."""
-    model = LinkCostModel.from_matrices(lat, bw, ips, source=source)
-    return Calibration(world=model.world, classes=dict(model.classes), links=dict(model.links), ips=model.ips,
-                       source=model.source)
+    return _from_model(LinkCostModel.from_matrices(lat, bw, ips, source=source))
+
+
+def calibrate_from_profile_dir(topology_dir: str, world: int, ips: Optional[Mapping[int, str]] = None) -> Calibration:
+    """Per-link fit from the ``topo_profile_*`` CSV shards on disk."""
+    return _from_model(LinkCostModel.from_topo_profile_dir(topology_dir, world, ips))
+
+
+def _battery_rows(jsonl_path: str) -> List[dict]:
+    """The collective-sweep rows of a battery artifact: each record's
+    ``rows`` list, else its single ``parsed`` row (which repeats the last
+    of ``rows`` where both exist, and would weigh that size twice)."""
+    rows: List[dict] = []
+    with open(jsonl_path) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            candidates = list(rec.get("rows") or [])
+            if not candidates and isinstance(rec.get("parsed"), dict):
+                candidates.append(rec["parsed"])
+            for row in candidates:
+                if (isinstance(row, dict) and row.get("collective") in _RING_STRUCTURE and row.get("time_us")
+                        and row.get("size_bytes") and int(row.get("world", 0)) >= 2):
+                    rows.append(row)
+    return rows
+
+
+def calibrate_from_battery(jsonl_path: str, impls: Tuple[str, ...] = ("xla", "pallas_ring")) -> Optional[Calibration]:
+    """One (α, β) fit from a hardware battery's sweep rows of the baseline
+    implementations ``impls`` (a schedule under test would calibrate the
+    model to its own prediction target).  None when fewer than two rows, or
+    a rank-deficient design, cannot separate α from β."""
+    rows = [r for r in _battery_rows(jsonl_path) if r.get("impl") in impls]
+    if len(rows) < 2:
+        return None
+    a = []
+    y = []
+    for r in rows:
+        w = int(r["world"])
+        rounds_fn, byte_fn = _RING_STRUCTURE[r["collective"]]
+        a.append([float(rounds_fn(w)), byte_fn(w) * float(r["size_bytes"])])
+        y.append(float(r["time_us"]) * 1e-6)
+    if np.linalg.matrix_rank(np.array(a)) < 2:
+        return None
+    (alpha, beta), *_ = np.linalg.lstsq(np.array(a), np.array(y), rcond=None)
+    coeffs = LinkCoeffs(alpha=max(0.0, float(alpha)), beta=max(0.0, float(beta)))
+    world = max(int(r["world"]) for r in rows)
+    return Calibration(world=world, classes={ICI: coeffs, DCN: LinkCoeffs(*_dcn_guess(coeffs))},
+                       source=f"battery:{os.path.basename(jsonl_path)}")
+
+
+def _dcn_guess(ici: LinkCoeffs) -> Tuple[float, float]:
+    """A battery on one host says nothing of the inter-host class: the
+    intra-host fit scaled by the defaults' class ratio."""
+    from adapcc_tpu_torch.sim.cost_model import DEFAULT_COEFFS
+
+    a_ratio = DEFAULT_COEFFS[DCN][0] / DEFAULT_COEFFS[ICI][0]
+    b_ratio = DEFAULT_COEFFS[DCN][1] / DEFAULT_COEFFS[ICI][1]
+    return ici.alpha * a_ratio, ici.beta * b_ratio
+
+
+def merge_calibration(base: Calibration, update: Calibration, decay: float = 0.5) -> Calibration:
+    """Fold a re-calibration into an artifact with decay.
+
+    Coefficients blend per class and per link by sample weight: the update
+    at its ``samples``, the base discounted by ``decay`` (an unstamped base
+    borrows the update's weight).  Classes and links one side alone knows
+    survive as they are, so a correction of one class leaves the others.
+    The result keeps the sample count and a bounded provenance chain.
+    Artifacts of other worlds or other fabrics (fingerprints) refuse."""
+    if base.world != update.world:
+        raise ValueError(f"cannot merge calibrations across worlds ({base.world} vs {update.world}); "
+                         "re-calibrate for this world")
+    if base.fingerprint is not None and update.fingerprint is not None and base.fingerprint != update.fingerprint:
+        raise ValueError(f"cannot merge calibrations across fabrics (base fitted on {base.fingerprint!r}, "
+                         f"update on {update.fingerprint!r}); seed a fresh artifact for this fabric instead")
+    if not 0.0 <= decay <= 1.0:
+        raise ValueError(f"decay must be in [0, 1], got {decay}")
+    w_new = float(max(1, update.samples))
+    w_old = decay * float(base.samples if base.samples > 0 else w_new)
+
+    def blend(old: LinkCoeffs, new: LinkCoeffs) -> LinkCoeffs:
+        if w_old + w_new <= 0:
+            return new
+        return LinkCoeffs(alpha=(w_old * old.alpha + w_new * new.alpha) / (w_old + w_new),
+                          beta=(w_old * old.beta + w_new * new.beta) / (w_old + w_new))
+
+    classes = dict(base.classes)
+    for cls_name, c in update.classes.items():
+        classes[cls_name] = blend(base.classes[cls_name], c) if cls_name in base.classes else c
+    links = dict(base.links)
+    for link, c in update.links.items():
+        links[link] = blend(base.links[link], c) if link in base.links else c
+    provenance = list(base.provenance or [])
+    if not provenance and base.source:
+        provenance.append(base.source)
+    provenance.append(update.source)
+    return Calibration(
+        world=base.world,
+        classes=classes,
+        links=links,
+        ips=update.ips if update.ips is not None else base.ips,
+        source=f"merged:{update.source}",
+        fingerprint=update.fingerprint or base.fingerprint,
+        samples=int(round(w_old + w_new)),
+        provenance=provenance[-MAX_PROVENANCE:],
+    )
 
 
 def load_calibration(path: str = DEFAULT_CALIBRATION_PATH) -> LinkCostModel:

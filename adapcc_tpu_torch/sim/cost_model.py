@@ -3,8 +3,10 @@ the hook prices its overlap schedules with.
 
 The port of the part of :mod:`adapcc_tpu.sim.cost_model` that the tuner
 (:mod:`adapcc_tpu_torch.tuner.policy`), the gradient hook, the simulator's
-ranking (the lower bounds, the ``sim-rank`` codec choice) and the failover
-pricing call, formula for formula.  One point-to-point transfer of ``n`` bytes costs
+ranking (the lower bounds, the ``sim-rank`` codec choice), the failover
+pricing and the adaptation loop (contention: β scaled, α intact; the
+synthesizer's matrices of a model; the adaptation arms) call, formula for
+formula.  One point-to-point transfer of ``n`` bytes costs
 
     t(n) = α + β·n          α = fixed latency [s], β = inverse bandwidth [s/B]
 
@@ -211,9 +213,56 @@ class LinkCostModel:
                     model.links[link] = self.coeffs(*link).scaled(slowdown)
         return model
 
+    def contended(self, class_factors: Mapping[str, float]) -> "LinkCostModel":
+        """A copy with the named link classes' bandwidth cut by their factor:
+        congestion, not degradation.  β scales (a neighbour's traffic takes
+        a share of the bandwidth), α stays (the wire's latency survives),
+        on the class coefficients and on the per-link fits of those classes
+        alike.  :meth:`degraded` stretches both terms: that α/β signature is
+        what the congestion-against-degradation triage separates."""
+        for cls_name, factor in class_factors.items():
+            if cls_name not in self.classes:
+                raise ValueError(f"unknown link class {cls_name!r}; expected one of {sorted(self.classes)}")
+            if factor < 1.0:
+                raise ValueError(f"contention factor must be >= 1, got {factor} for class {cls_name!r}")
+        classes = {cls_name: (contended_coeffs(c, class_factors[cls_name]) if cls_name in class_factors else c)
+                   for cls_name, c in self.classes.items()}
+        links = {link: (contended_coeffs(c, class_factors[self.link_class_of(*link)])
+                        if self.link_class_of(*link) in class_factors else c)
+                 for link, c in self.links.items()}
+        joined = ",".join(f"{cls}x{f:g}" for cls, f in sorted(class_factors.items()))
+        return LinkCostModel(self.world, links=links, classes=classes, ips=self.ips,
+                             source=f"{self.source}+contended[{joined}]")
+
     def with_ips(self, ips: Optional[Mapping[int, str]]) -> "LinkCostModel":
         """A copy pricing the same coefficients under ``ips``'s host layout."""
         return LinkCostModel(self.world, links=self.links, classes=self.classes, ips=ips, source=self.source)
+
+    def to_graphs(self) -> Tuple[list, list]:
+        """(bandwidth [GB/s], latency [s]) matrices read off the
+        coefficients: the synthesizer's input spelling of this model, so the
+        candidate shapes of an online re-rank are synthesized for the
+        network the replay prices."""
+        w = self.world
+        bw = [[0.0] * w for _ in range(w)]
+        lat = [[0.0] * w for _ in range(w)]
+        for s in range(w):
+            for d in range(w):
+                if s == d:
+                    continue
+                c = self.coeffs(s, d)
+                lat[s][d] = c.alpha
+                bw[s][d] = 1.0 / (c.beta * 1e9) if c.beta > 0 else 1e6
+        return bw, lat
+
+    @classmethod
+    def from_topo_profile_dir(cls, topology_dir: str, world: int,
+                              ips: Optional[Mapping[int, str]] = None) -> "LinkCostModel":
+        """Fit from the ``topo_profile_*`` CSV shards the bootstrap writes."""
+        from adapcc_tpu_torch.topology.profile import gather_topo_profile
+
+        lat, bw = gather_topo_profile(topology_dir, world)
+        return cls.from_matrices(lat, bw, ips, source=f"profile:{topology_dir}")
 
     @classmethod
     def uniform(
@@ -344,6 +393,39 @@ def optimality_gap(seconds: float, lower_bound_s: float) -> float:
     if lower_bound_s <= 0:
         return 0.0
     return seconds / lower_bound_s - 1.0
+
+
+def contended_lower_bound(model: LinkCostModel, nbytes: float, factors: Dict[str, float],
+                          collective: str = "allreduce", world: Optional[int] = None) -> float:
+    """The floor of a congestion window itself: :func:`collective_lower_bound`
+    on :meth:`LinkCostModel.contended`.  A congested measurement gapped
+    against the healthy floor would carry the contention factor in its gap."""
+    return collective_lower_bound(model.contended(factors), nbytes, collective, world)
+
+
+def contended_coeffs(coeffs: LinkCoeffs, factor: float) -> LinkCoeffs:
+    """One link under background traffic: a neighbour taking
+    ``(factor−1)/factor`` of the bandwidth leaves β × factor, α untouched
+    (contrast :meth:`LinkCoeffs.scaled`, a degraded link)."""
+    if factor < 1.0:
+        raise ValueError(f"contention factor must be >= 1 (1 = no contention), got {factor}")
+    return LinkCoeffs(coeffs.alpha, coeffs.beta * factor)
+
+
+def congested_ring_allreduce_time(world: int, nbytes: float, coeffs: LinkCoeffs, factor: float,
+                                  wire_dtype: str = "off") -> float:
+    """The ring allreduce with its bottleneck hop contended by ``factor``
+    (1 is the healthy price)."""
+    return quantized_ring_allreduce_time(world, nbytes, contended_coeffs(coeffs, factor), wire_dtype)
+
+
+def congested_two_level_allreduce_time(num_pods: int, pod_size: int, nbytes: float, ici: LinkCoeffs,
+                                       dcn: LinkCoeffs, dcn_factor: float = 1.0, ici_factor: float = 1.0,
+                                       pod_algo: str = "rs-ag", leader_algo: str = "tree") -> float:
+    """The composed two-level allreduce with each level's class contended:
+    the term the leader level's congestion re-solve prices."""
+    return two_level_allreduce_time(num_pods, pod_size, nbytes, contended_coeffs(ici, ici_factor),
+                                    contended_coeffs(dcn, dcn_factor), pod_algo=pod_algo, leader_algo=leader_algo)
 
 
 def wire_bytes_per_element(wire_dtype: str, block_size: int = DEFAULT_QUANT_BLOCK, elem_bytes: float = 4.0) -> float:
@@ -908,3 +990,34 @@ def full_rebuild_stall_s(world: int, coeffs: LinkCoeffs, compile_s: Optional[flo
     synthesis = DEFAULT_RESYNTHESIS_S if synthesis_s is None else synthesis_s
     probes = world * max(0, world - 1) * (coeffs.time(LATENCY_PROBE_BYTES) + coeffs.time(BANDWIDTH_PROBE_BYTES))
     return probes + synthesis + compile_
+
+
+def adaptation_cost(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    stale_steady_s: float,
+    adapted_steady_s: float,
+    standby_cached: bool = True,
+    compile_s: Optional[float] = None,
+    synthesis_s: Optional[float] = None,
+) -> Dict[str, float]:
+    """One drift incident's choices: keep the stale strategy, hot-swap to
+    the re-ranked one through the standby cache, or rebuild.  The steady
+    states are the caller's per-step predictions under the corrected costs;
+    returns both one-time stalls, the gain a step and each arm's break-even
+    step count (``inf`` without a gain)."""
+    if stale_steady_s < 0 or adapted_steady_s < 0:
+        raise ValueError("steady-state predictions must be >= 0")
+    hot = plan_swap_stall_s(standby_cached)
+    full = full_rebuild_stall_s(world, coeffs, compile_s, synthesis_s)
+    gain = stale_steady_s - adapted_steady_s
+    return {
+        "stale_steady_s": float(stale_steady_s),
+        "adapted_steady_s": float(adapted_steady_s),
+        "gain_per_step_s": gain,
+        "hot_swap_stall_s": hot,
+        "full_rebuild_stall_s": full,
+        "hot_swap_break_even_steps": hot / gain if gain > 0 else float("inf"),
+        "full_rebuild_break_even_steps": full / gain if gain > 0 else float("inf"),
+    }

@@ -5,9 +5,9 @@ The adapters here consume exactly what the execution engine consumes — a
 :class:`~adapcc_tpu_torch.strategy.ir.Strategy` (from ParTrees, the MILP solver,
 or a parsed ``strategy.xml``), a ``compiler.ScheduleProgram``, an
 active-rank set (relay masks from :mod:`adapcc_tpu_torch.comm.relay`) or a
-fault plan — and return predicted collective latency plus per-link
-utilization instead of running the card.  The congestion-profile and
-flow-LP replays come with the adaptation-loop slice and raise until then.
+fault plan, a congestion profile or a flow-LP solution — and return
+predicted collective latency plus per-link utilization instead of running
+the card.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from dataclasses import dataclass
 from typing import Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from adapcc_tpu_torch.comm.relay import prune_broadcast_rounds, prune_reduce_rounds
-from adapcc_tpu_torch.primitives import not_ported
 from adapcc_tpu_torch.sim.cost_model import Link, LinkCostModel
 from adapcc_tpu_torch.sim.events import EventSimulator, SimReport, Transfer, TreeSchedule
 from adapcc_tpu_torch.sim.vector import lowered_columns, resolve_sim_engine, vector_run
@@ -400,11 +399,113 @@ def simulate_fault_plan(
     return rows
 
 
-def simulate_congestion_profile(*args, **kwargs):
-    raise not_ported("simulate_congestion_profile (congestion-profile replay)",
-                     "the adaptation-loop slice (sim/congestion.py)")
+@dataclass
+class CongestionStepRow:
+    """One step of a congestion-profile replay: the collective's predicted
+    cost under that step's contended link classes, beside the healthy
+    price."""
+
+    step: int
+    congested: bool
+    factors: Tuple[Tuple[str, float], ...]  # sorted (class, factor) pairs
+    seconds: float
+    healthy_s: float
+    mode: str = "simulated"
+
+    @property
+    def contention_ratio(self) -> float:
+        return self.seconds / self.healthy_s if self.healthy_s > 0 else 1.0
+
+    def to_row(self) -> dict:
+        return {
+            "mode": self.mode,
+            "step": self.step,
+            "congested": self.congested,
+            "factors": {cls: f for cls, f in self.factors},
+            "pred_time_us": round(self.seconds * 1e6, 3),
+            "healthy_us": round(self.healthy_s * 1e6, 3),
+            "contention_ratio": round(self.contention_ratio, 6),
+        }
 
 
-def simulate_flow_broadcast(*args, **kwargs):
-    raise not_ported("simulate_flow_broadcast (the flow-LP broadcast replay)",
-                     "the adaptation-loop slice (strategy/flow_lp.py)")
+def simulate_congestion_profile(
+    strategy: Strategy,
+    cost_model: LinkCostModel,
+    nbytes: float,
+    profile,
+    steps: Optional[int] = None,
+    collective: str = "allreduce",
+    engine: Optional[str] = None,
+) -> List[CongestionStepRow]:
+    """Replay a :class:`~adapcc_tpu_torch.sim.congestion.CongestionProfile`:
+    every step's collective priced under that step's contended model (β
+    scaled on each active window's class), beside the healthy price.  What
+    each window costs a strategy that did not re-route; one replay a
+    distinct set of factors."""
+    if profile.world != strategy.world_size:
+        raise ValueError(f"congestion profile world {profile.world} != strategy world {strategy.world_size}")
+    n_steps = steps if steps is not None else profile.last_step() + 1
+    healthy_s = simulate_strategy(strategy, cost_model, nbytes, collective, keep_transfers=False,
+                                  engine=engine).seconds
+    rows: List[CongestionStepRow] = []
+    priced: Dict[Tuple[Tuple[str, float], ...], float] = {(): healthy_s}
+    for step in range(n_steps):
+        factors = profile.factors_at(step)
+        fkey = tuple(sorted(factors.items()))
+        seconds = priced.get(fkey)
+        if seconds is None:
+            seconds = simulate_strategy(strategy, cost_model.contended(factors), nbytes, collective,
+                                        keep_transfers=False, engine=engine).seconds
+            priced[fkey] = seconds
+        rows.append(CongestionStepRow(step=step, congested=bool(factors), factors=fkey, seconds=seconds,
+                                      healthy_s=healthy_s))
+    return rows
+
+
+def simulate_flow_broadcast(flow, cost_model: LinkCostModel, nbytes: float) -> SimTimeline:
+    """Replay a :class:`~adapcc_tpu_torch.strategy.flow_lp.FlowSolution`.
+
+    Each LP round's edge carries ``fraction × nbytes``; store-and-forward
+    readiness replaces the tree order: a node forwards in round ``r`` only
+    once earlier rounds delivered it the whole payload."""
+    ready: Dict[int, float] = {flow.source: 0.0}
+    link_free: Dict[Link, float] = {}
+    egress_free: Dict[int, float] = {}
+    ingress_free: Dict[int, float] = {}
+    link_busy: Dict[Link, float] = {}
+    transfers: List[Transfer] = []
+    makespan = 0.0
+    recv_frac: Dict[int, float] = {}   # cumulative payload fraction received
+    recv_last: Dict[int, float] = {}   # latest counted arrival per node
+    for r, flows in enumerate(flow.rounds):
+        # heavier flows first within a round (FlowSolution.comm_rounds' order)
+        landed: List[Tuple[int, float, float]] = []
+        for (src, dst), frac in sorted(flows.items(), key=lambda kv: -kv[1]):
+            if src not in ready:
+                # an alternate optimum's flow from a node holding nothing
+                continue
+            start = max(ready[src], link_free.get((src, dst), 0.0), egress_free.get(src, 0.0),
+                        ingress_free.get(dst, 0.0))
+            dur = cost_model.time_for(src, dst, frac * nbytes)
+            finish = start + dur
+            link_free[(src, dst)] = finish
+            egress_free[src] = finish
+            ingress_free[dst] = finish
+            link_busy[(src, dst)] = link_busy.get((src, dst), 0.0) + dur
+            landed.append((dst, frac, finish))
+            makespan = max(makespan, finish)
+            transfers.append(Transfer(tree=0, round_idx=r, chunk=0, src=src, dst=dst, nbytes=frac * nbytes,
+                                      start=start, finish=finish))
+        # deliveries count for the next round; a node is ready once its
+        # receipts cover the payload, and a node already holding it is never
+        # delayed by a redundant delivery
+        for dst, frac, t in landed:
+            if dst in ready:
+                continue
+            recv_frac[dst] = recv_frac.get(dst, 0.0) + frac
+            recv_last[dst] = max(recv_last.get(dst, 0.0), t)
+            if recv_frac[dst] >= 1.0 - 1e-9:
+                ready[dst] = recv_last[dst]
+    report = SimReport(makespan=makespan, transfers=transfers, link_busy=link_busy)
+    return SimTimeline(seconds=report.makespan, collective="broadcast", nbytes=nbytes, world=flow.num_nodes,
+                       report=report, strategy_label="flow-lp")

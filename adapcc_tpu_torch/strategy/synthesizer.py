@@ -8,7 +8,8 @@ shapes that need no profile; ``hier`` synthesizes the two-level plan of a
 multi-host world (:mod:`adapcc_tpu_torch.strategy.hierarchy`); ``sim-rank``
 synthesizes every cheap candidate (ParTrees, ring, binary) and commits to the
 one the calibrated α-β replay (:mod:`adapcc_tpu_torch.sim`) predicts fastest,
-with the wire codec priced on its bottleneck link.
+with the wire codec priced on its bottleneck link.  :meth:`Synthesizer.
+resynthesize` re-runs that ranking online under a corrected model.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional, Sequence, Tuple
 
-from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES, not_ported
+from adapcc_tpu_torch.primitives import DEFAULT_CHUNK_BYTES
 from adapcc_tpu_torch.strategy.ir import Strategy
 from adapcc_tpu_torch.strategy.partrees import ParTrees
 from adapcc_tpu_torch.strategy.xml_io import emit_strategy_xml
@@ -164,8 +165,36 @@ class Synthesizer:
             model = self._cost_model(bandwidth_graph, latency_graph)
         return sim.rank_candidates(list(candidates), model, max(1, int(nbytes)), collective, engine=engine)
 
-    def resynthesize(self, model, nbytes: int, *args, **kwargs):
-        raise not_ported("Synthesizer.resynthesize (the online re-rank)", "the adaptation-loop slice")
+    def resynthesize(
+        self,
+        model,
+        nbytes: int,
+        parallel_degree: int = 1,
+        incumbent: Optional[Strategy] = None,
+        collective: str = "allreduce",
+        provenance: str = "adapt-rerank",
+        engine: Optional[str] = None,
+    ):
+        """The online re-rank under a drift-corrected (or transiently
+        contended) cost model: the candidate pool synthesized from the
+        model's own matrices (so ParTrees routes on the corrected network),
+        ranked on its replay, and the winner's wire codec re-priced on its
+        corrected bottleneck edge.  ``incumbent`` is listed first, so a tie
+        keeps the executing strategy.  ``provenance`` goes into the winner's
+        synthesis label (``adapt-rerank`` for a re-calibration,
+        ``congestion-reroute`` for a transient re-route).  Returns the whole
+        ranked list; the caller gates adoption.  Host work only."""
+        bw, lat = model.to_graphs()
+        cands: List[Tuple[str, Strategy]] = []
+        if incumbent is not None:
+            cands.append(("incumbent", incumbent))
+        cands.extend(self.candidates(parallel_degree, bw, lat))
+        ranked = self.rank(cands, nbytes, collective=collective, model=model, engine=engine)
+        winner = ranked[0]
+        if winner.strategy is not None and winner.strategy is not incumbent:
+            winner.strategy.synthesis = f"{winner.label}+{provenance}"
+            winner.strategy.wire_dtype = self._choose_wire_dtype(winner.strategy, nbytes, bw, lat)
+        return ranked
 
     def _cost_model(self, bandwidth_graph, latency_graph):
         import numpy as np

@@ -2,9 +2,9 @@
 of :mod:`adapcc_tpu.utils.artifacts`).
 
 Injection artifacts — ``ADAPCC_FAULT_PLAN``
-(:mod:`adapcc_tpu_torch.elastic.faults`), and the JAX package's
-``ADAPCC_CONGESTION_PROFILE``, which comes with the adaptation-loop slice —
-share one lifecycle and one failure policy:
+(:mod:`adapcc_tpu_torch.elastic.faults`) and ``ADAPCC_CONGESTION_PROFILE``
+(:mod:`adapcc_tpu_torch.sim.congestion`) — share one lifecycle and one
+failure policy:
 
 - env unset → ``None`` (no injection; the healthy default),
 - env set but the file is missing → :class:`FileNotFoundError`,

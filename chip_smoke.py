@@ -228,6 +228,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``AdapCC.init(policy="sim-rank")`` at world 8, its winner and synthesis
    seconds, and one relayed allreduce of the buckets, bucket 0 bit for bit
    its CPU run.
+18. slice 15's main path, the online adaptation loop: (a) a recording
+   tuner on the world-8 engine over ``4-4_1.xml`` times a full drift window
+   of phase 11a's bf16 buckets (unmasked: the tuner times the flat path,
+   never a relayed schedule dispatch, JAX's rule) and of the ring plane's
+   allreduce of phase 9's gradients at world 8 (float32 on K1b, int8 on
+   K5b, each first dispatch bit for bit its plain walk); every signal of
+   that window is printed against the H100 defaults and against the
+   bootstrap's calibration from the card's offset probes (``topo_profile``
+   through ``calibrate_from_profile_dir``), the window's float32 medians
+   calibrate the model through the battery funnel
+   (``calibrate_from_battery``), and ``AdaptationController(mode="swap")``
+   over that calibration reads a second, fresh window without a swap; (b) JAX's
+   degradation drill (the JAX package's default classes on 4 hosts × 2,
+   the inter-host class 10× slower at 1 MiB) on a ring(8) engine: it fires
+   within one window, re-calibrates (the temporary ``calibration.json``
+   stamped ``drift-recal``), re-ranks, passes the hysteresis gate and swaps
+   through the standby cache; the first dispatch after it (bucket 0, rank 3
+   a relay) is a cache hit at epoch +1, rows identical and bit for bit its
+   CPU run, timed against the incumbent's; (c) JAX's congestion drill under
+   ``Supervisor(adapt=ctl, adapt_every=1)`` with a seeded inter-host
+   ``CongestionProfile``: triage says congestion, the re-route swaps under
+   the contended model with the calibration byte for byte unchanged, only
+   the transitions are journaled, and the restore is a cache hit; (d)
+   ``DDPTrainer(sync_mode="schedule")`` at world 1, 6 steps under a
+   controller (``trainer=``, ``trainer_prewarm=``) fed each step time:
+   losses bit for bit phase 11c's, a step-time drift reported
+   ``uninvertible`` with no swap, the host ms the loop adds a step, K2–K4
+   72 launches each; (e) ``SharedFabric`` plans two jobs on the H100
+   defaults, ``solve_broadcast_lp`` and ``simulate_flow_broadcast`` run on
+   the 8-rank graph, and a ``VariabilityMonitor`` samples the card's offset
+   probe for ``VARIABILITY_S`` seconds.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -252,6 +283,7 @@ import torch
 import torch.nn.functional as F
 
 from adapcc_tpu_torch import compiler
+from adapcc_tpu_torch.adapt import AdaptationController, DriftDetector, SharedFabric, resolve_drift_window
 from adapcc_tpu_torch.api import AdapCC
 from adapcc_tpu_torch.checkpoint import CheckpointManager, TrainCheckpointState
 from adapcc_tpu_torch.comm import engine as comm_engine
@@ -273,14 +305,21 @@ from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_me
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE
-from adapcc_tpu_torch.sim import cost_model, simulate_fault_plan
+from adapcc_tpu_torch.sim import (
+    CongestionProfile, calibrate_from_battery, calibrate_from_profile_dir, cost_model, simulate_fault_plan,
+    simulate_flow_broadcast,
+)
 from adapcc_tpu_torch.strategy import hierarchy
+from adapcc_tpu_torch.strategy.flow_lp import solve_broadcast_lp
 from adapcc_tpu_torch.strategy.ir import Strategy
 from adapcc_tpu_torch.strategy.synthesizer import Synthesizer
 from adapcc_tpu_torch.strategy.xml_io import emit_strategy_xml, parse_strategy_xml, write_ip_table
 from adapcc_tpu_torch.supervisor import DecisionJournal, LivenessConfig, Supervisor
-from adapcc_tpu_torch.topology.profile import gather_topo_profile
-from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase, TuningPolicy, mesh_fingerprint
+from adapcc_tpu_torch.topology.profile import NetworkProfiler, gather_topo_profile
+from adapcc_tpu_torch.topology.variability import VariabilityMonitor, detect_drift, load_trace
+from adapcc_tpu_torch.tuner import (
+    CollectiveTuner, TuningDatabase, TuningKey, TuningPolicy, mesh_fingerprint, size_bucket, topology_fingerprint,
+)
 from adapcc_tpu_torch.tuner import measure as tuner_measure
 from adapcc_tpu_torch.tuner.policy import (
     ALGO_PATHS, DEFAULT_CHUNK_GRID, IR_OPT_PATH, IR_PATH, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path,
@@ -424,6 +463,19 @@ FAILOVER_COLD_STEP = 6
 FAILOVER_WARM_K = 4
 #: fsync'd journal appends a timing takes
 JOURNAL_APPENDS = 20
+#: phase 18: JAX's drills (tests/test_adapt.py, test_fabric.py) on 4 hosts
+#: of 2 ranks; 18b's payload and degradation, 18c's payload and seeded
+#: congestion profile (one inter-host window of 4 steps in 16), 18d's steps,
+#: drift window and step-time drift, 18e's probe span
+ADAPT_DRILL_IPS = {r: f"10.0.0.{r // 2}" for r in range(SCHEDULE_WORLD)}
+ADAPT_DRILL_BYTES = 1 << 20
+ADAPT_DRILL_SCALE = 10.0
+ADAPT_CONGESTION_BYTES = 16 << 20
+ADAPT_CONGESTION = {"steps": 16, "seed": 9, "n_windows": 1}
+ADAPT_TRAIN_STEPS = 6
+ADAPT_STEP_WINDOW = 3
+ADAPT_STEP_DRIFT = 5.0
+VARIABILITY_S = 2.0
 #: profiler captures a device timing takes before an empty one is a
 #: failure: on an NVIDIA H100 80GB HBM3 at 700 W with torch 2.11 the
 #: profiler has come back with no device record for a library yardstick and
@@ -2898,6 +2950,403 @@ def slice14(dev: torch.device, init_state, tokens, buckets: list, c_losses: list
     return p17
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the online adaptation loop (slice 15)
+# --------------------------------------------------------------------------- #
+
+
+def _drill_model(scale: float = 1.0, source: str = "drill") -> cost_model.LinkCostModel:
+    """JAX's drill model: the JAX package's default classes as explicit
+    coefficients (1 us and 45 GB/s inside a host, 25 us and 12.5 GB/s
+    between hosts), the inter-host class ``scale`` times slower, on
+    ``ADAPT_DRILL_IPS``."""
+    return cost_model.LinkCostModel(
+        SCHEDULE_WORLD, classes={cost_model.ICI: cost_model.LinkCoeffs(1e-6, 1.0 / 45e9),
+                                 cost_model.DCN: cost_model.LinkCoeffs(25e-6, 1.0 / 12.5e9).scaled(scale)},
+        ips=ADAPT_DRILL_IPS, source=f"{source}-x{scale:g}")
+
+
+def _drill_controller(eng, model, cal_path: str, nbytes: int, bucket: torch.Tensor, fingerprint: str,
+                      **kwargs) -> AdaptationController:
+    """JAX's drill controller (window 4, factor 2, degree 2), warming on
+    ``bucket``'s per-rank shape and dtype on its device."""
+    table = [ADAPT_DRILL_IPS[r] for r in range(SCHEDULE_WORLD)]
+    return AdaptationController(
+        eng, Synthesizer(None, table), mode="swap", cost_model=model, calibration_path=cal_path, nbytes=nbytes,
+        parallel_degree=2, warm_shape=tuple(bucket.shape[1:]), warm_dtype=bucket.dtype, fingerprint=fingerprint,
+        detector=DriftDetector(SCHEDULE_WORLD, fingerprint, cost_model=model, factor=2.0, window=4),
+        device=bucket.device, **kwargs)
+
+
+def _signal(label: str, sig) -> str:
+    return (f"{label} {sig.key.primitive} {_cell(sig.key)} @{sig.key.size_bucket / 2**20:g} MiB: median "
+            f"{sig.median_s * 1e3:.4f} ms, reference {sig.reference_s * 1e3:.4f} ms ({sig.reference}), ratio "
+            f"{sig.ratio:.4f}, fired {sig.fired} ({sig.count} samples)")
+
+
+def _timed_buckets(eng, buckets: list) -> tuple:
+    """One relayed SUM dispatch of every bucket: (synced walltime ms,
+    device ms, launches), after a dispatch that prepares every shape."""
+    def dispatch():
+        return [eng.all_reduce(b, active_gpus=SCHEDULE_ACTIVE) for b in buckets]
+
+    dispatch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = dispatch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    del outs
+    dev_ms, launches = device_stats(dispatch, iters=1, warmup=0)
+    return wall_ms, dev_ms, launches
+
+
+def _window(eng, trace, buckets: list, x8: torch.Tensor, rounds: int, check: bool) -> float:
+    """``rounds`` rounds of the 18(a) cells on the recording engine: every
+    bucket unmasked (the ``xla`` cells) and the ring plane's float32 and
+    int8 allreduce of ``x8``; with ``check`` the first ring dispatches are
+    held bit for bit against their plain walk.  Returns the seconds."""
+    t0 = time.perf_counter()
+    for i in range(rounds):
+        for b in buckets:
+            eng.all_reduce(b)
+        for wire in ("off", "int8"):
+            out = eng.ring_allreduce(x8, wire_dtype=wire)
+            if check and i == 0:
+                event = trace.events()[-1]
+                exact = same_bits(out, plain_allreduce(x8, wire))
+                print(f"adapt 18a: ring_allreduce {wire} on {x8.shape[1] * 4 / 2**20:.1f} MiB a rank at world "
+                      f"{SCHEDULE_WORLD}: {event.impl}; bit for bit its plain walk {'ok' if exact else 'FAIL'}",
+                      flush=True)
+                if not exact:
+                    raise RuntimeError(f"18a: the {wire} ring allreduce differs from its plain walk")
+            del out
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _medians(db, window: int) -> dict:
+    """Each cell's median over its newest ``window`` samples."""
+    return {key: float(np.median(db.samples(key)[-window:])) for key in db.keys()}
+
+
+def adapt_detector(dev: torch.device, buckets: list, grads: torch.Tensor, workdir: str, smi: str) -> None:
+    """18(a): the detector over the card's own cells (the module
+    docstring).  A first window calibrates, a second one is the healthy
+    control, which makes no swap."""
+    strategy = parse_strategy_xml(SCHEDULE_XML)
+    ips = dict(strategy.trees[0].ips or {})
+    fp = topology_fingerprint(SCHEDULE_WORLD, ips)
+    table = [ips[r] for r in range(SCHEDULE_WORLD)]
+    tuner = CollectiveTuner(SCHEDULE_WORLD, fp, db=TuningDatabase(persist=False), mode="record")
+    trace = CollectiveTrace()
+    eng = CollectiveEngine(SCHEDULE_WORLD, strategy, trace=trace, tuner=tuner)
+    for b in buckets:
+        eng.all_reduce(b, active_gpus=SCHEDULE_ACTIVE, op=ReduceOp.AVG)
+    print(f"adapt 18a: one relayed AVG dispatch a bucket ({[e.impl for e in trace.events()]}) leaves the recording "
+          f"tuner {len(tuner.db.keys())} cells: the relayed schedule plane is not timed (JAX's rule), so the windows "
+          f"come from unmasked dispatches", flush=True)
+    x8 = torch.cat([grads, grads])  # phase 9's gradients as 8 ranks
+    window = resolve_drift_window()
+    span_s = _window(eng, trace, buckets, x8, window + 1, True)  # the timer drops each cell's first dispatch
+    first = _medians(tuner.db, window)
+    for key, med in first.items():
+        print(f"adapt 18a: calibration window, cell {key.primitive} {_cell(key)} @{key.size_bucket / 2**20:g} MiB: "
+              f"median {med * 1e3:.4f} ms ({tuner.db.count(key)} samples)", flush=True)
+    print(f"adapt 18a: {window + 1} rounds of {len(buckets)} buckets and 2 ring allreduces in {span_s:.2f} s",
+          flush=True)
+    # the findings: the H100 defaults, and the bootstrap's calibration (the
+    # card's offset probes into topo_profile_0, fitted per link)
+    NetworkProfiler(SCHEDULE_WORLD, dev).dump(workdir)
+    probe = calibrate_from_profile_dir(workdir, SCHEDULE_WORLD, ips)
+    print(f"adapt 18a: the bootstrap's calibration from the card's offset probes: "
+          f"{ {c: (round(k.alpha * 1e6, 3), round(1 / k.beta / 1e9, 2) if k.beta else 'inf') for c, k in probe.classes.items()} } "
+          f"(alpha us, GB/s a class; on one card device-memory copies, and launch-bound)", flush=True)
+    for label, model in (("the H100 defaults", cost_model.LinkCostModel(SCHEDULE_WORLD, ips=ips, source="defaults")),
+                         ("the offset-probe calibration", probe.cost_model())):
+        det = DriftDetector(SCHEDULE_WORLD, fp, cost_model=model)
+        det.ingest_db(tuner.db)
+        for sig in det.check().signals:
+            print(_signal(f"adapt 18a against {label}:", sig), flush=True)
+    # the card's own calibration: the window's medians through the battery
+    # funnel (the ring algebra over the float32 cells); one card has one
+    # link class, so the inter-host class takes the same fit
+    rows = [{"collective": "allreduce", "world": SCHEDULE_WORLD, "size_bytes": key.size_bucket,
+             "time_us": med * 1e6, "impl": "xla" if key.path == "xla" else "cuda_ring"}
+            for key, med in first.items() if key.wire_dtype == "off"]
+    battery = os.path.join(workdir, "battery.jsonl")
+    with open(battery, "w") as f:
+        f.write(json.dumps({"rows": rows}) + "\n")
+    cal = calibrate_from_battery(battery, impls=("xla", "cuda_ring"))
+    cal.classes[cost_model.DCN] = cal.classes[cost_model.ICI]
+    cal.fingerprint, cal.samples = fp, window * len(rows)
+    cal_path = os.path.join(workdir, "calibration.json")
+    cal.save(cal_path)
+    fit = cal.classes[cost_model.ICI]
+    print(f"adapt 18a: the card's calibration from the window's float32 medians ({cal.source}): alpha "
+          f"{fit.alpha * 1e6:.3f} us, {1 / fit.beta / 1e9:.2f} GB/s, both classes", flush=True)
+    # the healthy control: a fresh window against the card's calibration
+    _window(eng, trace, buckets, x8, window, False)
+    del x8
+    torch.cuda.empty_cache()
+    ctl = AdaptationController(eng, Synthesizer(None, table), mode="swap", calibration_path=cal_path, db=tuner.db,
+                               fingerprint=fp, nbytes=buckets[0][0].numel() * buckets[0].element_size(),
+                               warm_shape=tuple(buckets[0].shape[1:]), warm_dtype=buckets[0].dtype, device=dev)
+    t0 = time.perf_counter()
+    rep = ctl.maybe_adapt()
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    for sig in rep.drift.signals:
+        print(_signal("adapt 18a healthy control against the card's calibration:", sig), flush=True)
+    print(f"adapt 18a: healthy control: {rep.outcome}, swapped {rep.swapped}, engine epoch {eng.epoch}, the pass "
+          f"{pass_ms:.3f} ms of host ({smi})", flush=True)
+    if rep.outcome != "no-drift" or rep.swapped or eng.epoch != 0 or len(rep.drift.signals) != len(tuner.db.keys()):
+        raise RuntimeError(f"18a: the healthy control did not read every cell without drift: {rep.to_row()}")
+
+
+def adapt_degradation(buckets: list, workdir: str, smi: str) -> None:
+    """18(b): JAX's degradation drill on a ring(8) engine, then the first
+    dispatch after the swap (the module docstring)."""
+    trace = CollectiveTrace()
+    incumbent = Strategy.ring(SCHEDULE_WORLD, 1, ADAPT_DRILL_IPS)
+    eng = CollectiveEngine(SCHEDULE_WORLD, incumbent, trace=trace)
+    inc = _timed_buckets(eng, buckets)
+    fp = "fp-drill"
+    cal_path = os.path.join(workdir, "drill_calibration.json")
+    ctl = _drill_controller(eng, _drill_model(), cal_path, ADAPT_DRILL_BYTES, buckets[0], fp)
+    key = TuningKey("allreduce", size_bucket(ADAPT_DRILL_BYTES), SCHEDULE_WORLD, fp, "xla", 0, "off")
+    reports, fired_at = [], None
+    for scale in (1.0, ADAPT_DRILL_SCALE):
+        pred = DriftDetector(SCHEDULE_WORLD, fp, cost_model=_drill_model(scale)).predicted_s(key)
+        for i in range(ctl.detector.window):
+            ctl.observe(key, pred * (0.95, 1.05)[i % 2])
+            if scale > 1 and fired_at is None and ctl.detector.check().drifted:
+                fired_at = i + 1
+        reports.append(ctl.maybe_adapt())
+    healthy, rep = reports
+    with open(cal_path) as f:
+        stamped = json.load(f)
+    print(f"adapt 18b: healthy series {healthy.outcome}; degraded series (inter-host x{ADAPT_DRILL_SCALE:g}) fired "
+          f"after {fired_at} of {ctl.detector.window} samples; triage {rep.triage}; recalibrated {rep.recalibrated} "
+          f"({stamped['source']}, provenance {stamped['provenance']}, {stamped['samples']} samples); ranked "
+          f"{rep.ranked}; {rep.outcome} to {rep.winner_label} {eng.strategy.synthesis} x{eng.strategy.num_trans} "
+          f"wire {eng.strategy.wire_dtype} (predicted {rep.winner_pred_s * 1e3:.4f} ms against the incumbent's "
+          f"{rep.incumbent_pred_s * 1e3:.4f}); epoch {rep.epoch}; aot_warm_s {rep.aot_warm_s:.6f}, stall_s "
+          f"{rep.stall_s:.6f} (the port's warm: host plans and zeros dispatches, no compile)", flush=True)
+    if not (healthy.outcome == "no-drift" and fired_at is not None and fired_at <= ctl.detector.window
+            and rep.triage == "degradation" and rep.recalibrated and stamped["provenance"][-1] == "drift-recal"
+            and rep.outcome == "swapped" and rep.epoch == 1 and eng.epoch == 1
+            and rep.winner_pred_s < rep.incumbent_pred_s):
+        raise RuntimeError(f"18b: the degradation drill missed a stage: {rep.to_row()}")
+    b0 = buckets[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.all_reduce(b0, active_gpus=SCHEDULE_ACTIVE)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    event = trace.events()[-1]
+    rows_same = all(same_bits(out[r], out[0]) for r in range(1, SCHEDULE_WORLD))
+    cpu = CollectiveEngine(SCHEDULE_WORLD, eng.strategy).all_reduce(b0.cpu(), active_gpus=SCHEDULE_ACTIVE)
+    exact = same_bits(out.cpu(), cpu)
+    del out, cpu
+    win = _timed_buckets(eng, buckets)
+    print(f"adapt 18b: the first dispatch after the swap (bucket 0, rank 3 a relay): {event.impl}, cache_hit "
+          f"{event.extra['cache_hit']}, epoch {event.extra.get('epoch')}, {first_ms:.3f} ms synced; rows identical "
+          f"{'ok' if rows_same else 'FAIL'}, bit for bit its CPU run {'ok' if exact else 'FAIL'}; the {len(buckets)} "
+          f"buckets synced {win[0]:.3f} ms, device {win[1]:.4f} ms ({win[2]} launches) against the incumbent's "
+          f"{inc[0]:.3f} ms, {inc[1]:.4f} ms ({inc[2]} launches) ({smi})", flush=True)
+    if not (event.extra["cache_hit"] is True and event.extra.get("epoch") == 1 and rows_same and exact):
+        raise RuntimeError("18b: the first dispatch after the swap was not a warm, exact dispatch at epoch 1")
+
+
+def adapt_congestion(buckets: list, workdir: str, smi: str) -> None:
+    """18(c): JAX's congestion drill under the supervisor (the module
+    docstring)."""
+    from adapcc_tpu_torch.adapt import calibration_of
+
+    model = _drill_model(source="fabric")
+    trace = CollectiveTrace()
+    incumbent = Strategy.ring(SCHEDULE_WORLD, 1, ADAPT_DRILL_IPS)
+    eng = CollectiveEngine(SCHEDULE_WORLD, incumbent, trace=trace)
+    cal_path = os.path.join(workdir, "fabric_calibration.json")
+    calibration_of(model, fingerprint="fp", samples=3).save(cal_path)
+    with open(cal_path, "rb") as f:
+        before = f.read()
+    profile = CongestionProfile.seeded(SCHEDULE_WORLD, **ADAPT_CONGESTION)
+    ctl = _drill_controller(eng, model, cal_path, ADAPT_CONGESTION_BYTES, buckets[0], "fp",
+                            congestion_profile=profile)
+    journal = os.path.join(workdir, "adapt.journal")
+    sup = Supervisor(CoordinatorLogic(SCHEDULE_WORLD), engine=eng, adapt=ctl, adapt_every=1, journal_path=journal,
+                     clock=lambda: 0.0)
+    print(f"adapt 18c: profile {profile.to_dict()}; probe cells {ctl._probe_sizes}", flush=True)
+    b0, cpu_b0 = buckets[0], buckets[0].cpu()
+    outcomes, hits = [], {}
+    for step in range(ADAPT_CONGESTION["steps"]):
+        ctl.tick(step)
+        t0 = time.perf_counter()
+        sup.poll()
+        poll_ms = (time.perf_counter() - t0) * 1e3
+        rep = ctl.reports[-1]
+        outcomes.append(rep.outcome)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.all_reduce(b0, active_gpus=SCHEDULE_ACTIVE, epoch=sup.engine_epoch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        event = trace.events()[-1]
+        exact = same_bits(out.cpu(), CollectiveEngine(SCHEDULE_WORLD, eng.strategy).all_reduce(
+            cpu_b0, active_gpus=SCHEDULE_ACTIVE))
+        hits[rep.outcome] = event.extra["cache_hit"]
+        with open(cal_path, "rb") as f:
+            untouched = f.read() == before
+        print(f"adapt 18c step {step}: factors {profile.factors_at(step)}; {rep.outcome} (triage {rep.triage}); "
+              f"poll {poll_ms:.3f} ms; engine epoch {sup.engine_epoch}, strategy {eng.strategy.synthesis}; bucket 0 "
+              f"cache_hit {event.extra['cache_hit']}, {wall_ms:.3f} ms synced, bit for bit its CPU run "
+              f"{'ok' if exact else 'FAIL'}; calibration untouched {'ok' if untouched else 'FAIL'}", flush=True)
+        if not (exact and untouched):
+            raise RuntimeError(f"18c step {step} failed its checks")
+        del out
+    sup.stop()
+    with open(journal) as f:
+        notes = [json.loads(line) for line in f]
+    notes = [n for n in notes if n.get("kind") == "adapt"]
+    print(f"adapt 18c: journal adapt notes {notes}", flush=True)
+    want = ["congestion-reroute", "congestion-cleared"]
+    reroute = outcomes.index("congestion-reroute") if "congestion-reroute" in outcomes else None
+    if (reroute is None or "congestion-cleared" not in outcomes[reroute:] or [n["outcome"] for n in notes] != want
+            or notes[0]["triage"] != "congestion" or hits.get("congestion-reroute") is not True
+            or hits.get("congestion-cleared") is not True or eng.strategy.fingerprint() != incumbent.fingerprint()):
+        raise RuntimeError(f"18c: the congestion drill missed a stage: {outcomes}, {notes}, {hits}")
+
+
+def adapt_trainer(dev: torch.device, init_state, tokens, c_losses: list, workdir: str) -> dict:
+    """18(d): the trainer under the loop (the module docstring).  Returns
+    the flash kernels' launches."""
+    for w in fa.KERNELS:
+        w.launches = 0
+    world = build_world_mesh(1)
+    try:
+        model = GPT2(MAIN, device=dev, seed=None).to(torch.bfloat16)
+        model.load_state_dict(init_state)
+        trainer = DDPTrainer(lambda m, b: lm_loss(m(b), b), adamw(3e-4), world, Strategy.ring(1),
+                             sync_mode="schedule")
+        state = TrainState.create(model, trainer.tx)
+        eng = CollectiveEngine(1, Strategy.ring(1))
+        cal_path = os.path.join(workdir, "trainer_calibration.json")
+        ctl = AdaptationController(
+            eng, Synthesizer(None, ["h0"]), mode="swap", cost_model=cost_model.LinkCostModel.uniform(1),
+            calibration_path=cal_path, trainer=trainer, trainer_prewarm=lambda s: trainer.prewarm(s, state, tokens),
+            fingerprint="fp-train", detector=DriftDetector(1, "fp-train", window=ADAPT_STEP_WINDOW), device=dev)
+        grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        losses, step_s, loop_ms, outcomes = [], [], [], []
+        for _ in range(ADAPT_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.step(state, tokens)[1].item())
+            step_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ctl.observe_step(step_s[-1], grad_bytes)
+            outcomes.append(ctl.maybe_adapt().outcome)
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(ADAPT_STEP_WINDOW):
+            ctl.observe_step(float(np.median(step_s)) * ADAPT_STEP_DRIFT, grad_bytes)
+        rep = ctl.maybe_adapt()
+    finally:
+        destroy_world()
+    launches = {w.__name__: w.launches for w in fa.KERNELS}
+    print(f"adapt 18d (DDP sync_mode='schedule', world 1, under the loop): losses {losses}; the first {STEPS} bit "
+          f"for bit phase 11c's {'ok' if losses[:STEPS] == c_losses else 'FAIL'}; step ms "
+          f"{[round(s * 1e3, 2) for s in step_s]}; outcomes {outcomes}; observe_step + maybe_adapt "
+          f"{[round(m, 4) for m in loop_ms]} ms of host a step; a step-time drift x{ADAPT_STEP_DRIFT:g}: "
+          f"{rep.outcome} (fired {rep.fired}, swapped {rep.swapped}, recalibrated {rep.recalibrated}, engine epoch "
+          f"{eng.epoch}); launches {launches}", flush=True)
+    want = MAIN.n_layer * ADAPT_TRAIN_STEPS
+    if (losses[:STEPS] != c_losses or any(o != "no-drift" for o in outcomes) or rep.outcome != "uninvertible"
+            or rep.swapped or rep.recalibrated or eng.epoch != 0 or os.path.exists(cal_path)
+            or any(n != want for n in launches.values())):
+        raise RuntimeError(f"18d: the trainer under the loop failed its checks: {rep.to_row()}, {launches}")
+    return launches
+
+
+def adapt_host_planes(dev: torch.device, buckets: list, workdir: str, smi: str) -> None:
+    """18(e): the shared fabric and the flow LP on the H100 defaults, and
+    the variability probe on the card (the module docstring)."""
+    strategy = parse_strategy_xml(SCHEDULE_XML)
+    ips = dict(strategy.trees[0].ips or {})
+    table = [ips[r] for r in range(SCHEDULE_WORLD)]
+    model = cost_model.LinkCostModel(SCHEDULE_WORLD, ips=ips, source="defaults")
+    per_rank = sum(b[0].numel() * b.element_size() for b in buckets)
+    fab = SharedFabric(model, table)
+    fab.add_job("training", priority="high", nbytes=per_rank)
+    fab.add_job("batch", priority="low", nbytes=16 << 20)
+    t0 = time.perf_counter()
+    row = fab.frontier()
+    plan_s = time.perf_counter() - t0
+    print(f"adapt 18e: SharedFabric on the H100 defaults ({table}), frontier in {plan_s:.4f} s of host: "
+          f"{json.dumps(row)}", flush=True)
+    if json.dumps(row, sort_keys=True) != json.dumps(fab.frontier(), sort_keys=True) or len(row["coordinated"]["jobs"]) != 2:
+        raise RuntimeError("18e: the frontier row is not one row of two jobs, byte for byte on a repeat")
+    bw, _ = model.to_graphs()
+    edges = [(s, d) for s in range(SCHEDULE_WORLD) for d in range(SCHEDULE_WORLD) if s != d]
+    t0 = time.perf_counter()
+    sol = solve_broadcast_lp(SCHEDULE_WORLD, edges, [bw[s][d] for s, d in edges], source=0)
+    solve_s = time.perf_counter() - t0
+    rounds = sol.comm_rounds()
+    nbytes = buckets[0][0].numel() * buckets[0].element_size()
+    tl = simulate_flow_broadcast(sol, model, nbytes)
+    print(f"adapt 18e: solve_broadcast_lp on the 8-rank graph ({len(edges)} edges) in {solve_s:.4f} s of host: "
+          f"makespan {sol.makespan:.6g} s a GB, {len(sol.rounds)} LP rounds, durations "
+          f"{[round(d, 6) for d in sol.durations]}, {len(rounds)} comm rounds "
+          f"{[list(r.edges) for r in rounds]}; simulate_flow_broadcast of bucket 0 ({nbytes / 2**20:.1f} MiB): "
+          f"{tl.to_row()}", flush=True)
+    if not (sol.makespan > 0 and tl.seconds > 0 and rounds):
+        raise RuntimeError("18e: the flow LP broadcast gave no schedule")
+    mon = VariabilityMonitor(SCHEDULE_WORLD, dev, interval_s=0.05, out_dir=os.path.join(workdir, "varmon"))
+    mon.start()
+    time.sleep(VARIABILITY_S)
+    mon.stop()
+    summary = mon.summary()
+    values = [v for _, v in mon.bandwidth_trace]
+    lat = [v * 1e6 for _, v in mon.latency_trace]
+    loaded = load_trace(os.path.join(workdir, "varmon", "bandwidth.txt"))
+    print(f"adapt 18e: VariabilityMonitor on the card's offset probe for {VARIABILITY_S:g} s: {summary}; latency "
+          f"{min(lat):.2f}-{max(lat):.2f} us; detect_drift {detect_drift(values)}, sustained and down "
+          f"{detect_drift(values, consecutive=3, direction='down')}; trace file {len(loaded)} readings ({smi})",
+          flush=True)
+    if summary["samples"] < 2 or len(loaded) != len(values):
+        raise RuntimeError("18e: the variability monitor took fewer than two readings")
+
+
+def slice15(dev: torch.device, init_state, tokens, z_tokens, buckets: list, c_losses: list, smi: str) -> dict:
+    """Phase 18, slice 15's main path (the module docstring); returns the
+    launches of each kernel in it (the ring kernels from 18a, the flash
+    kernels from 18d)."""
+    t18 = time.perf_counter()
+    grads = gpt2_gradients(dev, init_state, z_tokens)
+    for w in ring.KERNELS:
+        w.launches = 0
+    marks = [time.perf_counter()]
+    with tempfile.TemporaryDirectory(prefix="adapcc_slice15_") as workdir:
+        adapt_detector(dev, buckets, grads, workdir, smi)
+        del grads
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        adapt_degradation(buckets, workdir, smi)
+        marks.append(time.perf_counter())
+        adapt_congestion(buckets, workdir, smi)
+        marks.append(time.perf_counter())
+        p18 = adapt_trainer(dev, init_state, tokens, c_losses, workdir)
+        marks.append(time.perf_counter())
+        adapt_host_planes(dev, buckets, workdir, smi)
+        marks.append(time.perf_counter())
+    p18.update({w.__name__: w.launches for w in ring.KERNELS})
+    parts = ", ".join(f"{c} {b - a:.1f} s" for c, a, b in zip(("18a", "18b", "18c", "18d", "18e"), marks, marks[1:]))
+    print(f"phase 18 launches: {p18} (the ring kernels from 18a, the flash kernels from 18d); phase 18 "
+          f"{time.perf_counter() - t18:.1f} s ({parts}, the gradients {marks[0] - t18:.1f} s)", flush=True)
+    if not (p18["ring_k1b"] and p18["ring_k5b"]):
+        raise RuntimeError(f"phase 18 did not launch K1b and K5b: {p18}")
+    return p18
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -3212,6 +3661,11 @@ def main() -> None:
 
     # 17. slice 14's main path: elastic failover and the supervisor
     for kname, n in slice14(dev, init_state, tokens, s_buckets, c_losses_11, smi).items():
+        launches[kname] += n
+    torch.cuda.empty_cache()
+
+    # 18. slice 15's main path: the online adaptation loop
+    for kname, n in slice15(dev, init_state, tokens, z_tokens, s_buckets, c_losses_11, smi).items():
         launches[kname] += n
     del s_buckets
     torch.cuda.empty_cache()

@@ -210,7 +210,8 @@ def test_communicator_raises_for_what_waits(tmp_path, monkeypatch):
     # engine of a set-up primitive
     with pytest.raises(RuntimeError, match="no context"):
         comm.supervisor()
-    with pytest.raises(NotImplementedError, match="adaptation"):
+    # so does the adaptation controller (tests/test_torch_adapt.py)
+    with pytest.raises(RuntimeError, match="no context"):
         comm.adaptation_controller()
     # the tuner runs now (tests/test_torch_tuner.py): every mode builds, a
     # malformed one raises

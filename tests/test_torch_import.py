@@ -48,6 +48,9 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.strategy.solver", "adapcc_tpu_torch.compiler", "adapcc_tpu_torch.compiler.ir",
     "adapcc_tpu_torch.compiler.verify", "adapcc_tpu_torch.compiler.builders", "adapcc_tpu_torch.compiler.synthesize",
     "adapcc_tpu_torch.compiler.optimize", "adapcc_tpu_torch.compiler.lower",
+    "adapcc_tpu_torch.adapt", "adapcc_tpu_torch.adapt.controller", "adapcc_tpu_torch.adapt.detector",
+    "adapcc_tpu_torch.adapt.fabric", "adapcc_tpu_torch.adapt.recalibrate", "adapcc_tpu_torch.adapt.triage",
+    "adapcc_tpu_torch.sim.congestion", "adapcc_tpu_torch.strategy.flow_lp", "adapcc_tpu_torch.topology.variability",
 )
 
 _CHECK_TUNER = """

@@ -271,8 +271,39 @@ def test_sim_engine_env_and_rejection(monkeypatch):
     assert sim.lowering_cache_info()["entries"] == 0
 
 
-def test_replays_that_wait_raise():
-    with pytest.raises(NotImplementedError, match="adaptation-loop slice"):
-        sim.replay.simulate_congestion_profile(Strategy.ring(2), None, 1, None)
-    with pytest.raises(NotImplementedError, match="adaptation-loop slice"):
-        sim.replay.simulate_flow_broadcast(None, None, 1)
+def test_congestion_and_flow_replays_match_jax():
+    """The congestion-profile replay (a seeded profile and a hand-made one
+    with overlapping windows of both classes, event and vector replays) and
+    the flow-LP broadcast replay, rows and timelines equal to JAX's."""
+    from adapcc_tpu.sim import replay as jreplay
+    from adapcc_tpu.sim.congestion import CongestionProfile as JProfile
+    from adapcc_tpu.sim.congestion import CongestionWindow as JWindow
+    from adapcc_tpu.strategy.flow_lp import solve_broadcast_lp as jsolve
+
+    from adapcc_tpu_torch.sim.congestion import CongestionProfile, CongestionWindow
+    from adapcc_tpu_torch.strategy.flow_lp import solve_broadcast_lp
+
+    pm, jm = _models()
+    windows = [(1, 4, cm.DCN, 4.0), (2, 6, cm.ICI, 3.0), (3, 5, cm.DCN, 2.0)]
+    profiles = [(CongestionProfile.seeded(8, 12, seed=4, n_windows=3, classes=(cm.DCN, cm.ICI)),
+                 JProfile.seeded(8, 12, seed=4, n_windows=3, classes=(cm.DCN, cm.ICI))),
+                (CongestionProfile([CongestionWindow(*w) for w in windows], 8),
+                 JProfile([JWindow(*w) for w in windows], 8))]
+    for name in ("ring", "xml"):
+        port_s, jax_s = _strategies(name)
+        for (pp, jp), engine, steps in zip(profiles, ("event", "vector"), (None, 9)):
+            assert pp.to_dict() == jp.to_dict()
+            p = sim.simulate_congestion_profile(port_s, pm, NBYTES, pp, steps=steps, engine=engine)
+            j = jreplay.simulate_congestion_profile(jax_s, jm, NBYTES, jp, steps=steps, engine=engine)
+            assert [r.to_row() for r in p] == [r.to_row() for r in j], (name, engine)
+            assert [(r.seconds, r.healthy_s, r.factors) for r in p] == [(r.seconds, r.healthy_s, r.factors) for r in j]
+            assert any(r.congested and r.contention_ratio > 1 for r in p)
+    with pytest.raises(ValueError, match="world"):
+        sim.simulate_congestion_profile(Strategy.ring(4), pm, NBYTES, profiles[0][0])
+    edges = [(0, 1), (0, 2), (1, 3), (2, 4), (3, 4), (4, 3), (4, 5), (5, 6), (6, 7), (3, 7)]
+    bw = [1.0, 2.0, 1.0, 0.5, 3.0, 3.0, 2.0, 1.5, 1.0, 0.25]
+    p = sim.simulate_flow_broadcast(solve_broadcast_lp(8, edges, bw, num_rounds=5), pm, NBYTES)
+    j = jreplay.simulate_flow_broadcast(jsolve(8, edges, bw, num_rounds=5), jm, NBYTES)
+    assert p.seconds == j.seconds > 0 and p.to_row() == j.to_row()
+    assert [tuple(vars(t).values()) for t in p.report.transfers] == [tuple(vars(t).values()) for t in j.report.transfers]
+    assert p.report.link_busy == j.report.link_busy
