@@ -48,9 +48,24 @@ out-of-band supervisor, whose strategy swaps arrive through
 ``adopt_strategy``; ``prewarm`` builds a standby strategy's configuration
 without touching the training state.
 
+``zero1=True`` shards the optimizer state per rank (ZeRO-1 without the
+ring): the hook still allreduces the gradients, on whichever plane it has;
+each rank then takes its slice of the flat synced gradient in the JAX
+package's flat layout (:mod:`adapcc_tpu_torch.parallel.fsdp`), updates its
+``[N/world]`` float32 master row and its optimizer state, and one
+``all_gather_into_tensor`` rebuilds the replicated parameters.  Rank
+``r``'s master and moments are row ``r`` of the JAX trainer's ``[world,
+N/world]`` state; the state comes from :meth:`DDPTrainer.init_state`.
+``shard_replicas=k`` (``ADAPCC_SHARD_REPLICAS`` overrides) sends each
+rank's rows to its ``k`` holders after every step, stamped with the state's
+step (:mod:`adapcc_tpu_torch.elastic.redundancy`).  ``zero1_ring=True``
+waits for the per-process ring.
+
 ``optax.adamw`` and ``torch.optim.AdamW`` differ in one default that
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
-the torch optimizer with optax's defaults.
+the torch optimizer with optax's defaults; ``adamw(mu_dtype=torch.bfloat16)``
+builds :class:`AdamW`, which follows optax's ``scale_by_adam`` order and
+stores the first moment in ``mu_dtype``.
 """
 
 from __future__ import annotations
@@ -58,7 +73,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -75,6 +90,10 @@ from adapcc_tpu_torch.tuner import CollectiveTuner
 from adapcc_tpu_torch.tuner.measure import sync_device, sync_outputs
 from adapcc_tpu_torch.tuner.policy import NO_CHUNK, hook_overlap_of, hook_path
 
+if TYPE_CHECKING:
+    from adapcc_tpu_torch.elastic.redundancy import ShardReplicaStore
+    from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer
+
 Optimizer = torch.optim.Optimizer
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], Optimizer]
 
@@ -85,15 +104,82 @@ def adamw(
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 1e-4,
+    mu_dtype: Optional[torch.dtype] = None,
 ) -> OptimizerFactory:
-    """``optax.adamw`` with its defaults, as a factory of torch AdamW."""
+    """``optax.adamw`` with its defaults, as a factory of torch AdamW; with
+    ``mu_dtype``, of :class:`AdamW` (optax's order, the first moment stored
+    in ``mu_dtype``)."""
 
     def make(params: Iterable[nn.Parameter]) -> Optimizer:
+        if mu_dtype is not None:
+            return AdamW(params, learning_rate, b1, b2, eps, weight_decay, mu_dtype)
         return torch.optim.AdamW(
             params, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay
         )
 
     return make
+
+
+class AdamW(torch.optim.Optimizer):
+    """``optax.adamw(mu_dtype=...)`` operation for operation, as
+    ``scale_by_adam``, ``add_decayed_weights`` and ``scale_by_learning_rate``
+    chain it: ``mu = (1 - b1)·g + b1·mu`` (``b1·mu`` in the stored dtype,
+    ``b1`` rounded to it first, as JAX multiplies by a weak scalar), ``nu = (1 - b2)·g² + b2·nu``, the
+    bias-corrected update from that ``mu`` and ``nu``, then ``mu`` cast to
+    ``mu_dtype`` for storage; ``p + (-lr)·(update + wd·p)``.  The state keys
+    are ``torch.optim.AdamW``'s (``step``, ``exp_avg``, ``exp_avg_sq``), so
+    checkpoints and the converters read both alike."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 1e-4, mu_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(params, dict(lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                                      mu_dtype=mu_dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=group["mu_dtype"])
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                g = p.grad
+                # optax's operations in its order, each rounded once; in
+                # place where a temporary would be the size of p.  JAX casts
+                # the weak scalar b1 to mu's dtype before the product
+                mu = g * (1 - b1)
+                mu.add_(st["exp_avg"] * torch.tensor(b1, dtype=st["exp_avg"].dtype))
+                g2 = g * g
+                nu = st["exp_avg_sq"].mul_(b2).add_(g2.mul_(1 - b2))
+                del g2
+                st["step"] += 1
+                count = torch.tensor(int(st["step"]), dtype=torch.int32)
+                bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** count).to(device=p.device, dtype=mu.dtype)
+                bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** count).to(device=p.device, dtype=nu.dtype)
+                update = torch.div(nu, bc2).sqrt_().add_(group["eps"])
+                update = torch.div(mu, bc1).div_(update)
+                update.add_(p * group["weight_decay"]).mul_(-group["lr"])
+                p.add_(update.to(p.dtype))
+                del update
+                st["exp_avg"] = mu.to(group["mu_dtype"])
+        return None
+
+    def load_state_dict(self, state_dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict``, which casts every
+        floating state tensor to its parameter's dtype, then the first
+        moment back to ``mu_dtype`` (exact: its values came from there)."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state.get(p)
+                if st and "exp_avg" in st:
+                    st["exp_avg"] = st["exp_avg"].to(group["mu_dtype"])
 
 
 @dataclass
@@ -103,6 +189,9 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     step: int = 0
+    #: ZeRO-1 (``DDPTrainer(zero1=True).init_state``): this rank's float32
+    #: ``[N/world]`` master row, the one tensor ``optimizer`` updates
+    master: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, model: nn.Module, tx: OptimizerFactory) -> "TrainState":
@@ -130,6 +219,8 @@ class DDPTrainer:
         dynamic_mask: Optional[bool] = None,
         accum_steps: int = 1,
         zero1: bool = False,
+        zero1_ring: bool = False,
+        shard_replicas: Optional[int] = None,
         grad_compress: str = "off",
         error_feedback: bool = False,
         tune: bool = False,
@@ -171,12 +262,29 @@ class DDPTrainer:
                     "overlap='microbatch' never materializes the unsynced accumulated gradient the "
                     "GNS estimator contrasts; use overlap='bucket' or drop measure_gns"
                 )
-        if zero1:
+        self.zero1 = zero1
+        if zero1_ring and not zero1:
+            raise ValueError("zero1_ring=True requires zero1=True")
+        if zero1_ring:
             raise _not_ported(
-                "ZeRO-1 optimizer sharding in DDPTrainer (one process per card)",
-                "the ZeRO-1 elastic-state slice (zero1_ring=True with the per-process ring slice); "
-                "the single-controller ZeRO-1 ring step is adapcc_tpu_torch.parallel.fsdp.zero1_train_step",
+                "ZeRO-1 on the ring in DDPTrainer (one process per card)",
+                "the per-process ring slice (IPC peer tables, one process per card); zero1=True without the "
+                "ring runs, and the single-controller ZeRO-1 ring step is "
+                "adapcc_tpu_torch.parallel.fsdp.zero1_train_step",
             )
+        from adapcc_tpu_torch.elastic.redundancy import shard_replicas as _shard_replicas
+
+        # env > explicit arg > off, resolved now so a malformed env dies here
+        self.shard_replicas = _shard_replicas(default=0 if shard_replicas is None else int(shard_replicas))
+        if self.shard_replicas and not zero1:
+            raise ValueError(
+                "shard_replicas > 0 requires zero1=True: replicated DDP state has no single-owner "
+                "optimizer shard to replicate (every rank already holds everything)"
+            )
+        #: the replica set (built at init_state when armed)
+        self.replica_store: Optional[ShardReplicaStore] = None
+        #: the ZeRO-1 optimizer geometry (built at init_state)
+        self._zero1_opt: Optional[Zero1Optimizer] = None
         if measure_gns:
             raise _not_ported("gradient-noise-scale measurement", "the measurement slice")
         if strategy.world_size != mesh.world_size:
@@ -374,8 +482,8 @@ class DDPTrainer:
                 # float32 whatever the parameter dtype: a narrow bank would
                 # lose the very mass it defers
                 self._residual = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
-            _, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed,
-                                                              order)
+            synced, self._residual = self.hook.sync_error_feedback(grads, self._residual, active_mask, transposed,
+                                                                   order)
         elif not self.bsp:
             loss, grads = self._value_and_grad(state.model, batch)
             if self._deferred is None:
@@ -384,10 +492,90 @@ class DDPTrainer:
             for g, s in zip(grads, synced):
                 g.copy_(s)
         else:
-            loss, _ = self._loss_and_synced(state.model, batch, active_mask, order, transposed)
-        state.optimizer.step()
-        state.step += 1
+            loss, synced = self._loss_and_synced(state.model, batch, active_mask, order, transposed)
+        self._apply_synced(state, synced)
         return loss
+
+    # -- ZeRO-1 --------------------------------------------------------------------
+
+    def _zero1_overlap(self) -> str:
+        """The ZeRO-1 all-gather's schedule the trainer's overlap implies:
+        any overlapped trainer schedule chunks it too."""
+        return "bucket" if self.overlap != "off" else "off"
+
+    def init_state(self, model: nn.Module) -> TrainState:
+        """The trainer's state: the replicated optimizer normally; with
+        ``zero1=True`` this rank's float32 master row of the flat layout and
+        the optimizer over it alone (row ``rank`` of the JAX trainer's
+        ``[world, N/world]`` state), and, with ``shard_replicas``, the
+        replica set."""
+        if not self.zero1:
+            return TrainState.create(model, self.tx)
+        from adapcc_tpu_torch.elastic.redundancy import ShardReplicaStore
+        from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer
+
+        world = self.mesh.world_size
+        opt = self._zero1_opt = Zero1Optimizer(self.tx, world, tuner=self.tuner, overlap=self._zero1_overlap())
+        master, optimizer = opt.init_row(model, self.mesh.rank)
+        if self.shard_replicas:
+            self.replica_store = ShardReplicaStore(world, ips=self.hook.strategy.trees[0].ips,
+                                                   replicas=self.shard_replicas)
+        return TrainState(model=model, optimizer=optimizer, step=0, master=master)
+
+    def checkpoint_extra(self, extra: Optional[dict] = None) -> dict:
+        """A checkpoint's ``extra`` for this trainer's state: with
+        ``zero1=True`` stamped with the optimizer's layout tag, which the
+        checkpoint's layout guard enforces on every load."""
+        if not self.zero1:
+            return dict(extra or {})
+        if self._zero1_opt is None:
+            raise ValueError(
+                "call init_state(model) before checkpoint_extra(): the layout tag records the constructed "
+                "optimizer's geometry"
+            )
+        return self._zero1_opt.checkpoint_extra(extra)
+
+    def _check_state(self, state: TrainState) -> None:
+        """Catch the common ZeRO-1 misuse (``TrainState.create``'s replicated
+        optimizer) before it fails deeper in."""
+        if not self.zero1:
+            return
+        opt = self._zero1_opt
+        row = state.master
+        ok = (opt is not None and opt._meta is not None and isinstance(row, torch.Tensor) and row.dim() == 1
+              and row.numel() * opt.world == opt._meta.padded)
+        if not ok:
+            raise ValueError(
+                "zero1=True needs the sharded (master row [N/world], optimizer over it) state from "
+                "trainer.init_state(model) — got a replicated optimizer state (TrainState.create?)"
+            )
+
+    @torch.no_grad()
+    def _apply_synced(self, state: TrainState, synced: List[torch.Tensor]) -> None:
+        """The optimizer tail of every step.  ZeRO-1: every rank holds the
+        same synced gradient, so its slice of the flat gradient is a local
+        read; the update touches only its row and one all-gather rebuilds
+        the replicated parameters.  After it, with replicas armed, this
+        rank's rows go to their holders stamped with the state's step."""
+        if not self.zero1:
+            state.optimizer.step()
+            state.step += 1
+            return
+        from adapcc_tpu_torch.parallel.fsdp import _flatten, local_grad_shard
+        from adapcc_tpu_torch.parallel.zero1_rank import zero1_apply_shard_rank
+
+        opt = self._zero1_opt
+        meta, world = opt._meta, opt.world
+        names = [name for name, _ in state.model.named_parameters()]
+        flat_g = _flatten(dict(zip(names, synced)), meta)
+        g_row = local_grad_shard(flat_g, meta, world, self.mesh.rank)
+        state.model.zero_grad(set_to_none=True)
+        zero1_apply_shard_rank(state.optimizer, state.master, g_row, meta, state.model,
+                               overlap_chunks=opt.overlap_chunks(meta.padded // world))
+        del flat_g, g_row
+        state.step += 1
+        if self.replica_store is not None:
+            self.replica_store.exchange(state.master, state.optimizer, state.step, self.mesh.rank)
 
     def step(
         self,
@@ -402,6 +590,7 @@ class DDPTrainer:
         ``active_mask`` (``[world]`` bools) sets the ranks whose gradients
         count this step; it needs a ``dynamic_mask=True`` trainer.
         """
+        self._check_state(state)
         if not self._coord_calibrated:
             # rent-or-buy calibration: this trainer's gradient volume and the
             # bootstrap's profiled link bandwidth replace the coordinator's
@@ -571,6 +760,7 @@ class DDPTrainer:
                 "scan_steps does not thread the error-feedback residual across scanned steps; "
                 "use step() with error_feedback=True"
             )
+        self._check_state(state)
         losses = [self._step(state, batch, None) for _ in range(n_steps)]
         self._host_step += n_steps
         return state, torch.stack(losses)

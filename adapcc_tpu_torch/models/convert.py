@@ -10,14 +10,21 @@ into a ``state_dict`` for :class:`adapcc_tpu_torch.models.gpt2.GPT2`:
 - module names (``h{i}``, ``attn``, ``qkv``, ``ln_f``, ...) stay as they are.
 
 :func:`flax_paths` is the inverse map, parameter by parameter; the ZeRO-1
-flat layout orders the leaves by it.  :func:`zero1_state_from_jax` carries a
-JAX ZeRO-1 ``(master, opt_state)`` pair across, and :func:`residual_from_jax`
-one rank's error-feedback residual of the JAX ``DDPTrainer``.
+flat layout orders the leaves by it.  :func:`residual_from_jax` carries one
+rank's error-feedback residual of the JAX ``DDPTrainer`` across.
+
+Optimizer state: optax's adam state (``count``, ``mu``, ``nu``) is the
+port's AdamW state (``step``, ``exp_avg``, ``exp_avg_sq``), both ways, the
+first moment in its own dtype (``mu_dtype``): :func:`zero1_state_from_jax`
+and :func:`adam_state_to_jax` for the stacked ZeRO-1 pair or one rank's
+row, :func:`zero1_snapshot_from_jax` and :func:`zero1_snapshot_to_jax` for
+a checkpoint snapshot carrying the ``zero1_layout`` tag.  The flat layouts
+match element for element (``parallel/fsdp.py``), so nothing is permuted.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,25 +99,82 @@ def _adam_state(opt_state: Any) -> Any:
     return None
 
 
-def zero1_state_from_jax(master: Any, opt_state: Any) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """A JAX ``Zero1Optimizer`` pair as numpy (``jax.device_get`` of
-    ``(master [world, N/world], optax adamw state)``) → the port's
-    ``(master, Adam state)``: the float32 master and ``{"step", "exp_avg",
-    "exp_avg_sq"}``, the state ``torch.optim.AdamW`` keeps for it.  The flat
-    layouts match element for element (``parallel/fsdp.py``), so nothing is
-    permuted."""
+def _tensor(a: Any) -> torch.Tensor:
+    """A numpy array (bfloat16 included, which numpy only has through
+    JAX's ``ml_dtypes``) as a contiguous torch tensor of the same dtype."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
+def adam_state_from_jax(opt_state: Any, rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The adam part of an optax state (as numpy) → the port's AdamW state
+    ``{"step", "exp_avg", "exp_avg_sq"}``, the moments in their own dtypes:
+    the stacked ``[world, L]`` rows, or row ``rank``.  Per-rank counts must
+    agree."""
     adam = _adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optax state")
     counts = np.unique(np.asarray(adam.count))
     if counts.size != 1:
         raise ValueError(f"per-rank Adam step counts differ: {counts}")
+    mu, nu = _tensor(adam.mu), _tensor(adam.nu)
+    if rank is not None:
+        mu, nu = mu[rank].clone(), nu[rank].clone()
+    return {"step": torch.tensor(float(counts[0])), "exp_avg": mu, "exp_avg_sq": nu}
 
-    def f32(a: Any) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
-    state = {"step": torch.tensor(float(counts[0])), "exp_avg": f32(adam.mu), "exp_avg_sq": f32(adam.nu)}
-    return f32(master), state
+def adam_state_to_jax(state: Mapping[str, torch.Tensor], world: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The port's AdamW state → optax's ``{"count", "mu", "nu"}`` as numpy:
+    ``count`` int32, a ``[world]`` vector when ``world`` is given (a
+    ``vmap``-ed ``tx.init``'s count) else a scalar; ``mu`` float32 holding
+    the values exactly (cast it to the JAX state's ``mu_dtype``); ``nu`` as
+    it is."""
+    count = np.int32(int(state["step"]))
+    return {
+        "count": np.full((world,), count, np.int32) if world is not None else np.asarray(count),
+        "mu": state["exp_avg"].float().cpu().numpy(),
+        "nu": state["exp_avg_sq"].float().cpu().numpy(),
+    }
+
+
+def zero1_state_from_jax(master: Any, opt_state: Any, rank: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A JAX ``Zero1Optimizer`` pair as numpy (``jax.device_get`` of
+    ``(master [world, N/world], optax adamw state)``) → the port's
+    ``(master, AdamW state)``: the float32 master and ``{"step",
+    "exp_avg", "exp_avg_sq"}``; with ``rank``, that rank's row of both
+    (the per-rank trainer's state)."""
+    m = torch.from_numpy(np.array(master, dtype=np.float32, order="C"))
+    return (m if rank is None else m[rank].clone()), adam_state_from_jax(opt_state, rank)
+
+
+def zero1_snapshot_from_jax(master: Any, opt_state: Any, layout: Mapping[str, Any], tx: Any,
+                            rank: Optional[int] = None):
+    """A JAX ZeRO-1 pair and its ``zero1_layout`` tag → a
+    :class:`~adapcc_tpu_torch.checkpoint.TrainCheckpointState` whose
+    ``opt_state`` is ``(master, tx([master]).state_dict())`` holding the
+    carried state (``tx`` an optimizer factory, e.g. ``adamw(lr)``) and whose
+    ``extra`` keeps the tag: the stacked pair, or with ``rank`` its row."""
+    from adapcc_tpu_torch.checkpoint import TrainCheckpointState
+
+    m, state = zero1_state_from_jax(master, opt_state, rank)
+    optimizer = tx([m])
+    optimizer.state[m] = state
+    return TrainCheckpointState(params=None, opt_state=(m, optimizer.state_dict()),
+                                extra={"zero1_layout": dict(layout)})
+
+
+def zero1_snapshot_to_jax(snapshot: Any) -> Tuple[np.ndarray, Dict[str, np.ndarray], Dict[str, Any]]:
+    """The inverse of :func:`zero1_snapshot_from_jax`: ``(master, {"count",
+    "mu", "nu"}, layout)`` as numpy, ``count`` a ``[world]`` vector for a
+    stacked master."""
+    master, sd = snapshot.opt_state
+    state = sd["state"][0] if "state" in sd else sd
+    world = master.shape[0] if master.dim() == 2 else None
+    return master.detach().float().cpu().numpy(), adam_state_to_jax(state, world), dict(
+        snapshot.extra["zero1_layout"])
 
 
 def residual_from_jax(residual: Mapping[str, Any], model: nn.Module, rank: int) -> List[torch.Tensor]:

@@ -11,19 +11,39 @@ residual projections).  The numerics follow the flax model point by point:
 - ``attention="xla"`` is the materialized masked softmax (scores in
   ``cfg.dtype``, softmax in float32, probabilities back in ``cfg.dtype``),
   ``attention="flash"`` the blockwise kernels of
-  :mod:`adapcc_tpu_torch.ops.flash_attention`;
+  :mod:`adapcc_tpu_torch.ops.flash_attention`, taken only at ``dropout ==
+  0`` (as the JAX model routes);
 - logits are ``x.to(dtype) @ wte.T`` and come out float32.
+
+``dropout`` drops the embedding sum, the attention probabilities, and the
+attention and MLP projections' outputs (flax ``nn.Dropout``: kept elements
+scaled by ``1/(1-p)``), with masks drawn from an explicit
+``torch.Generator`` (``forward(generator=)``, else the model's
+``dropout_generator``, else torch's default one); ``deterministic`` (default:
+``not self.training``) turns it off.  ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="full"``
+recomputes everything, ``"dots"`` saves every matrix product's output and
+``"dots_no_batch"`` those without a batch dimension (the Linear layers',
+not attention's), as JAX's ``checkpoint_dots`` and
+``dots_with_no_batch_dims_saveable``.  A block under dropout takes one seed
+from the generator and draws its masks from it, so the recomputation draws
+the same masks.  The flash kernels are not matrix products the policies
+see: their forward runs again in the backward under every policy.
+
+``forward(return_hidden=True)`` returns the post-``ln_f`` hiddens for the
+chunked loss (:func:`lm_loss_chunked`).
 
 Parameters keep the flax names (``h{i}.attn.qkv``, ``ln_f``, ...), so
 :mod:`adapcc_tpu_torch.models.convert` maps a flax tree onto them.  Decode
-with a KV cache, sequence parallelism, remat and dropout are not ported yet.
+with a KV cache and sequence parallelism are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,10 +68,20 @@ class GPT2Config:
     attention: str = "xla"
     #: flash block edge (block_q == block_k); T must divide into it
     flash_block: int = 128
+    #: dropout rate of the embeddings, attention probabilities and the
+    #: attention and MLP outputs (flash runs only at 0)
+    dropout: float = 0.0
+    #: recompute each block in the backward
+    remat: bool = False
+    #: what the recomputation keeps: "full" nothing, "dots" every matrix
+    #: product's output, "dots_no_batch" those without a batch dimension
+    remat_policy: str = "full"
 
     def __post_init__(self) -> None:
         if self.attention not in ("xla", "flash"):
             raise ValueError(f"attention {self.attention!r} not in xla|flash")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} not in {sorted(REMAT_POLICIES)}")
         if self.d_model % self.n_head:
             raise ValueError(f"d_model {self.d_model} not divisible by n_head {self.n_head}")
 
@@ -59,6 +89,40 @@ class GPT2Config:
     def tiny() -> "GPT2Config":
         """Test-sized config."""
         return GPT2Config(vocab_size=512, max_seq=64, n_layer=2, n_head=2, d_model=64)
+
+
+#: matrix products with and without a batch dimension, as the dispatcher
+#: sees them (a Linear layer is mm/addmm on a 2-D view; einsum's attention
+#: products are bmm)
+_DOTS_NO_BATCH = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_DOTS = _DOTS_NO_BATCH + (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+#: remat policy → the ops whose outputs the recomputation keeps (None: none)
+REMAT_POLICIES = {"full": None, "dots": _DOTS, "dots_no_batch": _DOTS_NO_BATCH}
+
+
+def _remat_context(policy: str):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a policy that keeps
+    ``REMAT_POLICIES[policy]``'s outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = REMAT_POLICIES[policy]
+
+    def decide(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(decide)
+
+
+def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - p``,
+    kept ones scaled by ``1/(1-p)``, the mask drawn from ``generator``."""
+    if p == 0.0 or generator is None:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=generator.device) >= p
+    return torch.where(keep.to(x.device), x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +142,7 @@ class CausalSelfAttention(nn.Module):
         self.qkv = nn.Linear(cfg.d_model, 3 * cfg.d_model, device=device)
         self.proj = nn.Linear(cfg.d_model, cfg.d_model, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         B, T, C = x.shape
         head_dim = C // cfg.n_head
@@ -87,7 +151,7 @@ class CausalSelfAttention(nn.Module):
         k = k.reshape(B, T, cfg.n_head, head_dim)
         v = v.reshape(B, T, cfg.n_head, head_dim)
         scale = 1.0 / math.sqrt(head_dim)
-        if cfg.attention == "flash":
+        if cfg.attention == "flash" and cfg.dropout == 0.0:
             out = flash_attention(
                 q, k, v, causal=True, scale=scale,
                 block_q=cfg.flash_block, block_k=cfg.flash_block,
@@ -96,8 +160,9 @@ class CausalSelfAttention(nn.Module):
             att = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
             above = torch.ones(T, T, dtype=torch.bool, device=x.device).triu(1)
             att = att.masked_fill(above, -1e30).softmax(dim=-1).to(cfg.dtype)
+            att = _dropout(att, cfg.dropout, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return _dense(self.proj, out.reshape(B, T, C), cfg.dtype)
+        return _dropout(_dense(self.proj, out.reshape(B, T, C), cfg.dtype), cfg.dropout, generator)
 
 
 class Block(nn.Module):
@@ -111,11 +176,16 @@ class Block(nn.Module):
         self.fc = nn.Linear(d, 4 * d, device=device)
         self.proj = nn.Linear(4 * d, d, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """``seed``: this call's dropout masks come from a generator seeded
+        with it (None: no dropout)."""
         dt = self.cfg.dtype
-        x = x + self.attn(_layer_norm(self.ln1, x))
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+        x = x + self.attn(_layer_norm(self.ln1, x), gen)
         h = F.gelu(_dense(self.fc, _layer_norm(self.ln2, x), dt), approximate="tanh")
-        return x + _dense(self.proj, h, dt)
+        return x + _dropout(_dense(self.proj, h, dt), self.cfg.dropout, gen)
 
 
 class GPT2(nn.Module):
@@ -135,6 +205,8 @@ class GPT2(nn.Module):
         for i in range(cfg.n_layer):
             self.add_module(f"h{i}", Block(cfg, device=dev))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=LN_EPS, device=dev)
+        #: the dropout masks' generator when ``forward`` is given none
+        self.dropout_generator: Optional[torch.Generator] = None
         if seed is not None:
             self.reset_parameters(seed)
 
@@ -162,16 +234,47 @@ class GPT2(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None, return_hidden: bool = False) -> torch.Tensor:
+        """``tokens [B, T]`` → logits ``[B, T, vocab]`` float32, or with
+        ``return_hidden`` the post-``ln_f`` hiddens ``[B, T, d_model]``
+        float32.  Dropout (``cfg.dropout > 0``) runs unless
+        ``deterministic`` (default ``not self.training``), its masks from
+        ``generator`` (else ``self.dropout_generator``, else torch's
+        default generator for the model's device)."""
         cfg = self.cfg
         B, T = tokens.shape
+        if deterministic is None:
+            deterministic = not self.training
+        gen = None
+        if cfg.dropout > 0.0 and not deterministic:
+            gen = generator if generator is not None else self.dropout_generator
+            if gen is None:
+                gen = torch.default_generator if tokens.device.type == "cpu" else \
+                    torch.cuda.default_generators[tokens.device.index or 0]
         positions = torch.arange(T, device=tokens.device)
         x = self.wte(tokens).to(cfg.dtype) + self.wpe(positions).to(cfg.dtype)[None]
+        x = _dropout(x, cfg.dropout, gen)
         for i in range(cfg.n_layer):
-            x = getattr(self, f"h{i}")(x)
+            block = getattr(self, f"h{i}")
+            # one seed a block, drawn before it runs: a recomputation draws
+            # the same masks
+            seed = None if gen is None else int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
+            x = self._remat(block)(x, seed) if cfg.remat else block(x, seed)
         x = _layer_norm(self.ln_f, x)
+        if return_hidden:
+            return x
         # weight-tied LM head
         return (x.to(cfg.dtype) @ self.wte.weight.to(cfg.dtype).T).float()
+
+    def _remat(self, block: nn.Module) -> Callable:
+        """``block`` under ``torch.utils.checkpoint`` with the config's
+        policy."""
+        from torch.utils.checkpoint import checkpoint
+
+        kw = {} if self.cfg.remat_policy == "full" else {
+            "context_fn": functools.partial(_remat_context, self.cfg.remat_policy)}
+        return lambda x, seed: checkpoint(block, x, seed, use_reentrant=False, **kw)
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -179,3 +282,16 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
     return -ll.mean()
+
+
+def lm_loss_chunked(model: GPT2, tokens: torch.Tensor, block: int = 1024, **forward_kw) -> torch.Tensor:
+    """:func:`lm_loss` without the ``[B, T, vocab]`` logits: the model
+    returns its post-``ln_f`` hiddens and the weight-tied head's product
+    goes into the chunked online-softmax loss
+    (:mod:`adapcc_tpu_torch.ops.chunked_ce`), head in ``cfg.dtype``,
+    softmax in float32.  The gradient reaches ``wte`` through the
+    embedding and the head.  ``forward_kw`` go to the model's forward."""
+    from adapcc_tpu_torch.ops.chunked_ce import chunked_lm_loss
+
+    hidden = model(tokens, return_hidden=True, **forward_kw)
+    return chunked_lm_loss(hidden, model.wte.weight, tokens, block, model.cfg.dtype)

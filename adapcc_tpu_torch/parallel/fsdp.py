@@ -64,7 +64,7 @@ from adapcc_tpu_torch.comm.ring import (
 from adapcc_tpu_torch.ddp.overlap import even_chunk_bounds, overlap_chunk_count
 from adapcc_tpu_torch.ddp.trainer import OptimizerFactory
 from adapcc_tpu_torch.models.convert import flax_paths
-from adapcc_tpu_torch.primitives import ReduceOp, not_ported
+from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.quant.codec import get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.tuner.measure import sync_device, sync_outputs
 from adapcc_tpu_torch.tuner.policy import NO_CHUNK
@@ -182,6 +182,13 @@ def zero1_apply_shard(
     _unflatten(flat_p, meta, model)
 
 
+def local_grad_shard(flat_g: torch.Tensor, meta: _FlatMeta, world: int, rank: int, offset: int = 0) -> torch.Tensor:
+    """This rank's ``[N/world]`` slice of a replicated flat gradient, a local
+    read with no collective; ``offset=1`` is the ring's ownership (rank
+    ``r`` owns chunk ``(r + 1) % world``)."""
+    return flat_g.view(world, meta.padded // world)[(rank + offset) % world]
+
+
 class Zero1Optimizer:
     """Optimizer-state-sharded DDP (ZeRO stage 1) over ``world`` ranks,
     single-controller form.
@@ -224,10 +231,7 @@ class Zero1Optimizer:
         tuner: Optional[Any] = None,
         overlap: str = "off",
         overlap_chunk_bytes: Optional[int] = None,
-        shard_replicas: int = 0,
     ) -> None:
-        if shard_replicas:
-            raise not_ported("ZeRO-1 shard replicas", "the ZeRO-1 elastic-state slice")
         if overlap == "microbatch":
             raise ValueError(
                 "Zero1Optimizer has no microbatch axis to pipeline over — microbatch overlap lives in "
@@ -311,6 +315,17 @@ class Zero1Optimizer:
         master = master.contiguous()
         self._device = master.device
         return master, self.tx([master])
+
+    def init_row(self, model: nn.Module, rank: int) -> Tuple[torch.Tensor, torch.optim.Optimizer]:
+        """One rank's share of :meth:`init` (the per-rank trainer):
+        ``(row [N/world] float32, tx([row]))``, row ``rank`` of the master
+        :meth:`init` would make."""
+        meta = self._meta = _flatten_meta(model, self.world, self._align())
+        flat = _flatten({n: p.detach() for n, p in model.named_parameters()}, meta).view(self.world, -1)
+        row = flat[(rank + 1) % self.world if self.ring else rank].clone()
+        del flat
+        self._device = row.device
+        return row, self.tx([row])
 
     def layout_metadata(self) -> Dict[str, Any]:
         """The layout of the master and optimizer state: ring mode permutes

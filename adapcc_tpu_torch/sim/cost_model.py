@@ -1021,3 +1021,101 @@ def adaptation_cost(
         "hot_swap_break_even_steps": hot / gain if gain > 0 else float("inf"),
         "full_rebuild_break_even_steps": full / gain if gain > 0 else float("inf"),
     }
+
+
+# --------------------------------------------------------------------------- #
+# recovery: a dead rank's ZeRO-1 shard repaired from its replica, or a
+# checkpoint reload
+# --------------------------------------------------------------------------- #
+
+#: shared-filesystem read rate a checkpoint reload pays: the JAX package's
+#: round-number prior, kept so the two packages price recovery alike; never
+#: measured for the port
+DEFAULT_CKPT_BYTES_PER_S = 1e9
+
+
+def replication_overhead_time(world: int, state_bytes: float, coeffs: LinkCoeffs, replicas: int = 1) -> float:
+    """Per-step wire cost of k-replicated ZeRO-1 shards
+    (:func:`adapcc_tpu_torch.elastic.redundancy.replica_placement`): each
+    rank sends its ``state_bytes / world`` rows to each of its ``replicas``
+    holders, concurrently over its own outbound hop, so the bottleneck link
+    carries ``replicas · state_bytes / world`` a step.  ``replicas=0`` is
+    free."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    if state_bytes < 0:
+        raise ValueError(f"state_bytes must be >= 0, got {state_bytes}")
+    if replicas < 0:
+        raise ValueError(f"replicas must be >= 0, got {replicas}")
+    if replicas == 0:
+        return 0.0
+    if replicas >= world:
+        raise ValueError(f"replicas={replicas} needs world > replicas (got {world})")
+    return coeffs.time(replicas * state_bytes / world)
+
+
+def replica_repair_time(world: int, state_bytes: float, coeffs: LinkCoeffs, standby_cached: bool = True) -> float:
+    """Repair of one dead rank's shard from its replica: the holder sends
+    the lost ``state_bytes / world`` rows back over one hop, plus the plan
+    swap onto the re-balanced layout.  No reload and no lost step."""
+    if world < 2:
+        raise ValueError(f"repair pricing needs world >= 2, got {world}")
+    if state_bytes < 0:
+        raise ValueError(f"state_bytes must be >= 0, got {state_bytes}")
+    return coeffs.time(state_bytes / world) + plan_swap_stall_s(standby_cached)
+
+
+def checkpoint_reload_time(state_bytes: float, lost_steps: float, step_time_s: float,
+                           ckpt_bytes_per_s: Optional[float] = None) -> float:
+    """The reload arm for the same death: read all ``state_bytes`` back from
+    storage, then redo the ``lost_steps`` since the last save."""
+    if state_bytes < 0 or lost_steps < 0 or step_time_s < 0:
+        raise ValueError("state_bytes / lost_steps / step_time_s must be >= 0")
+    rate = DEFAULT_CKPT_BYTES_PER_S if ckpt_bytes_per_s is None else ckpt_bytes_per_s
+    if rate <= 0:
+        raise ValueError(f"ckpt_bytes_per_s must be > 0, got {rate}")
+    return state_bytes / rate + lost_steps * step_time_s
+
+
+def recovery_cost(
+    world: int,
+    nbytes: float,
+    coeffs: LinkCoeffs,
+    state_bytes: Optional[float] = None,
+    replicas: int = 1,
+    save_interval_steps: int = 100,
+    step_time_s: Optional[float] = None,
+    wire_dtype: str = "off",
+    standby_cached: bool = True,
+    ckpt_bytes_per_s: Optional[float] = None,
+) -> Dict[str, float]:
+    """One rank death priced both ways: ``baseline_step_comm_s`` (the
+    healthy ring), ``replication_overhead_s`` and its ratio to the
+    baseline, ``replica_repair_s``, ``ckpt_reload_s`` (the full read plus
+    ``save_interval / 2`` redone steps), ``repair_speedup`` (reload over
+    repair) and ``overhead_break_even_steps`` (steps between failures above
+    which the replicas cost more than one repair saves).  ``state_bytes``
+    defaults to ``3 · nbytes`` (float32 master and two Adam moments),
+    ``step_time_s`` to the ring's time."""
+    if world < 2:
+        raise ValueError(f"recovery pricing needs world >= 2, got {world}")
+    if save_interval_steps < 1:
+        raise ValueError(f"save_interval_steps must be >= 1, got {save_interval_steps}")
+    if state_bytes is None:
+        state_bytes = 3.0 * float(nbytes)
+    baseline = quantized_ring_allreduce_time(world, nbytes, coeffs, wire_dtype)
+    if step_time_s is None:
+        step_time_s = baseline
+    overhead = replication_overhead_time(world, state_bytes, coeffs, replicas)
+    repair = replica_repair_time(world, state_bytes, coeffs, standby_cached)
+    reload = checkpoint_reload_time(state_bytes, save_interval_steps / 2.0, step_time_s, ckpt_bytes_per_s)
+    saved = reload - repair
+    return {
+        "baseline_step_comm_s": baseline,
+        "replication_overhead_s": overhead,
+        "replication_overhead_ratio": overhead / baseline if baseline > 0 else 0.0,
+        "replica_repair_s": repair,
+        "ckpt_reload_s": reload,
+        "repair_speedup": reload / repair if repair > 0 else float("inf"),
+        "overhead_break_even_steps": saved / overhead if overhead > 0 and saved > 0 else float("inf"),
+    }

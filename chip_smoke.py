@@ -259,6 +259,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    defaults, ``solve_broadcast_lp`` and ``simulate_flow_broadcast`` run on
    the 8-rank graph, and a ``VariabilityMonitor`` samples the card's offset
    probe for ``VARIABILITY_S`` seconds.
+19. slice 16's main path, ZeRO-1's elastic state and the memory-lean GPT-2:
+   (a) ``DDPTrainer(zero1=True)`` at world 1 over NCCL, 5 steps from phase
+   5's weights and batch: the first loss bit for bit phase 5's, the rest
+   within ``LOSS_ATOL`` (phase 5 updates bf16 parameters with torch's
+   AdamW, this run a float32 master cast to bf16: at most a bf16 rounding
+   of each parameter a step apart), K2–K4 60 launches each, step ms,
+   tokens/s and peak allocated bytes; ``shard_replicas=1`` refused at world
+   1 (the message printed); (b) the memory-lean configuration on that
+   trainer, remat ``"full"`` and ``"dots"`` with ``lm_loss_chunked(block=
+   LEAN_BLOCK)`` and ``adamw(mu_dtype=bfloat16)``: losses within
+   ``LEAN_LOSS_REL`` of 19a's and the two policies bit for bit alike, step ms
+   and peak memory against 19a, K2 120 launches and K3, K4 60 (the
+   recomputation runs the flash forward again: its kernels are no matrix
+   product a policy keeps); one run at dropout 0.1 twice from one
+   generator seed: the same losses, no flash launch (materialized
+   attention); (c) ``AsyncCheckpointManager(max_to_keep=2)`` in a temporary
+   directory: ``save_async`` after steps 3 and 4 of 19b's ``"dots"`` run
+   (its losses bit for bit), ``wait``, ``verify``, the host stall of each
+   ``save_async`` against a synchronous ``save`` and the bytes; a fresh
+   trainer restores step 4 and its next loss is the uninterrupted run's bit
+   for bit; a bit-flipped copy raises ``CheckpointCorrupt``; (d) the
+   stacked ZeRO-1 at world 4 (phase 7's ``zero1_train_step``, ring on K1b
+   and off): 2 steps, a ``ShardReplicaStore`` capture, row 1's master and
+   moments zeroed and repaired bit for bit, a re-balance 4 → 2 → 4 that
+   gives the canonical flat master and moments back bit for bit (host
+   seconds and bytes printed, and the cost model's recovery prices for this
+   payload, labelled model output); and on a float32 copy of the model
+   (JAX's setting) on the ring, 2 steps, then 2 more uninterrupted against
+   2 after a shrink to world 2: the masters within JAX's
+   convergence-equivalence tolerance (``SHRINK_RTOL``, ``SHRINK_ATOL``), the
+   key biases, whose true gradient is zero, within Adam's 2·lr a step.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -273,6 +304,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -285,7 +317,9 @@ import torch.nn.functional as F
 from adapcc_tpu_torch import compiler
 from adapcc_tpu_torch.adapt import AdaptationController, DriftDetector, SharedFabric, resolve_drift_window
 from adapcc_tpu_torch.api import AdapCC
-from adapcc_tpu_torch.checkpoint import CheckpointManager, TrainCheckpointState
+from adapcc_tpu_torch.checkpoint import (
+    BLOB_NAME, AsyncCheckpointManager, CheckpointCorrupt, CheckpointManager, TrainCheckpointState,
+)
 from adapcc_tpu_torch.comm import engine as comm_engine
 from adapcc_tpu_torch.comm import ring
 from adapcc_tpu_torch.comm.engine import CollectiveEngine, _merged_plan
@@ -296,8 +330,9 @@ from adapcc_tpu_torch.config import CommArgs
 from adapcc_tpu_torch.coordinator import CoordinatorLogic
 from adapcc_tpu_torch.ddp.bucketing import build_bucket_plan, flatten_to_buckets
 from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
-from adapcc_tpu_torch.elastic import FaultEvent, FaultPlan, StandbyPlanCache
-from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
+from adapcc_tpu_torch.elastic import FaultEvent, FaultPlan, ShardReplicaStore, StandbyPlanCache
+from adapcc_tpu_torch.elastic import rebalance
+from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss, lm_loss_chunked
 from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
@@ -476,6 +511,18 @@ ADAPT_TRAIN_STEPS = 6
 ADAPT_STEP_WINDOW = 3
 ADAPT_STEP_DRIFT = 5.0
 VARIABILITY_S = 2.0
+#: phase 19: the chunked loss's vocabulary block on the main path
+LEAN_BLOCK = 2048
+#: 19b's losses against 19a's: the chunked loss's bfloat16 head against the
+#: dense one, JAX's tolerance (tests/test_chunked_ce.py:70, 2 % of the value)
+LEAN_LOSS_REL = 0.02
+#: 19c: the steps after which save_async runs
+CKPT_STEPS = (3, 4)
+#: 19d: steps before the elastic drill, and of each branch after it
+ELASTIC_STEPS = 2
+#: 19d: JAX's convergence-equivalence tolerance for a mid-run shrink
+#: (tests/test_elastic.py:383)
+SHRINK_RTOL, SHRINK_ATOL = 2e-5, 1e-6
 #: profiler captures a device timing takes before an empty one is a
 #: failure: on an NVIDIA H100 80GB HBM3 at 700 W with torch 2.11 the
 #: profiler has come back with no device record for a library yardstick and
@@ -3347,6 +3394,382 @@ def slice15(dev: torch.device, init_state, tokens, z_tokens, buckets: list, c_lo
     return p18
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: ZeRO-1's elastic state and the memory-lean GPT-2 (slice 16)
+# --------------------------------------------------------------------------- #
+
+
+def _lean_loss(block: int = LEAN_BLOCK):
+    return lambda m, b: lm_loss_chunked(m, b, block=block)
+
+
+def zero1_trainer_run(cfg: GPT2Config, world, init_state, tokens, tx, loss_fn, steps: int = STEPS,
+                      on_step=None, generator=None, **trainer_kw):
+    """``steps`` steps of ``DDPTrainer(zero1=True)`` from ``init_state``;
+    ``on_step(i, trainer, state, model)`` after step ``i`` (from 1);
+    ``generator`` draws the model's dropout masks.  Returns (losses, step
+    seconds, peak bytes allocated, (trainer, state, model))."""
+    model = GPT2(cfg, device=world.device, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    model.dropout_generator = generator
+    trainer = DDPTrainer(loss_fn, tx, world, Strategy.ring(world.world_size), zero1=True, **trainer_kw)
+    state = trainer.init_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, tokens)
+        losses.append(loss.item())  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+        if on_step is not None:
+            on_step(i + 1, trainer, state, model)
+    return losses, seconds, torch.cuda.max_memory_allocated(), (trainer, state, model)
+
+
+def _trainer_ckpt(trainer, state, model) -> TrainCheckpointState:
+    """A per-rank ZeRO-1 trainer's checkpoint: the replicated parameters,
+    this rank's master row and optimizer state, the step, the layout tag."""
+    return TrainCheckpointState(model.state_dict(), (state.master, state.optimizer.state_dict()), step=state.step,
+                                extra=trainer.checkpoint_extra())
+
+
+def _key_bias_mask(meta, device) -> torch.Tensor:
+    """The flat layout's elements of every key bias (the middle third of a
+    ``qkv`` bias), whose true gradient is zero: softmax is shift-invariant
+    along each row, so its gradient is rounding noise that Adam scales up to
+    steps of ±lr."""
+    mask = torch.zeros(meta.padded, dtype=torch.bool, device=device)
+    off = 0
+    for leaf in meta.leaves:
+        if leaf.name.endswith("attn.qkv.bias"):
+            d = leaf.size // 3
+            mask[off + d:off + 2 * d] = True
+        off += leaf.size
+    return mask
+
+
+def lean_trainer(dev: torch.device, init_state, tokens, losses: list, smi: str) -> tuple:
+    """19a–19c (the module docstring).  Returns (the flash launches of its
+    runs, 19a's losses)."""
+    p19 = dict.fromkeys((w.__name__ for w in fa.KERNELS), 0)
+
+    def tally() -> dict:
+        got = {w.__name__: w.launches for w in fa.KERNELS}
+        for k, v in got.items():
+            p19[k] += v
+        for w in fa.KERNELS:
+            w.launches = 0
+        return got
+
+    tokens_step = BATCH * MAIN.max_seq
+    world = build_world_mesh(1)
+    # (a) ZeRO-1 through the trainer, the plain configuration
+    for w in fa.KERNELS:
+        w.launches = 0
+    base = torch.cuda.memory_allocated()
+    a_losses, a_seconds, a_peak, held = zero1_trainer_run(MAIN, world, init_state, tokens, adamw(3e-4),
+                                                          lambda m, b: lm_loss(m(b), b))
+    del held
+    a_launches = tally()
+    a_gap = max(abs(a - b) for a, b in zip(a_losses, losses))
+    a_step = float(np.mean(a_seconds[1:]))
+    print(f"zero1 19a (DDPTrainer(zero1=True), world 1 over NCCL): losses {a_losses}; first loss bit for bit phase "
+          f"5's {'ok' if a_losses[0] == losses[0] else 'FAIL'}; max gap to phase 5 {a_gap:.3e} (tolerance "
+          f"{LOSS_ATOL}); launches {a_launches}; step {a_step * 1e3:.2f} ms, {tokens_step / a_step:.1f} tokens/s "
+          f"(every step {[round(s * 1e3, 2) for s in a_seconds]} ms); peak allocated {a_peak / 2**30:.3f} GiB "
+          f"({(a_peak - base) / 2**30:.3f} above the {base / 2**30:.3f} GiB held before the run) [{smi}]", flush=True)
+    want = MAIN.n_layer * STEPS
+    if a_losses[0] != losses[0] or not a_gap <= LOSS_ATOL or any(n != want for n in a_launches.values()):
+        raise RuntimeError(f"19a: losses {a_losses} vs phase 5's {losses}, launches {a_launches}")
+    if not all(np.isfinite(a_losses)) or not a_losses[-1] < a_losses[0]:
+        raise RuntimeError(f"19a losses not finite and falling: {a_losses}")
+    torch.cuda.empty_cache()
+    try:
+        DDPTrainer(lambda m, b: m(b), adamw(3e-4), world, Strategy.ring(1), zero1=True,
+                   shard_replicas=1).init_state(GPT2(dataclasses.replace(MAIN, n_layer=1), device=dev, seed=None))
+    except ValueError as e:
+        print(f"zero1 19a: shard_replicas=1 at world 1 refused: {e}", flush=True)
+    else:
+        raise RuntimeError("19a: shard_replicas=1 at world 1 was not refused")
+    # (b) the memory-lean configuration: remat, the chunked loss, a bf16
+    # first moment; each policy runs the block's forward again in the
+    # backward, flash included (its kernels are no matrix product the
+    # policies keep), so K2 launches twice a layer a step, K3 and K4 once
+    lean_tx = adamw(3e-4, mu_dtype=torch.bfloat16)
+    want_lean = {"flash_fwd": 2 * want, "flash_dq": want, "flash_dkv": want}
+    lean = {}
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(MAIN, remat=True, remat_policy=policy)
+        base_b = torch.cuda.memory_allocated()
+        b_losses, b_seconds, b_peak, held = zero1_trainer_run(cfg, world, init_state, tokens, lean_tx, _lean_loss())
+        b_launches = tally()
+        b_state = held[1]
+        mu = b_state.optimizer.state[b_state.master]["exp_avg"]
+        lean[policy] = b_losses
+        b_step = float(np.mean(b_seconds[1:]))
+        b_gap = max(abs(a - b) / a for a, b in zip(a_losses, b_losses))
+        print(f"lean 19b (remat {policy!r}, lm_loss_chunked block {LEAN_BLOCK}, mu {str(mu.dtype)[6:]}): losses "
+              f"{b_losses}; max relative gap to 19a {b_gap:.3e} (tolerance {LEAN_LOSS_REL}); launches {b_launches} "
+              f"(expected {want_lean}); step {b_step * 1e3:.2f} ms ({b_step / a_step:.3f}x 19a), "
+              f"{tokens_step / b_step:.1f} tokens/s; peak allocated {b_peak / 2**30:.3f} GiB, "
+              f"{(b_peak - base_b) / 2**30:.3f} above the {base_b / 2**30:.3f} held before "
+              f"({(b_peak - base_b) / (a_peak - base):.3f}x 19a's) [{smi}]", flush=True)
+        if b_launches != want_lean or not b_gap <= LEAN_LOSS_REL or mu.dtype != torch.bfloat16:
+            raise RuntimeError(f"19b {policy}: losses {b_losses}, launches {b_launches}, mu {mu.dtype}")
+        del held, b_state, mu
+        torch.cuda.empty_cache()
+    if lean["full"] != lean["dots"]:
+        raise RuntimeError(f"19b: the two remat policies differ: {lean}")
+    print("lean 19b: remat 'full' and 'dots' losses bit for bit", flush=True)
+    drop_cfg = dataclasses.replace(MAIN, remat=True, remat_policy="dots", dropout=0.1)
+    drops = []
+    for _ in range(2):
+        d_losses, d_seconds, d_peak, held = zero1_trainer_run(
+            drop_cfg, world, init_state, tokens, lean_tx, _lean_loss(),
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        del held
+        drops.append((d_losses, float(np.mean(d_seconds[1:])), d_peak, tally()))
+        torch.cuda.empty_cache()
+    (d1, d_step, d_peak, d_launches), (d2, _, _, d2_launches) = drops
+    print(f"lean 19b (dropout 0.1, remat 'dots', the same generator twice): losses {d1} and {d2}, the same "
+          f"{'ok' if d1 == d2 else 'FAIL'}; launches {d_launches}, {d2_launches} (materialized attention: none); step "
+          f"{d_step * 1e3:.2f} ms; peak allocated {d_peak / 2**30:.3f} GiB", flush=True)
+    if d1 != d2 or any(d_launches.values()) or any(d2_launches.values()) or not all(np.isfinite(d1)):
+        raise RuntimeError(f"19b dropout: {d1} vs {d2}, launches {d_launches} {d2_launches}")
+    # (c) async checkpoints of 19b's run
+    dots = dataclasses.replace(MAIN, remat=True, remat_policy="dots")
+    with tempfile.TemporaryDirectory(prefix="adapcc_ckpt_") as ckdir:
+        mgr = AsyncCheckpointManager(os.path.join(ckdir, "async"), max_to_keep=2)
+        stalls = {}
+
+        def save(i, trainer, state, model):
+            if i in CKPT_STEPS:
+                t0 = time.perf_counter()
+                mgr.save_async(i, _trainer_ckpt(trainer, state, model))
+                stalls[i] = time.perf_counter() - t0
+
+        c_losses, _, _, (c_trainer, c_state, c_model) = zero1_trainer_run(dots, world, init_state, tokens, lean_tx,
+                                                                          _lean_loss(), on_step=save)
+        t0 = time.perf_counter()
+        mgr.wait()
+        drain_s = time.perf_counter() - t0
+        for s in mgr.published_steps():
+            mgr.verify(s)
+        newest = mgr.latest_step()
+        blob = os.path.getsize(os.path.join(mgr._step_dir(newest), BLOB_NAME))
+        sync_mgr = AsyncCheckpointManager(os.path.join(ckdir, "sync"), max_to_keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_mgr.save(newest, _trainer_ckpt(c_trainer, c_state, c_model))
+        sync_s = time.perf_counter() - t0
+        shutil.rmtree(sync_mgr._step_dir(newest))
+        del c_trainer, c_state, c_model
+        torch.cuda.empty_cache()
+        print(f"ckpt 19c: save_async at steps {list(CKPT_STEPS)} (max_to_keep 2): published {mgr.published_steps()}, "
+              f"verified; host stall of save_async {[round(s * 1e3, 2) for s in stalls.values()]} ms against save "
+              f"{sync_s * 1e3:.2f} ms, the pipeline drained {drain_s * 1e3:.2f} ms after the run; {blob} bytes a "
+              f"checkpoint ({blob / 2**30:.3f} GiB); losses bit for bit 19b's "
+              f"{'ok' if c_losses == lean['dots'] else 'FAIL'}", flush=True)
+        if c_losses != lean["dots"] or mgr.published_steps() != list(CKPT_STEPS):
+            raise RuntimeError(f"19c: losses {c_losses} vs {lean['dots']}, steps {mgr.published_steps()}")
+        # a fresh trainer restores the newest step and takes the next one
+        model = GPT2(dots, device=dev, seed=None).to(torch.bfloat16)
+        trainer = DDPTrainer(_lean_loss(), lean_tx, world, Strategy.ring(1), zero1=True)
+        state = trainer.init_state(model)
+        template = _trainer_ckpt(trainer, state, model)
+        t0 = time.perf_counter()
+        mgr.restore(template)
+        restore_s = time.perf_counter() - t0
+        model.load_state_dict(template.params)
+        state.master.copy_(template.opt_state[0])
+        state.optimizer.load_state_dict(template.opt_state[1])
+        state.step = template.step
+        next_losses = [trainer.step(state, tokens)[1].item() for _ in range(STEPS - newest)]
+        r_launches = tally()
+        print(f"ckpt 19c: restored step {newest} in {restore_s * 1e3:.2f} ms (verified); next losses {next_losses} "
+              f"bit for bit the uninterrupted run's {'ok' if next_losses == lean['dots'][newest:] else 'FAIL'}; "
+              f"launches {r_launches}", flush=True)
+        if next_losses != lean["dots"][newest:]:
+            raise RuntimeError(f"19c: resumed losses {next_losses} vs {lean['dots'][newest:]}")
+        del model, trainer, state, template
+        # a bit flipped in a copy of the newest step
+        bad = AsyncCheckpointManager(os.path.join(ckdir, "flipped"))
+        shutil.copytree(mgr._step_dir(newest), bad._step_dir(newest))
+        with open(os.path.join(bad._step_dir(newest), BLOB_NAME), "r+b") as f:
+            f.seek(blob // 2)
+            byte = f.read(1)
+            f.seek(blob // 2)
+            f.write(bytes([byte[0] ^ 0x10]))
+        try:
+            bad.verify(newest)
+        except CheckpointCorrupt as e:
+            print(f"ckpt 19c: a bit-flipped copy refused: {e}", flush=True)
+        else:
+            raise RuntimeError("19c: a bit-flipped checkpoint verified")
+        mgr.close()
+    destroy_world()
+    torch.cuda.empty_cache()
+    return p19, a_losses
+
+
+def zero1_elastic_drill(dev: torch.device, init_state, z_tokens, smi: str) -> dict:
+    """19d (the module docstring): the stacked single-controller ZeRO-1 at
+    world 4 on this card, on the ring (K1b) and off it.  Returns the flash
+    and K1b launches of its training steps."""
+    names = (*(w.__name__ for w in fa.KERNELS), "ring_k1b")
+    p19 = dict.fromkeys(names, 0)
+
+    def reset() -> None:
+        for w in (*fa.KERNELS, *ring.KERNELS):
+            w.launches = 0
+            getattr(w, "phases", {}).clear()
+
+    def tally() -> dict:
+        got = {n: getattr(ring, n).launches if n.startswith("ring") else getattr(fa, n).launches for n in names}
+        for k, v in got.items():
+            p19[k] += v
+        reset()
+        return got
+
+    coeffs = cost_model.LinkCoeffs(*cost_model.DEFAULT_COEFFS[cost_model.ICI])
+    reset()
+    for ring_on in (True, False):
+        losses, _, (model, opt, master, opt_state, step) = zero1_run(dev, init_state, z_tokens, steps=ELASTIC_STEPS,
+                                                                     ring=ring_on)
+        launches = tally()
+        want = MAIN.n_layer * ZERO1_WORLD * ELASTIC_STEPS
+        if any(launches[w.__name__] != want for w in fa.KERNELS) or launches["ring_k1b"] != 2 * ELASTIC_STEPS * ring_on:
+            raise RuntimeError(f"19d ring={ring_on}: launches {launches}")
+        st = opt_state.state[master]
+        saved = (master.clone(), st["exp_avg"].clone(), st["exp_avg_sq"].clone())
+        state_bytes = sum(t.numel() * t.element_size() for t in saved)
+        # the replica set: capture, lose row 1, repair it
+        store = ShardReplicaStore(ZERO1_WORLD, replicas=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.capture((master, opt_state), ELASTIC_STEPS)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        for t in (master, st["exp_avg"], st["exp_avg_sq"]):
+            t[1].zero_()
+        t0 = time.perf_counter()
+        rm, rsd = store.reconstruct((master, opt_state), [1], step=ELASTIC_STEPS)
+        torch.cuda.synchronize()
+        repair_s = time.perf_counter() - t0
+        rst = rsd["state"][0]
+        repaired = same_bits(rm, saved[0]) and same_bits(rst["exp_avg"], saved[1]) and same_bits(
+            rst["exp_avg_sq"], saved[2])
+        master.copy_(rm)
+        opt_state.load_state_dict(rsd)
+        del rm, rsd, rst
+        # re-balance 4 → 2 → 4 of the repaired pair
+        layout = opt.layout_metadata()
+        two = Zero1Optimizer(adamw(3e-4), 2, ring=ring_on)
+        four = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD, ring=ring_on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m2, sd2 = rebalance.rebalance_zero1_pair((master, opt_state), model, layout, two)
+        torch.cuda.synchronize()
+        shrink_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m4, sd4 = rebalance.rebalance_zero1_pair((m2, sd2), model, two.layout_metadata(), four)
+        torch.cuda.synchronize()
+        grow_s = time.perf_counter() - t0
+        total = opt._meta.total
+        back = [(rebalance._to_canonical_flat(a, layout, total), rebalance._to_canonical_flat(b, layout, total)) for a, b in (
+            (m4, saved[0]), (sd4["state"][0]["exp_avg"], saved[1]), (sd4["state"][0]["exp_avg_sq"], saved[2]))]
+        round_trip = all(same_bits(a, b) for a, b in back)
+        del m4, sd4, back
+        price = cost_model.recovery_cost(ZERO1_WORLD, opt._meta.padded * 4, coeffs, state_bytes=state_bytes)
+        print(f"elastic 19d (stacked ZeRO-1, world {ZERO1_WORLD}, ring={ring_on}): {ELASTIC_STEPS} steps, losses "
+              f"{losses}; launches {launches}; state {state_bytes} bytes ({state_bytes / 2**30:.3f} GiB: master and "
+              f"two moments); replica capture {capture_s * 1e3:.2f} ms, row 1 zeroed and repaired "
+              f"{repair_s * 1e3:.2f} ms, bit for bit {'ok' if repaired else 'FAIL'}; re-balance 4 -> 2 "
+              f"{shrink_s * 1e3:.2f} ms, 2 -> 4 {grow_s * 1e3:.2f} ms (host seconds, the card synchronized), "
+              f"canonical master and moments back bit for bit {'ok' if round_trip else 'FAIL'} [{smi}]", flush=True)
+        print(f"elastic 19d: cost model output for this payload (H100 defaults, not a measurement): "
+              f"{ {k: float(v) for k, v in price.items()} }", flush=True)
+        if not (repaired and round_trip):
+            raise RuntimeError(f"19d ring={ring_on}: repair {repaired}, 4 -> 2 -> 4 {round_trip}")
+        del model, opt, master, opt_state, step, store, saved, m2, sd2
+        torch.cuda.empty_cache()
+    shrink_drill(dev, init_state, z_tokens, smi)
+    tally()
+    return p19
+
+
+def shrink_drill(dev: torch.device, init_state, z_tokens, smi: str) -> None:
+    """19d's shrink: the stacked ZeRO-1 ring step at world 4 on a float32
+    copy of the model (JAX's setting: float32 end to end, so only the
+    order of the gradient sums differs between worlds; in bf16 each rank's
+    gradient is rounded to 8 bits, and the partition alone moves a tenth
+    of the elements past the tolerance), ``ELASTIC_STEPS`` steps, then
+    ``ELASTIC_STEPS`` more uninterrupted against as many after a re-balance
+    to world 2 with the same global batch: the masters within JAX's
+    convergence-equivalence tolerance, the key biases within Adam's 2·lr a
+    step."""
+    cfg = dataclasses.replace(MAIN, dtype=torch.float32)
+    model = GPT2(cfg, device=dev, seed=None)
+    model.load_state_dict({k: v.float() for k, v in init_state.items()})
+    opt = Zero1Optimizer(adamw(3e-4), ZERO1_WORLD, ring=True)
+    master, opt_state = opt.init(model)
+    loss = lambda m, b: lm_loss(m(b), b)  # noqa: E731
+    step = zero1_train_step(loss, opt)
+    for _ in range(ELASTIC_STEPS):
+        step(model, master, opt_state, z_tokens)
+    two = Zero1Optimizer(adamw(3e-4), 2, ring=True)
+    m2, sd2 = rebalance.rebalance_zero1_pair((master, opt_state), model, opt.layout_metadata(), two)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    for _ in range(ELASTIC_STEPS):
+        step(model, master, opt_state, z_tokens)
+    torch.cuda.synchronize()
+    a_s = (time.perf_counter() - t0) / ELASTIC_STEPS
+    total = opt._meta.total
+    a_flat = rebalance._to_canonical_flat(master, opt.layout_metadata(), total)
+    model.load_state_dict(params)
+    del params, master, opt_state
+    b_master, b_opt = two.restore(TrainCheckpointState(None, (m2, sd2), extra=two.checkpoint_extra()))
+    del m2, sd2
+    b_step = zero1_train_step(loss, two)
+    t0 = time.perf_counter()
+    for _ in range(ELASTIC_STEPS):
+        b_step(model, b_master, b_opt, z_tokens)
+    torch.cuda.synchronize()
+    b_s = (time.perf_counter() - t0) / ELASTIC_STEPS
+    ring.check_errors()
+    b_flat = rebalance._to_canonical_flat(b_master, two.layout_metadata(), total)
+    gap = (a_flat - b_flat).abs()
+    allowed = SHRINK_ATOL + SHRINK_RTOL * b_flat.abs()
+    key = _key_bias_mask(opt._meta, dev)[:total]
+    outside = int((gap > allowed)[~key].sum())
+    key_max = float(gap[key].max())
+    print(f"elastic 19d (float32 copy, ring): {ELASTIC_STEPS} more steps uninterrupted at world {ZERO1_WORLD} "
+          f"({a_s * 1e3:.2f} ms a step) and after a shrink to 2 ({b_s * 1e3:.2f} ms a step): masters, {outside} of "
+          f"{int((~key).sum())} elements outside rtol {SHRINK_RTOL} / atol {SHRINK_ATOL} (max gap "
+          f"{float(gap[~key].max()):.3e}); the key biases (true gradient zero) max gap {key_max:.3e} (bound "
+          f"{2 * 3e-4 * ELASTIC_STEPS:.1e}) [{smi}]", flush=True)
+    if outside or not key_max <= 2 * 3e-4 * ELASTIC_STEPS:
+        raise RuntimeError("19d: the shrunk run left the uninterrupted run's tolerance")
+    del model, a_flat, b_flat, gap, allowed, key, b_master, b_opt
+    torch.cuda.empty_cache()
+
+
+def slice16(dev: torch.device, init_state, tokens, z_tokens, losses: list, smi: str) -> dict:
+    """Phase 19, slice 16's main path (the module docstring); returns the
+    launches of each kernel in it."""
+    t19 = time.perf_counter()
+    p19, _ = lean_trainer(dev, init_state, tokens, losses, smi)
+    t19d = time.perf_counter()
+    for k, v in zero1_elastic_drill(dev, init_state, z_tokens, smi).items():
+        p19[k] = p19.get(k, 0) + v
+    print(f"phase 19 launches: {p19}; phase 19 {time.perf_counter() - t19:.1f} s (19a-c {t19d - t19:.1f} s, 19d "
+          f"{time.perf_counter() - t19d:.1f} s)", flush=True)
+    return p19
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -3668,6 +4091,12 @@ def main() -> None:
     for kname, n in slice15(dev, init_state, tokens, z_tokens, s_buckets, c_losses_11, smi).items():
         launches[kname] += n
     del s_buckets
+    torch.cuda.empty_cache()
+
+    # 19. slice 16's main path: ZeRO-1's elastic state and the memory-lean
+    # GPT-2
+    for kname, n in slice16(dev, init_state, tokens, z_tokens, losses, smi).items():
+        launches[kname] += n
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -274,10 +274,16 @@ def test_strategy_copy_matches_jax():
 
 def test_trainer_rejects_what_waits(world1):
     s = Strategy.ring(1)
-    # accumulation runs now (tests/test_torch_overlap.py)
-    for kw, match in [({"zero1": True}, "ZeRO-1"), ({"measure_gns": True}, "noise")]:
+    # accumulation runs now (tests/test_torch_overlap.py), and so does
+    # ZeRO-1 without the ring (tests/test_torch_zero1_elastic.py); the ring
+    # form waits for the per-process ring, and shard replicas need zero1
+    # (JAX's words)
+    assert DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, zero1=True).zero1
+    for kw, match in [({"zero1": True, "zero1_ring": True}, "per-process ring"), ({"measure_gns": True}, "noise")]:
         with pytest.raises(NotImplementedError, match=match):
             DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, **kw)
+    with pytest.raises(ValueError, match="shard_replicas > 0 requires zero1=True"):
+        DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, shard_replicas=1)
     # the async relay runs now (tests/test_torch_elastic.py); it takes a
     # mask every step, and refuses a static one in JAX's words
     assert DDPTrainer(lambda m, b: m(b), adamw(LR), world1, s, bsp=False)._dynamic_mask

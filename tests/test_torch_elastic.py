@@ -165,10 +165,18 @@ def test_coordinator_under_a_fault_plan_decides_as_jax():
     """A down rank's arrivals are dropped at the funnel: the freeze and
     heartbeat barriers shrink and status 0 surfaces with the alive subset
     (no wall-clock wait); a recovery restores the full barrier.  The same
-    answers and WorldViews from both packages' logic."""
+    answers and WorldViews from both packages' logic.  Each logic reads the
+    stepped clock of ``tests/test_torch_coordinator.py`` (``_SteppedClock``),
+    on time the alive ranks of each step, so how a loaded machine schedules
+    the four threads cannot move a decision: 2 ms an arrival keeps the
+    rent-or-buy leader's rent below its buy point until every on-time rank
+    is in (``(m - 1)·arrival + initial rent < buy(m)`` for m = 2, 3 at the
+    default costs needs under 6.5 ms)."""
     from adapcc_tpu.coordinator import CoordinatorLogic as JLogic
     from adapcc_tpu.elastic import FaultEvent as JEvent
     from adapcc_tpu.elastic import FaultPlan as JPlan
+
+    from test_torch_coordinator import _SteppedClock
 
     events = [(1, "down", 3, 4.0), (4, "recover", 3, 4.0)]
     kw = dict(relay_threshold=30.0, time_slot=0.01, fault_timeout=30.0)
@@ -176,22 +184,25 @@ def test_coordinator_under_a_fault_plan_decides_as_jax():
     for logic in (CoordinatorLogic(4, fault_plan=FaultPlan([FaultEvent(*e) for e in events], 4), **kw),
                   JLogic(4, fault_plan=JPlan([JEvent(*e) for e in events], 4), **kw)):
         seen = []
-        for step in (1, 5):
-            results = {}
+        clock = _SteppedClock(logic, 3, arrival_s=0.002, read_s=kw["time_slot"])
+        with clock.installed():
+            for step, on_time in ((1, 3), (5, 4)):
+                clock.on_time = on_time
+                results = {}
 
-            def worker(r, step=step, results=results, logic=logic):
-                active = logic.hook_arrive(step=step, rank=r)
-                alive, status = logic.controller_arrive(step=step, rank=r)
-                results[r] = (sorted(active), sorted(alive), status)
+                def worker(r, step=step, results=results, logic=logic):
+                    active = logic.hook_arrive(step=step, rank=r)
+                    alive, status = logic.controller_arrive(step=step, rank=r)
+                    results[r] = (sorted(active), sorted(alive), status)
 
-            threads = [threading.Thread(target=worker, args=(r,)) for r in range(4)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=10)
-            assert not any(t.is_alive() for t in threads), "the injection path hung"
-            wv = logic.worldview()
-            seen.append((results, sorted(wv.alive), sorted(wv.dead), wv.epoch))
+                threads = [threading.Thread(target=worker, args=(r,)) for r in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=10)
+                assert not any(t.is_alive() for t in threads), "the injection path hung"
+                wv = logic.worldview()
+                seen.append((results, sorted(wv.alive), sorted(wv.dead), wv.epoch))
         outs.append(seen)
     assert outs[0] == outs[1]
     assert outs[0][0][0][0] == ([0, 1, 2], [0, 1, 2], 0) and outs[0][1][1] == [0, 1, 2, 3]

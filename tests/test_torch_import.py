@@ -51,6 +51,8 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.adapt", "adapcc_tpu_torch.adapt.controller", "adapcc_tpu_torch.adapt.detector",
     "adapcc_tpu_torch.adapt.fabric", "adapcc_tpu_torch.adapt.recalibrate", "adapcc_tpu_torch.adapt.triage",
     "adapcc_tpu_torch.sim.congestion", "adapcc_tpu_torch.strategy.flow_lp", "adapcc_tpu_torch.topology.variability",
+    "adapcc_tpu_torch.elastic.redundancy", "adapcc_tpu_torch.elastic.rebalance", "adapcc_tpu_torch.ops.chunked_ce",
+    "adapcc_tpu_torch.models.gpt2", "adapcc_tpu_torch.parallel.zero1_rank",
 )
 
 _CHECK_TUNER = """

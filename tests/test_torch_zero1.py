@@ -148,8 +148,11 @@ def test_flat_layout_is_the_jax_tree_order():
 
 def test_zero1_rejects_what_waits():
     # the non-ring path, overlap="bucket" and restore run now
-    # (tests/test_torch_overlap.py, tests/test_torch_checkpoint.py)
-    with pytest.raises(NotImplementedError, match="ZeRO-1 elastic-state slice"):
+    # (tests/test_torch_overlap.py, tests/test_torch_checkpoint.py); shard
+    # replicas live on the trainer and the replica store, as in JAX, and
+    # the optimizer takes no such argument
+    # (tests/test_torch_zero1_elastic.py)
+    with pytest.raises(TypeError, match="shard_replicas"):
         Zero1Optimizer(adamw(LR), WORLD, shard_replicas=1)
     # a tuner-chosen ring chunk runs now (tests/test_torch_tuner.py); without
     # init there is no cell yet
