@@ -33,9 +33,19 @@ see: their forward runs again in the backward under every policy.
 ``forward(return_hidden=True)`` returns the post-``ln_f`` hiddens for the
 chunked loss (:func:`lm_loss_chunked`).
 
+Sequence parallelism (``sp_axis``, an
+:class:`~adapcc_tpu_torch.parallel.axis.Axis`): the model runs on
+sequence shards, positions offset by the shard's place on the axis, and
+attention crosses shards through the ring or Ulysses programs
+(``sp_impl``; ``attention="flash"`` runs their blocks on the flash
+kernels).  Per rank, ``tokens`` are this rank's ``[B, T_local]``; stacked,
+they are ``[world·B, T_local]``, rank ``r``'s rows at ``[r·B, (r+1)·B)``.
+:func:`lm_loss_sp` and :func:`lm_loss_sp_chunked` are the losses;
+:mod:`adapcc_tpu_torch.parallel.gpt2_sp` wraps the step.
+
 Parameters keep the flax names (``h{i}.attn.qkv``, ``ln_f``, ...), so
 :mod:`adapcc_tpu_torch.models.convert` maps a flax tree onto them.  Decode
-with a KV cache and sequence parallelism are not ported yet.
+with a KV cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +61,9 @@ from torch import nn
 
 from adapcc_tpu_torch.comm.mesh import DeviceLike, resolve_device
 from adapcc_tpu_torch.ops.flash_attention import flash_attention
+
+if TYPE_CHECKING:
+    from adapcc_tpu_torch.parallel.axis import Axis
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -76,6 +89,13 @@ class GPT2Config:
     #: what the recomputation keeps: "full" nothing, "dots" every matrix
     #: product's output, "dots_no_batch" those without a batch dimension
     remat_policy: str = "full"
+    #: sequence parallelism: the axis the sequence is sharded over (None:
+    #: off).  Training only; needs dropout == 0
+    sp_axis: Optional["Axis"] = None
+    #: which program carries attention across shards: "ring" rotates K/V
+    #: blocks (O(T_local) memory), "ulysses" trades sequence for heads with
+    #: one all-to-all each way (needs n_head % world == 0)
+    sp_impl: str = "ring"
 
     def __post_init__(self) -> None:
         if self.attention not in ("xla", "flash"):
@@ -151,6 +171,8 @@ class CausalSelfAttention(nn.Module):
         k = k.reshape(B, T, cfg.n_head, head_dim)
         v = v.reshape(B, T, cfg.n_head, head_dim)
         scale = 1.0 / math.sqrt(head_dim)
+        if cfg.sp_axis is not None:
+            return self._project(self._sp_attention(q, k, v, scale).reshape(B, T, C), generator)
         if cfg.attention == "flash" and cfg.dropout == 0.0:
             out = flash_attention(
                 q, k, v, causal=True, scale=scale,
@@ -162,7 +184,31 @@ class CausalSelfAttention(nn.Module):
             att = att.masked_fill(above, -1e30).softmax(dim=-1).to(cfg.dtype)
             att = _dropout(att, cfg.dropout, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return _dropout(_dense(self.proj, out.reshape(B, T, C), cfg.dtype), cfg.dropout, generator)
+        return self._project(out.reshape(B, T, C), generator)
+
+    def _project(self, out: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return _dropout(_dense(self.proj, out, self.cfg.dtype), self.cfg.dropout, generator)
+
+    def _sp_attention(self, q, k, v, scale: float) -> torch.Tensor:
+        """Attention across the sequence shards (``[B, T_local, H, D]``
+        per rank; stacked, the ``[world·B, ...]`` rows as ``[world, B,
+        ...]``), through the ring or Ulysses program."""
+        cfg = self.cfg
+        if cfg.dropout != 0.0:
+            raise ValueError("sequence parallelism requires dropout == 0")
+        block_impl = "flash" if cfg.attention == "flash" else "dense"
+        axis = cfg.sp_axis
+        if axis.stacked:
+            q, k, v = (x.view(axis.size, x.shape[0] // axis.size, *x.shape[1:]) for x in (q, k, v))
+        if cfg.sp_impl == "ring":
+            from adapcc_tpu_torch.parallel.ring_attention import ring_attention_shard as attend
+        elif cfg.sp_impl == "ulysses":
+            from adapcc_tpu_torch.parallel.ulysses import ulysses_attention_shard as attend
+        else:
+            raise ValueError(f"unknown sp_impl {cfg.sp_impl!r} (ring|ulysses)")
+        out = attend(q, k, v, axis, causal=True, scale=scale, block_impl=block_impl,
+                     block_q=cfg.flash_block, block_k=cfg.flash_block)
+        return out.reshape(-1, *out.shape[-3:]) if axis.stacked else out
 
 
 class Block(nn.Module):
@@ -252,8 +298,7 @@ class GPT2(nn.Module):
             if gen is None:
                 gen = torch.default_generator if tokens.device.type == "cpu" else \
                     torch.cuda.default_generators[tokens.device.index or 0]
-        positions = torch.arange(T, device=tokens.device)
-        x = self.wte(tokens).to(cfg.dtype) + self.wpe(positions).to(cfg.dtype)[None]
+        x = self.wte(tokens).to(cfg.dtype) + self._position_embedding(B, T, tokens.device)
         x = _dropout(x, cfg.dropout, gen)
         for i in range(cfg.n_layer):
             block = getattr(self, f"h{i}")
@@ -266,6 +311,21 @@ class GPT2(nn.Module):
             return x
         # weight-tied LM head
         return (x.to(cfg.dtype) @ self.wte.weight.to(cfg.dtype).T).float()
+
+    def _position_embedding(self, B: int, T: int, device: torch.device) -> torch.Tensor:
+        """``wpe`` at each row's positions, broadcastable to ``[B, T, C]``:
+        ``[0, T)``, or under sequence parallelism the shard's global
+        positions ``[r·T, (r+1)·T)`` (stacked: rank ``r``'s rows at
+        ``[r·B/world, (r+1)·B/world)``)."""
+        axis = self.cfg.sp_axis
+        local = torch.arange(T, device=device)
+        if axis is None:
+            return self.wpe(local).to(self.cfg.dtype)[None]
+        if axis.size * T > self.cfg.max_seq:
+            raise ValueError(f"{axis.size} shards of {T} positions exceed max_seq {self.cfg.max_seq}")
+        ranks = torch.tensor(list(axis.ranks()), device=device)
+        pos = self.wpe(ranks[:, None] * T + local).to(self.cfg.dtype)  # [R, T, C]
+        return pos if len(ranks) == 1 else pos.repeat_interleave(B // len(ranks), dim=0)
 
     def _remat(self, block: nn.Module) -> Callable:
         """``block`` under ``torch.utils.checkpoint`` with the config's
@@ -295,3 +355,61 @@ def lm_loss_chunked(model: GPT2, tokens: torch.Tensor, block: int = 1024, **forw
 
     hidden = model(tokens, return_hidden=True, **forward_kw)
     return chunked_lm_loss(hidden, model.wte.weight, tokens, block, model.cfg.dtype)
+
+
+def _sp_targets_and_mask(tokens: torch.Tensor, axis: "Axis") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each local position's target is the next token; the shard's last
+    position's target lives on the next rank and arrives by one ``[B]``
+    ring shift (received from the right, the ring's convention).  The last
+    rank's final position has no target and is masked out.  Returns
+    ``(targets, valid)`` shaped like ``tokens`` (``valid`` float32)."""
+    from adapcc_tpu_torch.parallel.axis import ring_shift
+
+    ranks = axis.ranks()
+    R = len(ranks)
+    tok = tokens.view(R, -1, tokens.shape[-1])  # [R, B, Tl]
+    next_first = ring_shift(tok[:, :, 0], axis)  # [R, B]
+    targets = torch.cat([tok[:, :, 1:], next_first[:, :, None]], dim=2)
+    valid = torch.ones(tok.shape, dtype=torch.float32, device=tokens.device)
+    valid[[row for row, me in enumerate(ranks) if me == axis.size - 1], :, -1] = 0.0
+    return targets.reshape(tokens.shape), valid.reshape(tokens.shape)
+
+
+def _sp_masked_mean(nll: torch.Tensor, valid: torch.Tensor, axis: "Axis") -> torch.Tensor:
+    """The mean of ``nll`` over the valid positions of every shard,
+    replicated; each rank's gradient is that of its own positions' share
+    (:func:`~adapcc_tpu_torch.parallel.axis.psum`), and the shares' sum is
+    the unsharded mean's gradient."""
+    from adapcc_tpu_torch.parallel.axis import psum
+
+    total, count = (nll * valid.to(nll.dtype)).sum(), valid.sum()
+    if not axis.stacked:
+        total, count = psum(total, axis), psum(count.detach(), axis)
+    return total / count
+
+
+def lm_loss_sp(logits: torch.Tensor, tokens: torch.Tensor, axis: "Axis") -> torch.Tensor:
+    """:func:`lm_loss` under sequence sharding over ``axis``: ``logits``
+    and ``tokens`` are the shards' ``[B, T_local, V]`` / ``[B, T_local]``
+    (stacked: every rank's rows).  Equal to :func:`lm_loss` on the
+    unsharded batch."""
+    targets, valid = _sp_targets_and_mask(tokens, axis)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return _sp_masked_mean(nll, valid, axis)
+
+
+def lm_loss_sp_chunked(hidden: torch.Tensor, wte: torch.Tensor, tokens: torch.Tensor, axis: "Axis",
+                       block: int = 1024, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`lm_loss_sp` without the ``[B, T_local, vocab]`` logits: the
+    per-position NLL from the chunked online-softmax scan
+    (:func:`~adapcc_tpu_torch.ops.chunked_ce.chunked_softmax_nll`) over
+    the post-``ln_f`` hiddens and the tied embedding, the head in
+    ``compute_dtype`` (default: the hiddens')."""
+    from adapcc_tpu_torch.ops.chunked_ce import chunked_softmax_nll
+
+    B, Tl, D = hidden.shape
+    targets, valid = _sp_targets_and_mask(tokens, axis)
+    nll = chunked_softmax_nll(hidden.reshape(B * Tl, D), wte, targets.reshape(B * Tl).long(), block,
+                              compute_dtype or hidden.dtype).reshape(B, Tl)
+    return _sp_masked_mean(nll, valid, axis)

@@ -1,0 +1,43 @@
+"""Parallelism beyond data parallelism: sequence (ring attention, Ulysses,
+the sequence-parallel GPT-2), tensor, and ZeRO-1's sharded optimizer.
+
+The port of :mod:`adapcc_tpu.parallel`'s sequence- and tensor-parallel
+planes, under JAX's names.  Where JAX names a ``shard_map`` axis, the port
+passes an :class:`~adapcc_tpu_torch.parallel.axis.Axis` (per rank over a
+process group, or stacked in one process); expert parallelism and the
+pipeline are not ported yet.
+"""
+
+from adapcc_tpu_torch.parallel.axis import Axis, Mesh
+from adapcc_tpu_torch.parallel.gpt2_sp import gpt2_sp_loss_and_grad, gpt2_sp_train_step, local_tokens
+from adapcc_tpu_torch.parallel.ring_attention import (
+    reference_attention,
+    ring_attention,
+    ring_attention_shard,
+)
+from adapcc_tpu_torch.parallel.tensor import (
+    column_parallel_dense,
+    gpt2_tp_rules,
+    row_parallel_dense,
+    shard_tree,
+    tree_shardings,
+)
+from adapcc_tpu_torch.parallel.ulysses import ulysses_attention, ulysses_attention_shard
+
+__all__ = [
+    "Axis",
+    "Mesh",
+    "gpt2_sp_loss_and_grad",
+    "gpt2_sp_train_step",
+    "local_tokens",
+    "reference_attention",
+    "ring_attention",
+    "ring_attention_shard",
+    "ulysses_attention",
+    "ulysses_attention_shard",
+    "column_parallel_dense",
+    "row_parallel_dense",
+    "gpt2_tp_rules",
+    "tree_shardings",
+    "shard_tree",
+]

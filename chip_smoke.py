@@ -290,6 +290,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    2 after a shrink to world 2: the masters within JAX's
    convergence-equivalence tolerance (``SHRINK_RTOL``, ``SHRINK_ATOL``), the
    key biases, whose true gradient is zero, within Adam's 2·lr a step.
+20. slice 17's main path, sequence parallelism on the flash kernels'
+   ``lse`` path: (a) K2, K3 and K4 against their plain versions under
+   ``TOLERANCE`` with a random ``lse`` cotangent folded into ``delta``, at
+   the ring's blocks ``[256, 512, 64]`` bf16 causal and not and at
+   Ulysses' ``[64, 2048, 64]`` causal, each timed by device time against
+   its bound and sdpa's at the same shape; (b) the stacked ring at world
+   ``SP_WORLD`` (flash blocks) on q/k/v ``[16, 2048, 16, 64]`` bf16: output
+   and gradients against one flash over the whole sequence within the bf16
+   bound ``sp_attention`` derives, each kernel launched ``SP_WORLD`` times
+   (one diagonal launch over every rank, one full launch a later step);
+   (c) Ulysses the same, one launch of each kernel; (d)
+   ``gpt2_sp_train_step`` stacked at world 4, ring then Ulysses, 5 steps of
+   MAIN's widths at ``max_seq = 2048`` (T_local 512, weights from seed 0,
+   a ``[16, 2048]`` batch): losses within ``LOSS_ATOL`` of ``DDPTrainer``
+   at world 1 on the unsharded batch, K2–K4 ``n_layer × 4 × 5`` launches
+   each on the ring and ``n_layer × 5`` on Ulysses, no ring kernel, step ms
+   and peak memory, the ring step profiled; (e) DP × SP (data 2 × sp 2) at
+   depth 2, 3 steps, against the unsharded run.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -336,7 +354,11 @@ from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss, lm_loss_chun
 from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
+from adapcc_tpu_torch.parallel.axis import Mesh
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
+from adapcc_tpu_torch.parallel.gpt2_sp import gpt2_sp_train_step
+from adapcc_tpu_torch.parallel.ring_attention import ring_attention
+from adapcc_tpu_torch.parallel.ulysses import ulysses_attention
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE
@@ -536,6 +558,24 @@ PROFILE_RETRY_PAUSE_S = 0.2
 #: captures and four of five K1a calls' in some (PERF.md §7); the pads, left
 #: out of the count, take such a loss at either end
 PROFILER_PADS = 8
+#: phase 20: the sequence-parallel axis on this card and the sequence it
+#: shards: MAIN's widths at T = 2048, T_local = 512
+SP_WORLD = 4
+SP_MAIN = dataclasses.replace(MAIN, max_seq=2048)
+#: 20(b)-(c): q/k/v [B, T, H, D], MAIN's widths over the whole sequence
+SP_ATT_SHAPE = (BATCH, SP_MAIN.max_seq, MAIN.n_head, MAIN.d_model // MAIN.n_head)
+#: 20(a): (label, (B, T, H, D), causal): the ring's blocks (B·H = 256 rows of
+#: T_local, its own block causal, a past one full) and Ulysses' launch on one
+#: rank (B·H/world = 64 rows of the whole T)
+SP_KERNEL_CASES = (
+    ("ring block, diagonal", (BATCH, SP_MAIN.max_seq // SP_WORLD, MAIN.n_head, 64), True),
+    ("ring block, full", (BATCH, SP_MAIN.max_seq // SP_WORLD, MAIN.n_head, 64), False),
+    ("ulysses, one rank", (BATCH // SP_WORLD, SP_MAIN.max_seq, MAIN.n_head, 64), True),
+)
+#: 20(e): DP x SP on one card, at depth 2
+SP_DPSP = {"data": 2, "sp": 2}
+SP_DPSP_LAYERS = 2
+SP_DPSP_STEPS = 3
 
 
 def nvidia_smi() -> str:
@@ -652,14 +692,19 @@ def bound(name: str, bh: int, t: int, d: int, dtype: torch.dtype, causal: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_runs(dev: torch.device, B: int, T: int, H: int, D: int, dtype: torch.dtype, causal: bool):
+def flash_runs(dev: torch.device, B: int, T: int, H: int, D: int, dtype: torch.dtype, causal: bool,
+               dlse: bool = False):
     """``{kernel: (kernel call, plain call, wrapper)}`` on ``[B·H, T, D]``
-    inputs from ``SEED``, and the inputs ``(q, k, v, do, scale)``."""
+    inputs from ``SEED``, and the inputs ``(q, k, v, do, scale)``.  With
+    ``dlse``, a random ``lse`` cotangent folds into ``delta`` (``delta =
+    rowsum(do∘o) − dlse``), as a ring merge's backward gives it."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q, k, v, do = ((torch.randn(B * H, T, D, device=dev, generator=gen) * 0.5).to(dtype) for _ in range(4))
     scale = D ** -0.5
     o_ref, lse_ref = fa._fwd_plain(q, k, v, scale, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
+    if dlse:
+        delta = delta - torch.randn(B * H, T, device=dev, generator=gen) * 0.5
     res = (q, k, v, do, lse_ref, delta, scale, causal)
     runs = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, causal),
@@ -970,8 +1015,8 @@ def time_ring(dev: torch.device, kname: str, per_rank: int) -> dict:
     return rec
 
 
-def train(cfg: GPT2Config, world, init_state, tokens, on_trainer=None, **trainer_kw):
-    """``STEPS`` DDPTrainer steps from ``init_state``; returns (losses, step
+def train(cfg: GPT2Config, world, init_state, tokens, on_trainer=None, steps: int = STEPS, **trainer_kw):
+    """``steps`` DDPTrainer steps from ``init_state``; returns (losses, step
     seconds, a function that runs one more step).  ``on_trainer`` is called
     with the trainer before the first step."""
     model = GPT2(cfg, device=world.device, seed=None).to(torch.bfloat16)
@@ -982,7 +1027,7 @@ def train(cfg: GPT2Config, world, init_state, tokens, on_trainer=None, **trainer
         on_trainer(trainer)
     state = TrainState.create(model, trainer.tx)
     losses, seconds = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = trainer.step(state, tokens)
@@ -3770,6 +3815,206 @@ def slice16(dev: torch.device, init_state, tokens, z_tokens, losses: list, smi: 
     return p19
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: sequence parallelism (slice 17)
+# --------------------------------------------------------------------------- #
+
+
+def sdpa_device_ms(q, k, v, do, scale: float, shape: tuple, causal: bool) -> tuple:
+    """sdpa's forward and its backward (dq, dk and dv in one call) on the
+    kernels' ``[B·H, T, D]`` inputs, by device time: yardsticks only."""
+    B, T, H, D = shape
+    ql, kl, vl = (x.view(B, H, T, D) for x in (q, k, v))
+    fwd_ms = device_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale))
+    ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale)
+    dol = do.view(B, H, T, D)
+    bwd_ms = device_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
+    return fwd_ms, bwd_ms
+
+
+def sp_kernel_checks(dev: torch.device, smi: str) -> None:
+    """20(a): K2, K3 and K4 against their plain versions (``TOLERANCE``) at
+    the shapes the sequence-parallel path gives them, a random ``lse``
+    cotangent folded into ``delta``; each timed by device time against its
+    bound and sdpa's at the same shape."""
+    for label, (B, T, H, D), causal in SP_KERNEL_CASES:
+        runs, (q, k, v, do, scale) = flash_runs(dev, B, T, H, D, torch.bfloat16, causal, dlse=True)
+        rec = {"shape": [B * H, T, D], "causal": causal}
+        for name, run in runs.items():
+            err = check_flash(name, run, (B, T, H, D), torch.bfloat16, causal)
+            b_ms, b_by = bound(name, B * H, T, D, torch.bfloat16, causal)
+            rec[name] = {"max_abs_err": err, "device_ms": device_ms(run[0]), "bound_ms": b_ms, "bound_by": b_by}
+        rec["sdpa_fwd_ms"], rec["sdpa_bwd_ms"] = sdpa_device_ms(q, k, v, do, scale, (B, T, H, D), causal)
+        k2, k3, k4 = (rec[n]["device_ms"] for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+        print(f"sp 20a {label} [{B * H}, {T}, {D}] bf16 causal={causal} (dlse folded in), device ms: "
+              + "; ".join(f"{n} {rec[n]['device_ms']:.4f} (bound {rec[n]['bound_ms']:.4f}, {rec[n]['bound_by']})"
+                          for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+              + f"; sdpa forward {rec['sdpa_fwd_ms']:.4f} (K2 {k2 / rec['sdpa_fwd_ms']:.2f}x), sdpa backward "
+              f"{rec['sdpa_bwd_ms']:.4f} (K3 + K4 {(k3 + k4) / rec['sdpa_bwd_ms']:.2f}x); {smi}", flush=True)
+        del runs, q, k, v, do
+
+
+def _flash_counts() -> dict:
+    return {w.__name__: w.launches for w in fa.KERNELS}
+
+
+def _ring_counts() -> dict:
+    return {w.__name__: w.launches for w in ring.KERNELS}
+
+
+def _since(before: dict, now: dict) -> dict:
+    return {k: now[k] - before[k] for k in before}
+
+
+def sp_attention(dev: torch.device, kind: str, smi: str) -> dict:
+    """20(b) the stacked ring / 20(c) Ulysses at world ``SP_WORLD`` on
+    ``SP_ATT_SHAPE`` (flash, causal): output and q/k/v gradients against one
+    flash over the whole sequence, within the bf16 bound below; each
+    kernel's launches against the design's count; the fused call's ms
+    against the one flash's.  Returns the path's launches.
+
+    The bound: the ring rounds each block's output to bf16 (K2 writes bf16)
+    before the float32 merge and the merged output once more; a block's
+    output is a convex mix of v rows, so its rounding moves the result by
+    at most ``2**-8·max|v|``, and each side's final rounding by ``2**-8·|o|``:
+    ``|ring − flash| ≤ 2**-8·max|v| + 2·2**-8·|flash|``.  A gradient sums
+    ``world`` block terms, each written in bf16 by K3/K4 and added in bf16,
+    and takes its cotangent rounded to bf16 once a block: at most ``world +
+    1`` roundings of terms of the gradient's size, ``(world + 1)·2**-8·
+    max|grad| + 2·2**-8·|grad|``.  Ulysses runs the same rows through one
+    launch each way and is held to the same bound (bit for bit is
+    expected and printed)."""
+    B, T, H, D = SP_ATT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = ((torch.randn(B, T, H, D, device=dev, generator=gen) * 0.5).to(torch.bfloat16) for _ in range(3))
+    g = torch.randn(B, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    fn = ring_attention if kind == "ring" else ulysses_attention
+
+    def path():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(SP_WORLD, *leaves, causal=True, block_impl="flash")
+        return out, torch.autograd.grad(out, leaves, g)
+
+    def one_flash():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=True)
+        return out, torch.autograd.grad(out, leaves, g)
+
+    ref, ref_grads = one_flash()
+    before = _flash_counts()
+    out, grads = path()
+    torch.cuda.synchronize()
+    launched = _since(before, _flash_counts())
+    want = dict.fromkeys(launched, SP_WORLD if kind == "ring" else 1)
+    u = 2.0 ** -8
+    errs, ok = {}, True
+    for name, got, ref_t, atol in [("o", out, ref, u * v.float().abs().max().item())] + [
+            (f"d{n}", a, b, (SP_WORLD + 1) * u * b.float().abs().max().item())
+            for n, a, b in zip("qkv", grads, ref_grads)]:
+        diff = (got.float() - ref_t.float()).abs()
+        errs[name] = diff.max().item()
+        ok &= bool(torch.isfinite(got).all()) and (diff - atol - 2 * u * ref_t.float().abs()).max().item() <= 0
+    exact = all(torch.equal(a, b) for a, b in zip((out, *grads), (ref, *ref_grads)))
+    del out, grads, ref, ref_grads
+    path_ms, flash_ms = cuda_ms(path, iters=3, warmup=1), cuda_ms(one_flash, iters=3, warmup=1)
+    print(f"sp 20{'b' if kind == 'ring' else 'c'} {kind} world {SP_WORLD} q/k/v {list(SP_ATT_SHAPE)} bf16 causal: "
+          f"max abs err vs one flash over T={T} {', '.join(f'{n} {e:.3e}' for n, e in errs.items())} "
+          f"({'bit for bit' if exact else 'within the bf16 bound' if ok else 'FAIL'}); launches {launched} "
+          f"(design {want}); forward + backward {path_ms:.3f} ms, one flash {flash_ms:.3f} ms (events); {smi}",
+          flush=True)
+    if not ok or launched != want:
+        raise RuntimeError(f"20{kind}: the {kind} disagrees with one flash or launched {launched}, not {want}")
+    return launched
+
+
+def sp_train(dev: torch.device, cfg: GPT2Config, mesh, data_axis, init_state, tokens, steps: int) -> tuple:
+    """``steps`` of ``gpt2_sp_train_step`` (``adamw(3e-4)``, as phase 5's
+    trainer) on the stacked ``mesh``'s ``"sp"`` axis from ``init_state``;
+    returns (losses, step seconds, peak bytes allocated, one more step)."""
+    model = GPT2(cfg, device=dev, seed=None).to(torch.bfloat16)
+    model.load_state_dict(init_state)
+    step = gpt2_sp_train_step(model, adamw(3e-4), mesh, axis_name="sp", data_axis=data_axis)
+    state = {"opt": None}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state["opt"], loss = step(model, state["opt"], tokens)
+        losses.append(loss.item())  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, torch.cuda.max_memory_allocated(), lambda: step(model, state["opt"], tokens)
+
+
+def sp_gpt2(dev: torch.device, label: str, cfg: GPT2Config, mesh, data_axis, impls: tuple, steps: int,
+            smi: str) -> dict:
+    """20(d)/(e): the sequence-parallel step per ``impls`` on ``mesh``
+    against ``DDPTrainer`` at world 1 on the unsharded batch, losses within
+    ``LOSS_ATOL``, each flash kernel launched as the design counts, no ring
+    kernel; step ms and peak memory.  Returns the path's launches."""
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(BATCH, cfg.max_seq))).to(dev)
+    init_state = GPT2(cfg, device=dev, seed=SEED).to(torch.bfloat16).state_dict()
+    world = build_world_mesh(1)
+    torch.cuda.reset_peak_memory_stats()
+    ref_losses, ref_seconds, _ = train(cfg, world, init_state, tokens, steps=steps)
+    ref_peak = torch.cuda.max_memory_allocated()
+    destroy_world()
+    torch.cuda.empty_cache()
+    ref_ms = float(np.mean(ref_seconds[1:])) * 1e3
+    print(f"sp {label} reference (DDPTrainer, world 1, [{BATCH}, {cfg.max_seq}], {cfg.n_layer} layers, flash): "
+          f"losses {ref_losses}; step {ref_ms:.2f} ms, peak {ref_peak / 2**30:.3f} GiB", flush=True)
+    sp = mesh["sp"].size
+    total = dict.fromkeys(_flash_counts(), 0)
+    for impl in impls:
+        sp_cfg = dataclasses.replace(cfg, sp_axis=mesh["sp"], sp_impl=impl)
+        flash0, ring0 = _flash_counts(), _ring_counts()
+        losses, seconds, peak, more = sp_train(dev, sp_cfg, mesh, data_axis, init_state, tokens, steps)
+        launched, ring_launched = _since(flash0, _flash_counts()), _since(ring0, _ring_counts())
+        want = dict.fromkeys(launched, cfg.n_layer * steps * (sp if impl == "ring" else 1))
+        gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        step_ms = float(np.mean(seconds[1:])) * 1e3
+        print(f"sp {label} {impl} ({' x '.join(f'{a} {n}' for a, n in zip(mesh.axis_names, mesh.shape.values()))}, "
+              f"stacked, T_local {cfg.max_seq // sp}): losses {losses}; max gap to the reference {gap:.3e} "
+              f"(tolerance {LOSS_ATOL}); launches {launched} (design {want}), ring kernels {ring_launched}; step "
+              f"{step_ms:.2f} ms ({BATCH * cfg.max_seq / step_ms * 1e3:.1f} tokens/s; every step "
+              f"{[round(t * 1e3, 2) for t in seconds]} ms), peak {peak / 2**30:.3f} GiB; {smi}", flush=True)
+        if not (gap <= LOSS_ATOL and np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"20 {label} {impl}: losses {losses} not within {LOSS_ATOL} of {ref_losses}")
+        if launched != want or any(ring_launched.values()):
+            raise RuntimeError(f"20 {label} {impl}: launches {launched} (design {want}), ring {ring_launched}")
+        for k, n in launched.items():
+            total[k] += n
+        if label == "20d" and impl == "ring":
+            profile_step(f"sp ring world {sp}", more, step_ms)
+        del more
+        torch.cuda.empty_cache()
+    return total
+
+
+def slice17(dev: torch.device, smi: str) -> dict:
+    """Phase 20, slice 17's main path (the module docstring); returns the
+    launches of each kernel on it."""
+    t20 = time.perf_counter()
+    sp_kernel_checks(dev, smi)
+    torch.cuda.empty_cache()
+    t20b = time.perf_counter()
+    p20 = dict.fromkeys(_flash_counts(), 0)
+    for part in (sp_attention(dev, "ring", smi), sp_attention(dev, "ulysses", smi),
+                 sp_gpt2(dev, "20d", SP_MAIN, Mesh.stacked_mesh({"sp": SP_WORLD}), None, ("ring", "ulysses"),
+                         STEPS, smi),
+                 sp_gpt2(dev, "20e", dataclasses.replace(SP_MAIN, n_layer=SP_DPSP_LAYERS),
+                         Mesh.stacked_mesh(SP_DPSP), "data", ("ring",), SP_DPSP_STEPS, smi)):
+        for k, n in part.items():
+            p20[k] += n
+        torch.cuda.empty_cache()
+    print(f"phase 20 launches: {p20}; phase 20 {time.perf_counter() - t20:.1f} s (20a {t20b - t20:.1f} s)",
+          flush=True)
+    return p20
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -4096,6 +4341,13 @@ def main() -> None:
     # 19. slice 16's main path: ZeRO-1's elastic state and the memory-lean
     # GPT-2
     for kname, n in slice16(dev, init_state, tokens, z_tokens, losses, smi).items():
+        launches[kname] += n
+    del init_state, tokens, z_tokens
+    torch.cuda.empty_cache()
+
+    # 20. slice 17's main path: sequence parallelism (ring attention and
+    # Ulysses on K2-K4's lse path, the sequence-parallel GPT-2, DP x SP)
+    for kname, n in slice17(dev, smi).items():
         launches[kname] += n
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
