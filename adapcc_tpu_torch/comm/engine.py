@@ -89,6 +89,7 @@ from adapcc_tpu_torch.strategy.ir import CommRound, Strategy, Tree
 from adapcc_tpu_torch.tuner import CollectiveTuner, tuner_mode
 from adapcc_tpu_torch.tuner.measure import sync_outputs
 from adapcc_tpu_torch.tuner.policy import (
+    A2A_XLA_PATH,
     ALGO_OF_PATH,
     ALGO_PATHS,
     IR_OPT_PATH,
@@ -947,6 +948,8 @@ class CollectiveEngine:
         #: whether the last derived program came from the strategy's memo
         #: (a trace extra); None until something derives
         self._ir_derived_cache_hit: Optional[bool] = None
+        #: the expert exchanges already traced (:meth:`expert_a2a`)
+        self._moe_traced: set = set()
 
     # -- epochs and bookkeeping ------------------------------------------------
 
@@ -1829,23 +1832,142 @@ class CollectiveEngine:
     ) -> torch.Tensor:
         """All-to-all: ``stacked[src, dst]`` blocks are exchanged so that rank
         ``r`` holds ``stacked[:, r]``.  Blocks from inactive ranks are
-        zeros; every rank still receives."""
+        zeros; every rank still receives.
+
+        Tuned as every other collective: with a tuner recording (``record``
+        or ``choose``), the walltime of each dispatch to completion goes into
+        the database under the ``all_to_all`` primitive, its size bucket one
+        rank's send volume (its ``[world, *payload]`` row), on JAX's path
+        ``xla`` for the flat exchange (trace impl ``torch_flat``) and
+        ``two_level`` on a two-level world."""
         self._check_epoch(epoch)
         self._check_world_dim(stacked, "all_to_all")
         if stacked.dim() < 2 or stacked.shape[1] != self.world_size:
             raise ValueError(f"all_to_all needs a [world, world, ...] stacked tensor, got {tuple(stacked.shape)}")
+        key = ("alltoall2l" if self.two_level else "alltoall", tuple(stacked.shape),
+               ring._dtype_name(stacked.dtype), active_gpus is not None)
+        _, hit = self._prepare(key, lambda: None)
+        tuner = self._tuner_for(stacked)
+        t0 = time.perf_counter()
         v = self._zero_inactive(stacked, active_gpus)
-        _, hit = self._prepare(("alltoall2l" if self.two_level else "alltoall", tuple(stacked.shape),
-                                ring._dtype_name(stacked.dtype), active_gpus is not None), lambda: None)
         if self.two_level:
             from adapcc_tpu_torch.comm.two_level import all_to_all_two_level_stacked
 
             out = all_to_all_two_level_stacked(v, self.num_slices, self.ici_size)
-            self._record("all_to_all", "two_level", stacked, {"cache_hit": hit})
+            impl = path = "two_level"
         else:
             out = v.transpose(0, 1).contiguous()
-            self._record("all_to_all", "torch_flat", stacked, {"cache_hit": hit})
+            impl, path = "torch_flat", A2A_XLA_PATH
+        extras: Dict[str, Any] = {"cache_hit": hit}
+        if tuner is not None and tuner.recording:
+            per_rank_bytes = stacked[0].numel() * stacked.element_size()
+            self._observe(tuner, out, t0, tuner.key_for("all_to_all", per_rank_bytes, path, NO_CHUNK, "off"), key,
+                          extras)
+        self._record("all_to_all", impl, stacked, extras)
         return out
+
+    def expert_a2a(self, axis: Optional[Any] = None) -> Callable:
+        """The MoE token exchange for :func:`adapcc_tpu_torch.parallel.expert.
+        expert_parallel_moe`, routed through the engine so that expert
+        traffic runs the engine's configuration and is traced.
+
+        Returns ``a2a(v, leg=...)``: with no ``axis`` or a stacked one, ``v``
+        is a stacked ``[world(src), world(dst), ...]`` tensor and the
+        exchange swaps its first two dimensions (on a two-level world,
+        :func:`~adapcc_tpu_torch.comm.two_level.all_to_all_two_level_stacked`);
+        with a per-rank :class:`~adapcc_tpu_torch.parallel.axis.Axis`, ``v``
+        is this rank's ``[world, ...]`` and the exchange is
+        :func:`~adapcc_tpu_torch.parallel.axis.all_to_all` over its group.
+        All three are differentiable.  An exchange records one
+        ``all_to_all`` event (impl ``torch_flat[moe]``, ``two_level[moe]``
+        or ``process_group[moe]``, extra ``moe=True``) the first time the
+        engine sees its (leg, shape, dtype, axis): JAX records once per
+        compiled program, whose dispatch and return legs each record."""
+        from adapcc_tpu_torch.parallel.expert import _raw_a2a
+
+        if axis is not None and axis.size != self.world_size:
+            raise ValueError(
+                f"expert_a2a axis {axis.name!r} of size {axis.size} does not span the engine world "
+                f"{self.world_size}"
+            )
+        per_rank = axis is not None and not axis.stacked
+        if self.two_level:
+            if per_rank:
+                raise ValueError("a per-rank expert exchange on a two-level world is not ported; the per-rank "
+                                 "two-level plane waits for one process a card")
+            from adapcc_tpu_torch.comm.two_level import all_to_all_two_level_stacked
+
+            def inner(v: torch.Tensor, leg: str) -> torch.Tensor:
+                return all_to_all_two_level_stacked(v, self.num_slices, self.ici_size)
+
+            impl = "two_level[moe]"
+        else:
+            inner = _raw_a2a(axis)
+            impl = "process_group[moe]" if per_rank else "torch_flat[moe]"
+        name = None if axis is None else axis.name
+
+        def a2a(v: torch.Tensor, leg: str = "dispatch") -> torch.Tensor:
+            key = ("expert_a2a", leg, tuple(v.shape), ring._dtype_name(v.dtype), name)
+            if self.trace is not None and key not in self._moe_traced:
+                self._moe_traced.add(key)
+                self.trace.record("all_to_all", impl, v.numel() * v.element_size(), moe=True)
+            return inner(v, leg)
+
+        return a2a
+
+    def pipe_send(
+        self,
+        stacked: torch.Tensor,
+        *,
+        src: int,
+        dst: int,
+        kind: str = "activation",
+        mb: Optional[int] = None,
+        tick: Optional[int] = None,
+        epoch: Optional[int] = None,
+    ) -> torch.Tensor:
+        """A pipeline stage hop: rank ``src``'s row of a stacked ``[world,
+        ...]`` tensor moves to rank ``dst``; every other row stays as it was
+        (a new tensor, as JAX's ppermute gives).  On one device the hop is a
+        row copy (trace impl ``torch_row_copy``; JAX's ``ici_hop`` is a
+        ppermute over the chip's links).  Each hop records one
+        ``pipe_send`` event of one row's bytes with the route (``src``,
+        ``dst``), ``kind`` (``activation``/``grad``/``tied_embed``), and the
+        microbatch and tick where the executor gives them; the prepared-plan
+        cache key is JAX's ``("pipe_send", src, dst, shape, dtype)``."""
+        self._check_epoch(epoch)
+        self._check_world_dim(stacked, "pipe_send")
+        w = self.world_size
+        for label, r in (("src", src), ("dst", dst)):
+            if not 0 <= r < w:
+                raise ValueError(f"pipe_send {label}={r} outside world [0, {w})")
+        if src == dst:
+            raise ValueError(f"pipe_send src == dst == {src}: nothing to move")
+        if kind not in ("activation", "grad", "tied_embed"):
+            raise ValueError(
+                f"pipe_send kind={kind!r}: expected 'activation', 'grad' or "
+                "'tied_embed'"
+            )
+        _, hit = self._prepare(("pipe_send", src, dst, tuple(stacked.shape), ring._dtype_name(stacked.dtype)),
+                               lambda: None)
+        out = stacked.clone()
+        out[dst] = stacked[src]
+        if self.trace is not None:
+            extras: Dict[str, Any] = {"epoch": self.epoch, "src": int(src), "dst": int(dst), "kind": kind,
+                                      "cache_hit": hit}
+            if mb is not None:
+                extras["mb"] = int(mb)
+            if tick is not None:
+                extras["tick"] = int(tick)
+            self.trace.record("pipe_send", "torch_row_copy", stacked.numel() * stacked.element_size() // w,
+                              **extras)
+        return out
+
+    def pipe_recv(self, stacked: torch.Tensor, *, src: int, dst: int, **kwargs: Any) -> torch.Tensor:
+        """The destination's spelling of the stage hop: one dispatch is both
+        halves of the send/recv pair, so this is :meth:`pipe_send` (one
+        trace event a hop either way)."""
+        return self.pipe_send(stacked, src=src, dst=dst, **kwargs)
 
     def reduce_scatter(
         self,

@@ -13,6 +13,13 @@ into a ``state_dict`` for :class:`adapcc_tpu_torch.models.gpt2.GPT2`:
 flat layout orders the leaves by it.  :func:`residual_from_jax` carries one
 rank's error-feedback residual of the JAX ``DDPTrainer`` across.
 
+Pipeline stages and MoE: :func:`stage_params_from_flax` turns the per-stage
+trees of JAX's ``pipe.split_params`` into the port's
+:class:`~adapcc_tpu_torch.pipe.partition.PipelineStage` modules, and
+:func:`moe_state_dict_from_flax` a flax ``MoEMLP`` tree into the port's
+``MoEMLP`` ``state_dict`` (the router's ``[D, E]`` kernel becomes the
+``[E, D]`` weight; the stacked ``w1``/``w2`` stay as they are).
+
 Optimizer state: optax's adam state (``count``, ``mu``, ``nu``) is the
 port's AdamW state (``step``, ``exp_avg``, ``exp_avg_sq``), both ways, the
 first moment in its own dtype (``mu_dtype``): :func:`zero1_state_from_jax`
@@ -192,3 +199,33 @@ def residual_from_jax(residual: Mapping[str, Any], model: nn.Module, rank: int) 
     if set(names) != set(by_name):
         raise ValueError(f"residual leaves {sorted(by_name)} do not match the model's {sorted(names)}")
     return [by_name[name] for name in names]
+
+
+def stage_params_from_flax(stage_trees: List[Mapping[str, Any]], cfg: Any, partition: Any,
+                           device: Any = "cpu") -> List[nn.Module]:
+    """JAX ``pipe.split_params`` output (one flax tree a stage, as numpy:
+    ``wte``/``wpe`` on stage 0, ``h{i}``, ``ln_f`` and ``head_wte`` on the
+    last) → the port's per-stage modules on ``device``, in the trees'
+    dtypes."""
+    from adapcc_tpu_torch.pipe.partition import PipelineStage
+
+    stages = []
+    for s, tree in enumerate(stage_trees):
+        stage = PipelineStage(cfg, partition, s, device="meta")
+        own = {k: v.to(device) for k, v in flax_to_state_dict(tree).items()}
+        stage.load_state_dict(own, assign=True)
+        stages.append(stage)
+    return stages
+
+
+def moe_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``MoEMLP`` tree (with or without ``"params"``, as numpy) →
+    the port's ``MoEMLP`` ``state_dict``."""
+    if "params" in params:
+        params = params["params"]
+    return {
+        "router.weight": _tensor(np.asarray(params["router"]["kernel"]).T),
+        "router.bias": _tensor(params["router"]["bias"]),
+        "w1": _tensor(params["w1"]),
+        "w2": _tensor(params["w2"]),
+    }

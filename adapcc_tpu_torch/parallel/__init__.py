@@ -1,14 +1,17 @@
 """Parallelism beyond data parallelism: sequence (ring attention, Ulysses,
-the sequence-parallel GPT-2), tensor, and ZeRO-1's sharded optimizer.
+the sequence-parallel GPT-2), tensor, expert, the forward pipeline, and
+ZeRO-1's sharded optimizer.
 
-The port of :mod:`adapcc_tpu.parallel`'s sequence- and tensor-parallel
-planes, under JAX's names.  Where JAX names a ``shard_map`` axis, the port
-passes an :class:`~adapcc_tpu_torch.parallel.axis.Axis` (per rank over a
-process group, or stacked in one process); expert parallelism and the
-pipeline are not ported yet.
+The port of :mod:`adapcc_tpu.parallel`, under JAX's names.  Where JAX names
+a ``shard_map`` axis, the port passes an
+:class:`~adapcc_tpu_torch.parallel.axis.Axis` (per rank over a process
+group, or stacked in one process).  ``pipeline_apply`` is the pipeline
+plane's forward block (:mod:`adapcc_tpu_torch.pipe.forward`), as JAX
+re-exports it here.
 """
 
 from adapcc_tpu_torch.parallel.axis import Axis, Mesh
+from adapcc_tpu_torch.parallel.expert import expert_parallel_moe, moe_capacity
 from adapcc_tpu_torch.parallel.gpt2_sp import gpt2_sp_loss_and_grad, gpt2_sp_train_step, local_tokens
 from adapcc_tpu_torch.parallel.ring_attention import (
     reference_attention,
@@ -23,10 +26,14 @@ from adapcc_tpu_torch.parallel.tensor import (
     tree_shardings,
 )
 from adapcc_tpu_torch.parallel.ulysses import ulysses_attention, ulysses_attention_shard
+from adapcc_tpu_torch.pipe.forward import pipeline_apply
 
 __all__ = [
     "Axis",
     "Mesh",
+    "expert_parallel_moe",
+    "moe_capacity",
+    "pipeline_apply",
     "gpt2_sp_loss_and_grad",
     "gpt2_sp_train_step",
     "local_tokens",

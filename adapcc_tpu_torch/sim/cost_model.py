@@ -889,6 +889,85 @@ def schedule_program_time(program, nbytes: float, coeffs: LinkCoeffs, per_dispat
 
 
 # --------------------------------------------------------------------------- #
+# pipeline-parallel pricing (adapcc_tpu_torch/pipe): bubble, step time, stash
+# --------------------------------------------------------------------------- #
+
+
+def pipeline_bubble_fraction(stages: int, microbatches: int) -> float:
+    """Idle fraction of a GPipe/1F1B pipeline step: ``(s−1)/(m+s−1)``.
+
+    Both schedules run the same ``2·(m+s−1)`` ticks over ``2·m`` useful
+    tasks a stage, so the bubble does not depend on the schedule; the
+    schedules differ in memory (:func:`pipeline_stash_bytes`)."""
+    if stages < 1:
+        raise ValueError(f"stages must be >= 1, got {stages}")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    return (stages - 1) / (microbatches + stages - 1)
+
+
+def pipeline_step_time(
+    stages: int,
+    microbatches: int,
+    fwd_time_s: float,
+    hop_bytes: float,
+    coeffs: LinkCoeffs,
+    bwd_ratio: float = 2.0,
+) -> float:
+    """Latency of one pipelined forward/backward step: ``2·(m+s−1)`` ticks,
+    each one stage task (``fwd_time_s`` a forward, ``bwd_ratio`` times that
+    a backward) plus one α+β hop of ``hop_bytes``.  GPipe and 1F1B price
+    the same here (same ticks, same hops a tick)."""
+    if stages < 1:
+        raise ValueError(f"stages must be >= 1, got {stages}")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if fwd_time_s < 0 or hop_bytes < 0 or bwd_ratio < 0:
+        raise ValueError(
+            "fwd_time_s, hop_bytes, and bwd_ratio must be non-negative"
+        )
+    if stages == 1:
+        # no hops: m forwards and m backwards, back to back
+        return microbatches * fwd_time_s * (1.0 + bwd_ratio)
+    ticks = microbatches + stages - 1
+    hop = coeffs.time(hop_bytes)
+    fwd_half = ticks * (fwd_time_s + hop)
+    bwd_half = ticks * (fwd_time_s * bwd_ratio + hop)
+    return fwd_half + bwd_half
+
+
+def pipeline_stash_bytes(
+    stages: int,
+    microbatches: int,
+    schedule: str,
+    stage: int,
+    act_bytes: float,
+) -> float:
+    """Peak stashed-activation bytes at ``stage``, the closed form of the
+    executor's measured high-water mark (``PipelineReport.stash_peak``):
+    GPipe stashes every microbatch, ``m·act_bytes``; 1F1B bounds the window
+    to ``min(m, stages − stage)``."""
+    if stages < 1:
+        raise ValueError(f"stages must be >= 1, got {stages}")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if not 0 <= stage < stages:
+        raise ValueError(
+            f"stage must be in [0, {stages}), got {stage}"
+        )
+    from adapcc_tpu_torch.pipe.schedule import PIPE_SCHEDULES  # deferred: pipe prices through here
+
+    if schedule not in PIPE_SCHEDULES:
+        raise ValueError(
+            f"unknown pipeline schedule {schedule!r}: expected one of "
+            f"{PIPE_SCHEDULES}"
+        )
+    if schedule == "gpipe":
+        return microbatches * float(act_bytes)
+    return min(microbatches, stages - stage) * float(act_bytes)
+
+
+# --------------------------------------------------------------------------- #
 # failover pricing: detection latency, the plan-swap stall and the degraded
 # steady state, the three terms a world shrink costs
 # --------------------------------------------------------------------------- #

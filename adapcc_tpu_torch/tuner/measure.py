@@ -107,7 +107,7 @@ _RING_IMPLS = ("cuda_ring[", "plain_ring[")
 
 def _key_from_event(event: Any, world: int, topology: str) -> Optional[TuningKey]:
     """TraceEvent → TuningKey, or None when the event carries no timing or
-    has no plan cell (a schedule or flat dispatch)."""
+    has no plan cell (a schedule dispatch, a flat gather or scatter)."""
     extra = getattr(event, "extra", None) or {}
     if "duration_s" not in extra:
         return None
@@ -116,7 +116,9 @@ def _key_from_event(event: Any, world: int, topology: str) -> Optional[TuningKey
     if per_rank <= 0:
         # stacked nbytes = world × the per-rank payload
         per_rank = max(1, int(event.nbytes) // max(1, world))
-    from adapcc_tpu_torch.tuner.policy import ALGO_PATHS, NO_CHUNK, QUANT_PATH, TORCH_FUSED_IMPL, XLA_PATH
+    from adapcc_tpu_torch.tuner.policy import (
+        A2A_XLA_PATH, ALGO_PATHS, NO_CHUNK, QUANT_PATH, TORCH_FUSED_IMPL, XLA_PATH,
+    )
 
     def key(path: str, chunk: int, wire: str) -> TuningKey:
         return TuningKey(primitive=event.primitive, size_bucket=size_bucket(per_rank), world=world,
@@ -140,6 +142,10 @@ def _key_from_event(event: Any, world: int, topology: str) -> Optional[TuningKey
     if event.primitive == "allreduce" and impl == TORCH_FUSED_IMPL:
         # the flat fast path: the xla cell's measurable arm
         return key(XLA_PATH, NO_CHUNK, "off")
+    if event.primitive == "all_to_all" and impl in ("torch_flat", A2A_XLA_PATH, "two_level"):
+        # the flat exchange (the port's torch_flat, JAX's xla) and the
+        # two-level one: the all_to_all cells the engine records
+        return key(A2A_XLA_PATH if impl == "torch_flat" else impl, NO_CHUNK, "off")
     return None
 
 

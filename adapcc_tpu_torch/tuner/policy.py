@@ -172,6 +172,39 @@ def _is_hook_path(path: str) -> bool:
     return path == HOOK_PATH or path.startswith(HOOK_PATH + "-")
 
 
+#: pipelined-step dispatches (``pipe_step`` cells recorded by
+#: ``PipelineExecutor``): the knob is the tick schedule, in the key's path
+#: slot as the hook's overlap modes are; the key's chunk_bytes slot carries
+#: the microbatch count (there is no chunk knob)
+PIPE_PATH = "pipe"
+
+#: schedules a pipe_step cell can carry; mirrors
+#: ``adapcc_tpu_torch.pipe.schedule.PIPE_SCHEDULES`` (a test pins the two
+#: together: an import here would tie the tuner to the pipeline package)
+PIPE_SCHEDULE_MODES = ("gpipe", "1f1b")
+
+
+def pipe_path(schedule: str) -> str:
+    """The ``TuningKey.path`` spelling of a pipe_step cell's schedule:
+    always ``"pipe-<schedule>"`` (no bare cell predates it)."""
+    if schedule not in PIPE_SCHEDULE_MODES:
+        raise ValueError(
+            f"schedule={schedule!r}: expected one of {PIPE_SCHEDULE_MODES}"
+        )
+    return f"{PIPE_PATH}-{schedule}"
+
+
+def pipe_schedule_of(path: str) -> str:
+    """Inverse of :func:`pipe_path`; loud on a non-pipe path."""
+    prefix = PIPE_PATH + "-"
+    if path.startswith(prefix) and path[len(prefix):] in PIPE_SCHEDULE_MODES:
+        return path[len(prefix):]
+    raise ValueError(
+        f"path={path!r} is not a pipe_step cell (expected "
+        f"{prefix}<{'|'.join(PIPE_SCHEDULE_MODES)}>)"
+    )
+
+
 @dataclass(frozen=True)
 class TunedPlan:
     """What the policy committed for one dispatch.

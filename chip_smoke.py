@@ -308,6 +308,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each on the ring and ``n_layer × 5`` on Ulysses, no ring kernel, step ms
    and peak memory, the ring step profiled; (e) DP × SP (data 2 × sp 2) at
    depth 2, 3 steps, against the unsharded run.
+21. slice 18's main path, the pipeline-parallel plane and expert
+   parallelism: (a) K2, K3 and K4 against their plain versions under
+   ``TOLERANCE`` at a pipeline microbatch's shape ``[64, 512, 64]`` bf16
+   causal, timed by device time against their bounds and sdpa; MAIN split
+   by ``partition_gpt2`` into ``PIPE_STAGES`` stages stacked on the card,
+   the composed microbatched baseline (``composed_loss``) from the seed-0
+   weights, then ``PIPE_STEPS`` AdamW steps of ``PipelineExecutor`` over
+   the ``[16, 512]`` batch in ``PIPE_MICROBATCHES`` microbatches, GPipe and
+   then 1F1B, each step with ``sync_tied_embedding``: each flash kernel
+   ``n_layer × PIPE_MICROBATCHES`` launches a step, the first step's loss
+   and gradients bit for bit the baseline's, GPipe's losses and first
+   gradients bit for bit 1F1B's, losses finite, falling and within
+   ``LOSS_ATOL`` of ``DDPTrainer``'s at world 1 on the same batch; hops
+   against ``program.total_sends()``, stash peaks against
+   ``pipeline_stash_bytes``, the bubble and ``pipeline_step_time`` beside
+   step ms, tokens/s and peak memory; (b) ``expert_parallel_moe`` at
+   ``MoEConfig()``'s widths (8 experts, d_model 256, d_hidden 1024, top-2,
+   bf16), EP world ``MOE_WORLD`` stacked, engine-routed, over the main
+   batch's 8,192 tokens: forward and backward against the dense ``MoEMLP``
+   at a capacity where nothing drops (``EP_ATOL``), the forward + backward
+   ms at the config's capacity, the exchange's device ms against its
+   bytes' bound; ``train_moe`` at those widths trains (losses falling) and,
+   under ``ADAPCC_TUNER=record``, infers and prints its ``[tuner]
+   all_to_all`` line.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -320,6 +344,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import shutil
@@ -351,14 +376,20 @@ from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
 from adapcc_tpu_torch.elastic import FaultEvent, FaultPlan, ShardReplicaStore, StandbyPlanCache
 from adapcc_tpu_torch.elastic import rebalance
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss, lm_loss_chunked
+from adapcc_tpu_torch.models.moe import MoEConfig, MoEMLP
 from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
 from adapcc_tpu_torch.ops import flash_attention as fa
 from adapcc_tpu_torch.parallel.axis import Mesh
+from adapcc_tpu_torch.parallel.expert import expert_parallel_moe, moe_capacity
 from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer, _flatten, _flatten_meta, zero1_train_step
 from adapcc_tpu_torch.parallel.gpt2_sp import gpt2_sp_train_step
 from adapcc_tpu_torch.parallel.ring_attention import ring_attention
 from adapcc_tpu_torch.parallel.ulysses import ulysses_attention
+from adapcc_tpu_torch.pipe import (
+    PipelineExecutor, composed_loss, partition_gpt2, pipeline_schedule, split_params, stage_forward,
+    sync_tied_embedding,
+)
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE
@@ -576,6 +607,26 @@ SP_KERNEL_CASES = (
 SP_DPSP = {"data": 2, "sp": 2}
 SP_DPSP_LAYERS = 2
 SP_DPSP_STEPS = 3
+#: phase 21(a): MAIN split into PIPE_STAGES stages stacked on this card, the
+#: [BATCH, T] batch in PIPE_MICROBATCHES microbatches, PIPE_STEPS AdamW steps
+#: a schedule
+PIPE_STAGES = 4
+PIPE_MICROBATCHES = 4
+PIPE_STEPS = 3
+#: the (B, T, H, D) a pipeline microbatch gives the flash kernels
+PIPE_KERNEL_SHAPE = (BATCH // PIPE_MICROBATCHES, MAIN.max_seq, MAIN.n_head, MAIN.d_model // MAIN.n_head)
+#: 21(b): MoEConfig()'s widths at EP world MOE_WORLD over the main batch's
+#: tokens; train_moe's steps
+MOE_WORLD = 4
+MOE_TOKENS = BATCH * MAIN.max_seq
+#: EP against the dense MoE, each tensor against its largest element: every
+#: element is one float32 sum rounded once to bf16 on each side, and the two
+#: sides add their terms in different orders (the experts' weight gradients
+#: sum over every rank's tokens), so they may round to neighbouring bf16
+#: values: one bf16 ulp, at most 2**-7 of the value
+EP_ATOL = 2.0 ** -7
+MOE_TRAIN_STEPS = 20
+MOE_INFER_STEPS = 5
 
 
 def nvidia_smi() -> str:
@@ -4015,6 +4066,296 @@ def slice17(dev: torch.device, smi: str) -> dict:
     return p20
 
 
+def pipe_kernel_checks(dev: torch.device, smi: str) -> dict:
+    """21(a): K2, K3 and K4 against their plain versions (``TOLERANCE``) at
+    the shape a pipeline microbatch gives them, each timed by device time
+    against its bound and sdpa's at the same shape.  Returns the records."""
+    B, T, H, D = PIPE_KERNEL_SHAPE
+    runs, (q, k, v, do, scale) = flash_runs(dev, B, T, H, D, torch.bfloat16, True)
+    rec = {}
+    for name, run in runs.items():
+        err = check_flash(name, run, PIPE_KERNEL_SHAPE, torch.bfloat16, True)
+        b_ms, b_by = bound(name, B * H, T, D, torch.bfloat16, True)
+        rec[name] = {"max_abs_err": err, "device_ms": device_ms(run[0]), "bound_ms": b_ms, "bound_by": b_by}
+    sdpa_fwd, sdpa_bwd = sdpa_device_ms(q, k, v, do, scale, PIPE_KERNEL_SHAPE, True)
+    k2, k3, k4 = (rec[n]["device_ms"] for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+    print(f"pipe 21a kernels [{B * H}, {T}, {D}] bf16 causal, device ms: "
+          + "; ".join(f"{n} {rec[n]['device_ms']:.4f} (bound {rec[n]['bound_ms']:.4f}, {rec[n]['bound_by']})"
+                      for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+          + f"; sdpa forward {sdpa_fwd:.4f} (K2 {k2 / sdpa_fwd:.2f}x), sdpa backward {sdpa_bwd:.4f} "
+          f"(K3 + K4 {(k3 + k4) / sdpa_bwd:.2f}x); {smi}", flush=True)
+    return rec
+
+
+def _set_grads(stages, grads) -> None:
+    for stage, g in zip(stages, grads):
+        for n, p in stage.named_parameters():
+            p.grad = g[n]
+
+
+def _same_grads(a, b) -> bool:
+    return all(torch.equal(x[n], y[n]) for x, y in zip(a, b) for n in x)
+
+
+def pipe_baseline(part, stages, tokens) -> tuple:
+    """The composed microbatched twin of ``forward_backward``: each
+    microbatch's ``composed_loss`` differentiated over every stage's
+    parameters, the gradients added in microbatch order, the sums divided by
+    the count, the tied head's gradient folded into ``wte``'s."""
+    M = PIPE_MICROBATCHES
+    mb = tokens.reshape(M, tokens.shape[0] // M, tokens.shape[1])
+    names = [[n for n, _ in st.named_parameters()] for st in stages]
+    params = [p for st in stages for p in st.parameters()]
+    loss, acc = None, None
+    for m in range(M):
+        lm = composed_loss(MAIN, part, stages, mb[m])
+        g = torch.autograd.grad(lm, params)
+        loss = lm.detach() if loss is None else loss + lm.detach()
+        acc = list(g) if acc is None else [a + b for a, b in zip(acc, g)]
+    m_t = torch.full((), M, dtype=loss.dtype, device=loss.device)
+    loss = loss / m_t
+    grads, i = [], 0
+    for st_names in names:
+        grads.append({n: acc[i + j] / torch.full((), M, dtype=acc[i + j].dtype, device=loss.device)
+                      for j, n in enumerate(st_names)})
+        i += len(st_names)
+    head = grads[-1]["head_wte.weight"]
+    grads[0]["wte.weight"] = grads[0]["wte.weight"] + head
+    grads[-1]["head_wte.weight"] = torch.zeros_like(head)
+    return loss, grads
+
+
+def pipe_run(dev: torch.device, part, engine, model, tokens, kind: str) -> dict:
+    """``PIPE_STEPS`` AdamW steps (``adamw(3e-4)``, DDP's) of the pipelined
+    GPT-2 under ``kind`` from ``model``'s weights, ``sync_tied_embedding``
+    after each; the flash launches of each step, losses, synced step
+    seconds, the reports, the first step's gradients and the peak."""
+    stages = split_params(model, part)
+    opt = adamw(3e-4)([p for st in stages for p in st.parameters()])
+    ex = PipelineExecutor(MAIN, part, engine, num_microbatches=PIPE_MICROBATCHES, schedule=kind, device=dev)
+    out = {"losses": [], "seconds": [], "reports": [], "launches": [], "first_grads": None, "executor": ex}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PIPE_STEPS):
+        before = _flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, report = ex.forward_backward(stages, tokens)
+        _set_grads(stages, grads)
+        opt.step()
+        sync_tied_embedding(stages)
+        out["losses"].append(loss.item())  # waits for the step
+        out["seconds"].append(time.perf_counter() - t0)
+        out["launches"].append(_since(before, _flash_counts()))
+        out["reports"].append(report)
+        if i == 0:
+            out["first_grads"], out["first_loss"] = grads, loss
+        del grads
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del stages, opt
+    return out
+
+
+def pipeline_gpt2(dev: torch.device, smi: str) -> dict:
+    """21(a) after the kernel checks: the pipelined GPT-2 (the module
+    docstring).  Returns the flash launches of the pipelined steps."""
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, MAIN.vocab_size, size=(BATCH, MAIN.max_seq))).to(dev)
+    model = GPT2(MAIN, device=dev, seed=SEED).to(torch.bfloat16)
+    part = partition_gpt2(MAIN, PIPE_STAGES)
+    print(f"pipe 21a partition: {PIPE_STAGES} stages, blocks {part.block_ranges}, parameters {part.param_counts}",
+          flush=True)
+
+    world = build_world_mesh(1)
+    ddp_losses, ddp_seconds, _ = train(MAIN, world, model.state_dict(), tokens, steps=PIPE_STEPS)
+    destroy_world()
+    ddp_ms = float(np.mean(ddp_seconds[1:])) * 1e3
+    torch.cuda.empty_cache()
+
+    # the composed baseline from the same weights, outside the counted runs
+    base_stages = split_params(model, part)
+    base_loss, base_grads = pipe_baseline(part, base_stages, tokens)
+    del base_stages
+    torch.cuda.empty_cache()
+
+    trace = CollectiveTrace()
+    engine = CollectiveEngine(PIPE_STAGES, Strategy.ring(PIPE_STAGES), trace=trace)
+    runs, total = {}, dict.fromkeys(_flash_counts(), 0)
+    for kind in ("gpipe", "1f1b"):
+        hops0 = len([e for e in trace.events() if e.primitive == "pipe_send"])
+        runs[kind] = r = pipe_run(dev, part, engine, model, tokens, kind)
+        hops = len([e for e in trace.events() if e.primitive == "pipe_send"]) - hops0
+        ex, rep = r["executor"], r["reports"][0]
+        want = dict.fromkeys(total, MAIN.n_layer * PIPE_MICROBATCHES)
+        exact = torch.equal(r["first_loss"], base_loss) and _same_grads(r["first_grads"], base_grads)
+        act_bytes = (BATCH // PIPE_MICROBATCHES) * MAIN.max_seq * MAIN.d_model * 2
+        stash_model = [cost_model.pipeline_stash_bytes(PIPE_STAGES, PIPE_MICROBATCHES, kind, s, act_bytes)
+                       for s in range(PIPE_STAGES)]
+        step_ms = float(np.mean(r["seconds"][1:])) * 1e3
+        gap = max(abs(a - b) for a, b in zip(r["losses"], ddp_losses))
+        print(f"pipe 21a {kind}: losses {r['losses']} (DDP {ddp_losses}, max gap {gap:.3e}, tolerance {LOSS_ATOL}); "
+              f"first step bit for bit the composed baseline: {exact}; launches a step {r['launches']} (design "
+              f"{want}); hops {rep.hops} a step, traced {hops} in {PIPE_STEPS} steps (program total_sends "
+              f"{ex.program.total_sends()}); ticks {rep.ticks}, bubble {rep.bubble_fraction:.4f} (cost model "
+              f"{cost_model.pipeline_bubble_fraction(PIPE_STAGES, PIPE_MICROBATCHES):.4f}); stash peak "
+              f"{rep.stash_peak}, bytes {rep.stash_peak_bytes} (cost model {stash_model}); step {step_ms:.2f} ms, "
+              f"{BATCH * MAIN.max_seq / step_ms * 1e3:.1f} tokens/s (every step "
+              f"{[round(t * 1e3, 2) for t in r['seconds']]} ms; DDP at world 1 on the same batch {ddp_ms:.2f} ms, "
+              f"{BATCH * MAIN.max_seq / ddp_ms * 1e3:.1f} tokens/s); peak {r['peak'] / 2**30:.3f} GiB; {smi}",
+              flush=True)
+        if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < r["losses"][0] and gap <= LOSS_ATOL):
+            raise RuntimeError(f"21a {kind}: losses {r['losses']} not finite, falling and within {LOSS_ATOL} of DDP's")
+        if any(n != want for n in r["launches"]):
+            raise RuntimeError(f"21a {kind}: launches {r['launches']}, not {want} a step")
+        if not exact:
+            raise RuntimeError(f"21a {kind}: the executor's first step differs from the composed baseline")
+        if rep.hops != ex.program.total_sends() or hops != PIPE_STEPS * rep.hops:
+            raise RuntimeError(f"21a {kind}: {rep.hops} hops a step, {hops} traced, program "
+                               f"{ex.program.total_sends()}")
+        sched = pipeline_schedule(PIPE_STAGES, PIPE_MICROBATCHES, kind)
+        if rep.stash_peak != sched.stash_high_water or list(rep.stash_peak_bytes) != stash_model:
+            raise RuntimeError(f"21a {kind}: stash {rep.stash_peak} {rep.stash_peak_bytes} against the table "
+                               f"{sched.stash_high_water} and the cost model {stash_model}")
+        for step_launches in r["launches"]:
+            for k, n in step_launches.items():
+                total[k] += n
+        torch.cuda.empty_cache()
+    same = runs["gpipe"]["losses"] == runs["1f1b"]["losses"] and \
+        _same_grads(runs["gpipe"]["first_grads"], runs["1f1b"]["first_grads"])
+    print(f"pipe 21a GPipe and 1F1B: losses and first gradients bit for bit: {same}; peak GiB "
+          f"{runs['gpipe']['peak'] / 2**30:.3f} against {runs['1f1b']['peak'] / 2**30:.3f}", flush=True)
+    if not same:
+        raise RuntimeError("21a: GPipe and 1F1B differ")
+
+    # the cost model's step price from this card's stage forward and hop
+    stages = split_params(model, part)
+    act = torch.randn(BATCH // PIPE_MICROBATCHES, MAIN.max_seq, MAIN.d_model, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: stage_forward(MAIN, part, 1, stages[1], act, None), iters=10)
+    coeffs = cost_model.LinkCoeffs(*cost_model.DEFAULT_COEFFS[cost_model.ICI])
+    priced = cost_model.pipeline_step_time(PIPE_STAGES, PIPE_MICROBATCHES, fwd_ms / 1e3, act_bytes, coeffs)
+    print(f"pipe 21a cost model: pipeline_step_time {priced * 1e3:.2f} ms (a middle stage's forward of one "
+          f"microbatch {fwd_ms:.3f} ms by events, hop {act_bytes} B at the card's default coefficients; stages "
+          f"run one after another on one card, so the measured step is near the sum of the tasks)", flush=True)
+    del stages, model, base_grads, runs
+    return total
+
+
+def ep_moe(dev: torch.device, smi: str) -> None:
+    """21(b) (the module docstring)."""
+    cfg = MoEConfig()
+    # every expert can hold every token of a rank: nothing drops, so EP and
+    # the dense module compute the same function
+    check_cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    model = MoEMLP(check_cfg, device=dev, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(MOE_TOKENS, cfg.d_model, device=dev, generator=gen)
+    g = torch.randn(MOE_TOKENS, cfg.d_model, device=dev, generator=gen)
+    mesh = Mesh.stacked_mesh({"experts": MOE_WORLD})
+    trace = CollectiveTrace()
+    engine = CollectiveEngine(MOE_WORLD, Strategy.ring(MOE_WORLD), trace=trace)
+
+    def run(fn):
+        model.zero_grad(set_to_none=True)
+        y, aux = fn()
+        ((y.float() * g).sum() + aux).backward()
+        return y.detach(), aux.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    def dense():
+        y, aux = model(x[None])
+        return y[0], aux
+
+    want = run(dense)
+    got = run(lambda: expert_parallel_moe(model, x, check_cfg, mesh, engine=engine))
+    errs, ok = {}, True
+    for name, a, b in [("y", got[0], want[0]), ("aux", got[1], want[1])] + [
+            (f"d{n}", got[2][n], want[2][n]) for n in want[2]]:
+        diff = (a.float() - b.float()).abs()
+        errs[name] = diff.max().item()
+        ok &= bool(torch.isfinite(a).all()) and bool((diff <= EP_ATOL * b.float().abs().max()).all())
+    exact = all(torch.equal(a, b) for a, b in [(got[0], want[0]), (got[1], want[1])] +
+                [(got[2][n], want[2][n]) for n in want[2]])
+    events = [e.impl for e in trace.events() if e.primitive == "all_to_all"]
+    print(f"ep 21b world {MOE_WORLD} stacked, engine-routed, {MOE_TOKENS} tokens, MoEConfig() widths at capacity "
+          f"factor {check_cfg.capacity_factor} (no drops): max abs err vs dense MoEMLP "
+          f"{', '.join(f'{n} {e:.3e}' for n, e in errs.items())} "
+          f"({'bit for bit' if exact else 'within EP_ATOL of each max' if ok else 'FAIL'}); traced {events}; {smi}",
+          flush=True)
+    if not ok or events != ["torch_flat[moe]"] * 2:
+        raise RuntimeError("21b: EP disagrees with the dense MoE or its exchanges were not traced")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # the config's own capacity: forward + backward time, the exchange's
+    model = MoEMLP(cfg, device=dev, seed=SEED)
+    cap = moe_capacity(cfg, MOE_TOKENS // MOE_WORLD)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        y, aux = expert_parallel_moe(model, x, cfg, mesh, engine=engine)
+        ((y.float() * g).sum() + aux).backward()
+
+    ep_ms = cuda_ms(fwd_bwd, iters=10)
+    payload = torch.randn(MOE_WORLD, MOE_WORLD, (cfg.num_experts // MOE_WORLD) * cap * cfg.d_model,
+                          device=dev).to(cfg.dtype)
+    a2a_ms = device_ms(lambda: engine.all_to_all(payload))
+    a2a_bound = 2 * payload.numel() * payload.element_size() / HBM_BYTES_S * 1e3
+    if not torch.equal(engine.all_to_all(payload), payload.transpose(0, 1)):
+        raise RuntimeError("21b: the engine's all_to_all is not the exchange")
+    print(f"ep 21b capacity factor {cfg.capacity_factor} (capacity {cap} a rank and expert): forward + backward "
+          f"{ep_ms:.3f} ms (events); the exchange's engine all_to_all of {payload.numel() * 2 / 2**20:.2f} MiB "
+          f"bf16 (stacked [{MOE_WORLD}, {MOE_WORLD}, e_loc·C·D]): device {a2a_ms:.4f} ms, bound {a2a_bound:.4f} ms "
+          f"(read and written once at {HBM_BYTES_S / 1e12:.2f} TB/s); {smi}", flush=True)
+    del model, payload
+    torch.cuda.empty_cache()
+
+    from adapcc_tpu_torch.workloads import train_moe
+
+    widths = ["--world", str(MOE_WORLD), "--experts", str(cfg.num_experts), "--dmodel", str(cfg.d_model),
+              "--dhidden", str(cfg.d_hidden), "--top-k", str(cfg.top_k), "--batch", str(MOE_TOKENS),
+              "--device", "cuda"]
+    saved = {k: os.environ.get(k) for k in ("ADAPCC_TUNER", "ADAPCC_TUNER_DB")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="adapcc_moe_") as d:
+            os.environ["ADAPCC_TUNER"] = "off"
+            first, last = train_moe.run(train_moe.build_parser().parse_args(
+                widths + ["--steps", str(MOE_TRAIN_STEPS)]))
+            print(f"ep 21b train_moe: loss {first:.4f} -> {last:.4f} in {MOE_TRAIN_STEPS} steps", flush=True)
+            if not (np.isfinite([first, last]).all() and last < first):
+                raise RuntimeError(f"21b: train_moe losses {first} -> {last} not finite and falling")
+            os.environ.update(ADAPCC_TUNER="record", ADAPCC_TUNER_DB=os.path.join(d, "tuning.jsonl"))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train_moe.run(train_moe.build_parser().parse_args(
+                    widths + ["--mode", "inference", "--steps", str(MOE_INFER_STEPS), "--tune-every", "1"]))
+            out = buf.getvalue()
+            print("".join(f"ep 21b train_moe inference: {line}\n" for line in out.splitlines()), end="", flush=True)
+            if "[tuner] all_to_all" not in out or "computation time:" not in out:
+                raise RuntimeError("21b: train_moe's inference printed no tuner line or no computation time")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def slice18(dev: torch.device, smi: str) -> dict:
+    """Phase 21, slice 18's main path (the module docstring); returns the
+    launches of each kernel on it."""
+    t21 = time.perf_counter()
+    pipe_kernel_checks(dev, smi)
+    torch.cuda.empty_cache()
+    p21 = pipeline_gpt2(dev, smi)
+    torch.cuda.empty_cache()
+    t21b = time.perf_counter()
+    ep_moe(dev, smi)
+    torch.cuda.empty_cache()
+    print(f"phase 21 launches: {p21}; phase 21 {time.perf_counter() - t21:.1f} s (21b {time.perf_counter() - t21b:.1f} s)",
+          flush=True)
+    return p21
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -4348,6 +4689,12 @@ def main() -> None:
     # 20. slice 17's main path: sequence parallelism (ring attention and
     # Ulysses on K2-K4's lse path, the sequence-parallel GPT-2, DP x SP)
     for kname, n in slice17(dev, smi).items():
+        launches[kname] += n
+    torch.cuda.empty_cache()
+
+    # 21. slice 18's main path: the pipeline-parallel plane (GPT-2 stages
+    # through K2-K4, GPipe and 1F1B) and expert parallelism
+    for kname, n in slice18(dev, smi).items():
         launches[kname] += n
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -53,6 +53,9 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.sim.congestion", "adapcc_tpu_torch.strategy.flow_lp", "adapcc_tpu_torch.topology.variability",
     "adapcc_tpu_torch.elastic.redundancy", "adapcc_tpu_torch.elastic.rebalance", "adapcc_tpu_torch.ops.chunked_ce",
     "adapcc_tpu_torch.models.gpt2", "adapcc_tpu_torch.parallel.zero1_rank",
+    "adapcc_tpu_torch.pipe", "adapcc_tpu_torch.pipe.schedule", "adapcc_tpu_torch.pipe.partition",
+    "adapcc_tpu_torch.pipe.executor", "adapcc_tpu_torch.pipe.forward", "adapcc_tpu_torch.parallel.pipeline",
+    "adapcc_tpu_torch.parallel.expert", "adapcc_tpu_torch.models.moe", "adapcc_tpu_torch.workloads.train_moe",
 )
 
 _CHECK_TUNER = """
@@ -63,6 +66,21 @@ from adapcc_tpu_torch.tuner import CollectiveTuner, TuningDatabase
 tuner = CollectiveTuner(4, "t", db=TuningDatabase(persist=False), mode="choose")
 tuner.choose("allreduce", 1 << 20, algos=("ring",))
 tuner.choose("ddp_step", 1 << 20)
+print("BAD", sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu")))
+"""
+
+_CHECK_SLICE18 = """
+import sys
+import torch
+from adapcc_tpu_torch.pipe import PipelineExecutor, partition_gpt2, pipeline_program, pipeline_schedule
+from adapcc_tpu_torch.parallel.expert import expert_parallel_moe
+from adapcc_tpu_torch.models.moe import MoEConfig, MoEMLP
+from adapcc_tpu_torch.workloads import train_moe
+from adapcc_tpu_torch.parallel import Mesh
+pipeline_program(pipeline_schedule(4, 4), tied_embedding=True)
+m = MoEMLP(MoEConfig.tiny(), device="cpu")
+expert_parallel_moe(m, torch.randn(8, 32), m.cfg, Mesh.stacked_mesh({"experts": 2}))
+train_moe.build_parser()
 print("BAD", sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu")))
 """
 
@@ -93,6 +111,17 @@ def test_tuner_sim_and_observability_load_no_jax():
     interpreter: neither JAX nor the JAX package loads."""
     out = subprocess.run(
         [sys.executable, "-c", _CHECK_TUNER], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_pipeline_and_expert_planes_load_no_jax():
+    """The pipeline plane, expert parallelism, the MoE model and train_moe,
+    imported and run a little in a fresh interpreter: neither JAX nor the
+    JAX package loads."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK_SLICE18], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
