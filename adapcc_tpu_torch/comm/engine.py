@@ -102,6 +102,11 @@ from adapcc_tpu_torch.tuner.policy import (
 
 MaskLike = Union[torch.Tensor, Sequence[bool]]
 
+#: default KV-stream granularity: one chunk per 4 MiB of wire payload (the
+#: reference's transmission contexts moved 4 MB IPC chunks); the trace
+#: records the chunk count
+KV_TRANSFER_CHUNK_BYTES = 4 << 20
+
 _DIST_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
     ReduceOp.AVG: dist.ReduceOp.SUM,  # divided afterwards, by world or active count
@@ -1914,6 +1919,99 @@ class CollectiveEngine:
             return inner(v, leg)
 
         return a2a
+
+    def kv_transfer(
+        self,
+        pages: Any,
+        *,
+        src_pod: int,
+        dst_pod: int,
+        wire_dtype: str = "off",
+        block_size: Optional[int] = None,
+        chunk_bytes: int = KV_TRANSFER_CHUNK_BYTES,
+        dst_device: Optional[Union[str, torch.device]] = None,
+        epoch: Optional[int] = None,
+    ) -> Any:
+        """Point-to-point KV-cache handoff between serving pods, a chunked
+        stream as an engine primitive.
+
+        ``pages`` is a nest of lists and tuples of stacked ``[world, ...]``
+        tensors (one slot's per-layer K/V pages in the
+        :class:`~adapcc_tpu_torch.serve.kv_cache.SlotKVCache` layout); the
+        return value is the same nest as it arrives on ``dst_device`` (the
+        pages' own device when None).  ``wire_dtype="off"`` (the default) is
+        the identity: the tensors given are returned, bit-exact.  A codec of
+        the quant registry puts its wire under the stream: the returned pages
+        carry ``codec.apply`` of the whole payload of each tensor, so the
+        block geometry never depends on the chunking.  Each transfer records
+        ONE trace event (``kv_transfer``, impl ``dcn_stream[+codec]``) with
+        the payload bytes and, in its extras, the epoch, wire dtype, wire
+        bytes, the chunk count at ``chunk_bytes``, the wall duration (the
+        device synced), the (``src_pod``, ``dst_pod``) route and, under a
+        codec, the block size.  On one device nothing moves: the time is
+        the codec's pass, or nothing under ``off``."""
+        self._check_epoch(epoch)
+        if chunk_bytes < 1:
+            raise ValueError(f"chunk_bytes must be >= 1, got {chunk_bytes}")
+        from adapcc_tpu_torch.sim.cost_model import wire_bytes_per_element
+
+        codec = get_codec(wire_dtype)  # loud on an unknown codec name
+        block = int(block_size) if block_size is not None else DEFAULT_BLOCK_SIZE
+        leaves: List[torch.Tensor] = []
+
+        def flatten(node: Any) -> None:
+            if isinstance(node, (list, tuple)):
+                for child in node:
+                    flatten(child)
+            else:
+                leaves.append(node)
+
+        flatten(pages)
+        if not leaves:
+            raise ValueError("kv_transfer needs at least one page array")
+        for leaf in leaves:
+            self._check_world_dim(leaf, "kv_transfer")
+        t0 = time.perf_counter()
+        nbytes = 0
+        wire_bytes = 0.0
+        moved = []
+        for leaf in leaves:
+            nbytes += leaf.numel() * leaf.element_size()
+            if codec.name == "off":
+                out = leaf  # identity: the bit-exact default path
+                wire_bytes += float(leaf.numel() * leaf.element_size())
+            else:
+                out = codec.apply(leaf, block).to(leaf.dtype)
+                wire_bytes += float(leaf.numel()) * wire_bytes_per_element(codec.name, block)
+            if dst_device is not None:
+                out = out.to(dst_device)
+            moved.append(out)
+        sync_outputs(moved)
+        duration = time.perf_counter() - t0
+        chunks = max(1, -(-int(wire_bytes) // int(chunk_bytes)))
+        if self.trace is not None:
+            suffix = "" if codec.name == "off" else f"+{codec.name}"
+            extras: Dict[str, Any] = {
+                "epoch": self.epoch,
+                "wire_dtype": codec.name,
+                "wire_bytes": int(wire_bytes),
+                "chunks": chunks,
+                "chunk_bytes": int(chunk_bytes),
+                "duration_s": duration,
+                "src_pod": int(src_pod),
+                "dst_pod": int(dst_pod),
+            }
+            if codec.name != "off":
+                extras["block_size"] = block
+            self.trace.record("kv_transfer", f"dcn_stream{suffix}", nbytes, **extras)
+        it = iter(moved)
+
+        def rebuild(node: Any) -> Any:
+            if isinstance(node, (list, tuple)):
+                return type(node)(rebuild(child) for child in node)
+            return next(it)
+
+        return rebuild(pages)
 
     def pipe_send(
         self,

@@ -202,13 +202,15 @@ def residual_from_jax(residual: Mapping[str, Any], model: nn.Module, rank: int) 
 
 
 def stage_params_from_flax(stage_trees: List[Mapping[str, Any]], cfg: Any, partition: Any,
-                           device: Any = "cpu") -> List[nn.Module]:
+                           device: Any = None) -> List[nn.Module]:
     """JAX ``pipe.split_params`` output (one flax tree a stage, as numpy:
     ``wte``/``wpe`` on stage 0, ``h{i}``, ``ln_f`` and ``head_wte`` on the
-    last) → the port's per-stage modules on ``device``, in the trees'
-    dtypes."""
+    last) → the port's per-stage modules on ``device`` (the card when None;
+    raises without one), in the trees' dtypes."""
+    from adapcc_tpu_torch.comm.mesh import resolve_device
     from adapcc_tpu_torch.pipe.partition import PipelineStage
 
+    device = resolve_device(device)
     stages = []
     for s, tree in enumerate(stage_trees):
         stage = PipelineStage(cfg, partition, s, device="meta")

@@ -43,9 +43,23 @@ they are ``[world·B, T_local]``, rank ``r``'s rows at ``[r·B, (r+1)·B)``.
 :func:`lm_loss_sp` and :func:`lm_loss_sp_chunked` are the losses;
 :mod:`adapcc_tpu_torch.parallel.gpt2_sp` wraps the step.
 
+Decode with a KV cache: ``forward(tokens [B, 1], decode=True, pos=t,
+cache=c)`` runs one autoregressive step and returns ``(logits [B, 1, vocab],
+cache)``.  The cache is explicit state (:class:`DecodeCache`, from
+:meth:`GPT2.init_cache`): one ``(k, v)`` pair a layer, each ``[B, max_seq,
+H, head_dim]`` in ``cfg.dtype``, written in place at its ``index``, which
+the step advances.  The step keeps the JAX branch's op order (the new key
+and value written at ``index``, the scores cast to float32 and scaled,
+every row past ``index`` masked to ``-1e30``, the softmax, the
+probabilities in ``cfg.dtype``, their mix of the values); ``pos`` drives
+``wpe``.  Its two contractions over the cache are an elementwise product
+and a sum (:func:`decode_attention`), not a batched GEMM: a GEMM's
+summation order, and so a row's bits, changes with the number of rows and
+heads in the call, on the CPU and on the card alike, and the serving plane
+(:mod:`adapcc_tpu_torch.serve`) holds a slot's bits to a batch of one's.
+
 Parameters keep the flax names (``h{i}.attn.qkv``, ``ln_f``, ...), so
-:mod:`adapcc_tpu_torch.models.convert` maps a flax tree onto them.  Decode
-with a KV cache is not ported yet.
+:mod:`adapcc_tpu_torch.models.convert` maps a flax tree onto them.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Callable, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -155,6 +169,22 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, scale: float,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """One query row a head against its cached keys and values: ``q [...,
+    1, hd]``, ``k``/``v [..., max_seq, hd]``, ``valid`` broadcastable to
+    ``[..., max_seq]`` → ``[..., hd]``.  The scores are ``q·k`` cast to
+    float32 and scaled, the invalid rows ``-1e30``, the softmax's
+    probabilities in ``dtype`` mix the values.  Each contraction is an
+    elementwise product and a sum over its last axis (the innermost of the
+    product for the scores, the cache row for the mix): the reduction's
+    order per output does not depend on how many slots or heads share the
+    call."""
+    att = (q * k).sum(dim=-1).float() * scale
+    att = att.masked_fill(~valid, -1e30).softmax(dim=-1).to(dtype)
+    return (att.unsqueeze(-1) * v).sum(dim=-2)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None) -> None:
         super().__init__()
@@ -185,6 +215,22 @@ class CausalSelfAttention(nn.Module):
             att = _dropout(att, cfg.dropout, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", att, v)
         return self._project(out.reshape(B, T, C), generator)
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, idx: int) -> torch.Tensor:
+        """One token against the layer's cache (``[B, max_seq, H, hd]``,
+        written in place at row ``idx``); attention sees rows ``<= idx``."""
+        cfg = self.cfg
+        B, T, C = x.shape
+        head_dim = C // cfg.n_head
+        q, k, v = _dense(self.qkv, x, cfg.dtype).split(C, dim=-1)
+        q = q.reshape(B, T, cfg.n_head, head_dim)
+        k_cache[:, idx] = k.reshape(B, cfg.n_head, head_dim).to(cfg.dtype)
+        v_cache[:, idx] = v.reshape(B, cfg.n_head, head_dim).to(cfg.dtype)
+        valid = torch.arange(cfg.max_seq, device=x.device) <= idx
+        # head-major views: q [B, H, 1, hd], the cache [B, H, max_seq, hd]
+        out = decode_attention(q.movedim(1, 2), k_cache.movedim(1, 2), v_cache.movedim(1, 2), valid,
+                               1.0 / math.sqrt(head_dim), cfg.dtype)
+        return self._project(out.reshape(B, T, C), None)
 
     def _project(self, out: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         return _dropout(_dense(self.proj, out, self.cfg.dtype), self.cfg.dropout, generator)
@@ -230,8 +276,28 @@ class Block(nn.Module):
         if seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(seed)
         x = x + self.attn(_layer_norm(self.ln1, x), gen)
-        h = F.gelu(_dense(self.fc, _layer_norm(self.ln2, x), dt), approximate="tanh")
-        return x + _dropout(_dense(self.proj, h, dt), self.cfg.dropout, gen)
+        return x + _dropout(self.mlp(x), self.cfg.dropout, gen)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """The MLP half's branch, before its residual add: ln2, fc, the tanh
+        GELU and the projection."""
+        dt = self.cfg.dtype
+        return _dense(self.proj, F.gelu(_dense(self.fc, _layer_norm(self.ln2, x), dt), approximate="tanh"), dt)
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, idx: int) -> torch.Tensor:
+        """One decode step of the block against its layer's cache."""
+        x = x + self.attn.decode(_layer_norm(self.ln1, x), k_cache, v_cache, idx)
+        return x + self.mlp(x)
+
+
+@dataclass
+class DecodeCache:
+    """The decode step's KV cache: per layer ``(k, v)``, each ``[B,
+    max_seq, n_head, head_dim]`` in ``cfg.dtype``, and the row the next
+    step writes."""
+
+    layers: List[Tuple[torch.Tensor, torch.Tensor]]
+    index: int = 0
 
 
 class GPT2(nn.Module):
@@ -280,16 +346,34 @@ class GPT2(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
+    def init_cache(self, batch: int) -> DecodeCache:
+        """A zeroed :class:`DecodeCache` for ``batch`` rows on the model's
+        device."""
+        cfg = self.cfg
+        shape = (batch, cfg.max_seq, cfg.n_head, cfg.d_model // cfg.n_head)
+        dev = self.wte.weight.device
+        return DecodeCache([(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                             torch.zeros(shape, dtype=cfg.dtype, device=dev)) for _ in range(cfg.n_layer)])
+
     def forward(self, tokens: torch.Tensor, deterministic: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None, return_hidden: bool = False) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, return_hidden: bool = False,
+                decode: bool = False, pos: Union[int, torch.Tensor, None] = None,
+                cache: Optional[DecodeCache] = None):
         """``tokens [B, T]`` → logits ``[B, T, vocab]`` float32, or with
         ``return_hidden`` the post-``ln_f`` hiddens ``[B, T, d_model]``
         float32.  Dropout (``cfg.dropout > 0``) runs unless
         ``deterministic`` (default ``not self.training``), its masks from
         ``generator`` (else ``self.dropout_generator``, else torch's
-        default generator for the model's device)."""
+        default generator for the model's device).
+
+        ``decode=True`` runs one step (``T == 1``) at absolute position
+        ``pos`` (required) against ``cache`` (a fresh one when None) and
+        returns ``(logits, cache)``; it has no dropout and records no
+        gradient (the cache is state written in place)."""
         cfg = self.cfg
         B, T = tokens.shape
+        if decode:
+            return self._decode(tokens, pos, cache)
         if deterministic is None:
             deterministic = not self.training
         gen = None
@@ -309,8 +393,33 @@ class GPT2(nn.Module):
         x = _layer_norm(self.ln_f, x)
         if return_hidden:
             return x
-        # weight-tied LM head
-        return (x.to(cfg.dtype) @ self.wte.weight.to(cfg.dtype).T).float()
+        return self.head(x)
+
+    @torch.no_grad()
+    def _decode(self, tokens: torch.Tensor, pos: Union[int, torch.Tensor, None],
+                cache: Optional[DecodeCache]) -> Tuple[torch.Tensor, DecodeCache]:
+        cfg = self.cfg
+        if pos is None:
+            raise ValueError("decode=True needs pos (the fed token's absolute position)")
+        B, T = tokens.shape
+        if T != 1:
+            raise ValueError(f"decode mode feeds one token at a time, got T={T}")
+        if cache is None:
+            cache = self.init_cache(B)
+        positions = torch.as_tensor(pos, device=tokens.device).reshape(1)
+        x = self.wte(tokens).to(cfg.dtype) + self.wpe(positions).to(cfg.dtype)[None]
+        for i in range(cfg.n_layer):
+            k_cache, v_cache = cache.layers[i]
+            x = getattr(self, f"h{i}").decode(x, k_cache, v_cache, cache.index)
+        cache.index += 1
+        x = _layer_norm(self.ln_f, x)
+        return self.head(x), cache
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The weight-tied LM head on post-``ln_f`` hiddens: ``x.to(dtype)
+        @ wte.T`` in ``cfg.dtype``, out in float32."""
+        dt = self.cfg.dtype
+        return (x.to(dt) @ self.wte.weight.to(dt).T).float()
 
     def _position_embedding(self, B: int, T: int, device: torch.device) -> torch.Tensor:
         """``wpe`` at each row's positions, broadcastable to ``[B, T, C]``:

@@ -1198,3 +1198,283 @@ def recovery_cost(
         "repair_speedup": reload / repair if repair > 0 else float("inf"),
         "overhead_break_even_steps": saved / overhead if overhead > 0 and saved > 0 else float("inf"),
     }
+
+
+# --------------------------------------------------------------------------- #
+# serving-plane queueing (adapcc_tpu_torch/serve): arrival rate × decode
+# slots × per-token step time → the latency/throughput frontier
+# --------------------------------------------------------------------------- #
+
+#: per-layer compute of one decode step of the serving GPT-2 when no measured
+#: figure is given: the full-width model's (12 layers, d_model 1024, 16
+#: heads, vocab 16384, max_seq 512, float32) world-4 × 8-slot decode step
+#: with the per-layer allreduce left out (its median synced walltime, head
+#: and sampling included, over the 12 layers), measured by ``chip_smoke.py``
+#: phase 22a on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (43.356
+#: ms a step).  Host-bound: the step issues its products a slot row at a
+#: time (``serve/model.py``), so this is mostly launch cost, not arithmetic
+DEFAULT_DECODE_COMPUTE_S_PER_LAYER = 3.61302e-3
+
+
+def decode_step_time(
+    world: int,
+    slots: int,
+    n_layer: int,
+    d_model: int,
+    coeffs: LinkCoeffs,
+    itemsize: int = 4,
+    algo: Optional[str] = None,
+    compute_s_per_layer: Optional[float] = None,
+) -> Dict[str, object]:
+    """Price ONE continuous-batching decode step: per layer, the
+    head-sharded attention's compute (``compute_s_per_layer``, default
+    :data:`DEFAULT_DECODE_COMPUTE_S_PER_LAYER` at call time) plus the
+    per-token combine, a ``slots × d_model`` allreduce; under ``algo=None``
+    ("auto") :func:`choose_allreduce_algo` prices the algorithm the engine
+    would choose.
+
+    Returns ``step_time_s``, the per-dispatch ``collective_bytes``
+    (``slots · d_model · itemsize``: the decode plane is float32), the
+    chosen or priced ``algo`` and the comm/compute split.  ``world < 2``
+    has no fabric: the collective term is zero and ``algo`` is
+    ``"none"``."""
+    if compute_s_per_layer is None:
+        compute_s_per_layer = DEFAULT_DECODE_COMPUTE_S_PER_LAYER
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    if n_layer < 1 or d_model < 1:
+        raise ValueError(f"n_layer={n_layer} / d_model={d_model} must be >= 1")
+    if itemsize < 1:
+        raise ValueError(f"itemsize must be >= 1, got {itemsize}")
+    if compute_s_per_layer < 0:
+        raise ValueError(f"compute_s_per_layer must be >= 0, got {compute_s_per_layer}")
+    nbytes = float(slots * d_model * itemsize)
+    if int(world) < 2:
+        chosen, coll = "none", 0.0
+    elif algo is None:
+        chosen, times = choose_allreduce_algo(world, nbytes, coeffs)
+        coll = times[chosen]
+    else:
+        chosen = algo
+        _, times = choose_allreduce_algo(world, nbytes, coeffs, (algo,))
+        coll = times[algo]
+    comm_s = n_layer * coll
+    compute_s = n_layer * compute_s_per_layer
+    return {
+        "step_time_s": comm_s + compute_s,
+        "collective_bytes": int(nbytes),
+        "algo": chosen,
+        "comm_s": comm_s,
+        "compute_s": compute_s,
+    }
+
+
+def simulate_serve_queue(arrival_steps: Sequence[int], service_steps: Sequence[int], slots: int) -> list:
+    """Replay the continuous batcher's admission discipline on the integer
+    step clock (the queueing twin of ``GPT2Server.step``): FIFO admission at
+    ``max(arrival, earliest slot-free step)``, a lane holds its slot for
+    ``service_steps`` (``total − 1``) and completes at ``admitted +
+    service``, and a completed lane's slot admits from the completion step
+    itself.  Returns one ``(arrival, admitted, completed)`` a request, in
+    input order; EOS eviction is not modeled (an upper bound on every
+    sojourn)."""
+    import heapq
+
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    if len(arrival_steps) != len(service_steps):
+        raise ValueError(
+            f"{len(arrival_steps)} arrivals vs {len(service_steps)} service times: every request needs "
+            "exactly one of each"
+        )
+    if any(a < 0 for a in arrival_steps):
+        raise ValueError("arrival steps must be >= 0")
+    if any(s < 1 for s in service_steps):
+        raise ValueError("service steps must be >= 1 (a request that decodes nothing is not serving traffic)")
+    if list(arrival_steps) != sorted(arrival_steps):
+        raise ValueError("arrival steps must be sorted (the batcher admits FIFO)")
+    free = [0] * int(slots)
+    heapq.heapify(free)
+    out = []
+    for arrival, service in zip(arrival_steps, service_steps):
+        admitted = max(int(arrival), heapq.heappop(free))
+        completed = admitted + int(service)
+        heapq.heappush(free, completed)
+        out.append((int(arrival), admitted, completed))
+    return out
+
+
+def _pct(xs: Sequence[int], q: float) -> int:
+    from adapcc_tpu_torch.utils.observability import nearest_rank_percentile
+
+    return int(nearest_rank_percentile(xs, q))
+
+
+def serve_queue_metrics(
+    arrival_steps: Sequence[int],
+    service_steps: Sequence[int],
+    slots: int,
+    step_time_s: float,
+    slo_ms: Optional[float] = None,
+    generated_steps: Optional[Sequence[int]] = None,
+) -> Dict[str, float]:
+    """The latency/throughput ledger of one (trace × slots × step time)
+    cell: nearest-rank ``p50/p99_sojourn_steps`` (arrival → completion,
+    queue wait included) and the same in ms at ``step_time_s``,
+    ``p99_queue_steps`` (arrival → admission), ``throughput_tok_s``
+    (generated tokens per second of makespan with ``generated_steps``,
+    else engine token-steps), ``utilization`` (occupied lane-steps over
+    ``slots × makespan``) and, with ``slo_ms``, ``slo_attainment``."""
+    if step_time_s <= 0:
+        raise ValueError(f"step_time_s must be > 0, got {step_time_s}")
+    if generated_steps is not None:
+        if len(generated_steps) != len(service_steps):
+            raise ValueError(f"{len(generated_steps)} generated budgets vs {len(service_steps)} service times")
+        if any(g < 1 or g > s for g, s in zip(generated_steps, service_steps)):
+            raise ValueError("each generated budget must be in [1, service_steps]")
+    triples = simulate_serve_queue(arrival_steps, service_steps, slots)
+    sojourns = sorted(c - a for a, _, c in triples)
+    queues = sorted(adm - a for a, adm, _ in triples)
+    makespan = max(c for _, _, c in triples)
+    busy = sum(service_steps)
+    tokens = sum(generated_steps) if generated_steps is not None else busy
+    out: Dict[str, float] = {
+        "requests": float(len(triples)),
+        "makespan_steps": float(makespan),
+        "p50_sojourn_steps": float(_pct(sojourns, 0.50)),
+        "p99_sojourn_steps": float(_pct(sojourns, 0.99)),
+        "p50_sojourn_ms": _pct(sojourns, 0.50) * step_time_s * 1e3,
+        "p99_sojourn_ms": _pct(sojourns, 0.99) * step_time_s * 1e3,
+        "p99_queue_steps": float(_pct(queues, 0.99)),
+        "throughput_tok_s": tokens / (makespan * step_time_s),
+        "utilization": busy / float(makespan * slots),
+    }
+    if slo_ms is not None:
+        if slo_ms <= 0:
+            raise ValueError(f"slo_ms must be > 0, got {slo_ms}")
+        within = sum(1 for s in sojourns if s * step_time_s * 1e3 <= slo_ms)
+        out["slo_ms"] = float(slo_ms)
+        out["slo_attainment"] = within / len(sojourns)
+    return out
+
+
+def simulate_disagg_queue(
+    arrival_steps: Sequence[int],
+    prefill_steps: Sequence[int],
+    decode_steps: Sequence[int],
+    prefill_slots: int,
+    decode_slots: int,
+    transfer_steps: int = 0,
+) -> list:
+    """Replay the ``ClusterRouter``'s admission discipline on the integer
+    step clock (the tandem-queue twin): FIFO admission into a prefill slot,
+    the first token ``prefill_steps`` later, migration into a decode slot at
+    ``max(first_token, earliest decode-slot-free step)`` (a finished prefill
+    holds its prefill slot until then), ``transfer_steps`` of wire, then
+    ``decode_steps`` (0: the request completes in the prefill pod).
+    Returns one ``(arrival, admitted_prefill, first_token, admitted_decode,
+    completed)`` a request, in input order."""
+    import heapq
+
+    if prefill_slots < 1 or decode_slots < 1:
+        raise ValueError(f"prefill_slots={prefill_slots} / decode_slots={decode_slots} must be >= 1")
+    if transfer_steps < 0:
+        raise ValueError(f"transfer_steps must be >= 0, got {transfer_steps}")
+    if not (len(arrival_steps) == len(prefill_steps) == len(decode_steps)):
+        raise ValueError(
+            f"{len(arrival_steps)} arrivals vs {len(prefill_steps)} prefill vs {len(decode_steps)} decode "
+            "budgets: every request needs exactly one of each"
+        )
+    if any(a < 0 for a in arrival_steps):
+        raise ValueError("arrival steps must be >= 0")
+    if any(p < 1 for p in prefill_steps):
+        raise ValueError("prefill steps must be >= 1 (every prompt feeds at least one token)")
+    if any(d < 0 for d in decode_steps):
+        raise ValueError("decode steps must be >= 0")
+    if list(arrival_steps) != sorted(arrival_steps):
+        raise ValueError("arrival steps must be sorted (the router admits FIFO)")
+    prefill_free = [0] * int(prefill_slots)
+    decode_free = [0] * int(decode_slots)
+    heapq.heapify(prefill_free)
+    heapq.heapify(decode_free)
+    out = []
+    for arrival, prefill, decode in zip(arrival_steps, prefill_steps, decode_steps):
+        admitted = max(int(arrival), heapq.heappop(prefill_free))
+        first_token = admitted + int(prefill)
+        if int(decode) < 1:
+            # completes inside the prefill pod: the slot frees at once
+            heapq.heappush(prefill_free, first_token)
+            out.append((int(arrival), admitted, first_token, first_token, first_token))
+            continue
+        migrated = max(first_token, heapq.heappop(decode_free))
+        heapq.heappush(prefill_free, migrated)  # resident until migration
+        admitted_decode = migrated + int(transfer_steps)
+        completed = admitted_decode + int(decode)
+        heapq.heappush(decode_free, completed)
+        out.append((int(arrival), admitted, first_token, admitted_decode, completed))
+    return out
+
+
+def disagg_queue_metrics(
+    arrival_steps: Sequence[int],
+    prefill_steps: Sequence[int],
+    decode_steps: Sequence[int],
+    prefill_slots: int,
+    decode_slots: int,
+    transfer_steps: int,
+    prefill_step_time_s: float,
+    decode_step_time_s: float,
+    slo_ms: Optional[float] = None,
+) -> Dict[str, float]:
+    """The disaggregated latency/throughput ledger.  The pods step in
+    lockstep a router tick, so a step costs ``max(prefill_step_time_s,
+    decode_step_time_s)`` (``step_time_s``); TTFT is arrival → first token
+    (queue wait and prefill service only), ``p99_decode_wait_steps`` (first
+    token → decode admission, transfer included) the migration-stall
+    signal; a request generates ``1 + decode_steps`` tokens."""
+    if prefill_step_time_s <= 0 or decode_step_time_s <= 0:
+        raise ValueError(
+            f"step times must be > 0, got prefill={prefill_step_time_s} / decode={decode_step_time_s}"
+        )
+    rows = simulate_disagg_queue(arrival_steps, prefill_steps, decode_steps, prefill_slots, decode_slots,
+                                 transfer_steps)
+    tick_s = max(float(prefill_step_time_s), float(decode_step_time_s))
+    ttfts = sorted(f - a for a, _, f, _, _ in rows)
+    sojourns = sorted(c - a for a, _, _, _, c in rows)
+    queues = sorted(adm - a for a, adm, _, _, _ in rows)
+    decode_waits = sorted(ad - f for _, _, f, ad, _ in rows)
+    makespan = max(c for _, _, _, _, c in rows)
+    # prefill residency runs admission → migration (the decode wait
+    # included: the waiting lane holds its prefill slot)
+    prefill_busy = sum(
+        (ad - int(transfer_steps) if d >= 1 else f) - adm
+        for (_, adm, f, ad, _), d in zip(rows, decode_steps)
+    )
+    decode_busy = sum(int(d) for d in decode_steps)
+    tokens = sum(1 + int(d) for d in decode_steps)
+    out: Dict[str, float] = {
+        "requests": float(len(rows)),
+        "makespan_steps": float(makespan),
+        "step_time_s": tick_s,
+        "transfer_steps": float(transfer_steps),
+        "p50_ttft_steps": float(_pct(ttfts, 0.50)),
+        "p99_ttft_steps": float(_pct(ttfts, 0.99)),
+        "p50_ttft_ms": _pct(ttfts, 0.50) * tick_s * 1e3,
+        "p99_ttft_ms": _pct(ttfts, 0.99) * tick_s * 1e3,
+        "p50_sojourn_steps": float(_pct(sojourns, 0.50)),
+        "p99_sojourn_steps": float(_pct(sojourns, 0.99)),
+        "p50_sojourn_ms": _pct(sojourns, 0.50) * tick_s * 1e3,
+        "p99_sojourn_ms": _pct(sojourns, 0.99) * tick_s * 1e3,
+        "p99_queue_steps": float(_pct(queues, 0.99)),
+        "p99_decode_wait_steps": float(_pct(decode_waits, 0.99)),
+        "throughput_tok_s": tokens / (makespan * tick_s),
+        "prefill_utilization": prefill_busy / float(makespan * prefill_slots),
+        "decode_utilization": decode_busy / float(makespan * decode_slots),
+    }
+    if slo_ms is not None:
+        if slo_ms <= 0:
+            raise ValueError(f"slo_ms must be > 0, got {slo_ms}")
+        within = sum(1 for s in sojourns if s * tick_s * 1e3 <= slo_ms)
+        out["slo_ms"] = float(slo_ms)
+        out["slo_attainment"] = within / len(sojourns)
+    return out

@@ -332,6 +332,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bytes' bound; ``train_moe`` at those widths trains (losses falling) and,
    under ``ADAPCC_TUNER=record``, infers and prints its ``[tuner]
    all_to_all`` line.
+22. slice 19's main path, serving: (a) ``serve_gpt2``'s float32 GPT-2 at
+   MAIN's widths (``SERVE_MAIN``: 12 layers, d_model 1024, 16 heads, vocab
+   16384, max_seq 512; weights from seed 0), its ``TPDecodeModel`` at world
+   ``SERVE_WORLD`` stacked × ``SERVE_SLOTS`` slots held teacher-forced
+   against the model's own decode row by row, logits bit for bit; the
+   ``SlotKVCache`` pages' allocation against ``nbytes_per_rank``;
+   ``GPT2Server`` over ``SERVE_TRACE`` (32 Poisson requests, prompts of
+   8-64 tokens, 16-64 new ones, ``temperature=1, top_k=50``) under ``auto``
+   and under ``ring``, the decode collectives' histograms, equal streams,
+   and the first ``SERVE_ALONE`` requests each equal to its own
+   ``generate`` run alone; decode step p50/p99 ms (synced walltime),
+   tokens/s, TTFT and sojourn percentiles in steps, peak memory, the
+   engine-free step's compute a layer against ``decode_step_time``'s price
+   and what ``auto`` picks on the card's coefficients; (b)
+   ``ClusterRouter`` with two world-``DISAGG_WORLD`` pods of
+   ``DISAGG_SLOTS`` slots on the same trace, off wire, the decode pod
+   killed once mid-run: every stream (the victims' too) bit for bit
+   22a's, one ``kv_transfer`` event a migration, each migration's ms; the
+   int8 wire's token KL at full width, its admission under
+   ``ADAPCC_KV_KL_BOUND``, and served on ``DISAGG_INT8_REQUESTS`` requests
+   its wire bytes under the payload's and each migration's ms against the
+   codec pass's bound; (c) ``serve_gpt2 --json`` end to end, its summary
+   parsed, and ``--trace-out`` replayed through ``ADAPCC_SERVE_TRACE``
+   giving the same request rows byte for byte.  No kernel of the kernels
+   line is on this path: the phase launches none of them.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -376,6 +401,7 @@ from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
 from adapcc_tpu_torch.elastic import FaultEvent, FaultPlan, ShardReplicaStore, StandbyPlanCache
 from adapcc_tpu_torch.elastic import rebalance
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss, lm_loss_chunked
+from adapcc_tpu_torch.models.gpt2_generate import generate
 from adapcc_tpu_torch.models.moe import MoEConfig, MoEMLP
 from adapcc_tpu_torch.measure import WaitTimeProbe, emulate_heterogeneous_steps
 from adapcc_tpu_torch.ops import _build
@@ -393,9 +419,13 @@ from adapcc_tpu_torch.pipe import (
 from adapcc_tpu_torch.primitives import ALLREDUCE, DETECT, PROFILE, SKIP_BOOTSTRAP, ReduceOp
 from adapcc_tpu_torch.quant import get_codec, ring_error_bound, timed_roundtrip, wire_ring_allreduce_stacked
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE
+from adapcc_tpu_torch.serve import (
+    SERVE_TRACE_ENV, ClusterRouter, GPT2Server, SlotKVCache, TPDecodeModel, measure_token_kl, resolve_kv_kl_bound,
+    synthesize_arrival_trace,
+)
 from adapcc_tpu_torch.sim import (
-    CongestionProfile, calibrate_from_battery, calibrate_from_profile_dir, cost_model, simulate_fault_plan,
-    simulate_flow_broadcast,
+    CongestionProfile, calibrate_from_battery, calibrate_from_profile_dir, cost_model, load_or_default,
+    simulate_fault_plan, simulate_flow_broadcast,
 )
 from adapcc_tpu_torch.strategy import hierarchy
 from adapcc_tpu_torch.strategy.flow_lp import solve_broadcast_lp
@@ -627,6 +657,26 @@ MOE_TOKENS = BATCH * MAIN.max_seq
 EP_ATOL = 2.0 ** -7
 MOE_TRAIN_STEPS = 20
 MOE_INFER_STEPS = 5
+#: phase 22: serve_gpt2's float32 model at MAIN's widths, its stacked
+#: tensor-parallel world and decode slots, and its arrival trace
+SERVE_MAIN = dataclasses.replace(MAIN, dtype=torch.float32, attention="xla")
+SERVE_WORLD = 4
+SERVE_SLOTS = 8
+SERVE_TRACE = dict(num_requests=32, rate=0.25, seed=SEED, prompt_len=(8, 64), max_new_tokens=(16, 64))
+SERVE_SAMPLING = dict(temperature=1.0, top_k=50)
+#: requests held against their own generate run alone
+SERVE_ALONE = 4
+#: steps of the teacher-forced logits check (slot s joins at step s)
+SERVE_TF_STEPS = 24
+#: engine-free decode steps timed for the compute a layer
+SERVE_STEP_ITERS = 20
+#: 22b: two pods of this world and slot count, the int8 wire on a prefix
+DISAGG_WORLD = 2
+DISAGG_SLOTS = 4
+DISAGG_INT8_REQUESTS = 8
+#: 22b: the router step after which the decode pod is killed (at the first
+#: step from there on at which it holds lanes)
+DISAGG_KILL_STEP = 100
 
 
 def nvidia_smi() -> str:
@@ -4356,6 +4406,277 @@ def slice18(dev: torch.device, smi: str) -> dict:
     return p21
 
 
+def _serve_hist(trace) -> dict:
+    """The decode collectives' histogram of a dispatch trace: impl → count."""
+    hist = {}
+    for e in trace.events():
+        if e.primitive == "allreduce":
+            hist[e.impl] = hist.get(e.impl, 0) + 1
+    return hist
+
+
+@torch.no_grad()
+def serve_teacher_forced(dev: torch.device, model: GPT2, world: int, slots: int, steps: int) -> int:
+    """The sharded, batched decode step's logits against the model's own
+    decode of each row alone, bit for bit: ``slots`` rows of random tokens,
+    slot ``s`` joining at step ``s`` (every row at its own position), each
+    layer combined by the engine under ``auto``.  Returns the rows held."""
+    cfg = model.cfg
+    tp = TPDecodeModel(model, world)
+    eng = CollectiveEngine(world, Strategy.ring(world))
+    cache = SlotKVCache(cfg, world, slots, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (slots, steps), device=dev, generator=gen)
+    alone = [model.init_cache(1) for _ in range(slots)]
+    held, worst = 0, 0.0
+    for t in range(steps + slots - 1):
+        rows = [s for s in range(slots) if s <= t < s + steps]
+        pos = torch.tensor([min(max(0, t - s), steps - 1) for s in range(slots)], device=dev)
+        tok = toks[torch.arange(slots, device=dev), pos][:, None]
+        x = tp.embed(tok, pos)
+        for layer in range(cfg.n_layer):
+            k, v = cache.layers[layer]
+            x = tp.post_attn(layer, x, eng.all_reduce(tp.attn_partial(layer, x, k, v, pos, rows), algo="auto")[0],
+                             rows)
+        logits = tp.logits(x, rows)
+        for s in rows:
+            ref, _ = model(tok[s : s + 1], decode=True, pos=int(pos[s]), cache=alone[s])
+            worst = max(worst, float((ref - logits[s : s + 1]).abs().max()))
+            held += bool(torch.equal(ref.view(torch.int32), logits[s : s + 1].view(torch.int32)))
+    n = sum(min(steps, steps + slots - 1 - s) for s in range(slots))
+    print(f"serve 22a teacher-forced: world {world} x {slots} slots, {n} rows over {steps + slots - 1} steps: "
+          f"logits bit for bit the model's own decode of each row alone {held}/{n} (largest gap {worst:.3e})",
+          flush=True)
+    if held != n:
+        raise RuntimeError(f"a batched decode row differs from its row alone ({n - held} of {n}, gap {worst:.3e})")
+    return n
+
+
+def serve_run(server, trace) -> tuple:
+    """Run ``trace`` through ``server``: (results by id, wall seconds, peak
+    device bytes during the run)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server.submit_trace(trace)
+    t0 = time.perf_counter()
+    results = server.run()
+    torch.cuda.synchronize()
+    return {r.req_id: r for r in results}, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def serve_colocated(dev: torch.device, smi: str) -> tuple:
+    """Phase 22a (the module docstring).  Returns (model, trace, streams by
+    request id)."""
+    t22 = time.perf_counter()
+    model = GPT2(SERVE_MAIN, device=dev, seed=SEED).eval()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    serve_teacher_forced(dev, model, SERVE_WORLD, SERVE_SLOTS, SERVE_TF_STEPS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache = SlotKVCache(SERVE_MAIN, SERVE_WORLD, SERVE_SLOTS, device=dev)
+    allocated = torch.cuda.memory_allocated() - before
+    print(f"serve 22a: weights {weight_bytes / 1e9:.3f} GB float32; KV pages {cache!r}: {allocated} B allocated, "
+          f"nbytes_per_rank {cache.nbytes_per_rank} B x world {SERVE_WORLD} = {cache.nbytes_per_rank * SERVE_WORLD} B",
+          flush=True)
+    if allocated != cache.nbytes_per_rank * SERVE_WORLD:
+        raise RuntimeError("the KV pages' allocation is not nbytes_per_rank x world")
+    del cache
+    trace = synthesize_arrival_trace(SERVE_WORLD, vocab_size=SERVE_MAIN.vocab_size, **SERVE_TRACE)
+    streams = {}
+    for algo in ("auto", "ring"):
+        ct = CollectiveTrace()
+        server = GPT2Server(model, SERVE_WORLD, slots=SERVE_SLOTS, algo=algo, trace=ct, **SERVE_SAMPLING)
+        results, wall, peak = serve_run(server, trace)
+        s = server.summary()
+        generated = sum(len(r.generated) for r in results.values())
+        steps_computed = server.metrics.snapshot()["timings"]["serve.step_s"]["count"]
+        hist = _serve_hist(ct)
+        print(f"serve 22a ({algo}): {len(results)} requests, {server.clock} steps ({steps_computed} computed) in "
+              f"{wall:.2f} s; decode step p50 {s['p50_step_ms']:.3f} ms, p99 {s['p99_step_ms']:.3f} ms (synced "
+              f"walltime); {generated} tokens generated, {generated / wall:.1f} tokens/s; TTFT p50/p99 "
+              f"{s['p50_ttft_steps']}/{s['p99_ttft_steps']} steps, sojourn p50/p99 {s['p50_sojourn_steps']}/"
+              f"{s['p99_sojourn_steps']} steps; decode_collectives {hist}; peak memory {peak / 1e9:.3f} GB; "
+              f"kv_cache_stats {s['kv_cache_stats']}; {smi}", flush=True)
+        if len(results) != len(trace) or sum(hist.values()) != SERVE_MAIN.n_layer * steps_computed:
+            raise RuntimeError(f"expected {len(trace)} requests and one allreduce a layer a computed step, got "
+                               f"{len(results)} and {hist}")
+        streams[algo] = {rid: r.tokens for rid, r in results.items()}
+        if algo == "auto":
+            auto_results, auto_step_ms = results, s["p50_step_ms"]
+    if streams["auto"] != streams["ring"]:
+        raise RuntimeError("the exact combine gave other streams under ring than under auto")
+    for spec in trace.requests[:SERVE_ALONE]:
+        ref = generate(model, [list(spec.prompt)], len(spec.prompt), spec.max_new_tokens,
+                       generator=torch.Generator(device=dev).manual_seed(spec.seed), **SERVE_SAMPLING)
+        same = ref[0].tolist() == auto_results[spec.req_id].tokens
+        print(f"serve 22a: request {spec.req_id} (prompt {len(spec.prompt)}, {spec.max_new_tokens} new) equals its "
+              f"generate run alone: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"request {spec.req_id} differs from its generate run alone")
+    serve_compute(dev, model, auto_step_ms, smi)
+    print(f"phase 22a {time.perf_counter() - t22:.1f} s", flush=True)
+    return model, trace, streams["auto"]
+
+
+class _NoCombine:
+    """The decode step's collective left out: the stacked partial's sum on
+    one row (what the combine delivers, without the engine)."""
+
+    def all_reduce(self, partial, algo=None):
+        return partial.sum(dim=0, keepdim=True)
+
+
+@torch.no_grad()
+def serve_compute(dev: torch.device, model: GPT2, step_ms: float, smi: str) -> None:
+    """The full-width step's compute a layer (``SERVE_SLOTS`` slots mid-
+    sequence, the allreduce left out, synced walltime) against
+    ``decode_step_time``'s price on the card's coefficients, and what
+    ``auto`` picks at the step's payload."""
+    cfg = model.cfg
+    tp = TPDecodeModel(model, SERVE_WORLD, **SERVE_SAMPLING)
+    cache = SlotKVCache(cfg, SERVE_WORLD, SERVE_SLOTS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tok = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, 1), device=dev, generator=gen)
+    pos = torch.full((SERVE_SLOTS,), cfg.max_seq // 2, device=dev)
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in range(SERVE_SLOTS)]
+    times = []
+    for i in range(SERVE_STEP_ITERS + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp.decode_step(_NoCombine(), cache.layers, tok, pos, gens).tolist()
+        if i >= 3:
+            times.append(time.perf_counter() - t0)
+    times.sort()
+    per_layer_s = times[len(times) // 2] / cfg.n_layer
+    eng = CollectiveEngine(SERVE_WORLD, Strategy.ring(SERVE_WORLD))
+    payload = SERVE_SLOTS * cfg.d_model * 4
+    coeffs = cost_model.bottleneck_ring_coeffs(load_or_default(world=SERVE_WORLD), SERVE_WORLD)
+    price = cost_model.decode_step_time(SERVE_WORLD, SERVE_SLOTS, cfg.n_layer, cfg.d_model, coeffs)
+    measured = cost_model.decode_step_time(SERVE_WORLD, SERVE_SLOTS, cfg.n_layer, cfg.d_model, coeffs,
+                                           compute_s_per_layer=per_layer_s)
+    print(f"serve 22a compute: engine-free step p50 {times[len(times) // 2] * 1e3:.3f} ms (min {times[0] * 1e3:.3f}),"
+          f" {per_layer_s * 1e6:.2f} us a layer (DEFAULT_DECODE_COMPUTE_S_PER_LAYER "
+          f"{cost_model.DEFAULT_DECODE_COMPUTE_S_PER_LAYER * 1e6:.2f} us); auto on the card's coefficients picks "
+          f"{eng._auto_algo(payload) or 'the flat plane'} at {payload} B a rank (crossover "
+          f"{eng._allreduce_crossover_bytes():.0f} B); decode_step_time prices the step at "
+          f"{price['step_time_s'] * 1e3:.3f} ms with the default ({price['algo']}, comm "
+          f"{price['comm_s'] * 1e3:.3f} ms), {measured['step_time_s'] * 1e3:.3f} ms with this run's compute, against "
+          f"the served step's p50 {step_ms:.3f} ms; {smi}", flush=True)
+    # where the served step's time goes: one step with the engine (auto)
+    profile_step("serve decode step", lambda: tp.decode_step(eng, cache.layers, tok, pos, gens).tolist(), step_ms)
+
+
+def _migration_ms(trace) -> list:
+    return [e.extra["duration_s"] * 1e3 for e in trace.events() if e.primitive == "kv_transfer"]
+
+
+def serve_disagg(dev: torch.device, model: GPT2, trace, colocated: dict, smi: str) -> None:
+    """Phase 22b (the module docstring)."""
+    t22 = time.perf_counter()
+    ct = CollectiveTrace()
+    router = ClusterRouter(model, DISAGG_WORLD, DISAGG_WORLD, prefill_slots=DISAGG_SLOTS, decode_slots=DISAGG_SLOTS,
+                           trace=ct, **SERVE_SAMPLING)
+    router.submit_trace(trace)
+    t0 = time.perf_counter()
+    while router.clock < DISAGG_KILL_STEP or not router.decode.lanes:
+        router.step()
+    victims = router.kill_decode_pool()
+    results = {r.req_id: r for r in router.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = router.summary()
+    ms = _migration_ms(ct)
+    same = sum(results[rid].tokens == colocated[rid] for rid in colocated)
+    print(f"serve 22b (off wire): {len(results)} requests, {router.clock} steps in {wall:.2f} s; decode pod killed at "
+          f"step {DISAGG_KILL_STEP}+ with victims {victims}; streams bit for bit 22a's {same}/{len(colocated)}; "
+          f"kv_transfer events {len(ms)} for {s['kv_stream']['transfers']} migrations, {s['kv_stream']['payload_bytes']}"
+          f" B; each migration p50 {sorted(ms)[len(ms) // 2]:.4f} ms, max {max(ms):.4f} ms (on one card the off wire "
+          f"moves nothing: the bound is 0); TTFT p50/p99 {s['p50_ttft_steps']}/{s['p99_ttft_steps']} steps, sojourn "
+          f"p50/p99 {s['p50_sojourn_steps']}/{s['p99_sojourn_steps']} steps; pools {s['pools']}; {smi}", flush=True)
+    if not victims or same != len(colocated) or len(results) != len(colocated):
+        raise RuntimeError("the disaggregated streams differ from the colocated ones (or no victim)")
+    if len(ms) != s["kv_stream"]["transfers"] or router.metrics.snapshot()["counters"]["serve.migrated"] != len(ms):
+        raise RuntimeError("a migration left no kv_transfer event")
+    kl = measure_token_kl(model, DISAGG_WORLD, "int8")
+    bound = resolve_kv_kl_bound()
+    admitted = kl <= bound
+    print(f"serve 22b (int8 wire): token KL {kl:.6e} nats at full width; admitted under ADAPCC_KV_KL_BOUND={bound}: "
+          f"{admitted}", flush=True)
+    if not admitted:
+        try:
+            ClusterRouter(model, DISAGG_WORLD, DISAGG_WORLD, prefill_slots=DISAGG_SLOTS, decode_slots=DISAGG_SLOTS,
+                          kv_wire_dtype="int8")
+        except ValueError as e:
+            if "exceeds the acceptance bound" not in str(e):
+                raise
+        else:
+            raise RuntimeError("the int8 wire was admitted above its KL bound")
+    ct8 = CollectiveTrace()
+    router8 = ClusterRouter(model, DISAGG_WORLD, DISAGG_WORLD, prefill_slots=DISAGG_SLOTS, decode_slots=DISAGG_SLOTS,
+                            trace=ct8, kv_wire_dtype="int8", kv_kl_bound=max(bound, kl), **SERVE_SAMPLING)
+    sub = dataclasses.replace(trace, requests=trace.requests[:DISAGG_INT8_REQUESTS])
+    results8 = {r.req_id: r for r in serve_run(router8, sub)[0].values()}
+    s8 = router8.summary()["kv_stream"]
+    ms8 = _migration_ms(ct8)
+    events = [e for e in ct8.events() if e.primitive == "kv_transfer"]
+    bound_ms = [e.nbytes * 2 / cost_model.DEFAULT_HBM_BYTES_PER_S * 1e3 for e in events]
+    same8 = sum(results8[rid].tokens == colocated[rid] for rid in results8)
+    print(f"serve 22b (int8 wire): {len(results8)} requests, wire {s8['wire_bytes']} B of payload "
+          f"{s8['payload_bytes']} B; each migration's ms against its bound (the codec pass reads and writes the float32"
+          f" pages, 8 B an element over 3.35 TB/s): " + ", ".join(f"{a:.4f}/{b:.6f}" for a, b in zip(ms8, bound_ms))
+          + f"; streams equal to the off wire's {same8}/{len(results8)}; {smi}", flush=True)
+    if not s8["wire_bytes"] < s8["payload_bytes"] or len(results8) != len(sub):
+        raise RuntimeError("the int8 wire did not shrink the KV stream")
+    print(f"phase 22b {time.perf_counter() - t22:.1f} s", flush=True)
+
+
+def serve_cli(smi: str) -> None:
+    """Phase 22c (the module docstring): ``serve_gpt2`` on the card."""
+    from adapcc_tpu_torch.workloads import serve_gpt2
+
+    t22 = time.perf_counter()
+    outputs = []
+    with tempfile.TemporaryDirectory(prefix="adapcc_serve_") as workdir:
+        path = os.path.join(workdir, "trace.json")
+        argv = ["--json", "--requests", "6", "--world", str(SERVE_WORLD), "--slots", "4"]
+        for extra, env in ((["--trace-out", path], None), ([], path)):
+            if env is not None:
+                os.environ[SERVE_TRACE_ENV] = env
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    serve_gpt2.main(argv + extra)
+            finally:
+                os.environ.pop(SERVE_TRACE_ENV, None)
+            outputs.append(buf.getvalue().splitlines())
+    rows = [[line for line in out if line.startswith('{"req_id"')] for out in outputs]
+    summary = json.loads(outputs[0][-1])["summary"]
+    print(f"serve 22c: serve_gpt2 {' '.join(argv)}: {len(rows[0])} rows, summary requests {summary['requests']}, "
+          f"steps {summary['steps']}, step p50/p99 {summary['p50_step_ms']:.3f}/{summary['p99_step_ms']:.3f} ms, "
+          f"decode_collectives {summary['decode_collectives']}; the replay through {SERVE_TRACE_ENV} gives the same "
+          f"rows byte for byte: {rows[0] == rows[1]}; phase 22c {time.perf_counter() - t22:.1f} s; {smi}", flush=True)
+    if rows[0] != rows[1] or len(rows[0]) != 6 or summary["requests"] != 6:
+        raise RuntimeError("serve_gpt2's replayed trace gave other rows")
+
+
+def slice19(dev: torch.device, smi: str) -> None:
+    """Phase 22, slice 19's main path (the module docstring): it launches
+    none of the kernels of the kernels line."""
+    t22 = time.perf_counter()
+    counts = {**_flash_counts(), **_ring_counts()}
+    model, trace, colocated = serve_colocated(dev, smi)
+    torch.cuda.empty_cache()
+    serve_disagg(dev, model, trace, colocated, smi)
+    del model
+    torch.cuda.empty_cache()
+    serve_cli(smi)
+    after = {**_flash_counts(), **_ring_counts()}
+    print(f"phase 22 launches of the kernels line: {_since(counts, after)}; phase 22 {time.perf_counter() - t22:.1f} s",
+          flush=True)
+    if after != counts:
+        raise RuntimeError(f"the serving path launched a kernel of the kernels line: {_since(counts, after)}")
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -4696,6 +5017,11 @@ def main() -> None:
     # through K2-K4, GPipe and 1F1B) and expert parallelism
     for kname, n in slice18(dev, smi).items():
         launches[kname] += n
+    torch.cuda.empty_cache()
+
+    # 22. slice 19's main path: serving (KV-cache decode, the continuous
+    # batcher, the disaggregated router, serve_gpt2)
+    slice19(dev, smi)
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 

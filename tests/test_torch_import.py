@@ -56,6 +56,9 @@ _PORT_MODULES = (
     "adapcc_tpu_torch.pipe", "adapcc_tpu_torch.pipe.schedule", "adapcc_tpu_torch.pipe.partition",
     "adapcc_tpu_torch.pipe.executor", "adapcc_tpu_torch.pipe.forward", "adapcc_tpu_torch.parallel.pipeline",
     "adapcc_tpu_torch.parallel.expert", "adapcc_tpu_torch.models.moe", "adapcc_tpu_torch.workloads.train_moe",
+    "adapcc_tpu_torch.models.gpt2_generate", "adapcc_tpu_torch.serve", "adapcc_tpu_torch.serve.trace",
+    "adapcc_tpu_torch.serve.kv_cache", "adapcc_tpu_torch.serve.model", "adapcc_tpu_torch.serve.scheduler",
+    "adapcc_tpu_torch.serve.disagg", "adapcc_tpu_torch.serve.disagg.cluster", "adapcc_tpu_torch.workloads.serve_gpt2",
 )
 
 _CHECK_TUNER = """
@@ -81,6 +84,26 @@ pipeline_program(pipeline_schedule(4, 4), tied_embedding=True)
 m = MoEMLP(MoEConfig.tiny(), device="cpu")
 expert_parallel_moe(m, torch.randn(8, 32), m.cfg, Mesh.stacked_mesh({"experts": 2}))
 train_moe.build_parser()
+print("BAD", sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu")))
+"""
+
+_CHECK_SERVING = """
+import sys
+import torch
+from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from adapcc_tpu_torch.models.gpt2_generate import generate, load_tokenizer
+from adapcc_tpu_torch.serve import ClusterRouter, GPT2Server, synthesize_arrival_trace
+from adapcc_tpu_torch.sim import decode_step_time, disagg_queue_metrics, serve_queue_metrics
+from adapcc_tpu_torch.workloads import serve_gpt2
+m = GPT2(GPT2Config(vocab_size=32, max_seq=16, n_layer=1, n_head=4, d_model=16, dtype=torch.float32),
+         device="cpu", seed=0)
+generate(m, [[1, 2]], 2, 3)
+trace = synthesize_arrival_trace(4, 2, 1.0, prompt_len=(2, 3), max_new_tokens=(2, 3), vocab_size=32)
+for server in (GPT2Server(m, 4, slots=2), ClusterRouter(m, 2, 2, prefill_slots=1, decode_slots=1,
+                                                        kv_wire_dtype="int8", kv_kl_bound=1.0)):
+    server.submit_trace(trace)
+    server.run()
+serve_gpt2.build_parser()
 print("BAD", sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "adapcc_tpu")))
 """
 
@@ -122,6 +145,18 @@ def test_pipeline_and_expert_planes_load_no_jax():
     JAX package loads."""
     out = subprocess.run(
         [sys.executable, "-c", _CHECK_SLICE18], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_serving_plane_loads_no_jax():
+    """Decode, generate, the continuous batcher, the disaggregated router
+    (its int8 KL probe included), the serving prices and serve_gpt2,
+    imported and run a little in a fresh interpreter: neither JAX nor the
+    JAX package loads."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK_SERVING], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout

@@ -295,7 +295,8 @@ def test_stage_converter_matches_split(flax_params):
     model = _model(flax_params)
     part = partition_gpt2(model.cfg, 4)
     mine = split_params(model, part)
-    converted = stage_params_from_flax(jax_split(flax_params, jax_partition(_jax_cfg(), 4)), model.cfg, part)
+    converted = stage_params_from_flax(jax_split(flax_params, jax_partition(_jax_cfg(), 4)), model.cfg, part,
+                                       device="cpu")
     for a, b in zip(mine, converted):
         sa, sb = a.state_dict(), b.state_dict()
         assert sorted(sa) == sorted(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
@@ -418,7 +419,7 @@ def test_executor_matches_jax(flax_params, tokens, jax_fast_stages, stages, atte
 
     cfg = _cfg(attention)
     part = partition_gpt2(cfg, stages)
-    sp = stage_params_from_flax(jax_split(flax_params, jpart), cfg, part)
+    sp = stage_params_from_flax(jax_split(flax_params, jpart), cfg, part, device="cpu")
     trace = CollectiveTrace()
     loss, grads, rep = PipelineExecutor(cfg, part, _engine(stages, trace), num_microbatches=M, schedule="1f1b",
                                         device="cpu").forward_backward(sp, torch.from_numpy(tokens))
