@@ -11,7 +11,6 @@ CPU.  A world of one process needs no launcher.
 from __future__ import annotations
 
 import os
-import socket
 from dataclasses import dataclass
 from typing import List, Optional, Union
 
@@ -42,12 +41,6 @@ class World:
     device: torch.device
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def build_world_mesh(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
@@ -59,9 +52,10 @@ def build_world_mesh(
 
     Arguments override the launcher environment (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``, as ``torchrun`` sets
-    them); with neither, the world is this one process, rendezvousing on a
-    free localhost port.  Reuses an already initialized group of the same
-    size.
+    them); with neither, the world is this one process, whose group keeps
+    its store in memory: no port to pick, so none another process can take
+    between the pick and the listen.  Reuses an already initialized group of
+    the same size.
     """
     env = os.environ
     if world_size is None:
@@ -80,11 +74,12 @@ def build_world_mesh(
                 f"{dist.get_world_size()}, asked for rank {rank} of {world_size}"
             )
         return World(rank, world_size, dev)
+    store = None
     if init_method is None:
         if "MASTER_ADDR" in env and "MASTER_PORT" in env:
             init_method = "env://"
         elif world_size == 1:
-            init_method = f"tcp://127.0.0.1:{_free_port()}"
+            store = dist.HashStore()
         else:
             raise ValueError(
                 f"a world of {world_size} processes needs init_method or "
@@ -93,6 +88,7 @@ def build_world_mesh(
     dist.init_process_group(
         backend="nccl" if dev.type == "cuda" else "gloo",
         init_method=init_method,
+        store=store,
         world_size=world_size,
         rank=rank,
     )

@@ -54,6 +54,7 @@ from adapcc_tpu_torch.comm import engine
 from adapcc_tpu_torch.comm.ring import resolve_chunk_bytes
 from adapcc_tpu_torch.ddp.bucketing import BucketPlan, build_bucket_plan, flatten_to_buckets, unflatten_from_buckets
 from adapcc_tpu_torch.ddp.overlap import resolve_overlap_mode, rolling_bucket_sync
+from adapcc_tpu_torch.models.convert import from_flax_layout, to_flax_layout
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.quant.codec import DEFAULT_BLOCK_SIZE, error_feedback_step, get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.strategy.ir import Strategy
@@ -158,10 +159,14 @@ class GradSyncHook:
 
     def _codec_apply(self, g: torch.Tensor, transposed: bool = False) -> torch.Tensor:
         """The codec's wire value of ``g``; ``transposed``: ``g`` is the
-        transpose of the JAX package's leaf (a ``Linear.weight`` against a
-        ``Dense`` kernel), and the int8 blocks follow the leaf's layout."""
+        JAX package's leaf in another layout (a ``Linear`` or ``Conv2d``
+        weight against a ``Dense`` or ``Conv`` kernel,
+        :func:`~adapcc_tpu_torch.models.convert.to_flax_layout`), and the
+        int8 blocks follow the leaf's layout."""
         apply = get_codec(self.effective_compress()).apply
-        return apply(g.t(), self.quant_block_size).t() if transposed else apply(g, self.quant_block_size)
+        if transposed:
+            return from_flax_layout(apply(to_flax_layout(g), self.quant_block_size))
+        return apply(g, self.quant_block_size)
 
     def resolved_chunk_bytes(self) -> List[int]:
         """The per-bucket chunk sizes in force: ``ADAPCC_RING_CHUNK_BYTES`` >
@@ -231,7 +236,7 @@ class GradSyncHook:
         """The per-bucket rolling sync: every bucket's chunk collectives
         issued first, then bucket by bucket a wait and the copies of its
         leaves out, which run beside the later buckets' collectives."""
-        leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
+        leaves = [to_flax_layout(grads[i]) if transposed[i] else grads[i] for i in order]
         plan = self._bucket_plan(leaves, plane)
         pending = rolling_bucket_sync(flatten_to_buckets(plan, leaves), plan.chunk_bytes, active_mask,
                                       mode=plane, strategy=self.strategy, op=self.op)
@@ -244,7 +249,7 @@ class GradSyncHook:
                 shape = plan.leaf_shapes[j]
                 leaf = synced[off:off + grads[i].numel()].view(shape)
                 off += grads[i].numel()
-                grads[i].copy_(leaf.t() if transposed[i] else leaf)
+                grads[i].copy_(from_flax_layout(leaf) if transposed[i] else leaf)
         return grads
 
     def _sync_impl(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],
@@ -260,12 +265,12 @@ class GradSyncHook:
         if active_mask is None:
             active_mask = torch.ones((self.strategy.world_size,), dtype=torch.bool)
         order = range(len(grads)) if order is None else order
-        leaves = [grads[i].t() if transposed[i] else grads[i] for i in order]
+        leaves = [to_flax_layout(grads[i]) if transposed[i] else grads[i] for i in order]
         plan = self._bucket_plan(leaves, plane)
         synced = [engine.allreduce_shard(b, active_mask, self.strategy, self.op)
                   for b in flatten_to_buckets(plan, leaves)]
         for i, leaf in zip(order, unflatten_from_buckets(plan, synced)):
-            grads[i].copy_(leaf.t() if transposed[i] else leaf)
+            grads[i].copy_(from_flax_layout(leaf) if transposed[i] else leaf)
         return grads
 
     def sync(self, grads: List[torch.Tensor], active_mask: Optional[torch.Tensor],

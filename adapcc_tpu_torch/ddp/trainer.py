@@ -65,22 +65,43 @@ waits for the per-process ring.
 matters: optax decays weights by 1e-4, torch by 1e-2.  :func:`adamw` builds
 the torch optimizer with optax's defaults; ``adamw(mu_dtype=torch.bfloat16)``
 builds :class:`AdamW`, which follows optax's ``scale_by_adam`` order and
-stores the first moment in ``mu_dtype``.
+stores the first moment in ``mu_dtype``; so does a learning rate given as a
+schedule (:func:`warmup_cosine_decay_schedule`, evaluated at the count of
+updates before this one, so the first update of a warmup from 0 moves
+nothing) or a ``clip_norm`` (optax's ``clip_by_global_norm`` ahead of it:
+every gradient scaled by ``max_norm / norm`` when the global norm reaches
+``max_norm``, with no epsilon, where ``clip_grad_norm_`` adds 1e-6).
+:func:`adam` and :func:`sgd` are ``optax.adam`` and ``optax.sgd`` (with
+momentum, optax's ``trace``) as torch optimizers.
+
+``measure_gns=True`` (world ≥ 2) contrasts each rank's squared gradient
+norm, averaged over the world, with the synced gradient's
+(:func:`~adapcc_tpu_torch.measure.gns.ddp_grad_sq_norms`) at every
+full-world step into a :class:`~adapcc_tpu_torch.measure.gns.GNSEstimator`
+(``trainer.gns``).  A model's buffers (BatchNorm's running statistics),
+which its loss updates in place, are always bound as
+``TrainState.model_state`` by name (JAX's ``model_state`` collection), so
+checkpoints carry them; JAX's ``stateful_loss`` flag, which changes its
+loss's signature, changes nothing here and is accepted for its signature.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
-from typing import TYPE_CHECKING, Any, Callable, Iterable, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
+
+import numpy as np
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from adapcc_tpu_torch.comm.mesh import World
 from adapcc_tpu_torch.ddp.hook import GradSyncHook
 from adapcc_tpu_torch.ddp.overlap import OVERLAP_ENV, microbatch_pipelined_sync, resolve_overlap_mode
+from adapcc_tpu_torch.measure.gns import GNSEstimator, tree_sq_norm
 from adapcc_tpu_torch.models.convert import flax_paths
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.primitives import not_ported as _not_ported
@@ -98,26 +119,76 @@ Optimizer = torch.optim.Optimizer
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], Optimizer]
 
 
+Schedule = Callable[[int], float]
+
+
+@dataclass(frozen=True)
+class WarmupCosineDecay:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then a cosine decay to
+    ``end_value`` at ``decay_steps`` (warmup included), in float32 as optax
+    computes it."""
+
+    init_value: float
+    peak_value: float
+    warmup_steps: int
+    decay_steps: int
+    end_value: float = 0.0
+    exponent: float = 1.0
+
+    def __call__(self, count: int) -> float:
+        f32 = np.float32
+        if count < self.warmup_steps:
+            frac = f32(1) - f32(count) / f32(self.warmup_steps)
+            return float(f32(self.init_value - self.peak_value) * frac + f32(self.peak_value))
+        t = min(count - self.warmup_steps, self.decay_steps - self.warmup_steps)
+        alpha = f32(0.0 if self.peak_value == 0.0 else self.end_value / self.peak_value)
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * f32(t) / f32(self.decay_steps - self.warmup_steps)))
+        decayed = (f32(1) - alpha) * cosine ** f32(self.exponent) + alpha
+        return float(f32(self.peak_value) * decayed)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0, exponent: float = 1.0) -> WarmupCosineDecay:
+    """``optax.warmup_cosine_decay_schedule``: a learning rate a count of
+    updates."""
+    return WarmupCosineDecay(init_value, peak_value, warmup_steps, decay_steps, end_value, exponent)
+
+
 def adamw(
-    learning_rate: float,
+    learning_rate: Union[float, Schedule],
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 1e-4,
     mu_dtype: Optional[torch.dtype] = None,
+    clip_norm: Optional[float] = None,
 ) -> OptimizerFactory:
     """``optax.adamw`` with its defaults, as a factory of torch AdamW; with
-    ``mu_dtype``, of :class:`AdamW` (optax's order, the first moment stored
-    in ``mu_dtype``)."""
+    ``mu_dtype``, a schedule for ``learning_rate`` or ``clip_norm``, of
+    :class:`AdamW` (optax's order; the first moment stored in ``mu_dtype``,
+    else in the parameter's dtype; ``clip_norm`` optax's
+    ``clip_by_global_norm`` chained in front)."""
 
     def make(params: Iterable[nn.Parameter]) -> Optimizer:
-        if mu_dtype is not None:
-            return AdamW(params, learning_rate, b1, b2, eps, weight_decay, mu_dtype)
+        if mu_dtype is not None or callable(learning_rate) or clip_norm is not None:
+            return AdamW(params, learning_rate, b1, b2, eps, weight_decay, mu_dtype, clip_norm)
         return torch.optim.AdamW(
             params, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay
         )
 
     return make
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> OptimizerFactory:
+    """``optax.adam`` with its defaults, as a factory of torch Adam."""
+    return lambda params: torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2), eps=eps)
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None) -> OptimizerFactory:
+    """``optax.sgd``: with ``momentum``, optax's ``trace`` (``t = g +
+    momentum·t``, the first trace the gradient itself, torch's buffer)."""
+    return lambda params: torch.optim.SGD(params, lr=learning_rate, momentum=momentum or 0.0)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -130,15 +201,29 @@ class AdamW(torch.optim.Optimizer):
     are ``torch.optim.AdamW``'s (``step``, ``exp_avg``, ``exp_avg_sq``), so
     checkpoints and the converters read both alike."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 1e-4, mu_dtype: torch.dtype = torch.bfloat16) -> None:
-        super().__init__(params, dict(lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
-                                      mu_dtype=mu_dtype))
+    def __init__(self, params: Iterable[torch.Tensor], lr: Union[float, Schedule], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
+                 mu_dtype: Optional[torch.dtype] = torch.bfloat16, clip_norm: Optional[float] = None) -> None:
+        #: the learning rate a count of updates (None: the groups' ``lr``)
+        self.schedule: Optional[Schedule] = lr if callable(lr) else None
+        self.clip_norm = clip_norm
+        super().__init__(params, dict(lr=0.0 if callable(lr) else lr, betas=(b1, b2), eps=eps,
+                                      weight_decay=weight_decay, mu_dtype=mu_dtype))
+
+    def _clip_scale(self) -> Optional[torch.Tensor]:
+        """optax's ``clip_by_global_norm``: the global norm over every
+        gradient, or None below ``clip_norm``."""
+        if self.clip_norm is None:
+            return None
+        grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        return norm if bool(norm >= self.clip_norm) else None
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
+        norm = self._clip_scale()
         for group in self.param_groups:
             b1, b2 = group["betas"]
             for p in group["params"]:
@@ -150,6 +235,9 @@ class AdamW(torch.optim.Optimizer):
                     st["exp_avg"] = torch.zeros_like(p, dtype=group["mu_dtype"])
                     st["exp_avg_sq"] = torch.zeros_like(p)
                 g = p.grad
+                if norm is not None:
+                    g = (g / norm.to(g.dtype)) * self.clip_norm
+                lr = group["lr"] if self.schedule is None else self.schedule(int(st["step"]))
                 # optax's operations in its order, each rounded once; in
                 # place where a temporary would be the size of p.  JAX casts
                 # the weak scalar b1 to mu's dtype before the product
@@ -164,10 +252,10 @@ class AdamW(torch.optim.Optimizer):
                 bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** count).to(device=p.device, dtype=nu.dtype)
                 update = torch.div(nu, bc2).sqrt_().add_(group["eps"])
                 update = torch.div(mu, bc1).div_(update)
-                update.add_(p * group["weight_decay"]).mul_(-group["lr"])
+                update.add_(p * group["weight_decay"]).mul_(-lr)
                 p.add_(update.to(p.dtype))
                 del update
-                st["exp_avg"] = mu.to(group["mu_dtype"])
+                st["exp_avg"] = mu.to(group["mu_dtype"] or p.dtype)
         return None
 
     def load_state_dict(self, state_dict) -> None:
@@ -179,7 +267,7 @@ class AdamW(torch.optim.Optimizer):
             for p in group["params"]:
                 st = self.state.get(p)
                 if st and "exp_avg" in st:
-                    st["exp_avg"] = st["exp_avg"].to(group["mu_dtype"])
+                    st["exp_avg"] = st["exp_avg"].to(group["mu_dtype"] or p.dtype)
 
 
 @dataclass
@@ -192,10 +280,39 @@ class TrainState:
     #: ZeRO-1 (``DDPTrainer(zero1=True).init_state``): this rank's float32
     #: ``[N/world]`` master row, the one tensor ``optimizer`` updates
     master: Optional[torch.Tensor] = None
+    #: the model's buffers by name (BatchNorm's running statistics: JAX's
+    #: ``model_state``), the module's own tensors, which a stateful loss
+    #: updates in place; empty for a model without buffers
+    model_state: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @classmethod
-    def create(cls, model: nn.Module, tx: OptimizerFactory) -> "TrainState":
-        return cls(model=model, optimizer=tx(model.parameters()), step=0)
+    def create(cls, model: nn.Module, tx: OptimizerFactory,
+               model_state: Optional[Dict[str, torch.Tensor]] = None) -> "TrainState":
+        return cls(model=model, optimizer=tx(model.parameters()), step=0,
+                   model_state=bind_model_state(model, model_state))
+
+
+@torch.no_grad()
+def bind_model_state(model: nn.Module, model_state: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The model's buffers by name, after copying ``model_state`` (a
+    checkpoint's, JAX's ``model_state``) into them when given."""
+    buffers = dict(model.named_buffers())
+    if model_state:
+        if sorted(model_state) != sorted(buffers):
+            raise ValueError(f"model_state {sorted(model_state)} does not match the model's buffers "
+                             f"{sorted(buffers)}")
+        for name, value in model_state.items():
+            if value is not buffers[name]:
+                buffers[name].copy_(value)
+    return buffers
+
+
+def _first_leaf(batch: Any) -> torch.Tensor:
+    """The first tensor of a batch (alone, or in a tuple, list or dict)."""
+    while isinstance(batch, (tuple, list, dict)):
+        batch = next(iter(batch.values())) if isinstance(batch, dict) else batch[0]
+    return batch
 
 
 class DDPTrainer:
@@ -227,6 +344,7 @@ class DDPTrainer:
         overlap: str = "off",
         tuner: Optional[CollectiveTuner] = None,
         tune_every: int = 16,
+        stateful_loss: bool = False,  # JAX's signature; the buffers are always bound
     ) -> None:
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -285,8 +403,18 @@ class DDPTrainer:
         self.replica_store: Optional[ShardReplicaStore] = None
         #: the ZeRO-1 optimizer geometry (built at init_state)
         self._zero1_opt: Optional[Zero1Optimizer] = None
-        if measure_gns:
-            raise _not_ported("gradient-noise-scale measurement", "the measurement slice")
+        if measure_gns and mesh.world_size < 2:
+            raise ValueError(
+                "measure_gns needs a multi-device mesh: the estimator contrasts "
+                "per-rank (small-batch) vs allreduced (big-batch) gradients"
+            )
+        self.measure_gns = measure_gns
+        self._gns: Optional[GNSEstimator] = None
+        self._gns_pending: List[torch.Tensor] = []
+        #: this step's local squared gradient norm (measure_gns)
+        self._gns_local: Optional[torch.Tensor] = None
+        #: async relay: the bank holds a missed step's gradients
+        self._bank_dirty = False
         if strategy.world_size != mesh.world_size:
             raise ValueError(
                 f"strategy for {strategy.world_size} ranks on a world of {mesh.world_size}"
@@ -365,11 +493,11 @@ class DDPTrainer:
 
     @staticmethod
     def _transposed(model: nn.Module) -> List[bool]:
-        """Per parameter: a ``Linear.weight``, the transpose of the JAX
-        package's ``Dense`` kernel, whose layout the codec's blocks follow."""
-        modules = dict(model.named_modules())
-        return [name.endswith(".weight") and isinstance(modules[name.rpartition(".")[0]], nn.Linear)
-                for name, _ in model.named_parameters()]
+        """Per parameter: a ``Linear`` or ``Conv2d`` weight, the JAX
+        package's ``Dense`` or ``Conv`` kernel in another layout, whose
+        layout the codec's blocks follow."""
+        paths = flax_paths(model)
+        return [paths[name][1] for name, _ in model.named_parameters()]
 
     @staticmethod
     def _flax_layout(model: nn.Module) -> Tuple[List[int], List[bool]]:
@@ -437,6 +565,12 @@ class DDPTrainer:
         float32 in microbatch order from zeros, divided by ``accum`` and cast
         to each parameter's dtype; the loss the float32 sum over ``accum``
         (the JAX trainer's scan, in sequence)."""
+        loss, grads = self._accumulate(model, batch)
+        if self.measure_gns:
+            self._gns_local = tree_sq_norm(grads)
+        return loss, grads
+
+    def _accumulate(self, model: nn.Module, batch: Any) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         accum = self.accum_steps
         if accum == 1:
             model.zero_grad(set_to_none=True)
@@ -493,8 +627,46 @@ class DDPTrainer:
                 g.copy_(s)
         else:
             loss, synced = self._loss_and_synced(state.model, batch, active_mask, order, transposed)
+        if self.measure_gns:
+            self._record_gns(batch, synced, active_mask)
         self._apply_synced(state, synced)
         return loss
+
+    # -- gradient noise scale ----------------------------------------------------
+
+    def _record_gns(self, batch: Any, synced: List[torch.Tensor], active_mask) -> None:
+        """JAX's ``_record_gns``: this step's ``(E|G_b|², |G_B|²)`` (the AVG
+        all-reduce runs every step, a collective) kept for the estimator
+        when every rank contributed; in async relay mode the first step after
+        a miss is skipped too (its synced gradient folds in banked ones)."""
+        small = self._gns_local
+        world = self.mesh.world_size
+        dist.all_reduce(small)
+        norms = torch.stack([small / world, tree_sq_norm(synced)])
+        if self._gns is None:
+            b_small = _first_leaf(batch).shape[0]
+            self._gns = GNSEstimator(b_small=b_small, b_big=b_small * world)
+        full = active_mask is None or bool(torch.as_tensor(active_mask).all())
+        contaminated = (not self.bsp) and self._bank_dirty
+        if not self.bsp:
+            self._bank_dirty = not full
+        if full and not contaminated:
+            self._gns_pending.append(norms.detach())
+            # bound retained device buffers on runs that never read `gns`
+            if len(self._gns_pending) > 256:
+                self._flush_gns()
+
+    def _flush_gns(self) -> None:
+        if self._gns is not None and self._gns_pending:
+            pending, self._gns_pending = self._gns_pending, []
+            for small, big in torch.stack(pending).cpu().tolist():
+                self._gns.update(small, big)
+
+    @property
+    def gns(self) -> Optional[GNSEstimator]:
+        """The GNS estimator (flushes buffered per-step norms on access)."""
+        self._flush_gns()
+        return self._gns
 
     # -- ZeRO-1 --------------------------------------------------------------------
 
@@ -503,14 +675,15 @@ class DDPTrainer:
         any overlapped trainer schedule chunks it too."""
         return "bucket" if self.overlap != "off" else "off"
 
-    def init_state(self, model: nn.Module) -> TrainState:
+    def init_state(self, model: nn.Module, model_state: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """The trainer's state: the replicated optimizer normally; with
         ``zero1=True`` this rank's float32 master row of the flat layout and
         the optimizer over it alone (row ``rank`` of the JAX trainer's
         ``[world, N/world]`` state), and, with ``shard_replicas``, the
-        replica set."""
+        replica set.  ``model_state`` (a checkpoint's) is copied into the
+        model's buffers, which the state then holds."""
         if not self.zero1:
-            return TrainState.create(model, self.tx)
+            return TrainState.create(model, self.tx, model_state)
         from adapcc_tpu_torch.elastic.redundancy import ShardReplicaStore
         from adapcc_tpu_torch.parallel.fsdp import Zero1Optimizer
 
@@ -520,7 +693,8 @@ class DDPTrainer:
         if self.shard_replicas:
             self.replica_store = ShardReplicaStore(world, ips=self.hook.strategy.trees[0].ips,
                                                    replicas=self.shard_replicas)
-        return TrainState(model=model, optimizer=optimizer, step=0, master=master)
+        return TrainState(model=model, optimizer=optimizer, step=0, master=master,
+                          model_state=bind_model_state(model, model_state))
 
     def checkpoint_extra(self, extra: Optional[dict] = None) -> dict:
         """A checkpoint's ``extra`` for this trainer's state: with
@@ -753,8 +927,11 @@ class DDPTrainer:
         """``n_steps`` full-world steps on one batch; returns ``(state,
         losses [n_steps])`` for this rank.  Static full world only, as in
         the reference."""
-        if self._dynamic_mask:
-            raise ValueError("scan_steps runs static full-world steps: incompatible with dynamic_mask")
+        if self._dynamic_mask or self.measure_gns:
+            raise ValueError(
+                "scan_steps runs a static full-world program: incompatible "
+                "with dynamic_mask, async relay (bsp=False), and measure_gns"
+            )
         if self.error_feedback:
             raise ValueError(
                 "scan_steps does not thread the error-feedback residual across scanned steps; "

@@ -1,16 +1,25 @@
-"""Carry flax GPT-2 weights and ZeRO-1 state across to the port.
+"""Carry flax weights and ZeRO-1 state across to the port.
 
-:func:`flax_to_state_dict` turns the flax parameter tree of
-:class:`adapcc_tpu.models.gpt2.GPT2`, given as nested dicts of numpy arrays,
-into a ``state_dict`` for :class:`adapcc_tpu_torch.models.gpt2.GPT2`:
+:func:`flax_to_state_dict` turns a flax variable tree, given as nested
+dicts of numpy arrays, into a ``state_dict`` for the port's model of the
+same name (GPT-2, and the image models MLP, VGG, ResNet and ViT):
 
 - ``Dense.kernel`` is ``[in, out]`` and becomes the transposed ``Linear.weight``;
-- ``LayerNorm.scale`` becomes ``weight``;
+- ``Conv.kernel`` is ``HWIO`` and becomes the ``OIHW`` ``Conv2d.weight``;
+- flax MHA's ``DenseGeneral`` kernels, ``query/key/value [d, h, hd]`` and
+  ``out [h, hd, d]``, become ``Linear`` weights ``[h·hd, d]`` and ``[d,
+  h·hd]``, their ``[h, hd]`` biases ``[h·hd]``;
+- ``LayerNorm``, ``GroupNorm`` and ``BatchNorm`` ``scale`` becomes ``weight``;
 - ``Embed.embedding`` becomes ``Embedding.weight``;
-- module names (``h{i}``, ``attn``, ``qkv``, ``ln_f``, ...) stay as they are.
+- free parameters (ViT's ``cls`` and ``pos``) and the ``batch_stats``
+  collection's ``mean`` and ``var`` (BatchNorm's running statistics, the
+  port's buffers of those names) keep their names;
+- module names (``h{i}``, ``attn``, ``qkv``, ``ln_f``, ``Conv_0``,
+  ``BasicBlock_3``, ...) stay as they are.
 
 :func:`flax_paths` is the inverse map, parameter by parameter; the ZeRO-1
-flat layout orders the leaves by it.  :func:`residual_from_jax` carries one
+flat layout and FSDP's shardings follow it, and :func:`to_flax_layout` /
+:func:`from_flax_layout` move a tensor between the two layouts.  :func:`residual_from_jax` carries one
 rank's error-feedback residual of the JAX ``DDPTrainer`` across.
 
 Pipeline stages and MoE: :func:`stage_params_from_flax` turns the per-stage
@@ -37,14 +46,40 @@ import numpy as np
 import torch
 from torch import nn
 
-_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
+               "cls": "cls", "pos": "pos", "mean": "mean", "var": "var"}
+
+
+def to_flax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A kernel in the flax leaf's layout (a view): a ``Linear`` weight
+    transposed to ``[in, out]``, a ``Conv2d`` weight permuted ``OIHW`` →
+    ``HWIO``."""
+    return t.t() if t.dim() == 2 else t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def from_flax_layout(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_flax_layout` (a view)."""
+    return t.t() if t.dim() == 2 else t.permute(3, 2, 0, 1) if t.dim() == 4 else t
+
+
+def flax_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The flax leaf's shape of a kernel of torch ``shape``."""
+    return tuple(to_flax_layout(torch.empty(shape, device="meta")).shape)
+
+
+def _tensor_of(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: widen exactly, narrow back
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))  # a writable, contiguous copy
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a flax GPT-2 tree (with or without the
-    top-level ``"params"`` collection)."""
+    """The port's ``state_dict`` for a flax tree: the ``"params"``
+    collection alone, or the variables with ``"params"`` and
+    ``"batch_stats"`` (which become BatchNorm's buffers)."""
+    trees = [params]
     if "params" in params:
-        params = params["params"]
+        trees = [params["params"]] + ([params["batch_stats"]] if "batch_stats" in params else [])
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping[str, Any], prefix: str) -> None:
@@ -55,41 +90,52 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if name not in _LEAF_NAMES:
                 raise ValueError(f"unknown flax parameter {prefix}{name}")
             arr = np.asarray(value)
-            if name == "kernel":
+            if name == "kernel" and arr.ndim == 3:
+                # DenseGeneral: [h, hd, d] out of the heads, or [d, h, hd] into them
+                out_proj = prefix.endswith("out.")
+                arr = (arr.reshape(-1, arr.shape[-1]) if out_proj else arr.reshape(arr.shape[0], -1)).T
+            elif name == "kernel" and arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif name == "kernel":
                 arr = arr.T
-            if arr.dtype.name == "bfloat16":  # numpy has no bf16: widen exactly, narrow back
-                t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.array(arr, order="C"))  # a writable, contiguous copy
-            out[f"{prefix}{_LEAF_NAMES[name]}"] = t
+            elif name == "bias" and arr.ndim == 2:
+                arr = arr.reshape(-1)
+            out[f"{prefix}{_LEAF_NAMES[name]}"] = _tensor_of(arr)
 
-    walk(params, "")
+    for tree in trees:
+        walk(tree, "")
     return out
 
 
 def flax_paths(model: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
-    """``{parameter name: (flax path, transposed)}`` for a model built of
-    ``Linear``, ``LayerNorm`` and ``Embedding`` modules: the path of the leaf
+    """``{parameter name: (flax path, transposed)}``: the path of the leaf
     in the flax tree (``("h0", "attn", "qkv", "kernel")``) and whether the
-    flax leaf is the transpose of the torch parameter (a ``Dense.kernel``).
-    Sorting by path gives ``jax.tree_util``'s leaf order, which sorts dict
-    keys at every level."""
+    flax leaf is the torch parameter in another layout (a ``Dense`` or
+    ``Conv`` kernel: :func:`to_flax_layout`).  A ``Linear`` or ``Conv2d``
+    weight is a ``kernel``, a ``LayerNorm``, ``GroupNorm`` or ``BatchNorm``
+    weight a ``scale``, an ``Embedding`` weight an ``embedding``; any other
+    parameter (ViT's ``cls``, ``pos``) keeps its name.  Sorting by path
+    gives ``jax.tree_util``'s leaf order, which sorts dict keys at every
+    level.  (A ``DenseGeneral`` kernel's leaf is its ``Linear`` weight
+    transposed, ``[d, h·hd]``: the same elements in the same order as
+    flax's ``[d, h, hd]``.)"""
     modules = dict(model.named_modules())
     out = {}
-    for name, _ in model.named_parameters():
+    for name, p in model.named_parameters():
         mod_name, _, pname = name.rpartition(".")
         mod = modules[mod_name]
         if pname == "bias":
             leaf = "bias"
-        elif isinstance(mod, nn.Linear):
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)) and pname == "weight":
             leaf = "kernel"
-        elif isinstance(mod, nn.LayerNorm):
-            leaf = "scale"
         elif isinstance(mod, nn.Embedding):
             leaf = "embedding"
+        elif pname == "weight":
+            leaf = "scale"
         else:
-            raise ValueError(f"no flax leaf for {name} ({type(mod).__name__})")
-        out[name] = ((*mod_name.split("."), leaf), leaf == "kernel")
+            leaf = pname
+        path = (*mod_name.split("."), leaf) if mod_name else (leaf,)
+        out[name] = (path, leaf == "kernel")
     return out
 
 
@@ -231,3 +277,42 @@ def moe_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         "w1": _tensor(params["w1"]),
         "w2": _tensor(params["w2"]),
     }
+
+
+def to_flax_variables(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`flax_to_state_dict`: ``{"params": ...}`` (and
+    ``"batch_stats"`` from BatchNorm's ``mean``/``var`` buffers) as nested
+    dicts of float32 numpy copies (bfloat16 widened exactly) in flax's layouts, so a
+    seeded port model initializes the JAX package's flax module of the same
+    name.  ``DenseGeneral`` kernels and biases (a module with ``n_head``
+    whose children are ``query``, ``key``, ``value`` and ``out``) get flax's
+    head-split shapes."""
+    modules = dict(model.named_modules())
+
+    def put(tree: Dict[str, Any], path: Tuple[str, ...], arr: np.ndarray) -> None:
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = arr
+
+    params: Dict[str, Any] = {}
+    for name, (path, transposed) in flax_paths(model).items():
+        t = model.get_parameter(name).detach().float().cpu()
+        arr = np.array((to_flax_layout(t) if transposed else t).numpy())  # a copy: no view of the model
+        parent = modules.get(".".join(path[:-2]))
+        heads = getattr(parent, "n_head", None) if len(path) >= 3 else None
+        if heads is not None and path[-2] in ("query", "key", "value", "out"):
+            if path[-1] == "bias":
+                arr = arr.reshape(heads, -1) if path[-2] != "out" else arr
+            elif path[-2] == "out":
+                arr = arr.reshape(heads, -1, arr.shape[-1])
+            else:
+                arr = arr.reshape(arr.shape[0], heads, -1)
+        put(params, path, arr)
+    out: Dict[str, Any] = {"params": params}
+    stats: Dict[str, Any] = {}
+    for name, buf in model.named_buffers():
+        mod_name, _, bname = name.rpartition(".")
+        put(stats, (*mod_name.split("."), bname), np.array(buf.detach().float().cpu().numpy()))
+    if stats:
+        out["batch_stats"] = stats
+    return out

@@ -1,5 +1,8 @@
 """ZeRO-1: sharded optimizer state over the flat gradient vector.
 
+FSDP per rank, the other half of JAX's ``parallel/fsdp.py``, is
+:mod:`adapcc_tpu_torch.parallel.fsdp_rank`.
+
 The port of :mod:`adapcc_tpu.parallel.fsdp`'s ZeRO-1 in the
 single-controller form.  Parameters stay replicated; the optimizer state
 is a flat float32 master of ``[world, N/world]``, row ``r`` belonging to rank
@@ -63,7 +66,7 @@ from adapcc_tpu_torch.comm.ring import (
 )
 from adapcc_tpu_torch.ddp.overlap import even_chunk_bounds, overlap_chunk_count
 from adapcc_tpu_torch.ddp.trainer import OptimizerFactory
-from adapcc_tpu_torch.models.convert import flax_paths
+from adapcc_tpu_torch.models.convert import flax_paths, flax_shape, from_flax_layout, to_flax_layout
 from adapcc_tpu_torch.primitives import ReduceOp
 from adapcc_tpu_torch.quant.codec import get_codec, resolve_wire_dtype
 from adapcc_tpu_torch.tuner.measure import sync_device, sync_outputs
@@ -75,7 +78,7 @@ class _Leaf(NamedTuple):
     shape: Tuple[int, ...]    #: the flax leaf's shape
     size: int
     dtype: torch.dtype
-    transpose: bool           #: the flax leaf is the parameter transposed
+    transpose: bool           #: the flax leaf is the parameter in another layout (``to_flax_layout``)
 
 
 class _FlatMeta(NamedTuple):
@@ -92,7 +95,7 @@ def _flatten_meta(model: nn.Module, world: int, align: int = 1) -> _FlatMeta:
     leaves = []
     for name in sorted(paths, key=lambda n: paths[n][0]):
         p, transpose = params[name], paths[name][1]
-        shape = tuple(p.shape[::-1]) if transpose else tuple(p.shape)
+        shape = flax_shape(tuple(p.shape)) if transpose else tuple(p.shape)
         leaves.append(_Leaf(name, shape, p.numel(), p.dtype, transpose))
     total = sum(leaf.size for leaf in leaves)
     shard = -(-total // world)
@@ -110,7 +113,7 @@ def _flatten(tensors: Dict[str, torch.Tensor], meta: _FlatMeta,
     off = 0
     for leaf in meta.leaves:
         t = tensors[leaf.name]
-        out[off:off + leaf.size].view(leaf.shape).copy_(t.t() if leaf.transpose else t)
+        out[off:off + leaf.size].view(leaf.shape).copy_(to_flax_layout(t) if leaf.transpose else t)
         off += leaf.size
     out[meta.total:].zero_()
     return out
@@ -123,7 +126,7 @@ def _unflatten(flat: torch.Tensor, meta: _FlatMeta, model: nn.Module) -> None:
     off = 0
     for leaf in meta.leaves:
         part = flat[off:off + leaf.size].view(leaf.shape)
-        params[leaf.name].copy_(part.t() if leaf.transpose else part)
+        params[leaf.name].copy_(from_flax_layout(part) if leaf.transpose else part)
         off += leaf.size
 
 
@@ -447,3 +450,4 @@ def zero1_train_step(
         return model, master, opt_state, torch.stack(losses)
 
     return step
+

@@ -9,21 +9,71 @@ The port of :mod:`adapcc_tpu.utils.observability`'s sinks, value for value:
 - :class:`CollectiveTrace` of :class:`TraceEvent`: one event per engine
   dispatch (the reference's ``log/track.txt``), a bounded ring that evicts
   its oldest event, dumped as ``track.txt`` lines (read back by
-  :func:`parse_track_log`) or as a ``chrome://tracing`` file.
-
-The profiler context and the training-log scraper come in a later slice.
+  :func:`parse_track_log`) or as a ``chrome://tracing`` file;
+- the training meters :class:`AverageMeter` and :class:`ProgressMeter`
+  (the reference's accuracy_benchmark.py:470-539);
+- :func:`profiler_trace`, a ``torch.profiler`` capture written under a log
+  directory (JAX's ``jax.profiler`` trace), and :func:`parse_training_log`,
+  the ``(step, value)`` scraper of free-form training logs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import random
+import re
 import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+
+# --- training meters (accuracy_benchmark.py:470-539) --------------------------
+
+
+class AverageMeter:
+    """Tracks current value, running average, sum, count."""
+
+    def __init__(self, name: str, fmt: str = ":f") -> None:
+        self.name = name
+        self.fmt = fmt
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+    def __str__(self) -> str:
+        fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
+        return fmtstr.format(name=self.name, val=self.val, avg=self.avg)
+
+
+class ProgressMeter:
+    """``[ 10/500] loss 0.61 (0.73)  acc 81.2 (76.9)``-style progress lines."""
+
+    def __init__(self, num_batches: int, meters: Sequence[AverageMeter], prefix: str = "") -> None:
+        num_digits = len(str(num_batches // 1))
+        self._batch_fmt = "[" + "{:" + str(num_digits) + "d}" + "/" + str(num_batches) + "]"
+        self.meters = list(meters)
+        self.prefix = prefix
+
+    def display(self, batch: int) -> str:
+        entries = [self.prefix + self._batch_fmt.format(batch)]
+        entries += [str(m) for m in self.meters]
+        line = "\t".join(entries)
+        print(line)
+        return line
 
 
 def nearest_rank_percentile(sorted_samples: Sequence[float], q: float) -> float:
@@ -229,4 +279,52 @@ def parse_track_log(path: str) -> List[TraceEvent]:
             step = int(parts[4])
             out.append(TraceEvent(ts=float(parts[0]), primitive=parts[1], impl=parts[2], nbytes=int(parts[3]),
                                   step=None if step < 0 else step, extra=json.loads(parts[5])))
+    return out
+
+
+# --- torch profiler -------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str) -> Iterator[Any]:
+    """Capture a ``torch.profiler`` trace (host ops, and the card's kernels
+    and copies where CUDA is available) of the block, written as a Chrome
+    trace ``trace.json`` under ``log_dir``; yields the profiler (its
+    ``key_averages()`` summarise the capture)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# --- training-log post-processors (process_log.py/process_gns.py) -------------
+
+_FLOAT = r"([-+]?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?)"
+
+
+def parse_training_log(path: str, key: str = "loss", pattern: Optional[str] = None) -> List[Tuple[int, float]]:
+    """Scrape ``(step, value)`` pairs out of a free-form training log.
+
+    The default pattern matches ``... step <N> ... <key> <float>`` or
+    ``<key>: <float>`` lines (the shapes the reference's process_log.py and
+    process_gns.py scrape); ``pattern`` with two groups (step, value) takes
+    other formats.
+    """
+    if pattern is None:
+        pattern = rf"step\s*[:=]?\s*(\d+).*?{re.escape(key)}\s*[:=]?\s*{_FLOAT}"
+    rx = re.compile(pattern)
+    out: List[Tuple[int, float]] = []
+    with open(path) as f:
+        for line in f:
+            m = rx.search(line)
+            if m:
+                out.append((int(m.group(1)), float(m.group(2))))
     return out

@@ -1,2 +1,3 @@
 """Training workloads on synthetic data, the port of
-:mod:`adapcc_tpu.workloads` (``train_moe`` and ``serve_gpt2`` so far)."""
+:mod:`adapcc_tpu.workloads`: ``train_gpt2``, ``train_ddp``,
+``accuracy_benchmark``, ``main_elastic``, ``train_moe`` and ``serve_gpt2``."""

@@ -357,6 +357,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parsed, and ``--trace-out`` replayed through ``ADAPCC_SERVE_TRACE``
    giving the same request rows byte for byte.  No kernel of the kernels
    line is on this path: the phase launches none of them.
+23. slice 20's main path, the training workloads: (a) ``train_gpt2.run``
+   with ``GPT2_WORKLOAD_ARGV`` (MAIN's widths, float32 as JAX trains,
+   ``--attn flash``: the float32 K2–K4, one epoch of the default corpus,
+   ``--sample``): validation perplexity before and after (lower after),
+   hits@1, losses finite and falling, step ms and tokens/s over the epoch
+   (synced at its ends), peak memory, the sample; K2, K3 and K4 launched
+   as often as the code says (a layer a step, K2 a layer a held-out or
+   hits@1 forward too); the first step's loss against plain float32
+   attention within ``GPT2_F32_LOSS_ATOL``; then the float32 K2–K4 alone at
+   ``GPT2_F32_SHAPE`` against their plain versions, by device time and
+   events against the plain version, the bound (67 TFLOP/s float32) and
+   float32 sdpa (recorded under ``float32`` in the kernels line); (b) every
+   ``train_ddp`` preset under ddp, zero1 and fsdp at world 1,
+   ``DDP_PRESET_STEPS`` steps at ``DDP_PRESET_LR``, logged losses finite
+   and falling; (c)
+   ResNet-50 v1.5 (ImageNet stem, 224x224, 1000 classes, batch 64) under
+   group and batch norm and ViT-S/16 (batch 128), bf16, through
+   ``DDPTrainer`` at world 1: step ms, images/s, peak; (d)
+   ``accuracy_benchmark`` at its defaults (recorded: VGG11 stays at chance
+   in 3 epochs, as on JAX) and with ``ACCURACY_LEARNS`` (top-1 above 5×
+   chance by the last epoch), and ``main_elastic --supervise --model
+   resnet18 --norm batch --deterministic`` crashed after epoch 1: the
+   worker restarts, resumes at epoch 2, and its final parameters and SyncBN
+   statistics equal an uninterrupted run's bit for bit
+   (``ELASTIC_PARAM_TOL`` and ``ELASTIC_STATS_TOL`` are 0); (e) the GNS estimator's arithmetic on the card on
+   stacked gradients (``GNS_WORLD`` ranks of the ResNet-18 preset), the
+   norms within ``GNS_RTOL`` of float64 host sums.
 
 The world-4 ring on one card stands in for NVLink only in its protocol and
 its device-memory traffic.  The last lines are the kernels' JSON record, the
@@ -397,7 +424,7 @@ from adapcc_tpu_torch.compiler import lower as ir_lower
 from adapcc_tpu_torch.config import CommArgs
 from adapcc_tpu_torch.coordinator import CoordinatorLogic
 from adapcc_tpu_torch.ddp.bucketing import build_bucket_plan, flatten_to_buckets
-from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adamw
+from adapcc_tpu_torch.ddp.trainer import DDPTrainer, TrainState, adam, adamw
 from adapcc_tpu_torch.elastic import FaultEvent, FaultPlan, ShardReplicaStore, StandbyPlanCache
 from adapcc_tpu_torch.elastic import rebalance
 from adapcc_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss, lm_loss_chunked
@@ -443,6 +470,11 @@ from adapcc_tpu_torch.tuner.policy import (
     ALGO_PATHS, DEFAULT_CHUNK_GRID, IR_OPT_PATH, IR_PATH, NO_CHUNK, QUANT_PATH, hook_overlap_of, hook_path,
 )
 from adapcc_tpu_torch.utils.observability import CollectiveTrace, MetricsRegistry
+from adapcc_tpu_torch.data import device_batches
+from adapcc_tpu_torch.measure.gns import GNSEstimator, stacked_grad_sq_norms
+from adapcc_tpu_torch.models.resnet import ResNet50
+from adapcc_tpu_torch.models.vit import ViT, ViTConfig
+from adapcc_tpu_torch.workloads import accuracy_benchmark, train_ddp, train_gpt2
 
 # the main path: bench.py's configuration (bench.py:366-385, per-rank batch 16)
 MAIN = GPT2Config(
@@ -677,6 +709,50 @@ DISAGG_INT8_REQUESTS = 8
 #: 22b: the router step after which the decode pod is killed (at the first
 #: step from there on at which it holds lanes)
 DISAGG_KILL_STEP = 100
+#: phase 23(a): train_gpt2 at MAIN's widths (the issue's command), float32
+#: and flash, its corpus at the default 200,000 tokens
+GPT2_WORKLOAD_ARGV = ["--vocab", "16384", "--seq", "512", "--layers", "12", "--heads", "16", "--dmodel", "1024",
+                      "--batch", "16", "--attn", "flash", "--epochs", "1", "--sample"]
+#: the float32 K2–K4 timed alone at the workload's (B, T, H, D)
+GPT2_F32_SHAPE = (16, 512, 16, 64)
+#: the first step's loss, float32 flash against float32 plain attention: the
+#: same function, its sums in another order (a float32 rounding of each
+#: attention output, far under 1e-5 of a loss of ln(16384) ≈ 9.7 through 12
+#: layers)
+GPT2_F32_LOSS_ATOL = 1e-4
+#: 23b: steps of each train_ddp preset (losses logged at 0, 5 and the last)
+#: and its Adam learning rate: at the workload's default 1e-3 ResNet-50's
+#: loss on the fixed batch rose over 10 steps (2.96, 10.63, 5.48 logged on
+#: an H100 80GB HBM3 at 700 W), and JAX's preset rises there too: from one
+#: initialization the port follows JAX's losses at 1e-3, 3.25 then 8.90
+#: (tests/test_torch_resnet50_preset.py), so the presets run at 1e-4
+DDP_PRESET_STEPS = 10
+DDP_PRESET_LR = 1e-4
+#: 23c: steps a published-width image model takes, and its batch
+IMAGE_STEPS = 5
+RESNET_BATCH = 64
+VIT_BATCH = 128
+#: 23d: main_elastic resumed against uninterrupted, each tensor against its
+#: largest element.  Both run ``--deterministic``
+#: (``torch.use_deterministic_algorithms``), so the resumed run
+#: repeats the uninterrupted one bit for bit, as on the CPU
+#: (tests/test_torch_main_elastic.py): any lost weight, momentum or running
+#: statistic shows.  Without it the convolution backward reduces in no fixed
+#: order, and 15 SGD-momentum steps magnified that to 6.8e-3 on the
+#: parameters (an H100 80GB HBM3 at 700 W), the size of a lost momentum
+ELASTIC_PARAM_TOL = 0.0
+ELASTIC_STATS_TOL = 0.0
+#: 23d: accuracy_benchmark's smoke model, which learns the blobs within its
+#: 3 default epochs (its default VGG11 stays at chance there, on JAX's CPU
+#: run of the same defaults too: 14.06, 10.16, 10.16 % top-1)
+ACCURACY_LEARNS = ["--model", "mlp"]
+#: 23e: the GNS arithmetic on the card: train_ddp's ResNet-18 preset as a
+#: stacked world of GNS_WORLD ranks (NCCL refuses two ranks on one card),
+#: GNS_STEPS Adam steps; the two squared norms against the host's float64
+#: sums of the same gradients (float32 sums of ~11M squares, pairwise)
+GNS_WORLD = 2
+GNS_STEPS = 3
+GNS_RTOL = 1e-5
 
 
 def nvidia_smi() -> str:
@@ -4677,6 +4753,319 @@ def slice19(dev: torch.device, smi: str) -> None:
         raise RuntimeError(f"the serving path launched a kernel of the kernels line: {_since(counts, after)}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: the training workloads (slice 20)
+# --------------------------------------------------------------------------- #
+
+
+def gpt2_workload_launches(args, report: dict) -> dict:
+    """The flash launches ``train_gpt2.run`` makes, from its code: a forward
+    (K2 a layer) and a backward (K3, K4 a layer) a training step, a forward
+    a held-out batch of each perplexity pass (before and after training),
+    and a forward a ``HITS_CHUNK`` of hits@1's candidate sequences;
+    ``generate`` decodes without them."""
+    n_seqs = (args.corpus_tokens // args.seq)
+    n_val = max(16, n_seqs // 10)
+    steps = sum(report["epoch_steps"])
+    evals = (1 + args.epochs) * (n_val // 16)
+    hits = -(-min(n_val, 64) * 4 // train_gpt2.HITS_CHUNK)
+    fwd = args.layers * (steps + evals + hits)
+    return {"flash_fwd": fwd, "flash_dq": args.layers * steps, "flash_dkv": args.layers * steps}
+
+
+def train_gpt2_full_width(dev: torch.device, smi: str) -> dict:
+    """23a: ``train_gpt2`` at MAIN's widths, float32, flash, one epoch."""
+    args = train_gpt2.build_parser().parse_args(GPT2_WORKLOAD_ARGV)
+    report = {}
+    for w in fa.KERNELS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    ppl0, ppl1 = train_gpt2.run(args, report=report)
+    seconds = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in fa.KERNELS}
+    want = gpt2_workload_launches(args, report)
+    losses = report["losses"]
+    steps, epoch_s = report["epoch_steps"][0], report["epoch_s"][0]
+    step_ms = epoch_s / steps * 1e3
+    tokens_s = steps * args.batch * args.seq / epoch_s
+    print(f"23a train_gpt2 (float32, flash, {args.layers} layers, d_model {args.dmodel}, {args.heads} heads, "
+          f"vocab {args.vocab}, T {args.seq}, batch {args.batch}, 1 epoch = {steps} steps): val ppl "
+          f"{ppl0:.3f} -> {ppl1:.3f}; hits@1 {report['hits_at_1']:.3f} (chance 0.25); losses {losses}; "
+          f"step {step_ms:.2f} ms (epoch {epoch_s:.3f} s over {steps} steps, synced at its ends), "
+          f"{tokens_s:.1f} tokens/s; peak {report['peak_bytes'] / 2**30:.3f} GiB; sample continuation "
+          f"{report['sample']}; run {seconds:.1f} s [{smi}]", flush=True)
+    print(f"23a launches {launches}, from the code {want}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"train_gpt2's flash launches {launches} differ from the code's count {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or not ppl1 < ppl0:
+        raise RuntimeError(f"train_gpt2 did not learn: losses {losses}, ppl {ppl0} -> {ppl1}")
+    if len(report["sample"]) != 24 or not all(0 <= t < args.vocab for t in report["sample"]):
+        raise RuntimeError(f"train_gpt2's sample is malformed: {report['sample']}")
+    # the first step's loss is the seeded model's loss on the first batch:
+    # the same under plain attention, float32 on both sides
+    stream = train_gpt2.markov_corpus(args.corpus_tokens, args.vocab, seed=0)
+    packed = train_gpt2.pack_sequences(stream, args.seq)
+    train_set = packed[:-max(16, len(packed) // 10)]
+    first = next(iter(device_batches(train_set, args.batch, seed=0, device=dev))).long()
+    cfg = GPT2Config(vocab_size=args.vocab, max_seq=args.seq, n_layer=args.layers, n_head=args.heads,
+                     d_model=args.dmodel, dtype=torch.float32, attention="xla")
+    with torch.no_grad():
+        xla_loss = float(lm_loss(GPT2(cfg, device=dev, seed=0)(first), first))
+    gap = abs(xla_loss - losses[0])
+    print(f"23a first step's loss: flash {losses[0]:.6f}, plain attention {xla_loss:.6f}, gap {gap:.3e} "
+          f"(tolerance {GPT2_F32_LOSS_ATOL})", flush=True)
+    if not gap <= GPT2_F32_LOSS_ATOL:
+        raise RuntimeError("the float32 flash step and plain attention disagree on the first loss")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def one_launch_device_ms(fn) -> object:
+    """Device ms of ``fn``, a call that launches one kernel: a capture in
+    which the profiler kept fewer records than calls (``device_stats`` then
+    reads fewer launches than one a call) is taken again; None ("not
+    measured") when every capture lost records."""
+    for _ in range(PROFILE_ATTEMPTS):
+        ms, launches = device_stats(fn)
+        if launches == 1:
+            return ms
+        print(f"device_ms: {launches} launches a call read from the profiler's records of a one-launch call; "
+              "capture taken again", flush=True)
+    return None
+
+
+def float32_flash_records(dev: torch.device, smi: str) -> dict:
+    """23a: the float32 K2–K4 alone at the workload's ``[B·H, T, D]``, each
+    held against its plain version, then timed by device time and events
+    against the plain version, the bound and float32 sdpa."""
+    B, T, H, D = GPT2_F32_SHAPE
+    runs, (q, k, v, do, scale) = flash_runs(dev, B, T, H, D, torch.float32, True)
+    out = {}
+    for name, run in runs.items():
+        err = check_flash(name, run, GPT2_F32_SHAPE, torch.float32, True)
+        kernel, plain, _ = run
+        b_ms, b_by = bound(name, B * H, T, D, torch.float32, True)
+        out[name] = {"max_abs_err": err, "ms": cuda_ms(kernel), "device_ms": one_launch_device_ms(kernel),
+                     "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by}
+    ql, kl, vl = (x.view(B, H, T, D) for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+
+    fwd_ms, fwd_dev = cuda_ms(fwd), device_ms(fwd)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (ql, kl, vl))
+    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+    dol = do.view(B, H, T, D)
+
+    def bwd():
+        return torch.autograd.grad(o, (ql, kl, vl), dol, retain_graph=True)
+
+    bwd_ms, bwd_dev = cuda_ms(bwd), device_ms(bwd)
+    out["flash_fwd"].update(library_ms=fwd_ms, library_device_ms=fwd_dev)
+    for name in ("flash_dq", "flash_dkv"):
+        out[name].update(library_ms=bwd_ms, library_device_ms=bwd_dev,
+                         library_covers="dq, dk and dv: one float32 sdpa backward")
+    for name, r in out.items():
+        dev_ms = r["device_ms"]
+        timed = dev_ms if dev_ms is not None else r["ms"]
+        print(f"23a float32 {name} [{B * H}, {T}, {D}] causal: device "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, events "
+              f"{r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / timed:.1f}% of it; plain {r['plain_ms']:.4f} ms; "
+              f"float32 sdpa {'forward' if name == 'flash_fwd' else 'backward'} device {r['library_device_ms']:.4f} "
+              f"ms [{smi}]", flush=True)
+    del q, k, v, do, ql, kl, vl, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_ddp_presets(workdir: str) -> None:
+    """23b: every ``train_ddp`` preset at world 1 under ddp, zero1 and fsdp,
+    a few steps each; the bootstrap writes its topology files in
+    ``workdir``.  Launches no kernel of the kernels line (the gpt2 preset
+    runs JAX's default, plain attention)."""
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for model in train_ddp.MODELS:
+            for mode in ("ddp", "zero1", "fsdp"):
+                t0 = time.perf_counter()
+                logged = train_ddp.main(["--model", model, "--dp-mode", mode, "--steps", str(DDP_PRESET_STEPS),
+                                         "--lr", str(DDP_PRESET_LR)])
+                destroy_world()
+                torch.cuda.synchronize()
+                print(f"23b train_ddp --model {model} --dp-mode {mode}: logged losses {logged} "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                if not all(np.isfinite(logged)) or not logged[-1] < logged[0]:
+                    raise RuntimeError(f"train_ddp {model} {mode}: losses not finite and falling: {logged}")
+                torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+
+
+def image_model_step(dev: torch.device, label: str, model, batch: int, size: int, classes: int,
+                     smi: str, stateful: bool = False) -> None:
+    """23c: ``IMAGE_STEPS`` AdamW steps of ``model`` through ``DDPTrainer``
+    at world 1; step ms (mean after the first, each timed to completion),
+    images/s, peak allocated."""
+    world = build_world_mesh(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(batch, size, size, 3, device=dev, generator=gen)
+    y = torch.randint(0, classes, (batch,), device=dev, generator=gen)
+
+    def loss_fn(m, b):
+        return F.cross_entropy(m(b[0]).float(), b[1])
+
+    trainer = DDPTrainer(loss_fn, adamw(1e-4), world, Strategy.ring(1))
+    state = trainer.init_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, seconds = [], []
+    for _ in range(IMAGE_STEPS):
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, (x, y))
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    destroy_world()
+    step_s = float(np.mean(seconds[1:]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = ""
+    if stateful:
+        mean = [b for n, b in model.named_buffers() if n.endswith("mean")]
+        stats = f"; running means moved in {sum(bool((m != 0).any()) for m in mean)} of {len(mean)} norms"
+    print(f"23c {label}: losses {[round(v, 5) for v in losses]}; step {step_s * 1e3:.2f} ms, "
+          f"{batch / step_s:.1f} images/s (mean of steps 2-{IMAGE_STEPS}; every step "
+          f"{[round(s * 1e3, 2) for s in seconds]} ms); peak {peak / 2**30:.3f} GiB{stats} [{smi}]", flush=True)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{label}: non-finite loss {losses}")
+
+
+def image_models(dev: torch.device, smi: str) -> None:
+    """23c: ResNet-50 v1.5 (ImageNet stem, 224x224, 1000 classes) under
+    group and batch norm and ViT-S/16 at their published widths, bf16."""
+    for norm in ("group", "batch"):
+        model = ResNet50(num_classes=1000, norm=norm, dtype=torch.bfloat16, device=dev)
+        image_model_step(dev, f"ResNet-50 v1.5 norm={norm} (224x224, 1000 classes, batch {RESNET_BATCH}, bf16)",
+                         model, RESNET_BATCH, 224, 1000, smi, stateful=norm == "batch")
+        del model
+        torch.cuda.empty_cache()
+    cfg = ViTConfig()
+    image_model_step(dev, f"ViT-S/16 ({cfg.image_size}x{cfg.image_size}, patch {cfg.patch_size}, d {cfg.d_model}, "
+                     f"{cfg.n_layer} layers, {cfg.n_head} heads, batch {VIT_BATCH}, bf16)", ViT(cfg, device=dev),
+                     VIT_BATCH, cfg.image_size, cfg.num_classes, smi)
+    torch.cuda.empty_cache()
+
+
+def elastic_run(workdir: str, tag: str, crash: bool) -> tuple:
+    """``main_elastic --supervise`` in a child process (its workers are
+    grandchildren); returns (stdout, the final checkpoint)."""
+    ckpt = os.path.join(workdir, tag, "checkpoint.ckpt")
+    argv = [sys.executable, "-m", "adapcc_tpu_torch.workloads.main_elastic", "--supervise", "--model",
+            "resnet18", "--norm", "batch", "--deterministic", "--checkpoint-file", ckpt]
+    if crash:
+        argv += ["--crash-at-epoch", "1"]
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"main_elastic {tag} exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    state = TrainCheckpointState(params=None)
+    with open(ckpt, "rb") as f:
+        state.apply_snapshot(torch.load(f, map_location="cpu", weights_only=True))
+    return proc.stdout, state
+
+
+def workloads_accuracy_elastic(workdir: str, smi: str) -> None:
+    """23d: ``accuracy_benchmark`` at its defaults, and ``main_elastic
+    --supervise --model resnet18 --norm batch`` with a crash after epoch 1
+    against the same run uninterrupted."""
+    for argv in ([], ACCURACY_LEARNS):
+        t0 = time.perf_counter()
+        report = {}
+        top1, top5 = accuracy_benchmark.run(accuracy_benchmark.build_parser().parse_args(argv), report=report)
+        destroy_world()
+        print(f"23d accuracy_benchmark {argv or '(defaults: VGG11)'}, 3 epochs: top-1/top-5 by epoch "
+              f"{report['epochs']} ({time.perf_counter() - t0:.1f} s) [{smi}]", flush=True)
+        if not np.isfinite(top1) or (argv and not top1 > 5 * 100.0 / 10):
+            raise RuntimeError(f"accuracy_benchmark {argv}: top-1 {top1} is not well above chance (10%)")
+    t0 = time.perf_counter()
+    out, crashed = elastic_run(workdir, "crash", crash=True)
+    t_crash = time.perf_counter() - t0
+    _, straight = elastic_run(workdir, "straight", crash=False)
+    lines = [ln for ln in out.splitlines() if ln.startswith("=>") or ln.startswith("epoch")]
+    print(f"23d main_elastic --supervise --crash-at-epoch 1 ({t_crash:.1f} s): {lines}", flush=True)
+    if "=> injected fault at epoch 1" not in out or "=> resuming from epoch 2" not in out:
+        raise RuntimeError("main_elastic did not crash at epoch 1 and resume at epoch 2")
+    gaps = {}
+    for kind, a, b in (("params", crashed.params, straight.params),
+                       ("running stats", crashed.extra["model_state"], straight.extra["model_state"])):
+        gaps[kind] = max(float((a[k].float() - b[k].float()).abs().max() / b[k].float().abs().max().clamp_min(1e-12))
+                         for k in b)
+    moved = sum(bool((v != 0).any()) for k, v in crashed.extra["model_state"].items() if k.endswith("mean"))
+    print(f"23d resumed against uninterrupted (epoch {crashed.epoch} vs {straight.epoch}): largest relative gap "
+          f"{gaps} (tolerances {ELASTIC_PARAM_TOL}, {ELASTIC_STATS_TOL}); SyncBN running means carried in {moved} "
+          f"norms [{smi}]", flush=True)
+    if crashed.epoch != straight.epoch or gaps["params"] > ELASTIC_PARAM_TOL or \
+            gaps["running stats"] > ELASTIC_STATS_TOL:
+        raise RuntimeError(f"the resumed run differs from the uninterrupted one: {gaps}")
+
+
+def gns_stacked(dev: torch.device, smi: str) -> None:
+    """23e: ``measure/gns.py``'s estimator on the card over stacked
+    gradients: each rank's gradient of its rows of train_ddp's ResNet-18
+    batch, stacked ``[world, ...]``; ``stacked_grad_sq_norms`` against
+    float64 host sums, the update on the mean gradient."""
+    loss_fn, model, batch_fn = train_ddp.make_workload("resnet18", 64, dev)
+    x, y = batch_fn()
+    params = list(model.parameters())
+    opt = adam(1e-4)(params)
+    per = x.shape[0] // GNS_WORLD
+    est = GNSEstimator(b_small=per, b_big=x.shape[0])
+    rows = []
+    for _ in range(GNS_STEPS):
+        grads = []
+        for r in range(GNS_WORLD):
+            model.zero_grad(set_to_none=True)
+            loss_fn(model, (x[r * per:(r + 1) * per], y[r * per:(r + 1) * per])).backward()
+            grads.append([p.grad.detach().clone() for p in params])
+        stacked = [torch.stack(g) for g in zip(*grads)]
+        t0 = time.perf_counter()
+        small, big = stacked_grad_sq_norms(stacked)
+        small, big = float(small), float(big)
+        norms_ms = (time.perf_counter() - t0) * 1e3
+        want_small = float(np.mean([sum(float((g.double() ** 2).sum()) for g in rank) for rank in grads]))
+        want_big = sum(float((g.double().mean(0) ** 2).sum()) for g in stacked)
+        gaps = (abs(small - want_small) / want_small, abs(big - want_big) / want_big)
+        rows.append((small, big, est.update(small, big), gaps, norms_ms))
+        if max(gaps) > GNS_RTOL:
+            raise RuntimeError(f"the card's GNS norms differ from the host's float64 sums: {gaps}")
+        for p, g in zip(params, stacked):
+            p.grad = g.mean(0)
+        opt.step()
+    print(f"23e GNS on stacked gradients (ResNet-18 preset, world {GNS_WORLD} stacked, b {per} / B {x.shape[0]}): "
+          f"(E|G_b|², |G_B|², B_noise, relative gaps to float64, norms ms) by step {rows} [{smi}]", flush=True)
+
+
+def slice20(dev: torch.device, smi: str, records: dict) -> dict:
+    """Phase 23, slice 20's main path (the module docstring)."""
+    t23 = time.perf_counter()
+    launches = train_gpt2_full_width(dev, smi)
+    f32 = float32_flash_records(dev, smi)
+    for name, r in f32.items():
+        records[name]["float32"] = {"shape": list(GPT2_F32_SHAPE), **r}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="adapcc_train_ddp_") as workdir:
+        train_ddp_presets(workdir)
+    print(f"23b {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    image_models(dev, smi)
+    print(f"23c {time.perf_counter() - t:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="adapcc_elastic_") as workdir:
+        workloads_accuracy_elastic(workdir, smi)
+    gns_stacked(dev, smi)
+    torch.cuda.empty_cache()
+    print(f"phase 23 {time.perf_counter() - t23:.1f} s", flush=True)
+    return launches
+
+
 # kernel name fragments -> the layer of the step they belong to
 _LAYERS = (
     ("flash kernels", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -5022,6 +5411,13 @@ def main() -> None:
     # 22. slice 19's main path: serving (KV-cache decode, the continuous
     # batcher, the disaggregated router, serve_gpt2)
     slice19(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 23. slice 20's main path: the training workloads (train_gpt2 on the
+    # float32 flash kernels, train_ddp's presets, the image models at
+    # their published widths, accuracy_benchmark, main_elastic)
+    for kname, n in slice20(dev, smi, records).items():
+        launches[kname] += n
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
