@@ -14,16 +14,17 @@
 //
 // Kernels, by the TPU kernel each replaces and the dtype:
 //   _fwd_kernel  bf16: wg::flash_fwd_wgmma   float32: flash_fwd_kernel
-//   _dq_kernel   bf16: wg::flash_dq_wgmma    float32: flash_dq_kernel
-//   _dkv_kernel  bf16: wg::flash_dkv_wgmma   float32: flash_dkv_kernel
-// bfloat16 (the training path) runs on the tensor cores; float32 on the CUDA
-// cores, the exact float32 path (the tensor cores' float32 mode, TF32, keeps
-// only 10 mantissa bits).
+//   _dq_kernel   bf16: wg::flash_dq_wgmma    float32: rb::flash_dq_kernel
+//   _dkv_kernel  bf16: wg::flash_dkv_wgmma   float32: rb::flash_dkv_kernel
+// bfloat16 (the DDP training path) runs on the tensor cores; float32
+// (train_gpt2's path) on the CUDA cores, the exact float32 path: the tensor
+// cores' float32 mode, TF32, keeps only 10 mantissa bits, so it is not used.
 // Shared by all:
-// * A block owns 64 rows of its output per (warp)group (query rows for
-//   fwd/dq, key rows for dk/dv) and keeps them in registers while the other
-//   operand streams through shared memory in tiles.  No atomics: every block
-//   writes only its own rows, like the TPU grid programs.
+// * A block owns a tile of rows of its output (64 per (warp)group; query
+//   rows for fwd/dq, key rows for dk/dv) and keeps their sums in registers
+//   while the other operand streams through shared memory in tiles.  No
+//   atomics: every block writes only its own rows, like the TPU grid
+//   programs, so a result is the same bit for bit from run to run.
 // * The TPU kernels loop over every key block and mask; under `causal` these
 //   kernels skip the tiles that lie wholly above the diagonal.  That is exact:
 //   a masked score is -1e30, so its p is exp(-1e30 - m) = 0 in float32, and
@@ -53,6 +54,19 @@
 // bound: each warpgroup waits on its own products (scores, then softmax or
 // ds, then the row products) with only two to four warpgroups an SM to
 // hide that.
+//
+// float32 at train_gpt2's shape (BH = 256, T = 512, D = 64, causal) is bound
+// by operations at 67 TFLOP/s on the CUDA cores, and stays off TF32: dq's
+// 12.9 GFLOP take 193 us against 50 us for its 169 MB, dk/dv's 17.2 GFLOP
+// 257 us against 60 us.  What the backward pair (namespace rb) does about
+// it: register-blocked 4 x 8 micro-tiles, so a thread reads each operand
+// float4 once for 8 to 16 FMAs (the older row-per-lanes design read one
+// float for one FMA and waited on a shuffle sum for every score), with
+// tiles arriving by cp.async while the previous one is computed.  What
+// remains against the bound: shared memory still delivers a float for
+// every 2.7 FMAs (the FMA pipe waits about a third of the time), 12% of the
+// work is on masked diagonal tiles at T = 512, and each tile's barriers
+// (two in dq, four in dk/dv) stall the block.
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda is linked
 #include <cuda_bf16.h>
@@ -66,7 +80,7 @@ constexpr float kNegInf = -1e30f;  // the mask value of the TPU kernels
 constexpr int kRows = 64;          // output rows owned by one block
 
 // --------------------------------------------------------------------------
-// float32 path: CUDA cores
+// float32 forward: CUDA cores
 // --------------------------------------------------------------------------
 //
 // A group of TPR = DM/32 lanes of one warp shares an output row: each lane
@@ -238,107 +252,355 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (part == 0 && row < seq) lse[(size_t)bh * seq + row] = m + logf(l);
 }
 
-template <int DM>
-__global__ void __launch_bounds__(kRows * (DM / 32))
+// --------------------------------------------------------------------------
+// float32 backward (dq, dk/dv): register-blocked tiles on the CUDA cores
+// --------------------------------------------------------------------------
+//
+// A block owns ROWS rows of its output (query rows for dq, key rows for
+// dk/dv) and stages their two operands once in shared memory (q and do for
+// dq, k and v for dk/dv).  The other side streams in tiles of TILE rows
+// filled by cp.async: a two-stage ring for one operand (k for dq; q, lse
+// and delta for dk/dv), whose tile i + 1 is queued as the math on tile i
+// starts, and one buffer for the other (v for dq, read by stage 1 only; do
+// for dk/dv, read by stage 1 and dv's product), refilled as soon as its
+// last reader is done, during the rest of the tile's math.  That keeps two
+// blocks an SM.  Each tile is two register-blocked stages:
+//   1. s and dp, [ROWS x TILE] over the head dim (q.k^T and do.v^T for
+//      dq, k.q^T and v.do^T for dk/dv): each thread owns a 4 x TN1
+//      micro-tile and per 4 head dims loads its 4 + TN1 operand rows as
+//      float4 (LDS.128) for 16 TN1 FMAs; p and
+//      ds are formed in registers (the mask only on diagonal and ragged
+//      tiles) and written transposed ([TILE][ROWS + 8]) to shared memory
+//      (dk/dv: p first, ds once dv's product has read p);
+//   2. the [ROWS x DM] accumulators (dq += ds.k; dv += p^T.do, dk +=
+//      ds^T.q): each thread owns a 4 x TN2 micro-tile and per tile row loads
+//      one float4 of ds (or p) and TN2/4 of the tile's row for 4 TN2 FMAs.
+// Operand rows are padded to DM + 4 floats, so the eight rows a quarter-warp
+// reads at one head-dim offset fall in eight different bank groups; the
+// transposed p/ds rows to ROWS + 8, so a warp's 4 x 8 scalar stores hit 32
+// banks.  Thread (gr, gc) of the ROWS/4 x THREADS/(ROWS/4) grid owns rows
+// gr + (ROWS/4) i in stage 1 and 4 gr + i in stage 2; each warp covers 8
+// rows x 4 columns of the grid.  Every block writes only its own rows.
+namespace rb {
+
+template <int DM, int ROWS, int TILE, int THREADS>
+struct Geometry {
+  static constexpr int kLd = DM + 4;     // floats of a padded [rows][DM] row
+  static constexpr int kLdT = ROWS + 8;  // floats of a transposed [TILE][ROWS] row
+  static constexpr int kGR = ROWS / 4, kGC = THREADS / kGR;  // the thread grid
+  static constexpr int kTN1 = TILE / kGC;  // stage-1 micro-tile columns
+  static constexpr int kTN2 = DM / kGC;    // stage-2 micro-tile columns
+  static constexpr int kOwnFloats = 2 * ROWS * kLd;  // the block's own two operands
+  // dq: a two-stage ring of k tiles, one v tile (read by stage 1 only), ds
+  static constexpr int kDqBytes = 4 * (kOwnFloats + 3 * TILE * kLd + TILE * kLdT);
+  // dk/dv: a two-stage ring of q tiles, one do tile (refilled once dv's
+  // product has read it), one p/ds tile, and two stages of lse and delta
+  static constexpr int kDkvBytes = 4 * (kOwnFloats + 3 * TILE * kLd + TILE * kLdT + 4 * TILE);
+  static_assert(kGR % 8 == 0 && kGC % 4 == 0 && kGR * kGC == THREADS, "thread grid");
+  static_assert(kTN1 >= 4 && kTN1 * kGC == TILE, "stage-1 micro-tile");
+  static_assert(kTN2 >= 4 && kTN2 % 4 == 0 && kTN2 * kGC == DM, "stage-2 micro-tile");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// This thread's cell (gr, gc) of the GR x (THREADS / GR) grid: a warp covers
+// 8 consecutive gr and 4 consecutive gc.
+template <int GR>
+__device__ __forceinline__ void thread_cell(int& gr, int& gc) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  gr = lane % 8 + 8 * (warp % (GR / 8));
+  gc = lane / 8 + 4 * (warp / (GR / 8));
+}
+
+// Queues the copy of rows [row0, row0 + R) of a [seq, dim] matrix into a
+// padded [R][DM + 4] tile; rows past seq and columns past dim land as zeros.
+template <int R, int DM, int THREADS>
+__device__ __forceinline__ void load_rows(float* tile, const float* src, int row0, int seq,
+                                          int dim) {
+  constexpr int kPerRow = DM / 4, kChunkCount = R * kPerRow;
+#pragma unroll
+  for (int n = 0; n < (kChunkCount + THREADS - 1) / THREADS; ++n) {
+    const int idx = threadIdx.x + n * THREADS;
+    if (kChunkCount % THREADS == 0 || idx < kChunkCount) {
+      const int r = idx / kPerRow, c = 4 * (idx % kPerRow), g = row0 + r;
+      const bool valid = g < seq && c < dim;
+      cp_async16(tile + r * (DM + 4) + c, valid ? src + (size_t)g * dim + c : src, valid);
+    }
+  }
+}
+
+// Queues the copy of entries [row0, row0 + R) of a [seq] row statistic.
+template <int R, int THREADS>
+__device__ __forceinline__ void load_stats(float* dst, const float* src, int row0, int seq) {
+  for (int i = threadIdx.x; i < R; i += THREADS) {
+    const int g = row0 + i;
+    cp_async4(dst + i, g < seq ? src + g : src, g < seq);
+  }
+}
+
+// acc[i][j] += a[gr + GR i] . b[gc + GC j] over the DM head dims of two
+// padded [.][DM + 4] tiles (stage 1).
+template <int DM, int GR, int GC, int TN>
+__device__ __forceinline__ void nt_product(float (&acc)[4][TN], const float* a, const float* b,
+                                           int gr, int gc) {
+  constexpr int kLd = DM + 4;
+  const float* ar = a + gr * kLd;
+  const float* br = b + gc * kLd;
+#pragma unroll 4
+  for (int d = 0; d < DM; d += 4) {
+    float4 x[4], y[TN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = load4(ar + i * GR * kLd + d);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) y[j] = load4(br + j * GC * kLd + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][4c + e] += sum over the R tile rows r of t[r][4 gr + i] *
+// y[r][4 gc + 4 GC c + e], t a transposed [R][LDT] tile and y a padded
+// [R][DM + 4] one (stage 2).
+template <int DM, int LDT, int R, int GC, int TN>
+__device__ __forceinline__ void tn_product(float (&acc)[4][TN], const float* t, const float* y,
+                                           int gr, int gc) {
+  constexpr int kLd = DM + 4;
+  const float* tr = t + 4 * gr;
+  const float* yr = y + 4 * gc;
+#pragma unroll 8
+  for (int r = 0; r < R; ++r) {
+    const float4 x4 = load4(tr + r * LDT);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const float4 z = load4(yr + r * kLd + 4 * GC * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][4 * c + 0] = fmaf(x[i], z.x, acc[i][4 * c + 0]);
+        acc[i][4 * c + 1] = fmaf(x[i], z.y, acc[i][4 * c + 1]);
+        acc[i][4 * c + 2] = fmaf(x[i], z.z, acc[i][4 * c + 2]);
+        acc[i][4 * c + 3] = fmaf(x[i], z.w, acc[i][4 * c + 3]);
+      }
+    }
+  }
+}
+
+// Writes a stage-2 micro-tile: rows row0 + 4 gr + i (those below seq),
+// columns 4 gc + 4 GC c .. + 3 (those below dim).
+template <int GC, int TN>
+__device__ __forceinline__ void store_tile(float* dst, const float (&acc)[4][TN], int row0,
+                                           int gr, int gc, int seq, int dim) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * gr + i;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const int col = 4 * gc + 4 * GC * c;
+      if (col < dim)
+        store4(dst + (size_t)row * dim + col,
+               make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]));
+    }
+  }
+}
+
+template <int DM, int ROWS, int TILE, int THREADS, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int bh_count, int seq, int dim, float scale,
                 int causal) {
-  constexpr int TPR = DM / 32;
-  __shared__ __align__(16) float ks[kTile][DM];
-  __shared__ __align__(16) float vs[kTile][DM];
+  using G = Geometry<DM, ROWS, TILE, THREADS>;
+  constexpr int kLd = G::kLd, kLdT = G::kLdT, kGR = G::kGR, kGC = G::kGC;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // [ROWS][kLd]: this block's queries
+  float* dos = qs + ROWS * kLd;        // [ROWS][kLd]
+  float* ring = dos + ROWS * kLd;      // [2 stages][TILE][kLd]: k tiles
+  float* vs = ring + 2 * TILE * kLd;   // [TILE][kLd]: the v tile, refilled during stage 2
+  float* dst = vs + TILE * kLd;        // [TILE][kLdT]: ds, transposed
 
-  const int n_tiles = (seq + kRows - 1) / kRows;
+  const int n_tiles = (seq + ROWS - 1) / ROWS;
   const int tile = n_tiles - 1 - blockIdx.x / bh_count;  // longest rows first
   const int bh = blockIdx.x % bh_count;
-  const int part = threadIdx.x % TPR;
-  const int row = tile * kRows + threadIdx.x / TPR;
+  const int q0 = tile * ROWS;
   const size_t base = (size_t)bh * seq * dim;
+  int gr, gc;
+  thread_cell<kGR>(gr, gc);
 
-  float4 qr[kChunks], dor[kChunks], acc[kChunks];
-  load_row<TPR>(qr, q + base, row, seq, dim, part);
-  load_row<TPR>(dor, dout + base, row, seq, dim, part);
+  const int k_end = causal ? min(q0 + ROWS, seq) : seq;  // keys past it are all masked
+  const int n = (k_end + TILE - 1) / TILE;
+  load_rows<ROWS, DM, THREADS>(qs, q + base, q0, seq, dim);
+  load_rows<ROWS, DM, THREADS>(dos, dout + base, q0, seq, dim);
+  load_rows<TILE, DM, THREADS>(ring, k + base, 0, seq, dim);
+  load_rows<TILE, DM, THREADS>(vs, v + base, 0, seq, dim);
+  cp_async_commit();
+
+  float lse_r[4], delta_r[4];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float lse_r = row < seq ? lse[(size_t)bh * seq + row] : 0.f;
-  const float delta_r = row < seq ? delta[(size_t)bh * seq + row] : 0.f;
-
-  const int last_row = min(tile * kRows + kRows, seq) - 1;
-  const int k_end = causal ? last_row + 1 : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<DM>(ks, k + base, k0, seq, dim);
-    load_tile<DM>(vs, v + base, k0, seq, dim);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float s = group_sum<TPR>(dot_part<TPR>(qr, ks[j], part)) * scale;
-      const float dp = group_sum<TPR>(dot_part<TPR>(dor, vs[j], part));
-      const int key = k0 + j;
-      const bool live = key < seq && !(causal && key > row);
-      const float p = live ? expf(s - lse_r) : 0.f;
-      axpy<TPR>(acc, p * (dp - delta_r) * scale, ks[j], part);
-    }
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + gr + kGR * i;
+    lse_r[i] = row < seq ? lse[(size_t)bh * seq + row] : 0.f;
+    delta_r[i] = row < seq ? delta[(size_t)bh * seq + row] : 0.f;
   }
-  store_row<TPR>(dq + base, acc, 1.f, row, seq, dim, part);
+  float acc[4][G::kTN2] = {};
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = it * TILE;
+    const float* ks = ring + (it & 1) * TILE * kLd;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; tile it - 1 and its ds are consumed
+    if (it + 1 < n) {
+      load_rows<TILE, DM, THREADS>(ring + ((it + 1) & 1) * TILE * kLd, k + base, k0 + TILE, seq,
+                                   dim);
+      cp_async_commit();
+    }
+    float s[4][G::kTN1] = {}, dp[4][G::kTN1] = {};
+    nt_product<DM, kGR, kGC, G::kTN1>(s, qs, ks, gr, gc);
+    nt_product<DM, kGR, kGC, G::kTN1>(dp, dos, vs, gr, gc);
+    const bool edge = (causal && k0 + TILE - 1 > q0) || k0 + TILE > seq;
+#pragma unroll
+    for (int j = 0; j < G::kTN1; ++j) {
+      const int c = gc + kGC * j, key = k0 + c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = gr + kGR * i;
+        float p = expf(s[i][j] * scale - lse_r[i]);
+        if (edge && (key >= seq || (causal && key > q0 + r))) p = 0.f;
+        dst[c * kLdT + r] = p * (dp[i][j] - delta_r[i]) * scale;
+      }
+    }
+    __syncthreads();  // ds is whole; the v tile is consumed
+    if (it + 1 < n) {
+      load_rows<TILE, DM, THREADS>(vs, v + base, k0 + TILE, seq, dim);
+      cp_async_commit();
+    }
+    tn_product<DM, kLdT, TILE, kGC, G::kTN2>(acc, dst, ks, gr, gc);
+  }
+  store_tile<kGC, G::kTN2>(dq + base, acc, q0, gr, gc, seq, dim);
 }
 
-template <int DM>
-__global__ void __launch_bounds__(kRows * (DM / 32))
+template <int DM, int ROWS, int TILE, int THREADS, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int bh_count, int seq,
                  int dim, float scale, int causal) {
-  constexpr int TPR = DM / 32;
-  __shared__ __align__(16) float qs[kTile][DM];
-  __shared__ __align__(16) float dos[kTile][DM];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
+  using G = Geometry<DM, ROWS, TILE, THREADS>;
+  constexpr int kLd = G::kLd, kLdT = G::kLdT, kGR = G::kGR, kGC = G::kGC, kTN1 = G::kTN1;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                    // [ROWS][kLd]: this block's keys
+  float* vs = ks + ROWS * kLd;         // [ROWS][kLd]
+  float* ring = vs + ROWS * kLd;       // [2 stages][TILE][kLd]: q tiles
+  float* dos = ring + 2 * TILE * kLd;  // [TILE][kLd]: the do tile, refilled during dk's product
+  float* pt = dos + TILE * kLd;        // [TILE][kLdT]: p, then ds, transposed
+  float* stats = pt + TILE * kLdT;     // [2 stages][lse, delta][TILE]
 
-  const int tile = blockIdx.x / bh_count;  // first key tiles see most queries
+  const int tile = blockIdx.x / bh_count;  // the first key tiles see the most queries
   const int bh = blockIdx.x % bh_count;
-  const int part = threadIdx.x % TPR;
-  const int key = tile * kRows + threadIdx.x / TPR;
+  const int k0 = tile * ROWS;
   const size_t base = (size_t)bh * seq * dim;
-  const size_t row_base = (size_t)bh * seq;
+  const float* lse_bh = lse + (size_t)bh * seq;
+  const float* delta_bh = delta + (size_t)bh * seq;
+  int gr, gc;
+  thread_cell<kGR>(gr, gc);
 
-  float4 kr[kChunks], vr[kChunks], dk_acc[kChunks], dv_acc[kChunks];
-  load_row<TPR>(kr, k + base, key, seq, dim, part);
-  load_row<TPR>(vr, v + base, key, seq, dim, part);
+  const int q_begin = causal ? k0 : 0;  // no earlier query reaches these keys
+  const int n = (seq - q_begin + TILE - 1) / TILE;
+  load_rows<ROWS, DM, THREADS>(ks, k + base, k0, seq, dim);
+  load_rows<ROWS, DM, THREADS>(vs, v + base, k0, seq, dim);
+  load_rows<TILE, DM, THREADS>(ring, q + base, q_begin, seq, dim);
+  load_rows<TILE, DM, THREADS>(dos, dout + base, q_begin, seq, dim);
+  load_stats<TILE, THREADS>(stats, lse_bh, q_begin, seq);
+  load_stats<TILE, THREADS>(stats + TILE, delta_bh, q_begin, seq);
+  cp_async_commit();
+
+  float dk_acc[4][G::kTN2] = {}, dv_acc[4][G::kTN2] = {};
+  for (int it = 0; it < n; ++it) {
+    const int q0 = q_begin + it * TILE;
+    const float* qs = ring + (it & 1) * TILE * kLd;
+    const float* lse_s = stats + (it & 1) * 2 * TILE;
+    const float* delta_s = lse_s + TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; tile it - 1 and its ds are consumed
+    if (it + 1 < n) {
+      float* next_stats = stats + ((it + 1) & 1) * 2 * TILE;
+      load_rows<TILE, DM, THREADS>(ring + ((it + 1) & 1) * TILE * kLd, q + base, q0 + TILE, seq,
+                                   dim);
+      load_stats<TILE, THREADS>(next_stats, lse_bh, q0 + TILE, seq);
+      load_stats<TILE, THREADS>(next_stats + TILE, delta_bh, q0 + TILE, seq);
+      cp_async_commit();
+    }
+    float s[4][kTN1] = {}, dp[4][kTN1] = {};
+    nt_product<DM, kGR, kGC, kTN1>(s, ks, qs, gr, gc);
+    nt_product<DM, kGR, kGC, kTN1>(dp, vs, dos, gr, gc);
+    // p goes to shared memory now; ds waits in dp until dv's product has read p
+    const bool edge = (causal && k0 + ROWS - 1 > q0) || q0 + TILE > seq || k0 + ROWS > seq;
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    dk_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  // under `causal` no query before this block's first key reaches it
-  const int q_begin = causal ? tile * kRows : 0;
-  for (int q0 = q_begin; q0 < seq; q0 += kTile) {
-    __syncthreads();
-    load_tile<DM>(qs, q + base, q0, seq, dim);
-    load_tile<DM>(dos, dout + base, q0, seq, dim);
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      const int g = q0 + i;
-      lse_s[i] = g < seq ? lse[row_base + g] : 0.f;
-      delta_s[i] = g < seq ? delta[row_base + g] : 0.f;
+    for (int j = 0; j < kTN1; ++j) {
+      const int c = gc + kGC * j, qi = q0 + c;
+      const float l = lse_s[c], de = delta_s[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = gr + kGR * i, key = k0 + r;
+        float p = expf(s[i][j] * scale - l);
+        if (edge && (qi >= seq || key >= seq || (causal && key > qi))) p = 0.f;
+        dp[i][j] = p * (dp[i][j] - de) * scale;
+        pt[c * kLdT + r] = p;
+      }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < kTile; ++i) {
-      const float s = group_sum<TPR>(dot_part<TPR>(kr, qs[i], part)) * scale;
-      const float dp = group_sum<TPR>(dot_part<TPR>(vr, dos[i], part));
-      const int qi = q0 + i;
-      const bool live = qi < seq && !(causal && key > qi);
-      const float p = live ? expf(s - lse_s[i]) : 0.f;
-      axpy<TPR>(dv_acc, p, dos[i], part);
-      axpy<TPR>(dk_acc, p * (dp - delta_s[i]) * scale, qs[i], part);
+    __syncthreads();  // p is whole
+    tn_product<DM, kLdT, TILE, kGC, G::kTN2>(dv_acc, pt, dos, gr, gc);
+    __syncthreads();  // p and the do tile are consumed
+    if (it + 1 < n) {
+      load_rows<TILE, DM, THREADS>(dos, dout + base, q0 + TILE, seq, dim);
+      cp_async_commit();
     }
+#pragma unroll
+    for (int j = 0; j < kTN1; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pt[(gc + kGC * j) * kLdT + gr + kGR * i] = dp[i][j];
+    }
+    __syncthreads();  // ds is whole
+    tn_product<DM, kLdT, TILE, kGC, G::kTN2>(dk_acc, pt, qs, gr, gc);
   }
-  store_row<TPR>(dk + base, dk_acc, 1.f, key, seq, dim, part);
-  store_row<TPR>(dv + base, dv_acc, 1.f, key, seq, dim, part);
+  store_tile<kGC, G::kTN2>(dk + base, dk_acc, k0, gr, gc, seq, dim);
+  store_tile<kGC, G::kTN2>(dv + base, dv_acc, k0, gr, gc, seq, dim);
 }
+
+}  // namespace rb
 
 // --------------------------------------------------------------------------
 // bfloat16 on Hopper: TMA-fed stages, wgmma (float32 accumulate)
@@ -1270,6 +1532,49 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
   return cudaSuccess;
 }
 
+// Launch shapes of the float32 backward at a padded head dim DM: the rows a
+// block owns, the rows of a streamed tile, threads, and the blocks an SM
+// holds (the register budget ptxas gets).  At DM = 64 (train_gpt2's path)
+// and 32 a block of 128 threads owns 64 rows and streams tiles of 64, so
+// both stages run 4 x 8 micro-tiles (stage 1: 12 float4 loads for 128
+// FMAs; stage 2: 3 for 32) and two blocks share an SM (105 and 106 KB of
+// shared memory at DM = 64; 254 registers, no spill).  A warp's float4 load
+// delivers 512 bytes to registers whatever it broadcasts, at 128 bytes a
+// clock an SM, so 4 x 4 micro-tiles (8 FMAs a load) leave the FMA pipe
+// idle half the time; ops/flash_sweep.py measured 32-row tiles (4 x 4
+// scores), one 256-thread block an SM (4 x 4 throughout), one 128-thread
+// block an SM (too few warps to hide latency) and 128-row blocks (twice the
+// masked diagonal work at T = 512) slower.  DM = 128 takes blocks of 32
+// rows, so dk and dv stay 4 x 8 micro-tiles in registers without spilling.
+template <int DM>
+struct F32DqConfig {
+  static constexpr int kRows = 64, kTile = 64, kThreads = 128, kMinBlocks = 2;
+};
+template <>
+struct F32DqConfig<128> {
+  static constexpr int kRows = 32, kTile = 64, kThreads = 128, kMinBlocks = 1;
+};
+template <int DM>
+struct F32DkvConfig {
+  static constexpr int kRows = 64, kTile = 64, kThreads = 128, kMinBlocks = 2;
+};
+template <>
+struct F32DkvConfig<128> {
+  static constexpr int kRows = 32, kTile = 64, kThreads = 128, kMinBlocks = 1;
+};
+
+// Lets a float32 backward kernel take `bytes` of dynamic shared memory (above
+// the static 48 KB) and asks for the largest shared-memory carveout.
+template <typename Kernel>
+cudaError_t f32_smem(Kernel kernel, int bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
 // bfloat16 runs on the tensor cores (a head dim of 32 or less as 64: its
 // boxes' extra columns are TMA's zeros); float32 on the CUDA cores, the only
 // exact float32 path (the tensor cores' float32 mode, TF32, keeps 10 bits).
@@ -1295,7 +1600,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   if (is_bf16)
     return launch_dq_wgmma<DM == 32 ? 64 : DM>(q, k, v, dout, lse, delta, dq, bh, seq, dim,
                                                scale, causal, stream);
-  flash_dq_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+  using C = F32DqConfig<DM>;
+  using G = rb::Geometry<DM, C::kRows, C::kTile, C::kThreads>;
+  const auto kernel = rb::flash_dq_kernel<DM, C::kRows, C::kTile, C::kThreads, C::kMinBlocks>;
+  const cudaError_t err = f32_smem(kernel, G::kDqBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<bh * ((seq + C::kRows - 1) / C::kRows), C::kThreads, G::kDqBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1311,13 +1621,26 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   if (is_bf16)
     return launch_dkv_wgmma<DM == 32 ? 64 : DM>(q, k, v, dout, lse, delta, dk, dv, bh, seq,
                                                 dim, scale, causal, stream);
-  flash_dkv_kernel<DM><<<row_blocks(bh, seq), kRows * (DM / 32), 0, stream>>>(
+  using C = F32DkvConfig<DM>;
+  using G = rb::Geometry<DM, C::kRows, C::kTile, C::kThreads>;
+  const auto kernel = rb::flash_dkv_kernel<DM, C::kRows, C::kTile, C::kThreads, C::kMinBlocks>;
+  const cudaError_t err = f32_smem(kernel, G::kDkvBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<bh * ((seq + C::kRows - 1) / C::kRows), C::kThreads, G::kDkvBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), bh, seq, dim, scale,
       causal);
   return cudaSuccess;
+}
+
+template <int DM>
+int f32_smem_bytes(bool dq) {
+  using Q = F32DqConfig<DM>;
+  using K = F32DkvConfig<DM>;
+  return dq ? rb::Geometry<DM, Q::kRows, Q::kTile, Q::kThreads>::kDqBytes
+            : rb::Geometry<DM, K::kRows, K::kTile, K::kThreads>::kDkvBytes;
 }
 
 // `launch<DM>(args...)` for the padded head width.
@@ -1363,9 +1686,12 @@ extern "C" int adapcc_flash_dq(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory (bytes) of the bf16 forward (kernel 0), dk/dv
-// (kernel 1) or dq (kernel 2) launch at head dim `dim`: all of theirs is
-// dynamic, so ptxas's report does not show it.
+// (kernel 1) or dq (kernel 2) launch, or of the float32 dk/dv (3) or dq (4),
+// at head dim `dim`: all of theirs is dynamic, so ptxas's report does not
+// show it.
 extern "C" int adapcc_flash_smem_bytes(int kernel, int dim) {
+  if (kernel == 3 || kernel == 4)
+    return ADAPCC_DISPATCH(f32_smem_bytes, padded_dim(dim), kernel == 4);
   const int dp = padded_dim(dim) == 128 ? 128 : 64;
   if (kernel == 0)
     return dp == 64 ? wg::FwdLayout<64, FwdConfig<64>::kWG, FwdConfig<64>::kST>::kBytes

@@ -98,7 +98,8 @@ def tma_layout_error(shape, strides, dtype: torch.dtype, address: int) -> Option
     (the bf16 forward, dq and dk/dv kernels build one per operand from its
     base pointer and shape), or ``None``: the kernels take a contiguous
     layout, a 16-byte aligned base, and a row pitch (``D`` elements) that is
-    a multiple of 16 bytes."""
+    a multiple of 16 bytes.  The float32 dq and dk/dv copy rows in 16-byte
+    ``cp.async`` chunks, which need the same."""
     _, T, D = shape
     if any(n > 1 and s != want for n, s, want in zip(shape, strides, (T * D, D, 1))):
         return f"flash kernels need a contiguous [BH, T, D] layout, got strides {tuple(strides)}"

@@ -10,12 +10,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, device name, compute
    capability (Hopper, 9.0, is required);
 2. build the CUDA kernels from ``adapcc_tpu_torch/csrc``, one ``nvcc`` per
-   source, all at once (seconds and ptxas lines printed);
+   source, all at once (seconds and ptxas lines printed; one line of
+   registers and spills a float32 backward kernel, and no spill allowed at
+   the main path's padded head dim of 64);
 3. hold each flash kernel (forward, dq, dk/dv) against its plain torch
    version on the card, causal and not, in bfloat16 and float32, at the main
    path's shape and a smaller one, then all three (bf16: the wgmma kernels)
    over ``WGMMA_GRID`` (head dims 8 to 128, T = 200, one head), each check
-   one counted launch; time kernel, plain version and, as a yardstick only,
+   one counted launch; run the float32 dq and dk/dv twice on the same
+   inputs at ``F32_BITS_SHAPES`` and require the same bits (no atomics, no
+   order that changes from run to run); time kernel, plain version and, as
+   a yardstick only,
    ``torch.nn.functional.scaled_dot_product_attention`` (its backward, one
    call for dq, dk and dv, is the library time of both backward kernels),
    each kernel and sdpa both by CUDA events around back-to-back calls
@@ -399,6 +404,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -498,6 +504,10 @@ ZERO1_LOSS_ATOL = 1e-6
 #: row; one row past a tile
 WGMMA_GRID = [(1, 200, 1, d) for d in (8, 32, 40, 64, 96, 128)] + [
     (3, 200, 2, 64), (2, 512, 4, 128), (1, 1, 1, 64), (1, 65, 1, 64)]
+#: phase 3's run-to-run bit identity of the float32 dq and dk/dv, (B, T, H,
+#: D): the main path's shape and a ragged T at each padded head dim
+F32_BITS_SHAPES = [(BATCH, MAIN.max_seq, MAIN.n_head, MAIN.d_model // MAIN.n_head),
+                   (1, 200, 1, 32), (3, 200, 2, 64), (1, 200, 1, 128)]
 
 # kernel vs plain: float32 differs only in summation order; a bf16 output is
 # one float32 result rounded once by each side, so two bf16 ulps (2**-7
@@ -956,7 +966,29 @@ def check_kernels(dev: torch.device) -> dict:
                 runs, _ = flash_runs(dev, B, T, H, D, dtype, causal)
                 for name, run in runs.items():
                     check_flash(name, run, (B, T, H, D), dtype, causal)
+    for shape in F32_BITS_SHAPES:
+        for causal in (True, False):
+            check_bits(dev, shape, causal)
     return records
+
+
+def check_bits(dev: torch.device, shape: tuple, causal: bool) -> None:
+    """The float32 dq and dk/dv twice on the same inputs: fails unless every
+    output is the same bit for bit (each block writes only its own rows,
+    in a fixed order)."""
+    runs, _ = flash_runs(dev, *shape, torch.float32, causal, dlse=True)
+    for name in ("flash_dq", "flash_dkv"):
+        kernel = runs[name][0]
+        first, second = kernel(), kernel()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        same = all(same_bits(a, b) for a, b in zip(first, second))
+        B, T, H, D = shape
+        print(f"bits {name:9s} B={B} T={T} H={H} D={D} float32 causal={causal!s:5s} twice: "
+              f"{'identical' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise RuntimeError(f"float32 {name} gave different bits on the same inputs")
 
 
 def yardsticks(records: dict, q, k, v, do, scale: float, shape: tuple) -> None:
@@ -5131,10 +5163,35 @@ def build_all() -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
                 print(f"  ptxas ({lib.name.split('_')[0][3:]}): {line.strip()}")
+    f32_backward_ptxas((_build.library_path("flash_attention")).with_suffix(".log").read_text())
     # the wgmma kernels' shared memory is all dynamic, which ptxas does not show
     smem = fa._library().adapcc_flash_smem_bytes
     print("  dynamic shared memory (flash, bf16): " + ", ".join(
         f"{kernel} D<={d} {smem(i, d)} B" for i, kernel in enumerate(("forward", "dk/dv", "dq")) for d in (64, 128)))
+    print("  dynamic shared memory (flash, float32 backward): " + ", ".join(
+        f"{kernel} D<={d} {smem(i, d)} B" for i, kernel in ((4, "dq"), (3, "dk/dv")) for d in (32, 64, 128)))
+
+
+def f32_backward_ptxas(log: str) -> None:
+    """One line a float32 backward kernel (``rb::flash_dq_kernel``,
+    ``rb::flash_dkv_kernel``) and padded head dim from ptxas's report:
+    registers, stack, spills.  Fails on a spill at the main path's DM = 64."""
+    lines = log.splitlines()
+    seen = 0
+    for i, line in enumerate(lines):
+        found = re.search(r"rb\d+(flash_\w+?_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if "Compiling entry" not in line or not found:
+            continue
+        kernel, dm, rows, tile, threads = found.groups()
+        frame, regs = lines[i + 2].strip(), lines[i + 3].strip()
+        spill = [int(n) for n in re.findall(r"(\d+) bytes spill", frame)]
+        print(f"  ptxas (float32 {kernel} DM={dm}: {rows} rows, tiles of {tile}, {threads} threads): "
+              f"{regs.split(': ', 1)[-1]}; {frame}", flush=True)
+        seen += 1
+        if dm == "64" and any(spill):
+            raise RuntimeError(f"float32 {kernel} spills at DM = 64: {frame}")
+    if seen != 6:
+        raise RuntimeError(f"ptxas reported {seen} float32 backward kernels, not 6 (dq and dk/dv at DM 32, 64, 128)")
 
 
 def main() -> None:

@@ -40,6 +40,22 @@ WORLD = 8
 FIXTURE_XML = "tests/fixtures/strategy/4-4_1.xml"
 
 
+@pytest.fixture(autouse=True)
+def cold_program_memos():
+    """Both packages memoize a strategy's derived program process-wide
+    (``strategy/ir.py::_PROGRAM_CACHE``), and the engine traces whether its
+    lookup hit (``program_cache_hit``).  A file run earlier in the same
+    process (JAX's ``tests/test_compiler.py`` derives the ring program)
+    leaves one memo warm and the other cold, and the two traces then
+    differ.  Each test here starts with both memos empty."""
+    from adapcc_tpu.strategy import ir as jax_ir
+    from adapcc_tpu_torch.strategy import ir as port_ir
+
+    for memo in (jax_ir._PROGRAM_CACHE, port_ir._PROGRAM_CACHE):
+        memo.clear()
+    yield
+
+
 def _to_jax(program):
     """A port program as the JAX package's, field for field."""
     from adapcc_tpu import compiler as jc
@@ -431,7 +447,7 @@ def test_engine_ir_routes_and_trace_extras_like_jax(mesh8, monkeypatch):
     pe, je = port.trace.events()[-1], ref.trace.events()[-1]
     assert pe.impl == je.impl == "ir"
     assert _ir_extras(pe.extra) == _ir_extras(je.extra)
-    assert pe.extra["program"].startswith("strategy-ring") and pe.extra["program_cache_hit"] in (True, False)
+    assert pe.extra["program"].startswith("strategy-ring") and pe.extra["program_cache_hit"] is False
     # the legacy merged plane on the same strategy: bit for bit
     assert torch.equal(CollectiveEngine(WORLD, Strategy.ring(WORLD, WORLD), use_xla_fastpath=False).all_reduce(
         torch.from_numpy(x)), got)

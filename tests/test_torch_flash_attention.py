@@ -136,6 +136,25 @@ def test_kernel_wrappers_count_only_kernel_launches():
 
 
 
+def _sweep_variants():
+    from adapcc_tpu_torch.ops import flash_sweep
+
+    return flash_sweep.VARIANTS
+
+
+@pytest.mark.parametrize("name", sorted(_sweep_variants()))
+def test_flash_sweep_variant_applies_to_the_source(name):
+    """Each design variant ``ops/flash_sweep.py`` builds on the card is a set
+    of literal substitutions on ``csrc/flash_attention.cu``: every one must
+    find its text in the committed source and change it, or the variant
+    would not build the design it names."""
+    from adapcc_tpu_torch.ops import _build
+
+    source = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    for old, new in _sweep_variants()[name]:
+        assert old in source and new != old
+
+
 def _bf16(*shape):
     return torch.zeros(*shape, dtype=torch.bfloat16)
 
